@@ -1,0 +1,43 @@
+"""Unified solver API: declarative `SamplerSpec` -> resolved `Session`.
+
+    spec = api.SamplerSpec(graph=g, hw=hw, mismatch=mism,
+                           noise="counter", backend="auto",
+                           schedule=api.Anneal(0.05, 3.0, n_sweeps=600),
+                           chains=64)               # device="cuda"
+    session = api.Session(spec)       # env + backend + device resolved HERE
+    chip = session.program(J_codes, h_codes)
+    state = session.init_state(session.generator(0))
+    m, ns, _ = session.sample(chip, state.m, state.noise_state)
+
+`core.cd.PBitMachine.session(...)` builds specs/sessions from the familiar
+machine object.  Counterpart of ``repro.api``.
+"""
+from repro_torch.api.spec import (
+    BACKENDS,
+    FUSED_BACKENDS,
+    IN_KERNEL_NOISE,
+    NOISE_KINDS,
+    SPARSE_BACKENDS,
+    Anneal,
+    Constant,
+    SamplerSpec,
+    Schedule,
+    Tempered,
+    resolve_backend,
+)
+from repro_torch.api.session import (
+    Session,
+    SessionState,
+    program,
+    program_edges,
+    program_master,
+)
+
+__all__ = [
+    "BACKENDS", "FUSED_BACKENDS", "IN_KERNEL_NOISE", "NOISE_KINDS",
+    "SPARSE_BACKENDS",
+    "Schedule", "Constant", "Anneal", "Tempered",
+    "SamplerSpec", "Session", "SessionState",
+    "program", "program_edges", "program_master",
+    "resolve_backend",
+]

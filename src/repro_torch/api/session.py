@@ -1,0 +1,244 @@
+"""Solver sessions: a `SamplerSpec` resolved once, then programmed and sampled.
+
+`Session(spec)` is the one choke point between every workload and the
+execution backends in core/pbit.py + kernels/.  Construction does all the
+one-time work: validates the spec, resolves ``backend`` (the only place
+REPRO_PBIT_BACKEND is read) and ``device`` (a missing GPU raises), builds
+the noise step function, moves the graph's colour / edge / slot tables to
+the device and materializes the spec's `Schedule`.
+
+State threading is explicit everywhere: chips, spins and noise state are
+arguments and return values, never hidden attributes.  Counterpart of
+``repro.api.session``; PyTorch runs eagerly, so the reference's cache of
+compiled closures has nothing to cache and is gone.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.api.spec import SamplerSpec, require_device, resolve_backend
+from repro_torch.core import pbit
+from repro_torch.core.hardware import (
+    EffectiveChip,
+    program_weights,
+    program_weights_sparse,
+    quantize_codes,
+)
+from repro_torch.kernels.ref import scatter_edge_slots
+
+
+class SessionState(NamedTuple):
+    """Spins + noise state, the carry every entry point threads explicitly."""
+
+    m: torch.Tensor
+    noise_state: object
+
+
+# ---------------------------------------------------------------------------
+# chip programming (spec-level: needs no backend/noise resolution —
+# programming only depends on the graph, the mismatch instance and the
+# analog model; everything is computed on the mismatch's device)
+# ---------------------------------------------------------------------------
+def _graph_tables(spec: SamplerSpec, tables=None):
+    if tables is not None:
+        return tables
+    nbr_idx, nbr_mask = spec.graph.neighbor_table()
+    slot_ij, slot_ji = spec.graph.edge_slots(nbr_idx)
+    return nbr_idx, nbr_mask, slot_ij, slot_ji
+
+
+def _scale_chip(spec: SamplerSpec, chip: EffectiveChip) -> EffectiveChip:
+    # external-resistor scale: DAC LSB units -> neuron-input units
+    upd = {"h": chip.h * spec.w_scale}
+    if chip.W is not None:
+        upd["W"] = chip.W * spec.w_scale
+    if chip.nbr_w is not None:
+        upd["nbr_w"] = chip.nbr_w * spec.w_scale
+    return dataclasses.replace(chip, **upd)
+
+
+def _long(a, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), device=dev).to(torch.int64)
+
+
+def program(spec: SamplerSpec, J_codes, h_codes, enable=None, *,
+            tables=None) -> EffectiveChip:
+    """Program dense (n, n) symmetric 8-bit codes through the spec's
+    analog model (sparse-native specs gather the codes into slots)."""
+    nbr_idx, nbr_mask, _, _ = _graph_tables(spec, tables)
+    dev = spec.mismatch.device
+    J_codes = torch.as_tensor(J_codes, device=dev)
+    h_codes = torch.as_tensor(h_codes, device=dev)
+    if enable is None:
+        enable = torch.abs(J_codes) > 0
+    else:
+        enable = torch.as_tensor(enable, device=dev)
+    if spec.sparse_native:
+        rows = torch.arange(spec.graph.n_nodes, device=dev)[None, :]
+        idx = _long(nbr_idx, dev)
+        chip = program_weights_sparse(
+            J_codes[rows, idx], h_codes, enable[rows, idx], spec.mismatch,
+            spec.hw, idx, torch.as_tensor(nbr_mask, device=dev))
+    else:
+        adj = torch.as_tensor(spec.graph.adjacency(), device=dev)
+        neighbors = _long(nbr_idx, dev) if spec.attach_sparse else None
+        chip = program_weights(J_codes, h_codes, enable, spec.mismatch,
+                               spec.hw, adjacency=adj, neighbors=neighbors)
+    return _scale_chip(spec, chip)
+
+
+def program_edges(spec: SamplerSpec, J_edge_codes, h_codes, *,
+                  tables=None) -> EffectiveChip:
+    """Program per-edge codes (E,) — the CD master-weight layout."""
+    tables = _graph_tables(spec, tables)
+    nbr_idx, nbr_mask, slot_ij, slot_ji = tables
+    dev = spec.mismatch.device
+    e = _long(spec.graph.edges, dev)
+    codes = torch.as_tensor(J_edge_codes, device=dev)
+    if spec.sparse_native:
+        J_slots = scatter_edge_slots(
+            codes, e, _long(slot_ij, dev), _long(slot_ji, dev),
+            nbr_idx.shape[0], spec.graph.n_nodes)
+        chip = program_weights_sparse(
+            J_slots, torch.as_tensor(h_codes, device=dev),
+            torch.abs(J_slots) > 0, spec.mismatch, spec.hw,
+            _long(nbr_idx, dev), torch.as_tensor(nbr_mask, device=dev))
+        return _scale_chip(spec, chip)
+    n = spec.graph.n_nodes
+    J = torch.zeros((n, n), dtype=codes.dtype, device=dev)
+    J[e[:, 0], e[:, 1]] = codes
+    J[e[:, 1], e[:, 0]] = codes
+    return program(spec, J, h_codes, tables=tables)
+
+
+def program_master(spec: SamplerSpec, Jm, hm, *, tables=None
+                   ) -> EffectiveChip:
+    """Quantize float masters — edge-list (E,) or dense (n, n) — and
+    program."""
+    Jm = torch.as_tensor(Jm)
+    if Jm.ndim == 1:
+        return program_edges(spec, quantize_codes(Jm), quantize_codes(hm),
+                             tables=tables)
+    return program(spec, quantize_codes(Jm), quantize_codes(hm),
+                   tables=tables)
+
+
+class Session:
+    """A resolved solver: spec-level programming + sampling entry points."""
+
+    def __init__(self, spec: SamplerSpec):
+        self.spec = spec.validate()
+        self.backend = resolve_backend(spec)
+        self.device = require_device(spec.device)
+        g = spec.graph
+        self.graph = g
+        self._color = torch.as_tensor(g.color, device=self.device)
+        self._edges = _long(g.edges, self.device)
+        nbr_idx, nbr_mask = g.neighbor_table()
+        slot_ij, slot_ji = g.edge_slots(nbr_idx)
+        self._nbr = (nbr_idx, nbr_mask, slot_ij, slot_ji)
+        self._noise_init, self._noise_step = self._make_noise()
+        self.default_betas = (
+            None if spec.schedule is None
+            else torch.as_tensor(spec.schedule.betas(spec.chains),
+                                 device=self.device))
+
+    def _make_noise(self) -> tuple[Callable, pbit.NoiseFn]:
+        spec, dev = self.spec, self.device
+        if spec.noise == "lfsr":
+            return pbit.make_lfsr_noise(spec.graph, spec.chains,
+                                        spec.decimation, device=dev)
+        if spec.noise == "counter":
+            return pbit.make_counter_noise(spec.chains, spec.graph.n_nodes,
+                                           device=dev)
+        step = pbit.make_philox_noise(spec.chains, spec.graph.n_nodes,
+                                      device=dev)
+        return (lambda gen: gen), step
+
+    def _betas(self, betas) -> torch.Tensor:
+        if betas is None:
+            if self.default_betas is None:
+                raise ValueError(
+                    "this Session's spec has no schedule; pass betas "
+                    "explicitly or build the spec with schedule=")
+            return self.default_betas
+        if isinstance(betas, torch.Tensor):
+            return betas.to(device=self.device, dtype=torch.float32)
+        return torch.tensor(np.asarray(betas), dtype=torch.float32,
+                            device=self.device)
+
+    # ------------------------------------------------------------------
+    # state initialization (explicit generator threading)
+    # ------------------------------------------------------------------
+    def generator(self, seed: int) -> torch.Generator:
+        """A seeded `torch.Generator` on this Session's device."""
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def random_spins(self, gen: torch.Generator) -> torch.Tensor:
+        return pbit.random_spins(gen, self.spec.chains, self.graph.n_nodes,
+                                 device=self.device)
+
+    def noise_state(self, gen: torch.Generator):
+        """Initial noise state drawn from ``gen``: int32 bit patterns for
+        counter / lfsr noise, the generator itself for philox."""
+        return self._noise_init(gen)
+
+    def init_state(self, gen: torch.Generator) -> SessionState:
+        return SessionState(self.random_spins(gen), self.noise_state(gen))
+
+    # ------------------------------------------------------------------
+    # chip programming (dense or sparse-native, per the spec's mismatch)
+    # ------------------------------------------------------------------
+    def program(self, J_codes, h_codes, enable=None) -> EffectiveChip:
+        """Program dense (n, n) symmetric 8-bit codes."""
+        return program(self.spec, J_codes, h_codes, enable,
+                       tables=self._nbr).to(self.device)
+
+    def program_edges(self, J_edge_codes, h_codes) -> EffectiveChip:
+        """Program per-edge codes (E,) — the CD master-weight layout."""
+        return program_edges(self.spec, J_edge_codes, h_codes,
+                             tables=self._nbr).to(self.device)
+
+    def program_master(self, Jm, hm) -> EffectiveChip:
+        """Quantize float masters — edge-list (E,) or dense (n, n) — and
+        program."""
+        return program_master(self.spec, Jm, hm,
+                              tables=self._nbr).to(self.device)
+
+    # ------------------------------------------------------------------
+    # sampling
+    # ------------------------------------------------------------------
+    def sample(self, chip: EffectiveChip, m, noise_state, betas=None, *,
+               clamp_mask=None, clamp_values=None, collect: bool = False):
+        """Run the schedule (or explicit ``betas``): (m', state', traj|None).
+
+        ``collect=True`` returns the (S, B, N) per-sweep trajectory and
+        forces the half-sweep loop (the fused engine cannot emit it).
+        """
+        return pbit.gibbs_sample(
+            chip, self._color, m, self._betas(betas), noise_state,
+            self._noise_step, clamp_mask=clamp_mask,
+            clamp_values=clamp_values, collect=collect,
+            backend=self.backend)
+
+    def stats(self, chip: EffectiveChip, m, noise_state, n_sweeps: int,
+              burn_in: int, *, clamp_mask=None, clamp_values=None,
+              beta: float | None = None):
+        """On-line first/second moments at the spec's base beta:
+        (mean_spin[N], mean_edge_corr[E], m', noise_state')."""
+        beta = self.spec.beta if beta is None else float(beta)
+        return pbit.gibbs_stats(
+            chip, self._color, m, beta, n_sweeps, burn_in, noise_state,
+            self._noise_step, self._edges, clamp_mask=clamp_mask,
+            clamp_values=clamp_values, backend=self.backend)
+
+    def visible_hist(self, chip: EffectiveChip, m, noise_state,
+                     visible_idx: np.ndarray, burn_in: int, betas=None):
+        """Streaming visible-pattern histogram: (counts[2^nv], m', state')."""
+        return pbit.gibbs_visible_hist(
+            chip, self._color, m, self._betas(betas), burn_in, noise_state,
+            self._noise_step, np.asarray(visible_idx), backend=self.backend)

@@ -1,0 +1,89 @@
+"""State carried across: numpy arrays -> the port's objects on a device.
+
+The reference (`repro`, JAX) and this package never import each other.
+What crosses between them crosses as numpy: ``np.asarray`` of a spin or
+noise array, or the leaves of an `EffectiveChip` / `Mismatch` /
+`SparseMismatch` in field order (what ``jax.tree_util.tree_leaves`` gives,
+with absent ``None`` fields dropped) or a ``{field: array}`` dict.  The
+tests use only these functions to move state between the packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import lfsr as lfsr_mod
+from repro_torch.core.hardware import EffectiveChip, Mismatch, SparseMismatch
+
+_CHIP_FIELDS = tuple(f.name for f in dataclasses.fields(EffectiveChip))
+_MISMATCH_FIELDS = tuple(f.name for f in dataclasses.fields(Mismatch))
+
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32).copy(), device=device)
+
+
+def _named(arrays, fields) -> dict:
+    """A ``{field: array}`` dict, or leaves in the order of ``fields``."""
+    if isinstance(arrays, dict):
+        return dict(arrays)
+    arrays = list(arrays)
+    if len(arrays) != len(fields):
+        raise ValueError(
+            f"expected {len(fields)} arrays in field order {fields}, got "
+            f"{len(arrays)}")
+    return dict(zip(fields, arrays))
+
+
+def chip_from_numpy(arrays, device="cuda") -> EffectiveChip:
+    """`EffectiveChip` from its numpy leaves or a ``{field: array}`` dict.
+
+    Leaves come in field order ``(W, h, tanh_gain, tanh_offset, rand_gain,
+    comp_offset, nbr_idx, nbr_w)`` with ``None`` fields absent: 8 arrays
+    for a chip with both layouts, 7 for a sparse-native chip (no ``W``),
+    6 for a dense-only chip (no slot pair)."""
+    if not isinstance(arrays, dict):
+        arrays = list(arrays)
+        fields = {8: _CHIP_FIELDS, 7: _CHIP_FIELDS[1:],
+                  6: _CHIP_FIELDS[:6]}.get(len(arrays), _CHIP_FIELDS)
+        arrays = _named(arrays, fields)
+    kw = {}
+    for name in _CHIP_FIELDS:
+        a = arrays.get(name)
+        if a is None:
+            kw[name] = None
+        elif name == "nbr_idx":
+            kw[name] = torch.as_tensor(
+                np.asarray(a, np.int32).copy(), device=device)
+        else:
+            kw[name] = _f32(a, device)
+    return EffectiveChip(**kw)
+
+
+def mismatch_from_numpy(arrays, device="cuda") -> Mismatch | SparseMismatch:
+    """Dense or sparse mismatch from its 8 numpy leaves (field order) or a
+    dict; a (D, N) or (N, N) ``edge_gain`` with D != N tells which."""
+    named = _named(arrays, _MISMATCH_FIELDS)
+    n = np.asarray(named["tanh_gain"]).shape[0]
+    dense = np.asarray(named["edge_gain"]).shape == (n, n) and \
+        np.asarray(named["dac_bit_j"]).shape == (n, n, 8)
+    cls = Mismatch if dense else SparseMismatch
+    return cls(**{k: _f32(named[k], device) for k in _MISMATCH_FIELDS})
+
+
+def noise_state_from_numpy(state, device="cuda") -> torch.Tensor:
+    """uint32 counter pair ``(2,)`` or LFSR registers ``(B, C)`` -> the
+    port's public int32 bit-pattern tensor (bit for bit)."""
+    return lfsr_mod.state_from_numpy(np.asarray(state), device=device)
+
+
+def noise_state_to_numpy(state: torch.Tensor) -> np.ndarray:
+    """Public int32 bit-pattern noise state -> numpy uint32 (bit for bit)."""
+    return lfsr_mod.state_to_numpy(state)
+
+
+def spins_from_numpy(m, device="cuda") -> torch.Tensor:
+    """(B, N) ±1 spins -> float32 tensor."""
+    return _f32(m, device)

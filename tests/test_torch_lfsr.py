@@ -1,0 +1,168 @@
+"""Port vs reference: the integer noise streams, bit for bit.
+
+The reference computes in uint32; the port's plain functions compute in
+int64 masked to 32 bits and carry public state as int32 bit patterns.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import lfsr as ref_lfsr
+from repro.core.chimera import make_chimera
+from repro_torch import convert
+from repro_torch.core import lfsr as port_lfsr
+
+EDGE_WORDS = np.array(
+    [0, 1, 2, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xDEADBEEF, 0xFFFFFFFE,
+     0xFFFFFFFF, 0x0000FFFF, 0xFFFF0000, 0x80200003], np.uint32)
+
+
+def _words(seed, shape):
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2 ** 32, size=shape, dtype=np.uint64).astype(
+        np.uint32)
+    flat = w.reshape(-1)
+    flat[:min(flat.size, EDGE_WORDS.size)] = EDGE_WORDS[:flat.size]
+    return w
+
+
+def _u64(a):
+    return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+
+def _as_u32(t):
+    return t.numpy().astype(np.uint32)
+
+
+def test_mix32_bit_exact():
+    w = _words(0, (4096,))
+    np.testing.assert_array_equal(
+        np.asarray(ref_lfsr.mix32(jnp.asarray(w))),
+        _as_u32(port_lfsr.mix32(_u64(w))))
+
+
+@pytest.mark.parametrize("seed,ctr", [
+    (0, 0), (1, 1), (0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFE, 0xFFFFFFFD),
+    (0x80000000, 0x7FFFFFFF), (123456789, 2 ** 32 - 2), (2 ** 32 - 5, 17)])
+def test_counter_bits_bit_exact(seed, ctr):
+    """Seeds and counters near 2^32: every multiply wraps in the
+    reference and must wrap identically here."""
+    rows = np.concatenate([np.arange(9), [2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1]])
+    cols = np.concatenate([np.arange(33), [2 ** 32 - 7, 2 ** 31 + 3]])
+    want = np.asarray(ref_lfsr.counter_bits(
+        jnp.uint32(seed), jnp.uint32(ctr),
+        jnp.asarray(rows.astype(np.uint32))[:, None],
+        jnp.asarray(cols.astype(np.uint32))[None, :]))
+    got = port_lfsr.counter_bits(
+        seed, ctr, torch.from_numpy(rows)[:, None],
+        torch.from_numpy(cols)[None, :])
+    np.testing.assert_array_equal(want, _as_u32(got))
+    want_u = np.asarray(ref_lfsr.counter_uniform(
+        jnp.uint32(seed), jnp.uint32(ctr),
+        jnp.asarray(rows.astype(np.uint32))[:, None],
+        jnp.asarray(cols.astype(np.uint32))[None, :]))
+    got_u = port_lfsr.counter_uniform(
+        seed, ctr, torch.from_numpy(rows)[:, None],
+        torch.from_numpy(cols)[None, :])
+    assert got_u.dtype == torch.float32
+    np.testing.assert_array_equal(want_u, got_u.numpy())
+
+
+def test_counter_bits_takes_public_state_tensors():
+    """seed/ctr as int32 bit-pattern tensors (negative = high bit set)."""
+    state = convert.noise_state_from_numpy(
+        np.array([0xFFFFFFF0, 0xFFFFFFFF], np.uint32), device="cpu")
+    assert state.dtype == torch.int32 and int(state[0]) < 0
+    rows, cols = torch.arange(4)[:, None], torch.arange(16)[None, :]
+    want = np.asarray(ref_lfsr.counter_bits(
+        jnp.uint32(0xFFFFFFF0), jnp.uint32(0xFFFFFFFF),
+        jnp.arange(4, dtype=jnp.uint32)[:, None],
+        jnp.arange(16, dtype=jnp.uint32)[None, :]))
+    np.testing.assert_array_equal(
+        want, _as_u32(port_lfsr.counter_bits(state[0], state[1], rows, cols)))
+
+
+@pytest.mark.parametrize("n", [1, 8, 37])
+def test_lfsr_step_n_bit_exact(n):
+    w = _words(n, (6, 50))
+    np.testing.assert_array_equal(
+        np.asarray(ref_lfsr.lfsr_step_n(jnp.asarray(w), n)),
+        _as_u32(port_lfsr.lfsr_step_n(_u64(w), n)))
+
+
+def test_byte_maps_bit_exact():
+    b = np.arange(256, dtype=np.uint32)
+    np.testing.assert_array_equal(
+        np.asarray(ref_lfsr.reverse_byte_bits_swar(jnp.asarray(b))),
+        _as_u32(port_lfsr.reverse_byte_bits_swar(_u64(b))))
+    u = port_lfsr.byte_to_uniform(_u64(b))
+    assert u.dtype == torch.float32
+    np.testing.assert_array_equal(
+        np.asarray(ref_lfsr.byte_to_uniform(jnp.asarray(b))), u.numpy())
+    np.testing.assert_array_equal(
+        u.numpy(), ((b.astype(np.float32) - np.float32(127.5))
+                    / np.float32(128.0)))
+
+
+def test_flat_cell_uniforms_bit_exact():
+    w = _words(3, (5, 9))
+    np.testing.assert_array_equal(
+        np.asarray(ref_lfsr.flat_cell_uniforms(jnp.asarray(w))),
+        port_lfsr.flat_cell_uniforms(_u64(w)).numpy())
+
+
+def _scatter_tables(g):
+    cells = sorted({(int(r), int(c)) for r, c in zip(g.node_r, g.node_c)})
+    vert = np.stack([g.cell_nodes(r, c, side=0) for r, c in cells])
+    horiz = np.stack([g.cell_nodes(r, c, side=1) for r, c in cells])
+    return vert, horiz
+
+
+@pytest.mark.parametrize("masked", [(), ((0, 1), (2, 2))])
+def test_node_gather_perm_and_graph_uniforms(masked):
+    g = make_chimera(3, 3, masked_cells=masked)
+    vert, horiz = _scatter_tables(g)
+    want_perm = ref_lfsr.node_gather_perm(vert, horiz, g.n_nodes)
+    got_perm = port_lfsr.node_gather_perm(vert, horiz, g.n_nodes)
+    assert want_perm.dtype == got_perm.dtype
+    np.testing.assert_array_equal(want_perm, got_perm)
+
+    state = _words(5, (4, vert.shape[0]))
+    state[state == 0] = 1
+    want_st, want_u = ref_lfsr.lfsr_uniform_for_graph(
+        jnp.asarray(state), None, None, g.n_nodes, 8,
+        gather_perm=jnp.asarray(want_perm))
+    got_st, got_u = port_lfsr.lfsr_uniform_for_graph(
+        convert.noise_state_from_numpy(state, device="cpu"),
+        torch.from_numpy(got_perm.astype(np.int64)), 8)
+    assert got_st.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(want_st),
+                                  convert.noise_state_to_numpy(got_st))
+    np.testing.assert_array_equal(np.asarray(want_u), got_u.numpy())
+
+
+def test_noise_state_round_trip_bit_for_bit():
+    for shape in ((2,), (7, 13)):
+        w = _words(9, shape)
+        t = convert.noise_state_from_numpy(w, device="cpu")
+        assert t.dtype == torch.int32 and tuple(t.shape) == shape
+        back = convert.noise_state_to_numpy(t)
+        assert back.dtype == np.uint32
+        np.testing.assert_array_equal(back, w)
+        np.testing.assert_array_equal(
+            _as_u32(port_lfsr.to_u64(t)), w)
+        assert torch.equal(port_lfsr.from_u64(port_lfsr.to_u64(t)), t)
+
+
+def test_seed_states_nonzero_and_reproducible():
+    a = port_lfsr.seed_states(torch.Generator().manual_seed(4), (64, 55))
+    b = port_lfsr.seed_states(torch.Generator().manual_seed(4), (64, 55))
+    assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert bool((a != 0).all())
+    # like the reference's: (roughly) uniform over all 32 bits
+    ref = np.asarray(ref_lfsr.seed_states(jax.random.PRNGKey(0), (64, 55)))
+    hi_ref = (ref >> 31).mean()
+    hi = (convert.noise_state_to_numpy(a) >> 31).mean()
+    assert abs(hi - 0.5) < 0.05 and abs(hi_ref - 0.5) < 0.05
