@@ -151,8 +151,9 @@ def check_kernels(seed: int) -> dict:
 
     def run_case(name, noise, graph, chains, *, tempered=False, clamp=False,
                  measured=None, visible=None, coord_offset=None,
-                 block_b=None, windows=None):
-        mach = PBitMachine.create(graph, gen, noise=noise, device=DEVICE)
+                 block_b=None, windows=None, sparse=False):
+        mach = PBitMachine.create(graph, gen, noise=noise, sparse=sparse,
+                                  device=DEVICE)
         ses = mach.session(schedule=api.Constant(n_sweeps=S), chains=chains)
         chip = ses.program_master(rng.normal(size=graph.n_edges) * 40.0,
                                   rng.normal(size=graph.n_nodes) * 20.0)
@@ -212,6 +213,12 @@ def check_kernels(seed: int) -> dict:
             4, 4, masked_cells=[(1, 2)]), 5, measured=burn, block_b=3)
         run_case("one_cell_degree4", noise, make_chimera(1, 1), B,
                  measured=burn)
+        # the main path's lattice sizes (sparse-native chips; 32768 spins
+        # need more than 48 KB of shared memory per block)
+        run_case("lattice_8192_moments", noise, make_chimera(32, 32), B,
+                 measured=burn, sparse=True)
+        run_case("lattice_32768", noise, make_chimera(64, 64), B,
+                 sparse=True)
     run_case("coord_offset", "counter", chip_graph, B,
              coord_offset=(1000, 77))
     run_case("coord_offset_wrap", "counter", chip_graph, B,
