@@ -9,14 +9,17 @@ from ``src/repro_torch/kernels/csrc`` into ``build/``, holds every kernel
 against its plain PyTorch version on the card, then programs a mismatched
 440-spin Chimera chip and samples it through `PBitMachine` -> `Session`
 -> the sweep-resident kernel, and times the kernel at 440, 8192 and 32768
-spins.  Any failed phase raises and the exit code is non-zero; without a
-GPU it exits 1 and prints no result.
+spins.  Every launch the main path makes is recorded with its operands and
+replayed through the plain version, so the kernel is also held to it at
+the main path's own shapes.  Any failed phase raises and the exit code is
+non-zero; without a GPU it exits 1 and prints no result.
 
 Output: one JSON object per line —
   {"phase": "env", ...}            versions, card name and power limit
   {"phase": "build", ...}          seconds to build the library
   {"phase": "kernel_checks", ...}  kernel vs plain version, every mode
-  {"phase": "main_path", ...}      backend, launches, energies, times
+  {"phase": "main_path", ...}      backend, launches, each launch against
+                                   the plain version, energies, times
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -41,7 +44,7 @@ FP32_OPS_PER_S = 67e12
 
 DEVICE = "cuda"    # the script has no CPU mode: main() refuses without a GPU
 B = 256            # chains everywhere on the main path
-CHECK_SWEEPS = 8   # sweeps per kernel-vs-plain comparison
+CHECK_SWEEPS = 8   # sweeps per mode in the kernel_checks phase
 
 
 def emit(obj) -> None:
@@ -70,6 +73,17 @@ def cuda_ms(fn, repeats: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1))
     return float(np.median(times))
+
+
+def timed_once(fn):
+    """(result, device ms) of one ``fn()``, no warm-up."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +257,41 @@ def check_kernels(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase: the main path
 # ---------------------------------------------------------------------------
+class LaunchRecorder:
+    """Stands between `kernels.ops` and the `sweep_sparse` wrapper while
+    the main path runs: passes every call through and keeps its operands
+    and outputs, so each launch can be replayed through the plain version."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+        self.calls = []
+
+    def __call__(self, *args, **kwargs):
+        out = self.wrapper(*args, **kwargs)
+        self.calls.append((args, kwargs, out))
+        return out
+
+
+def replay_through_plain_version(calls) -> list[dict]:
+    """Each recorded launch against `sweep_sparse_ref` on the same operands."""
+    from repro_torch.kernels.sweep_fused import sweep_sparse_ref
+
+    rows = []
+    for args, kwargs, got in calls:
+        want, plain_ms = timed_once(lambda: sweep_sparse_ref(*args, **kwargs))
+        diff, spins = compare_outputs(got, want)
+        outputs = ["m", "noise_state"]
+        if kwargs.get("accumulate"):
+            outputs += ["s_sum", "c_slots"]
+        if kwargs.get("collect_hist"):
+            outputs.append(f"hist_nv{kwargs['n_visible']}")
+        rows.append({"N": args[0].shape[1], "B": args[0].shape[0],
+                     "S": args[10].shape[0], "noise": kwargs["noise_mode"],
+                     "outputs": outputs, "max_abs_diff": diff,
+                     "spins_differing": spins, "plain_ms": plain_ms})
+    return rows
+
+
 def sk_codes(graph, rng, scale: float = 64.0):
     """Sherrington-Kirkpatrick-style Gaussian couplings on the Chimera
     edge set as 8-bit DAC codes (J symmetric, h = 0)."""
@@ -280,12 +329,9 @@ def anneal_chip(noise: str, seed: int, rng) -> dict:
         raise AssertionError("anneal returned spins that are not ±1")
     if not e1 < e0:
         raise AssertionError(f"anneal did not lower the energy: {e0} -> {e1}")
-    ms = cuda_ms(lambda: ses.sample(chip, state.m, state.noise_state))
     return {"noise": noise, "backend": ses.backend, "N": g.n_nodes, "B": B,
             "sweeps": 1000, "energy_initial": e0, "energy_final": e1,
-            "ms_per_launch": ms,
-            "flips_per_ns": B * g.n_nodes * 1000 / (ms * 1e6),
-            "_session": ses, "_chip": chip, "_state": state}
+            "_again": lambda: ses.sample(chip, state.m, state.noise_state)}
 
 
 def one_cell(noise: str, seed: int, rng) -> dict:
@@ -356,114 +402,102 @@ def lattice(rows: int, cols: int, seed: int, rng) -> dict:
     torch.cuda.synchronize()
     if not (m.shape == (B, g.n_nodes) and bool((m.abs() == 1).all())):
         raise AssertionError("lattice sample returned spins that are not ±1")
-    ms = cuda_ms(lambda: ses.sample(chip, st.m, st.noise_state))
     return {"N": g.n_nodes, "B": B, "sweeps": 100, "backend": ses.backend,
-            "ms_per_launch": ms,
-            "flips_per_ns": B * g.n_nodes * 100 / (ms * 1e6)}
+            "_again": lambda: ses.sample(chip, st.m, st.noise_state)}
 
 
-def main_path(seed: int) -> tuple[dict, dict]:
+def main_path(seed: int) -> tuple[dict, list]:
+    """Drive the main path once with the launch count at 0 before and read
+    just after; then hold every launch it made against the plain version
+    and time the `Session.sample` calls."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels.sweep_fused import sweep_sparse
 
     rng = np.random.default_rng(seed + 100)
+    recorder = LaunchRecorder(sweep_sparse)
+    ops.sweep_sparse = recorder
     sweep_sparse.launches = 0
-    anneals = [anneal_chip(noise, seed, rng) for noise in ("counter", "lfsr")]
-    cells = [one_cell(noise, seed, rng) for noise in ("counter", "lfsr")]
-    lattices = [lattice(32, 32, seed, rng), lattice(64, 64, seed, rng)]
-    launches = sweep_sparse.launches
-    keep = anneals[0]
+    try:
+        anneals = [anneal_chip(noise, seed, rng)
+                   for noise in ("counter", "lfsr")]
+        cells = [one_cell(noise, seed, rng) for noise in ("counter", "lfsr")]
+        lattices = [lattice(32, 32, seed, rng), lattice(64, 64, seed, rng)]
+        launches = sweep_sparse.launches
+    finally:
+        ops.sweep_sparse = sweep_sparse
     backends = {r["backend"] for r in anneals + cells + lattices}
     if backends != {"fused_sparse"}:
         raise AssertionError(f"main path resolved to {backends}, not the "
                              f"sweep-resident kernel")
-    if launches <= 0:
-        raise AssertionError("the main path never launched sweep_sparse")
+    if launches <= 0 or launches != len(recorder.calls):
+        raise AssertionError(
+            f"the main path launched sweep_sparse {launches} times through "
+            f"{len(recorder.calls)} calls of its wrapper")
+
+    replays = replay_through_plain_version(recorder.calls)
+    bad = [r for r in replays
+           if r["max_abs_diff"] != 0.0 or r["spins_differing"] != 0]
+
+    for r in anneals + lattices:
+        ms = cuda_ms(r.pop("_again"))
+        r["ms_per_launch"] = ms
+        r["flips_per_ns"] = r["B"] * r["N"] * r["sweeps"] / (ms * 1e6)
     out = {"phase": "main_path", "backend": "fused_sparse",
            "launches": {"sweep_sparse": launches},
-           "anneal_440": [{k: v for k, v in r.items()
-                           if not k.startswith("_")} for r in anneals],
-           "one_cell": cells, "lattices": lattices}
+           "launches_vs_plain_version": replays,
+           "anneal_440": anneals, "one_cell": cells, "lattices": lattices}
     emit(out)
-    return out, keep
+    if bad:
+        raise AssertionError(f"a main-path launch disagrees with the plain "
+                             f"version: {bad}")
+    return out, recorder.calls
 
 
 # ---------------------------------------------------------------------------
 # the kernel record
 # ---------------------------------------------------------------------------
-def kernel_record(checks: dict, path: dict, keep: dict) -> dict:
-    """K1's record at the main path's anneal shape (N=440, B=256, S=1000)."""
-    from repro_torch.kernels.sweep_fused import sweep_sparse, sweep_sparse_ref
+def kernel_record(checks: dict, path: dict, calls: list) -> dict:
+    """K1's record at the main path's first launch: the counter-noise
+    anneal, N=440, B=256, S=1000."""
+    from repro_torch.kernels.sweep_fused import sweep_sparse
 
-    ses, chip, state = keep["_session"], keep["_chip"], keep["_state"]
-    n, S = ses.graph.n_nodes, 1000
-    D = chip.nbr_idx.shape[0]
-    color = ses._color
-    betas = ses.default_betas[:, None].expand(S, B).contiguous()
-    args = [state.m, chip.nbr_idx, chip.nbr_w, chip.h, chip.tanh_gain,
-            chip.tanh_offset, chip.rand_gain, chip.comp_offset, color == 0,
-            color == 1, betas, state.noise_state]
-    ms = cuda_ms(lambda: sweep_sparse(*args))
-    plain_ms = cuda_ms(lambda: sweep_sparse_ref(*args), repeats=1)
+    args, kwargs, outs = calls[0]
+    replay = path["launches_vs_plain_version"][0]
+    Bc, n = args[0].shape
+    S, D = args[10].shape[0], args[1].shape[0]
+    ms = cuda_ms(lambda: sweep_sparse(*args, **kwargs))
     # bound: every input read once, every output written once ...
-    moved = sum(t.numel() * t.element_size() for t in args)
-    moved += state.m.numel() * 4 + state.noise_state.numel() * 4
+    moved = sum(t.numel() * t.element_size()
+                for t in (*args, *kwargs.values(), *outs)
+                if isinstance(t, torch.Tensor))
     # ... against the operations of one flip: D multiply-adds (2D), the
     # decision (bias add, offset add, two multiplies, tanhf counted as one,
     # noise multiply, two adds, compare: 9), byte -> uniform (2), and the
     # counter hash (row multiply, two xors, mix32's 8: 11); integer
     # operations are charged at the fp32 rate, which flatters the card
-    ops = B * n * S * (2 * D + 9 + 2 + 11)
+    ops = Bc * n * S * (2 * D + 9 + 2 + 11)
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
+    worst = max([checks["max_abs_diff"]]
+                + [r["max_abs_diff"]
+                   for r in path["launches_vs_plain_version"]])
     return {"name": "sweep_sparse", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sweep_sparse.cu",
             "replaces": "src/repro/kernels/sweep_fused.py:599",
             "launches": path["launches"]["sweep_sparse"],
-            "max_abs_err": checks["max_abs_diff"],
-            "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": worst,
+            "ms": ms, "plain_ms": replay["plain_ms"],
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
             "library_ms": None,
-            "shape": {"N": n, "B": B, "S": S, "D": D, "noise": "counter"},
+            "shape": {"N": n, "B": Bc, "S": S, "D": D,
+                      "noise": kwargs["noise_mode"]},
             "bytes_moved": moved, "operations": ops}
-
-
-def tile_sweep(seed: int) -> None:
-    """Diagnostic (``--tiles``): K1's time against chains per block."""
-    from repro_torch import api
-    from repro_torch.core.chimera import make_chimera, make_chip_graph
-    from repro_torch.core.cd import PBitMachine
-    from repro_torch.kernels.sweep_fused import sweep_sparse
-
-    rng = np.random.default_rng(seed)
-    rows = []
-    for g, S in ((make_chip_graph(), 1000), (make_chimera(32, 32), 100),
-                 (make_chimera(64, 64), 100)):
-        mach = PBitMachine.create(g, seed, sparse=True, noise="counter",
-                                  device=DEVICE)
-        ses = mach.session(schedule=api.Anneal(0.05, 3.0, n_sweeps=S),
-                           chains=B)
-        chip = ses.program_edges(
-            np.clip(np.round(rng.normal(size=g.n_edges) * 32.0), -128,
-                    127).astype(np.int32), np.zeros(g.n_nodes, np.int32))
-        gen = ses.generator(seed)
-        args, kw = kernel_operands(ses, chip, gen, n_sweeps=S)
-        args[10] = ses.default_betas[:, None].expand(S, B).contiguous()
-        for block_b in (1, 2, 4, 8):
-            ms = cuda_ms(lambda: sweep_sparse(*args, block_b=block_b, **kw))
-            rows.append({"N": g.n_nodes, "S": S, "block_b": block_b,
-                         "blocks": -(-B // block_b), "ms": ms,
-                         "flips_per_ns": B * g.n_nodes * S / (ms * 1e6)})
-    emit({"phase": "tile_sweep", "B": B, "rows": rows})
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ptxas", action="store_true",
-                    help="print ptxas' register / shared-memory report")
-    ap.add_argument("--tiles", action="store_true",
-                    help="also time the kernel against chains per block")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -482,15 +516,13 @@ def main() -> int:
           "card": torch.cuda.get_device_name(0), "nvidia_smi": smi})
 
     t0 = time.perf_counter()
-    lib = build.build("sweep_sparse", verbose=args.ptxas)
+    lib = build.build("sweep_sparse")
     emit({"phase": "build", "library": str(lib),
           "seconds": time.perf_counter() - t0})
 
     checks = check_kernels(args.seed)
-    path, keep = main_path(args.seed)
-    if args.tiles:
-        tile_sweep(args.seed)
-    emit({"kernels": [kernel_record(checks, path, keep)]})
+    path, calls = main_path(args.seed)
+    emit({"kernels": [kernel_record(checks, path, calls)]})
 
     print(smi, flush=True)
     emit({"ok": True,

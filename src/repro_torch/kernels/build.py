@@ -60,24 +60,20 @@ def library_path(name: str) -> Path:
     return build_dir() / f"lib{name}_{key}.so"
 
 
-def build(name: str, verbose: bool = False) -> Path:
+def build(name: str) -> Path:
     """Compile ``csrc/name.cu`` unless its library already exists."""
     out = library_path(name)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr)
     os.replace(tmp, out)  # atomic: no process ever loads a half-written file
     return out
 

@@ -41,8 +41,7 @@
 namespace {
 
 constexpr uint32_t kGaloisMask = 0x80200003u;
-constexpr int kNoiseCounter = 0;
-constexpr int kNoiseLfsr = 1;
+constexpr int kNoiseLfsr = 1;  // noise_mode: 0 counter hash, 1 Galois LFSR
 
 struct Params {
   const float* m_in;          // (B, N) spins, +-1

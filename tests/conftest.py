@@ -10,9 +10,3 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", False)
-
-
-def pytest_configure(config):
-    config.addinivalue_line(
-        "markers", "gpu: needs a CUDA device and nvcc (the PyTorch/CUDA "
-        "port's kernels); skipped where there is none")

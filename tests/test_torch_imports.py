@@ -1,5 +1,5 @@
-"""The port stands alone: no module under ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``; every
+"""The port stands alone: no module under ``src/repro_torch``, no script
+under ``benchmarks_torch`` and not ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``; every
 module imports without a GPU, ``nvcc`` or ``triton``; and the default
 device without CUDA raises instead of carrying on on the CPU."""
 import ast
@@ -14,7 +14,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py"))
+           + sorted((ROOT / "benchmarks_torch").glob("*.py"))
+           + [ROOT / "chip_smoke.py"])
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
 
 
@@ -104,17 +106,6 @@ def test_smoke_script_refuses_to_run_without_a_gpu():
     assert proc.returncode != 0
     assert proc.stdout.strip() == ""
     assert "CUDA" in proc.stderr
-
-
-@pytest.mark.gpu
-def test_kernel_equals_plain_version_on_the_card():
-    """Needs the GPU and nvcc; `python3 chip_smoke.py` is the full check."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke
-    out = chip_smoke.check_kernels(0)
-    assert out["max_abs_diff"] == 0.0 and out["spins_differing"] == 0
 
 
 def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
