@@ -1,25 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
 Needs one CUDA device, ``nvcc`` and the sources of this checkout; imports
-nothing of JAX or of the JAX package.  It builds the CUDA kernel library
-from ``src/repro_torch/kernels/csrc`` into ``build/``, holds every kernel
-against its plain PyTorch version on the card, then programs a mismatched
-440-spin Chimera chip and samples it through `PBitMachine` -> `Session`
--> the sweep-resident kernel, and times the kernel at 440, 8192 and 32768
-spins.  Every launch the main path makes is recorded with its operands and
-replayed through the plain version, so the kernel is also held to it at
-the main path's own shapes.  Any failed phase raises and the exit code is
+nothing of JAX or of the JAX package.  It builds the three CUDA kernel
+libraries from ``src/repro_torch/kernels/csrc`` into ``build/`` (one
+``nvcc`` each, in parallel) and holds every kernel against its plain
+PyTorch version on the card.  Then it drives the port's paths, each with
+the kernels' launch counts set to 0 just before it and read just after:
+
+* sample: program a mismatched 440-spin Chimera chip and sample it through
+  `PBitMachine` -> `Session` -> the slot-layout kernel K1, also at 8192 and
+  32768 spins;
+* training: in-situ CD of the full adder on the 440-spin chip, 256 chains,
+  through the dense resident kernel K3 ("fused"), the dense half-sweep
+  kernel K2 ("pallas") and K1 ("fused_sparse"), which must give the same
+  master weights bit for bit;
+* learning: the AND gate on one cell through K3, ideal and mismatched chip,
+  and the transferred weights;
+* workloads: annealing and Max-Cut through K2, parallel tempering through
+  K3, on the 440-spin chip.
+
+Every launch of every path is recorded with its operands and replayed
+through the plain version.  Any failed phase raises and the exit code is
 non-zero; without a GPU it exits 1 and prints no result.
 
 Output: one JSON object per line —
   {"phase": "env", ...}            versions, card name and power limit
-  {"phase": "build", ...}          seconds to build the library
-  {"phase": "kernel_checks", ...}  kernel vs plain version, every mode
-  {"phase": "main_path", ...}      backend, launches, each launch against
-                                   the plain version, energies, times
+  {"phase": "build", ...}          seconds to build each library
+  {"phase": "kernel_checks", ...}  one line per kernel (and dense_vs_sparse)
+  {"phase": "main_path", ...}      the sample path: launches, replays, times
+  {"phase": "training", ...}       the CD path through three backends
+  {"phase": "learning", ...}       AND-gate KLs
+  {"phase": "workloads", ...}      anneal, Max-Cut, tempering
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -27,6 +41,7 @@ Output: one JSON object per line —
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,6 +60,7 @@ FP32_OPS_PER_S = 67e12
 DEVICE = "cuda"    # the script has no CPU mode: main() refuses without a GPU
 B = 256            # chains everywhere on the main path
 CHECK_SWEEPS = 8   # sweeps per mode in the kernel_checks phase
+KERNELS = ("sweep_sparse", "pbit_half_sweep", "sweep_fused")
 
 
 def emit(obj) -> None:
@@ -73,6 +89,28 @@ def cuda_ms(fn, repeats: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(t0.elapsed_time(t1))
     return float(np.median(times))
+
+
+def device_kernel_ms(fn, kernel: str, repeats: int = 20):
+    """Device time per call of the CUDA kernels whose name contains
+    ``kernel``, from `torch.profiler` over ``repeats`` calls of ``fn``
+    (after a warm-up): the kernel alone, without the host's gaps between
+    launches.  None when the profiler records no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total += getattr(evt, "device_time_total",
+                             getattr(evt, "cuda_time_total", 0.0))
+    return total / repeats / 1e3 if total > 0 else None
 
 
 def timed_once(fn):
@@ -254,13 +292,205 @@ def check_kernels(seed: int) -> dict:
     return out
 
 
+def dense_operands(args, chip):
+    """`sweep_fused`'s positional operands from `sweep_sparse`'s: the dense
+    W in place of the slot tables."""
+    return [args[0], chip.W] + list(args[3:])
+
+
+def intra_colour_chip(chip, gen, scale: float = 0.05):
+    """The chip with a dense random W that also couples nodes of one
+    colour (any (n, n) codes can be programmed), zero diagonal."""
+    n = chip.n_nodes
+    W = torch.randn((n, n), generator=gen, device=chip.W.device) * scale
+    W.fill_diagonal_(0.0)
+    return dataclasses.replace(chip, W=W.contiguous())
+
+
+def check_dense_kernels(seed: int) -> list[dict]:
+    """K3 and K2 against `sweep_fused_ref` / `pbit_half_sweep_ref` on the
+    card, mode by mode, and the dense kernels against the slot-layout ones
+    on the same chip.  Rule: equality (as for K1), in every output."""
+    from repro_torch import api
+    from repro_torch.core.cd import PBitMachine
+    from repro_torch.core.chimera import make_chimera, make_chip_graph
+    from repro_torch.kernels.pbit_update import (pbit_half_sweep,
+                                                 pbit_half_sweep_ref)
+    from repro_torch.kernels.ref import pbit_sparse_half_sweep_ref
+    from repro_torch.kernels.sweep_fused import (sweep_fused, sweep_fused_ref,
+                                                 sweep_sparse)
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    S = CHECK_SWEEPS
+    rng = np.random.default_rng(seed + 7)
+    chip_graph = make_chip_graph()
+    burn = torch.as_tensor((np.arange(S) >= 2).astype(np.float32),
+                           device=dev)
+
+    def programmed(graph, noise, chains):
+        mach = PBitMachine.create(graph, gen, noise=noise, device=DEVICE)
+        ses = mach.session(schedule=api.Constant(n_sweeps=S), chains=chains)
+        chip = ses.program_master(rng.normal(size=graph.n_edges) * 40.0,
+                                  rng.normal(size=graph.n_nodes) * 20.0)
+        return ses, chip
+
+    # K3, mode by mode
+    k3 = []
+
+    def k3_case(name, noise, graph, chains, *, tempered=False, clamp=False,
+                measured=False, visible=None, coord_offset=None,
+                block_b=None, intra=False):
+        ses, chip = programmed(graph, noise, chains)
+        if intra:
+            chip = intra_colour_chip(chip, gen)
+        args, kw = kernel_operands(ses, chip, gen, n_sweeps=S,
+                                   tempered=tempered, clamp=clamp)
+        args = dense_operands(args, chip)
+        vis = None
+        if visible is not None:
+            vis = torch.as_tensor(
+                rng.choice(graph.n_nodes, visible, replace=False),
+                device=dev)
+        meas = burn if (measured or visible is not None) else None
+        kw.update(accumulate=measured, collect_hist=visible is not None,
+                  n_visible=visible or 0)
+        tail = [meas, vis, coord_offset]
+        want = sweep_fused_ref(*args, *tail, **kw)
+        got = sweep_fused(*args, *tail, block_b=block_b, **kw)
+        torch.cuda.synchronize()
+        diff, spins = compare_outputs(got, want)
+        k3.append({"case": name, "noise": noise, "N": graph.n_nodes,
+                   "B": chains, "max_abs_diff": diff,
+                   "spins_differing": spins})
+
+    for noise in ("counter", "lfsr"):
+        k3_case("plain", noise, chip_graph, B)
+        k3_case("clamped", noise, chip_graph, B, clamp=True)
+        k3_case("moments_burn_in", noise, chip_graph, B, measured=True)
+        k3_case("moments_clamped", noise, chip_graph, B, measured=True,
+                clamp=True)
+        k3_case("hist_nv3", noise, chip_graph, B, visible=3)
+        k3_case("hist_nv12", noise, chip_graph, B, visible=12)
+        k3_case("tempered_betas", noise, chip_graph, B, tempered=True)
+        k3_case("ragged_tiles", noise, make_chimera(
+            4, 4, masked_cells=[(1, 2)]), 5, measured=True, block_b=3)
+        k3_case("one_cell_N8", noise, make_chimera(1, 1), B, measured=True)
+        k3_case("intra_colour_W", noise, chip_graph, B, measured=True,
+                intra=True)
+    k3_case("coord_offset", "counter", chip_graph, B,
+            coord_offset=(1000, 77))
+    k3_case("coord_offset_wrap", "counter", chip_graph, B,
+            coord_offset=(2 ** 32 - 3, 2 ** 32 - 100))
+
+    # K2, one half-sweep per case
+    k2 = []
+
+    def k2_case(name, graph, chains, *, per_chain_beta=False,
+                random_mask=False, intra=False):
+        ses, chip = programmed(graph, "counter", chains)
+        if intra:
+            chip = intra_colour_chip(chip, gen)
+        n = graph.n_nodes
+        m = ses.random_spins(gen)
+        u = (torch.randint(0, 256, (chains, n), generator=gen, device=dev)
+             .to(torch.float32) - 127.5) / 128.0
+        color = torch.as_tensor(graph.color, device=dev)
+        mask = (torch.rand(n, generator=gen, device=dev) < 0.5
+                if random_mask else color == 1)
+        beta = (0.2 + 1.6 * torch.rand(chains, generator=gen, device=dev)
+                if per_chain_beta else 0.8)
+        ops_ = (m, chip.W, chip.h, chip.tanh_gain, chip.tanh_offset,
+                chip.rand_gain, chip.comp_offset, mask, beta, u)
+        want = pbit_half_sweep_ref(*ops_)
+        got = pbit_half_sweep(*ops_)
+        torch.cuda.synchronize()
+        diff, spins = compare_outputs((got,), (want,))
+        k2.append({"case": name, "N": n, "B": chains, "max_abs_diff": diff,
+                   "spins_differing": spins})
+
+    k2_case("scalar_beta", chip_graph, B)
+    k2_case("per_chain_beta", chip_graph, B, per_chain_beta=True)
+    k2_case("random_mask", chip_graph, B, random_mask=True)
+    k2_case("ragged_B37", chip_graph, 37, per_chain_beta=True)
+    k2_case("intra_colour_W", chip_graph, B, random_mask=True, intra=True)
+    k2_case("one_cell_N8", make_chimera(1, 1), 5)
+
+    # dense == sparse on one attach_sparse chip
+    ds = []
+    e = torch.as_tensor(chip_graph.edges, device=dev).to(torch.int64)
+    nbr_idx, _ = chip_graph.neighbor_table()
+    slot_ij = torch.as_tensor(chip_graph.edge_slots(nbr_idx)[0],
+                              device=dev).to(torch.int64)
+    for noise in ("counter", "lfsr"):
+        ses, chip = programmed(chip_graph, noise, B)
+        args, kw = kernel_operands(ses, chip, gen, n_sweeps=S, clamp=True)
+        vis = torch.as_tensor(rng.choice(chip_graph.n_nodes, 5,
+                                         replace=False), device=dev)
+        sp = sweep_sparse(*args, burn, accumulate=True, **kw)
+        dn = sweep_fused(*dense_operands(args, chip), burn, accumulate=True,
+                         **kw)
+        hs = sweep_sparse(*args, burn, vis, collect_hist=True, n_visible=5,
+                          **kw)
+        hd = sweep_fused(*dense_operands(args, chip), burn, vis,
+                         collect_hist=True, n_visible=5, **kw)
+        torch.cuda.synchronize()
+        gram_vs_slots = dn[3][e[:, 0], e[:, 1]] - sp[3][slot_ij, e[:, 0]]
+        diff, spins = compare_outputs(
+            (dn[0], dn[1], dn[2], hd[2]), (sp[0], sp[1], sp[2], hs[2]))
+        diff = max(diff, float(gram_vs_slots.abs().max()))
+        ds.append({"case": f"K3_vs_K1_{noise}", "max_abs_diff": diff,
+                   "spins_differing": spins,
+                   "outputs": ["m", "noise_state", "s_sum", "hist_nv5",
+                               "Gram[e0,e1] vs c_slots[slot,e0]"]})
+    m = ses.random_spins(gen)
+    u = (torch.randint(0, 256, m.shape, generator=gen, device=dev)
+         .to(torch.float32) - 127.5) / 128.0
+    mask = torch.as_tensor(chip_graph.color, device=dev) == 0
+    got = pbit_half_sweep(m, chip.W, chip.h, chip.tanh_gain,
+                          chip.tanh_offset, chip.rand_gain, chip.comp_offset,
+                          mask, 1.3, u)
+    want = pbit_sparse_half_sweep_ref(
+        m, chip.nbr_idx, chip.nbr_w, chip.h, chip.tanh_gain,
+        chip.tanh_offset, chip.rand_gain, chip.comp_offset, mask, 1.3, u)
+    torch.cuda.synchronize()
+    diff, spins = compare_outputs((got,), (want,))
+    ds.append({"case": "K2_vs_plain_sparse_half_sweep",
+               "max_abs_diff": diff, "spins_differing": spins})
+
+    lines = [
+        {"phase": "kernel_checks", "kernel": "sweep_fused",
+         "rule": "bit for bit (spins, noise state, s_sum, Gram, hist)",
+         "max_abs_diff": max(r["max_abs_diff"] for r in k3),
+         "spins_differing": sum(r["spins_differing"] for r in k3),
+         "cases": k3},
+        {"phase": "kernel_checks", "kernel": "pbit_half_sweep",
+         "rule": "bit for bit (spins)",
+         "max_abs_diff": max(r["max_abs_diff"] for r in k2),
+         "spins_differing": sum(r["spins_differing"] for r in k2),
+         "cases": k2},
+        {"phase": "kernel_checks", "kernel": "dense_vs_sparse",
+         "rule": "dense kernels equal the slot-layout ones on one chip",
+         "max_abs_diff": max(r["max_abs_diff"] for r in ds),
+         "spins_differing": sum(r["spins_differing"] for r in ds),
+         "cases": ds},
+    ]
+    for line in lines:
+        emit(line)
+    bad = [(line["kernel"], r) for line in lines for r in line["cases"]
+           if r["max_abs_diff"] != 0.0 or r["spins_differing"] != 0]
+    if bad:
+        raise AssertionError(f"a dense kernel disagrees: {bad}")
+    return lines
+
+
 # ---------------------------------------------------------------------------
-# phase: the main path
+# the paths: launch counts and recorded launches
 # ---------------------------------------------------------------------------
 class LaunchRecorder:
-    """Stands between `kernels.ops` and the `sweep_sparse` wrapper while
-    the main path runs: passes every call through and keeps its operands
-    and outputs, so each launch can be replayed through the plain version."""
+    """Stands between `kernels.ops` and one kernel wrapper while a path
+    runs: passes every call through and keeps its operands and outputs, so
+    each launch can be replayed through the plain version."""
 
     def __init__(self, wrapper):
         self.wrapper = wrapper
@@ -272,26 +502,99 @@ class LaunchRecorder:
         return out
 
 
-def replay_through_plain_version(calls) -> list[dict]:
-    """Each recorded launch against `sweep_sparse_ref` on the same operands."""
-    from repro_torch.kernels.sweep_fused import sweep_sparse_ref
+def _wrappers() -> dict:
+    from repro_torch.kernels.pbit_update import pbit_half_sweep
+    from repro_torch.kernels.sweep_fused import sweep_fused, sweep_sparse
+    return {"sweep_sparse": sweep_sparse, "pbit_half_sweep": pbit_half_sweep,
+            "sweep_fused": sweep_fused}
 
+
+def _plain(name: str):
+    from repro_torch.kernels.pbit_update import pbit_half_sweep_ref
+    from repro_torch.kernels.sweep_fused import sweep_fused_ref, sweep_sparse_ref
+    return {"sweep_sparse": sweep_sparse_ref,
+            "pbit_half_sweep": pbit_half_sweep_ref,
+            "sweep_fused": sweep_fused_ref}[name]
+
+
+def drive(path_fn):
+    """Run ``path_fn()`` with every kernel's launch count set to 0 just
+    before and read just after, and every launch recorded.  Returns
+    (result, counts, recorded calls per kernel)."""
+    from repro_torch.kernels import ops
+
+    wrappers = _wrappers()
+    recorders = {k: LaunchRecorder(w) for k, w in wrappers.items()}
+    for k in KERNELS:
+        setattr(ops, k, recorders[k])
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        result = path_fn()
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+    finally:
+        for k, w in wrappers.items():
+            setattr(ops, k, w)
+    for k in KERNELS:
+        if counts[k] != len(recorders[k].calls):
+            raise AssertionError(
+                f"{k} launched {counts[k]} times through "
+                f"{len(recorders[k].calls)} calls of its wrapper")
+    return result, counts, {k: recorders[k].calls for k in KERNELS}
+
+
+def replay_through_plain_version(name: str, calls) -> list[dict]:
+    """Each recorded launch of kernel ``name`` against its plain version on
+    the same operands."""
+    plain = _plain(name)
     rows = []
     for args, kwargs, got in calls:
-        want, plain_ms = timed_once(lambda: sweep_sparse_ref(*args, **kwargs))
+        want, plain_ms = timed_once(lambda: plain(*args, **kwargs))
+        if name == "pbit_half_sweep":
+            got, want = (got,), (want,)
         diff, spins = compare_outputs(got, want)
-        outputs = ["m", "noise_state"]
-        if kwargs.get("accumulate"):
-            outputs += ["s_sum", "c_slots"]
-        if kwargs.get("collect_hist"):
-            outputs.append(f"hist_nv{kwargs['n_visible']}")
-        rows.append({"N": args[0].shape[1], "B": args[0].shape[0],
-                     "S": args[10].shape[0], "noise": kwargs["noise_mode"],
-                     "outputs": outputs, "max_abs_diff": diff,
-                     "spins_differing": spins, "plain_ms": plain_ms})
+        row = {"N": args[0].shape[1], "B": args[0].shape[0],
+               "max_abs_diff": diff, "spins_differing": spins,
+               "plain_ms": plain_ms}
+        if name != "pbit_half_sweep":
+            outputs = ["m", "noise_state"]
+            if kwargs.get("accumulate"):
+                outputs += ["s_sum", "c_slots" if name == "sweep_sparse"
+                            else "Gram"]
+            if kwargs.get("collect_hist"):
+                outputs.append(f"hist_nv{kwargs['n_visible']}")
+            betas = args[10] if name == "sweep_sparse" else args[9]
+            row.update(S=betas.shape[0], noise=kwargs["noise_mode"],
+                       outputs=outputs)
+        rows.append(row)
     return rows
 
 
+def replay_all(calls: dict) -> tuple[dict, float]:
+    """Replays of every recorded launch of every kernel: (summary per
+    kernel, the largest difference); raises on any difference."""
+    summary, worst, bad = {}, 0.0, []
+    for name in KERNELS:
+        rows = replay_through_plain_version(name, calls[name])
+        summary[name] = {
+            "launches": len(rows),
+            "max_abs_diff": max([r["max_abs_diff"] for r in rows],
+                                default=0.0),
+            "spins_differing": sum(r["spins_differing"] for r in rows),
+            "plain_ms_total": sum(r["plain_ms"] for r in rows)}
+        worst = max(worst, summary[name]["max_abs_diff"])
+        bad += [(name, r) for r in rows
+                if r["max_abs_diff"] != 0.0 or r["spins_differing"] != 0]
+    if bad:
+        raise AssertionError(f"a recorded launch disagrees with its plain "
+                             f"version: {bad[:3]}")
+    return summary, worst
+
+
+# ---------------------------------------------------------------------------
+# phase: the sample path (K1)
+# ---------------------------------------------------------------------------
 def sk_codes(graph, rng, scale: float = 64.0):
     """Sherrington-Kirkpatrick-style Gaussian couplings on the Chimera
     edge set as 8-bit DAC codes (J symmetric, h = 0)."""
@@ -407,34 +710,27 @@ def lattice(rows: int, cols: int, seed: int, rng) -> dict:
 
 
 def main_path(seed: int) -> tuple[dict, list]:
-    """Drive the main path once with the launch count at 0 before and read
-    just after; then hold every launch it made against the plain version
-    and time the `Session.sample` calls."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.sweep_fused import sweep_sparse
-
+    """Drive the sample path once (`drive`); then hold every launch it made
+    against the plain version and time the `Session.sample` calls."""
     rng = np.random.default_rng(seed + 100)
-    recorder = LaunchRecorder(sweep_sparse)
-    ops.sweep_sparse = recorder
-    sweep_sparse.launches = 0
-    try:
+
+    def path():
         anneals = [anneal_chip(noise, seed, rng)
                    for noise in ("counter", "lfsr")]
         cells = [one_cell(noise, seed, rng) for noise in ("counter", "lfsr")]
         lattices = [lattice(32, 32, seed, rng), lattice(64, 64, seed, rng)]
-        launches = sweep_sparse.launches
-    finally:
-        ops.sweep_sparse = sweep_sparse
+        return anneals, cells, lattices
+
+    (anneals, cells, lattices), counts, calls = drive(path)
     backends = {r["backend"] for r in anneals + cells + lattices}
     if backends != {"fused_sparse"}:
         raise AssertionError(f"main path resolved to {backends}, not the "
                              f"sweep-resident kernel")
-    if launches <= 0 or launches != len(recorder.calls):
-        raise AssertionError(
-            f"the main path launched sweep_sparse {launches} times through "
-            f"{len(recorder.calls)} calls of its wrapper")
+    if counts["sweep_sparse"] <= 0:
+        raise AssertionError("the sample path never launched sweep_sparse")
 
-    replays = replay_through_plain_version(recorder.calls)
+    replays = replay_through_plain_version("sweep_sparse",
+                                           calls["sweep_sparse"])
     bad = [r for r in replays
            if r["max_abs_diff"] != 0.0 or r["spins_differing"] != 0]
 
@@ -443,21 +739,237 @@ def main_path(seed: int) -> tuple[dict, list]:
         r["ms_per_launch"] = ms
         r["flips_per_ns"] = r["B"] * r["N"] * r["sweeps"] / (ms * 1e6)
     out = {"phase": "main_path", "backend": "fused_sparse",
-           "launches": {"sweep_sparse": launches},
+           "launches": counts,
            "launches_vs_plain_version": replays,
            "anneal_440": anneals, "one_cell": cells, "lattices": lattices}
     emit(out)
     if bad:
         raise AssertionError(f"a main-path launch disagrees with the plain "
                              f"version: {bad}")
-    return out, recorder.calls
+    return out, calls["sweep_sparse"]
 
 
 # ---------------------------------------------------------------------------
-# the kernel record
+# phase: CD training through three backends (this slice's main path)
 # ---------------------------------------------------------------------------
-def kernel_record(checks: dict, path: dict, calls: list) -> dict:
-    """K1's record at the main path's first launch: the counter-noise
+TRAIN_BACKENDS = ("fused", "pallas", "fused_sparse")
+
+
+def training(seed: int) -> tuple[dict, dict]:
+    """In-situ CD of the full adder on the 440-spin chip, 256 chains, the
+    same seeds through K3, K2 and K1.  256 chains and 10 - 2 = 8 measured
+    sweeps per phase are powers of two, so every moment is an exact
+    dyadic number in all three and the master weights must be equal."""
+    from repro_torch.core import tasks
+    from repro_torch.core.cd import CDConfig, PBitMachine, train_cd
+    from repro_torch.core.chimera import make_chip_graph
+
+    g = make_chip_graph()
+    task = tasks.full_adder_task(g)
+    cfg = CDConfig(lr=6.0, cd_k=10, pos_sweeps=10, burn_in=2, chains=B,
+                   epochs=5)
+
+    def path():
+        runs = {}
+        for backend in TRAIN_BACKENDS:
+            mach = PBitMachine.create(g, seed, noise="counter",
+                                      backend=backend, device=DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = train_cd(mach, task.visible_idx, task.target_dist, cfg,
+                           seed + 1, eval_every=cfg.epochs)
+            torch.cuda.synchronize()
+            runs[backend] = (res, time.perf_counter() - t0,
+                             mach.session(chains=B).backend)
+        return runs
+
+    runs, counts, calls = drive(path)
+    ref_res = runs["fused"][0]
+    same = {}
+    for backend in TRAIN_BACKENDS:
+        res, _, resolved = runs[backend]
+        if resolved != backend:
+            raise AssertionError(f"{backend} resolved to {resolved}")
+        same[backend] = {
+            "Jm": bool(np.array_equal(res.J_edges, ref_res.J_edges)),
+            "hm": bool(np.array_equal(res.hm, ref_res.hm)),
+            "metric_history": res.metric_history == ref_res.metric_history,
+            "kl_history": res.kl_history == ref_res.kl_history}
+    summary, worst = replay_all(calls)
+    out = {"phase": "training", "graph": "make_chip_graph", "N": g.n_nodes,
+           "task": task.name, "config": dataclasses.asdict(cfg),
+           "noise": "counter", "launches": counts,
+           "launches_vs_plain_version": summary,
+           "equal_to_fused": same,
+           "ms_per_epoch": {b: runs[b][1] / cfg.epochs * 1e3
+                            for b in TRAIN_BACKENDS},
+           "kl_final": ref_res.kl_history[-1][1],
+           "corr_err_first_last": [ref_res.metric_history[0]["corr_err"],
+                                   ref_res.metric_history[-1]["corr_err"]],
+           "max_abs_Jm": float(np.abs(ref_res.J_edges).max())}
+    emit(out)
+    if not all(all(v.values()) for v in same.values()):
+        raise AssertionError(f"the backends trained different weights: "
+                             f"{same}")
+    if not (np.isfinite(ref_res.J_edges).all()
+            and np.abs(ref_res.J_edges).max() > 0):
+        raise AssertionError("training left the master weights untouched "
+                             "or not finite")
+    for k in KERNELS:
+        if counts[k] <= 0:
+            raise AssertionError(f"the training path never launched {k}")
+    out["_worst"] = worst
+    return out, calls
+
+
+# ---------------------------------------------------------------------------
+# phase: learning (the paper's thesis on one cell) and the workloads
+# ---------------------------------------------------------------------------
+def learning(seed: int) -> dict:
+    """The AND gate on one cell through K3, with the `tests/test_cd.py`
+    config: the ideal chip's KL is gated; the mismatched chip's and the
+    transferred weights' KLs are reported."""
+    from repro_torch.core import energy, tasks
+    from repro_torch.core.cd import (CDConfig, PBitMachine,
+                                     sample_visible_dist, train_cd)
+    from repro_torch.core.chimera import make_chimera
+    from repro_torch.core.hardware import HardwareConfig
+
+    g = make_chimera(1, 1)
+    task = tasks.and_gate_task(g)
+    cfg = CDConfig(lr=6.0, cd_k=15, pos_sweeps=15, burn_in=3, chains=B,
+                   epochs=50)
+
+    def path():
+        mk = lambda hw: PBitMachine.create(  # noqa: E731
+            g, seed + 42, hw, beta=1.0, w_scale=0.05, noise="counter",
+            backend="fused", device=DEVICE)
+        ideal, real = mk(HardwareConfig.ideal()), mk(HardwareConfig())
+        res_ideal = train_cd(ideal, task.visible_idx, task.target_dist, cfg,
+                             seed + 7, eval_every=cfg.epochs)
+        res_real = train_cd(real, task.visible_idx, task.target_dist, cfg,
+                            seed + 7, eval_every=cfg.epochs)
+        kl = lambda res: energy.kl_divergence(  # noqa: E731
+            task.target_dist, sample_visible_dist(
+                real, res.J_edges, res.hm, task.visible_idx, seed + 3))
+        return res_ideal, res_real, kl(res_ideal), kl(res_real)
+
+    (res_ideal, res_real, kl_transfer, kl_insitu), counts, calls = \
+        drive(path)
+    summary, worst = replay_all(calls)
+    out = {"phase": "learning", "task": task.name, "graph": "make_chimera(1, 1)",
+           "backend": "fused", "config": dataclasses.asdict(cfg),
+           "launches": counts, "launches_vs_plain_version": summary,
+           "kl_ideal_chip": res_ideal.kl_history[-1][1],
+           "kl_mismatched_chip": res_real.kl_history[-1][1],
+           "kl_transferred_to_mismatched": kl_transfer,
+           "kl_insitu_on_mismatched": kl_insitu,
+           "gate": "kl_ideal_chip < 0.25"}
+    emit(out)
+    if not out["kl_ideal_chip"] < 0.25:
+        raise AssertionError(f"the ideal chip did not learn the AND gate: "
+                             f"KL={out['kl_ideal_chip']}")
+    if counts["sweep_fused"] <= 0:
+        raise AssertionError("the learning path never launched sweep_fused")
+    out["_worst"] = worst
+    return out
+
+
+def workloads(seed: int) -> dict:
+    """Annealing and Max-Cut through K2, parallel tempering through K3, on
+    the 440-spin chip, with the reference tests' settings and gates."""
+    from repro_torch.core.annealing import AnnealConfig, anneal, sk_instance
+    from repro_torch.core.cd import PBitMachine
+    from repro_torch.core.chimera import make_chip_graph
+    from repro_torch.core.hardware import HardwareConfig
+    from repro_torch.core.maxcut import random_chimera_maxcut, solve_maxcut
+    from repro_torch.core.tempering import PTConfig, parallel_tempering
+
+    g = make_chip_graph()
+    mk = lambda s, w, backend: PBitMachine.create(  # noqa: E731
+        g, seed + s, HardwareConfig(), beta=1.0, w_scale=w, noise="counter",
+        backend=backend, device=DEVICE)
+
+    def path():
+        J, h = sk_instance(g, seed + 4)
+        ann = anneal(mk(3, 0.02, "pallas"), J, h,
+                     AnnealConfig(n_sweeps=300, beta_start=0.02,
+                                  beta_end=2.0, chains=32), seed + 5,
+                     record_every=30)
+        prob = random_chimera_maxcut(g, seed + 1, edge_prob=0.8)
+        mc = solve_maxcut(mk(0, 0.03, "pallas"), prob,
+                          AnnealConfig(n_sweeps=300, beta_start=0.05,
+                                       beta_end=3.0, chains=32), seed + 2)
+        J2, h2 = sk_instance(g, seed + 1)
+        pt = parallel_tempering(mk(0, 0.02, "fused"), J2, h2,
+                                PTConfig(n_replicas=16, n_sweeps=1000,
+                                         swap_every=10), seed + 2)
+        return ann, prob, mc, pt
+
+    (ann, prob, mc, pt), counts, calls = drive(path)
+    summary, worst = replay_all(calls)
+    rng = np.random.default_rng(seed)
+    rand_cut = max(prob.cut_value(rng.choice([-1.0, 1.0], size=g.n_nodes))
+                   for _ in range(32))
+    e = ann["energy_mean"]
+    gates = {
+        "anneal_energy_decreases": bool(e[-1] < e[0] * 1.05 and e[-1] < 0
+                                        and ann["best_energy"] <= e[-1]),
+        "maxcut_beats_random": bool(mc["cut_polished"] > rand_cut * 1.15),
+        "maxcut_within_bound": bool(mc["cut"] <= mc["cut_polished"]
+                                    <= mc["upper_bound"]),
+        "tempering_swap_rate_in_0_1": bool(0.0 < pt["swap_rate"] < 1.0)}
+    out = {"phase": "workloads", "N": g.n_nodes, "launches": counts,
+           "launches_vs_plain_version": summary,
+           "anneal": {"backend": "pallas", "chains": 32, "sweeps": 300,
+                      "energy_mean_first_last": [float(e[0]), float(e[-1])],
+                      "best_energy": ann["best_energy"]},
+           "maxcut": {"backend": "pallas", "cut": mc["cut"],
+                      "cut_polished": mc["cut_polished"],
+                      "random_cut": rand_cut,
+                      "upper_bound": mc["upper_bound"]},
+           "tempering": {"backend": "fused", "replicas": 16, "sweeps": 1000,
+                         "swap_rate": pt["swap_rate"],
+                         "best_energy": pt["best_energy"]},
+           "gates": gates}
+    emit(out)
+    if not all(gates.values()):
+        raise AssertionError(f"a workload gate failed: {gates}")
+    if counts["pbit_half_sweep"] <= 0 or counts["sweep_fused"] <= 0:
+        raise AssertionError(f"the workloads missed a dense kernel: {counts}")
+    out["_worst"] = worst
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the kernel records
+# ---------------------------------------------------------------------------
+def _bound(moved: int, ops: int) -> dict:
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "bytes_moved": moved, "operations": ops}
+
+
+def _moved(args, kwargs, outs) -> int:
+    """Bytes of every tensor operand read once and every output written
+    once."""
+    return sum(t.numel() * t.element_size()
+               for t in (*args, *kwargs.values(), *outs)
+               if isinstance(t, torch.Tensor))
+
+
+# per flip beyond eqn 1: the decision (bias add, offset add, two multiplies,
+# tanhf counted as one, noise multiply, two adds, compare: 9), byte ->
+# uniform (2) and the counter hash (row multiply, two xors, mix32's 8: 11);
+# integer operations are charged at the fp32 rate, which flatters the card
+DECISION_OPS, UNIFORM_OPS, HASH_OPS = 9, 2, 11
+
+
+def kernel_record(checks: dict, path: dict, calls: list,
+                  launches_by_path: dict) -> dict:
+    """K1's record at the sample path's first launch: the counter-noise
     anneal, N=440, B=256, S=1000."""
     from repro_torch.kernels.sweep_fused import sweep_sparse
 
@@ -466,18 +978,8 @@ def kernel_record(checks: dict, path: dict, calls: list) -> dict:
     Bc, n = args[0].shape
     S, D = args[10].shape[0], args[1].shape[0]
     ms = cuda_ms(lambda: sweep_sparse(*args, **kwargs))
-    # bound: every input read once, every output written once ...
-    moved = sum(t.numel() * t.element_size()
-                for t in (*args, *kwargs.values(), *outs)
-                if isinstance(t, torch.Tensor))
-    # ... against the operations of one flip: D multiply-adds (2D), the
-    # decision (bias add, offset add, two multiplies, tanhf counted as one,
-    # noise multiply, two adds, compare: 9), byte -> uniform (2), and the
-    # counter hash (row multiply, two xors, mix32's 8: 11); integer
-    # operations are charged at the fp32 rate, which flatters the card
-    ops = Bc * n * S * (2 * D + 9 + 2 + 11)
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    # D multiply-adds per flip (2D) on a Chimera chip
+    ops = Bc * n * S * (2 * D + DECISION_OPS + UNIFORM_OPS + HASH_OPS)
     worst = max([checks["max_abs_diff"]]
                 + [r["max_abs_diff"]
                    for r in path["launches_vs_plain_version"]])
@@ -485,14 +987,127 @@ def kernel_record(checks: dict, path: dict, calls: list) -> dict:
             "source": "src/repro_torch/kernels/csrc/sweep_sparse.cu",
             "replaces": "src/repro/kernels/sweep_fused.py:599",
             "launches": path["launches"]["sweep_sparse"],
+            "launches_by_path": launches_by_path,
             "max_abs_err": worst,
             "ms": ms, "plain_ms": replay["plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "device_ms": device_kernel_ms(
+                lambda: sweep_sparse(*args, **kwargs), "sweep_sparse_kernel",
+                3),
+            **_bound(_moved(args, kwargs, outs), ops),
             "library_ms": None,
             "shape": {"N": n, "B": Bc, "S": S, "D": D,
-                      "noise": kwargs["noise_mode"]},
-            "bytes_moved": moved, "operations": ops}
+                      "noise": kwargs["noise_mode"]}}
+
+
+def dense_kernel_records(seed: int, dense_checks: list, train: dict,
+                         train_calls: dict, launches_by_path: dict,
+                         worst_by_path: dict) -> list[dict]:
+    """K2 and K3 records.  K3 at N=440, B=256, S=1000 (counter noise, no
+    moments: the shape of K1's record) and at the training path's CD phase
+    (S=10, Gram); K2 at the training path's half-sweep, N=440, B=256.
+    Operations: the dense 2·N per updated (chain, node) — on a Chimera chip
+    K1 needs only 2·D of them for the same sum."""
+    from repro_torch import api
+    from repro_torch.core.cd import PBitMachine
+    from repro_torch.core.chimera import make_chip_graph
+    from repro_torch.kernels.pbit_update import (pbit_half_sweep,
+                                                 pbit_half_sweep_ref)
+    from repro_torch.kernels.sweep_fused import sweep_fused, sweep_fused_ref
+
+    check_worst = {line["kernel"]: line["max_abs_diff"]
+                   for line in dense_checks}
+    path_worst = max(worst_by_path.values())
+
+    # K3, the resident shape
+    g = make_chip_graph()
+    n = g.n_nodes
+    S = 1000
+    mach = PBitMachine.create(g, seed, noise="counter", device=DEVICE)
+    ses = mach.session(schedule=api.Anneal(0.05, 3.0, n_sweeps=S), chains=B)
+    rng = np.random.default_rng(seed + 200)
+    J, h = sk_codes(g, rng)
+    chip = ses.program(J.astype(np.int32), h.astype(np.int32))
+    gen = ses.generator(seed + 3)
+    args, kw = kernel_operands(ses, chip, gen, n_sweeps=S)
+    args = dense_operands(args, chip)
+    args[9] = ses.default_betas[:, None].expand(S, B).contiguous()
+    outs = sweep_fused(*args, **kw)
+    want, plain_ms = timed_once(lambda: sweep_fused_ref(*args, **kw))
+    diff, spins = compare_outputs(outs, want)
+    if diff != 0.0 or spins != 0:
+        raise AssertionError("sweep_fused disagrees with its plain version "
+                             "at the timed shape")
+    ms = cuda_ms(lambda: sweep_fused(*args, **kw))
+    m, W = args[0], args[1]
+    matmul_ms = cuda_ms(lambda: [torch.matmul(m, W.T) for _ in range(2 * S)])
+    ops = B * n * S * (2 * n + DECISION_OPS + UNIFORM_OPS + HASH_OPS)
+
+    # K3, the CD phase shape: the training path's first positive phase
+    cd_args, cd_kw, cd_outs = next(
+        c for c in train_calls["sweep_fused"] if c[1].get("accumulate"))
+    cd_ms = cuda_ms(lambda: sweep_fused(*cd_args, **cd_kw))
+    # the same launch without moments: what the Gram partials cost
+    no_moments = {k: v for k, v in cd_kw.items()
+                  if k not in ("measured", "accumulate")}
+    cd_sweeps_ms = cuda_ms(lambda: sweep_fused(*cd_args, **no_moments))
+    _, cd_plain_ms = timed_once(lambda: sweep_fused_ref(*cd_args, **cd_kw))
+    cd_S = cd_args[9].shape[0]
+    meas = int(cd_kw["measured"].sum())
+    cd_ops = (B * n * cd_S * (2 * n + DECISION_OPS + UNIFORM_OPS + HASH_OPS)
+              + meas * (B * n * n * 2 + B * n))
+    k3 = {"name": "sweep_fused", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/sweep_fused.cu",
+          "replaces": "src/repro/kernels/sweep_fused.py:545",
+          "launches": train["launches"]["sweep_fused"],
+          "launches_by_path": {p: c["sweep_fused"]
+                               for p, c in launches_by_path.items()},
+          "max_abs_err": max(check_worst["sweep_fused"],
+                             check_worst["dense_vs_sparse"], diff,
+                             path_worst),
+          "ms": ms, "plain_ms": plain_ms,
+          **_bound(_moved(args, kw, outs), ops),
+          "library_ms": None,
+          "matmul_ms": matmul_ms,
+          "matmul_what": "torch.matmul(m, W.T) 2*S times: the product alone",
+          "shape": {"N": n, "B": B, "S": S, "noise": "counter"},
+          "device_ms": device_kernel_ms(
+              lambda: sweep_fused(*args, **kw), "sweep_fused_kernel", 3),
+          "cd_phase": {"S": cd_S, "measured_sweeps": meas, "ms": cd_ms,
+                       "ms_without_moments": cd_sweeps_ms,
+                       "device_ms": device_kernel_ms(
+                           lambda: sweep_fused(*cd_args, **cd_kw),
+                           "sweep_fused_kernel"),
+                       "plain_ms": cd_plain_ms, "clamped": True,
+                       **_bound(_moved(cd_args, cd_kw, cd_outs), cd_ops)}}
+
+    # K2, the training path's half-sweep at N=440, B=256
+    k2_args, k2_kw, k2_out = train_calls["pbit_half_sweep"][0]
+    ms2 = cuda_ms(lambda: pbit_half_sweep(*k2_args, **k2_kw))
+    _, plain2 = timed_once(lambda: pbit_half_sweep_ref(*k2_args, **k2_kw))
+    m2, W2, mask2 = k2_args[0], k2_args[1], k2_args[7]
+    n_upd = int(mask2.sum())
+    ops2 = m2.shape[0] * n_upd * (2 * W2.shape[0] + DECISION_OPS)
+    k2 = {"name": "pbit_half_sweep", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/pbit_update.cu",
+          "replaces": "src/repro/kernels/pbit_update.py:76",
+          "launches": train["launches"]["pbit_half_sweep"],
+          "launches_by_path": {p: c["pbit_half_sweep"]
+                               for p, c in launches_by_path.items()},
+          "max_abs_err": max(check_worst["pbit_half_sweep"],
+                             check_worst["dense_vs_sparse"], path_worst),
+          "ms": ms2, "plain_ms": plain2,
+          "device_ms": device_kernel_ms(
+              lambda: pbit_half_sweep(*k2_args, **k2_kw),
+              "pbit_half_sweep_kernel", 100),
+          "ms_what": "one wrapper call, CUDA events around it: the host's "
+                     "enqueue gap included, as the Python loop pays it",
+          **_bound(_moved(k2_args, k2_kw, (k2_out,)), ops2),
+          "library_ms": None,
+          "matmul_ms": cuda_ms(lambda: torch.matmul(m2, W2.T)),
+          "matmul_what": "torch.matmul(m, W.T) once: the product alone",
+          "shape": {"N": W2.shape[0], "B": m2.shape[0],
+                    "updated_nodes": n_upd}}
+    return [k2, k3]
 
 
 def main() -> int:
@@ -516,13 +1131,31 @@ def main() -> int:
           "card": torch.cuda.get_device_name(0), "nvidia_smi": smi})
 
     t0 = time.perf_counter()
-    lib = build.build("sweep_sparse")
-    emit({"phase": "build", "library": str(lib),
-          "seconds": time.perf_counter() - t0})
+    seconds = build.build_all()
+    emit({"phase": "build", "seconds": seconds,
+          "wall_seconds": time.perf_counter() - t0,
+          "libraries": {n: str(build.library_path(n))
+                        for n in build.LIBRARIES}})
 
+    t_run = time.perf_counter()
     checks = check_kernels(args.seed)
+    dense_checks = check_dense_kernels(args.seed)
     path, calls = main_path(args.seed)
-    emit({"kernels": [kernel_record(checks, path, calls)]})
+    train, train_calls = training(args.seed)
+    learn = learning(args.seed)
+    work = workloads(args.seed)
+    by_path = {"sample": path["launches"], "training": train["launches"],
+               "learning": learn["launches"], "workloads": work["launches"]}
+    worst = {"training": train.pop("_worst"), "learning": learn.pop("_worst"),
+             "workloads": work.pop("_worst")}
+    records = [kernel_record(checks, path, calls,
+                             {p: c["sweep_sparse"] for p, c in by_path.items()})]
+    records += dense_kernel_records(args.seed, dense_checks, train,
+                                    train_calls, by_path, worst)
+    records[0]["max_abs_err"] = max(records[0]["max_abs_err"],
+                                    *worst.values())
+    emit({"kernels": records})
+    emit({"phase": "timing", "run_seconds": time.perf_counter() - t_run})
 
     print(smi, flush=True)
     emit({"ok": True,

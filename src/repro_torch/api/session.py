@@ -242,3 +242,99 @@ class Session:
         return pbit.gibbs_visible_hist(
             chip, self._color, m, self._betas(betas), burn_in, noise_state,
             self._noise_step, np.asarray(visible_idx), backend=self.backend)
+
+    # ------------------------------------------------------------------
+    # contrastive divergence (the in-situ learning step)
+    # ------------------------------------------------------------------
+    def make_cd_step(self, cfg, visible_idx: np.ndarray):
+        """Build the one-epoch CD update (paper Fig. 7a).
+
+        ``cfg`` is a `core.cd.CDConfig` (duck-typed).  Returns
+        step(Jm, hm, data_vis, m, noise_state, vel) ->
+        (Jm, hm, m, noise_state, vel, metrics) with (E,) edge-list master
+        couplings; both Gibbs phases run through this session's backend.
+        The mismatch draw is an argument of the inner step
+        (``step.with_mismatch(mismatch, Jm, hm, ...)``); ``step`` applies
+        the spec's own draw.
+        """
+        if cfg.chains != self.spec.chains:
+            raise ValueError(
+                f"CDConfig.chains={cfg.chains} but this Session runs "
+                f"chains={self.spec.chains}; build the session with "
+                f"chains=cfg.chains")
+        return self._build_cd_step(cfg, np.asarray(visible_idx))
+
+    def _build_cd_step(self, cfg, visible_idx):
+        step_mm = self._build_cd_step_mm(cfg, visible_idx)
+        mm = self.spec.mismatch
+
+        def step(Jm, hm, data_vis, m, noise_state, vel):
+            return step_mm(mm, Jm, hm, data_vis, m, noise_state, vel)
+
+        step.with_mismatch = step_mm
+        return step
+
+    def _build_cd_step_mm(self, cfg, visible_idx):
+        from repro_torch.core.hardware import WMAX, WMIN
+
+        n = self.graph.n_nodes
+        dev = self.device
+        vis = torch.as_tensor(visible_idx, device=dev).to(torch.int64)
+        clamp_mask = torch.zeros((n,), dtype=torch.bool, device=dev)
+        clamp_mask[vis] = True
+        beta = self.spec.beta
+
+        def phase(chip, m0, n_sweeps, ns, cm=None, cv=None):
+            return pbit.gibbs_stats(
+                chip, self._color, m0, beta, n_sweeps, cfg.burn_in, ns,
+                self._noise_step, self._edges, clamp_mask=cm,
+                clamp_values=cv, backend=self.backend)
+
+        def step(mismatch, Jm, hm, data_vis, m, noise_state, vel):
+            chip = program_edges(self.spec.replace(mismatch=mismatch),
+                                 quantize_codes(Jm), quantize_codes(hm),
+                                 tables=self._nbr).to(dev)
+            clamp_values = torch.zeros((cfg.chains, n), dtype=torch.float32,
+                                       device=dev)
+            clamp_values[:, vis] = torch.as_tensor(
+                data_vis, dtype=torch.float32, device=dev)
+
+            # positive phase: visibles pinned to data
+            pos_s, pos_c, m_pos, noise_state = phase(
+                chip, m, cfg.pos_sweeps, noise_state, clamp_mask,
+                clamp_values)
+            # negative phase: CD-k from the positive-phase state, or from
+            # the persistent chains (PCD)
+            neg_init = m if cfg.persistent else m_pos
+            neg_s, neg_c, m_neg, noise_state = phase(
+                chip, neg_init, cfg.cd_k, noise_state)
+
+            gJ = pos_c - neg_c
+            gh = pos_s - neg_s
+            # skip-and-log guard: a non-finite gradient (bad data batch,
+            # device fault) must never reach the master weights
+            ok = torch.isfinite(gJ).all() & torch.isfinite(gh).all()
+            vel_J, vel_h = vel
+            vel_J_new = cfg.momentum * vel_J + gJ
+            vel_h_new = cfg.momentum * vel_h + gh
+            Jm_new = (1.0 - cfg.weight_decay) * Jm + cfg.lr * vel_J_new
+            hm_new = (1.0 - cfg.weight_decay) * hm \
+                + cfg.lr * cfg.h_lr_scale * vel_h_new
+            Jm_new = torch.clamp(Jm_new, WMIN, WMAX)
+            hm_new = torch.clamp(hm_new, WMIN, WMAX)
+            Jm = torch.where(ok, Jm_new, Jm)
+            hm = torch.where(ok, hm_new, hm)
+            vel_J = torch.where(ok, vel_J_new, vel_J)
+            vel_h = torch.where(ok, vel_h_new, vel_h)
+            # the chains too: NaNs in m_neg would poison the next epoch
+            m_out = torch.where(ok, m_neg, m)
+            inv_e = pbit._recip(gJ.shape[0]).to(dev)
+            inv_n = pbit._recip(gh.shape[0]).to(dev)
+            metrics = {
+                "corr_err": torch.abs(pos_c - neg_c).sum() * inv_e,
+                "mean_err": torch.abs(pos_s - neg_s).sum() * inv_n,
+                "update_skipped": 1.0 - ok.to(torch.float32),
+            }
+            return Jm, hm, m_out, noise_state, (vel_J, vel_h), metrics
+
+        return step

@@ -8,10 +8,11 @@ Counterpart of ``repro.api.spec``, single device:
   * ``backend`` — ``ref | pallas | fused | sparse | fused_sparse | auto``.
     ``auto`` consults ``REPRO_PBIT_BACKEND`` (a construction-time default,
     never read at call time) and otherwise picks ``fused_sparse`` when the
-    noise can be generated in the kernel (``counter`` / ``lfsr``) and
-    ``sparse`` when it is host-side (``philox``).  The dense backends
-    (``ref``, ``pallas``, ``fused``) are not ported yet and raise
-    NotImplementedError at resolution.
+    spec carries the Chimera slot layout and the noise can be generated in
+    the kernel (``counter`` / ``lfsr``), ``sparse`` when it carries the
+    layout but the noise is host-side (``philox``), ``fused`` for a
+    dense-only spec whose engine fits Hopper's limits
+    (`dense_resident_feasible`), else ``ref``.
   * ``noise`` — ``philox | counter | lfsr`` (see core/pbit.py).
   * ``schedule`` — `Constant`, `Anneal` (geometric/linear) or `Tempered`
     (per-chain ladder -> (S, B) betas).
@@ -29,7 +30,7 @@ import torch
 
 from repro_torch.core.chimera import ChimeraGraph
 from repro_torch.core.hardware import HardwareConfig, Mismatch, SparseMismatch
-from repro_torch.core.pbit import require_ported
+from repro_torch.kernels.sweep_fused import dense_resident_feasible
 
 BACKENDS = ("ref", "pallas", "fused", "sparse", "fused_sparse")
 FUSED_BACKENDS = ("fused", "fused_sparse")
@@ -245,14 +246,18 @@ def resolve_backend(spec: SamplerSpec) -> str:
         raise ValueError(
             f"REPRO_PBIT_BACKEND={b!r} cannot run a sparse-native spec "
             f"(no dense W); use 'sparse' or 'fused_sparse'")
-    return require_ported(b)
+    return b
 
 
 def _auto_backend(spec: SamplerSpec) -> str:
     """Prefer the slot layout: the sweep-resident kernel when the noise can
-    be generated in it, else the half-sweep loop.  (A dense-only spec
-    resolves to "ref", which the dense slice will port.)"""
+    be generated in it, else the half-sweep loop.  A dense-only spec takes
+    the dense resident engine when it fits Hopper's limits
+    (`dense_resident_feasible`: W in L2, the tile's spins in shared memory,
+    the Gram partials bounded) and the noise is in-kernel, else "ref"."""
     in_kernel = spec.noise in IN_KERNEL_NOISE
     if spec.has_slot_layout:
         return "fused_sparse" if in_kernel else "sparse"
+    if in_kernel and dense_resident_feasible(spec.graph.n_nodes, spec.chains):
+        return "fused"
     return "ref"

@@ -1,10 +1,23 @@
-"""The chip instance behind the sampling front door.
+"""In-situ hardware-aware learning: contrastive divergence through the chip.
+
+Paper Fig. 7a: the training loop alternates
+  positive phase  — clamp the visible nodes to data, Gibbs-sample the hidden
+                    nodes *on the (mismatched) chip*, measure <m_i m_j>+.
+  negative phase  — release the clamp, free-run the chip k sweeps, measure
+                    <m_i m_j>-.
+  update          — J_ij += lr (<mimj>+ - <mimj>-) on the physical couplers,
+                    h_i  += lr (<mi>+   - <mi>-),
+then re-program the 8-bit weight DACs.  Both phases are sampled through the
+same analog non-idealities, so the learned weights absorb the mismatch.
+Master couplings live on the edge list (one float per physical coupler)
+and are quantized to 8-bit DAC codes on every re-program.
 
 `PBitMachine` owns the chip description (graph + mismatch + noise/backend
-choices) and hands out `api.Session`s; `sample_visible_dist` free-runs a
-programmed chip and histograms its visible marginal.  Counterpart of the
-sampling half of ``repro.core.cd`` — contrastive-divergence training
-(`CDConfig`, `make_cd_step`, `train_cd`) is the next slice of the port.
+choices) and hands out `api.Session`s; all sampling and programming goes
+through them.  Counterpart of ``repro.core.cd`` (crash-safe training and
+the fleet step come with the faults and program-streaming slices).
+Random draws come from `torch.Generator`s and agree with the reference's
+in distribution only.
 """
 from __future__ import annotations
 
@@ -14,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import api
+from repro_torch.core import energy as energy_mod
 from repro_torch.core.chimera import ChimeraGraph
 from repro_torch.core.hardware import (
     EffectiveChip,
@@ -45,7 +59,7 @@ class PBitMachine:
     mismatch: Mismatch | SparseMismatch
     beta: float = 1.0
     noise: str = "philox"   # "philox" | "counter" | "lfsr"
-    backend: str = "auto"   # auto | sparse | fused_sparse (dense: not ported)
+    backend: str = "auto"   # auto | ref | pallas | fused | sparse | fused_sparse
     w_scale: float = 0.05   # weight-LSB -> coupling units (ext. resistor knob)
     device: str | torch.device = "cuda"
 
@@ -139,6 +153,30 @@ class PBitMachine:
                                   tables=self.neighbor_tables())
 
 
+@dataclasses.dataclass
+class CDConfig:
+    lr: float = 4.0            # in DAC-LSB units per unit correlation error
+    cd_k: int = 10             # sweeps per negative phase
+    pos_sweeps: int = 10       # sweeps with visibles clamped
+    burn_in: int = 2
+    chains: int = 256          # parallel Gibbs chains (chip reprogram batches)
+    epochs: int = 60
+    h_lr_scale: float = 1.0
+    weight_decay: float = 0.0
+    persistent: bool = False   # PCD: negative chains persist across epochs
+    momentum: float = 0.0      # heavy-ball on the correlation gradient
+
+
+def make_cd_step(machine: PBitMachine, cfg: CDConfig,
+                 visible_idx: np.ndarray):
+    """The one-epoch CD update (shim over `Session.make_cd_step`):
+    step(Jm, hm, data_vis, m, noise_state, vel) ->
+    (Jm, hm, m, noise_state, vel, metrics), Jm the (n_edges,) float master
+    couplings, hm the (n,) master biases, data_vis (chains, n_visible) ±1
+    data for the positive phase."""
+    return machine.session(chains=cfg.chains).make_cd_step(cfg, visible_idx)
+
+
 def sample_visible_dist(machine: PBitMachine, Jm, hm,
                         visible_idx: np.ndarray, gen: torch.Generator | int,
                         chains: int = 256, sweeps: int = 200,
@@ -161,3 +199,79 @@ def sample_visible_dist(machine: PBitMachine, Jm, hm,
                                         burn_in)
     counts = counts.detach().cpu().numpy().astype(np.float64)
     return counts / max(counts.sum(), 1.0)
+
+
+@dataclasses.dataclass
+class CDResult:
+    """Learned master weights.  ``J_edges`` is the native (E,) edge-list
+    form; ``Jm`` reconstructs the symmetric dense matrix for small-n
+    reporting and eval."""
+
+    J_edges: np.ndarray
+    hm: np.ndarray
+    kl_history: list
+    metric_history: list
+    edges: np.ndarray
+    n_nodes: int
+
+    @property
+    def Jm(self) -> np.ndarray:
+        J = np.zeros((self.n_nodes, self.n_nodes), np.float32)
+        J[self.edges[:, 0], self.edges[:, 1]] = self.J_edges
+        J[self.edges[:, 1], self.edges[:, 0]] = self.J_edges
+        return J
+
+
+def train_cd(
+    machine: PBitMachine,
+    visible_idx: np.ndarray,
+    target_dist: np.ndarray,
+    cfg: CDConfig,
+    gen: torch.Generator | int,
+    eval_every: int = 10,
+    verbose: bool = False,
+) -> CDResult:
+    """Full in-situ CD training loop against a target visible distribution.
+
+    ``gen`` is a `torch.Generator` on the machine's device (or an int seed
+    for a new one); the initial spins and noise state, each epoch's data
+    rows (drawn from ``target_dist``) and each evaluation's sampler state
+    come from it in that order, so two machines that differ only in
+    backend consume identical draws.
+    """
+    g = machine.graph
+    n, nv = g.n_nodes, len(visible_idx)
+    session = machine.session(chains=cfg.chains)
+    step = session.make_cd_step(cfg, visible_idx)
+    dev = session.device
+    if not isinstance(gen, torch.Generator):
+        gen = session.generator(gen)
+
+    Jm = torch.zeros((g.n_edges,), dtype=torch.float32, device=dev)
+    hm = torch.zeros((n,), dtype=torch.float32, device=dev)
+    m = session.random_spins(gen)
+    noise_state = session.noise_state(gen)
+
+    # visible configs in code order, for drawing data rows from the target
+    codes = torch.as_tensor(energy_mod.all_states(nv), dtype=torch.float32,
+                            device=dev)
+    target = torch.as_tensor(np.asarray(target_dist), dtype=torch.float64,
+                             device=dev)
+    vel = (torch.zeros((g.n_edges,), dtype=torch.float32, device=dev),
+           torch.zeros((n,), dtype=torch.float32, device=dev))
+    kl_hist, met_hist = [], []
+    for epoch in range(cfg.epochs):
+        idx = torch.multinomial(target, cfg.chains, replacement=True,
+                                generator=gen)
+        Jm, hm, m, noise_state, vel, metrics = step(Jm, hm, codes[idx], m,
+                                                    noise_state, vel)
+        met_hist.append({k: float(v) for k, v in metrics.items()})
+        if (epoch + 1) % eval_every == 0 or epoch == cfg.epochs - 1:
+            emp = sample_visible_dist(machine, Jm, hm, visible_idx, gen)
+            kl = energy_mod.kl_divergence(np.asarray(target_dist), emp)
+            kl_hist.append((epoch + 1, kl))
+            if verbose:
+                print(f"epoch {epoch+1:4d}  KL={kl:.4f}  "
+                      f"corr_err={met_hist[-1]['corr_err']:.4f}")
+    return CDResult(Jm.cpu().numpy(), hm.cpu().numpy(), kl_hist, met_hist,
+                    edges=np.asarray(g.edges), n_nodes=n)

@@ -7,17 +7,24 @@ The exact digital emulation of the chip's parallel analog update on a
 2-colourable graph (Chimera is — see chimera.py) is *chromatic Gibbs*:
 update colour class 0 in parallel, then class 1, each with fresh noise.
 
-Counterpart of ``repro.core.pbit``.  Execution backends ported so far:
-  * "sparse"       — a Python loop over half-sweeps of the plain
-                     slot-layout functions (`kernels/ref.py`); the
-                     reference's scan path, not a kernel there either.
-  * "fused_sparse" — the sweep-resident CUDA engine
-                     (`kernels/sweep_fused.py`): S sweeps per launch, spins
-                     in shared memory, noise generated in the kernel,
-                     moments / histogram accumulated on-line.  Needs
-                     "counter" or "lfsr" noise.
-"ref", "pallas" and "fused" (the dense backends) raise NotImplementedError
-until the dense slice is ported.
+Counterpart of ``repro.core.pbit``.  Execution backends:
+  * "ref"          — a Python loop over half-sweeps of the plain dense
+                     half-sweep (`half_sweep`: the ascending row reduction
+                     of `kernels/ref.py`); the reference's scan path, not a
+                     kernel there either.  The default.
+  * "pallas"       — the same loop with the dense half-sweep CUDA kernel
+                     (`kernels/pbit_update.py`), one launch per half-sweep.
+  * "fused"        — the dense sweep-resident CUDA engine
+                     (`kernels/sweep_fused.py::sweep_fused`): S sweeps per
+                     launch, spins in shared memory, W read from L2, noise
+                     generated in the kernel, moments (Gram matrix) and
+                     histogram accumulated on-line.  Needs "counter" or
+                     "lfsr" noise.
+  * "sparse"       — the loop of "ref" on the Chimera slot layout.
+  * "fused_sparse" — the sweep-resident engine on the slot layout
+                     (`sweep_sparse`).  Needs "counter" or "lfsr" noise.
+On a Chimera chip with counter or lfsr noise all five give the same spins
+bit for bit: every eqn-1 sum is the same ascending float32 sum.
 
 Noise state is explicit everywhere: "counter" and "lfsr" carry public
 ``torch.int32`` bit patterns (see `core/lfsr.py`), "philox" carries the
@@ -39,25 +46,16 @@ NoiseFn = Callable
 
 BACKENDS = ("ref", "pallas", "fused", "sparse", "fused_sparse")
 FUSED_BACKENDS = ("fused", "fused_sparse")
-PORTED_BACKENDS = ("sparse", "fused_sparse")
-
-
-def require_ported(backend: str) -> str:
-    if backend not in PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} runs on the dense (N, N) layout, which "
-            f"is not ported yet (it comes with the dense-backends slice); "
-            f"use 'sparse' or 'fused_sparse'")
-    return backend
 
 
 def resolve_backend(backend: str | None = None) -> str:
-    """Map None/"auto" to the env default; validate explicit choices."""
+    """Map None/"auto" to the env default ("ref"); validate explicit
+    choices."""
     if backend in (None, "auto"):
-        backend = os.environ.get("REPRO_PBIT_BACKEND", "sparse")
+        backend = os.environ.get("REPRO_PBIT_BACKEND", "ref")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; pick from {BACKENDS}")
-    return require_ported(backend)
+    return backend
 
 
 class NoiseSpec(NamedTuple):
@@ -153,6 +151,32 @@ def make_lfsr_noise(graph: ChimeraGraph, batch: int, decimation: int = 8,
 # ---------------------------------------------------------------------------
 # Core update
 # ---------------------------------------------------------------------------
+def neuron_input(m: torch.Tensor, chip: EffectiveChip) -> torch.Tensor:
+    """Eqn 1 for every node: I[b, i] = Σ_j W[i, j] m[b, j] + h[i], as the
+    ascending row reduction (`kernels/ref.py::dense_neuron_input`).
+    m: (B, N) in {-1, +1}."""
+    if chip.W is None:
+        raise ValueError(
+            "this chip carries only the sparse slot layout (W=None); use a "
+            "sparse backend ('sparse' or 'fused_sparse'), e.g. "
+            "PBitMachine(backend='sparse') or REPRO_PBIT_BACKEND=sparse")
+    from repro_torch.kernels.ref import dense_neuron_input
+    return dense_neuron_input(m, chip.W, chip.h)
+
+
+def half_sweep(m: torch.Tensor, chip: EffectiveChip,
+               update_mask: torch.Tensor, beta, u: torch.Tensor
+               ) -> torch.Tensor:
+    """Parallel update of the nodes selected by ``update_mask`` (eqn 2).
+
+    ``beta`` may be a scalar or a (B,) per-chain vector (tempering ladder).
+    """
+    from repro_torch.kernels.ref import field_decision_update
+    return field_decision_update(
+        m, neuron_input(m, chip), chip.tanh_gain, chip.tanh_offset,
+        chip.rand_gain, chip.comp_offset, update_mask, beta, u)
+
+
 def make_sweep_fn(
     chip: EffectiveChip,
     color: torch.Tensor,
@@ -165,13 +189,10 @@ def make_sweep_fn(
 
     clamp_mask: (N,) bool — nodes held at clamp_values (B, N) (CD positive
     phase).  ``kernel`` is the half-sweep implementation
-    ``(m, chip, update_mask, beta, u) -> m``; default: the plain
-    slot-layout half-sweep.  Returns sweep(m, noise_state, beta) ->
-    (m, noise_state).
+    ``(m, chip, update_mask, beta, u) -> m``; default: the plain dense
+    `half_sweep`.  Returns sweep(m, noise_state, beta) -> (m, noise_state).
     """
-    if kernel is None:
-        from repro_torch.kernels import ops as kernel_ops
-        kernel = kernel_ops.sparse_half_sweep
+    hs = kernel if kernel is not None else half_sweep
     masks = [(color == c) for c in (0, 1)]
     if clamp_mask is not None:
         masks = [mk & (~clamp_mask) for mk in masks]
@@ -181,14 +202,35 @@ def make_sweep_fn(
             m = torch.where(clamp_mask, clamp_values, m)
         for mk in masks:
             ns, u = noise_fn(ns)
-            m = kernel(m, chip, mk, beta, u)
+            m = hs(m, chip, mk, beta, u)
         return m, ns
 
     return sweep
 
 
+def _resolve_kernel(backend: str, kernel: Callable | None
+                    ) -> Callable | None:
+    """Half-sweep implementation for the loop backends."""
+    if kernel is not None:
+        return kernel
+    from repro_torch.kernels import ops as kernel_ops
+    if backend == "pallas":
+        return kernel_ops.make_kernel_half_sweep()
+    if backend in ("sparse", "fused_sparse"):
+        # "fused_sparse" lands here only on the collect=True loop
+        return kernel_ops.sparse_half_sweep
+    return None  # "ref" (and "fused"'s loop) use the plain dense half_sweep
+
+
 def _use_fused(backend: str, kernel) -> bool:
     return backend in FUSED_BACKENDS and kernel is None
+
+
+def _recip(x) -> torch.Tensor:
+    """float32 ``1 / x``: the reference's compiled division by a trace-time
+    constant is a multiply by this reciprocal, so the port multiplies too
+    (a true division differs in the last place for some x)."""
+    return torch.tensor(np.float32(1.0) / np.float32(x))
 
 
 def gibbs_sample(
@@ -219,11 +261,12 @@ def gibbs_sample(
         m, ns = kernel_ops.fused_sweeps(
             init_m, chip, color, betas, noise_state,
             getattr(noise_fn, "spec", None),
-            clamp_mask=clamp_mask, clamp_values=clamp_values)
+            clamp_mask=clamp_mask, clamp_values=clamp_values,
+            sparse=(backend == "fused_sparse"))
         return m, ns, None
 
     sweep = make_sweep_fn(chip, color, noise_fn, clamp_mask, clamp_values,
-                          kernel)
+                          _resolve_kernel(backend, kernel))
     m, ns = init_m, noise_state
     traj = []
     for beta in betas:
@@ -255,43 +298,53 @@ def gibbs_stats(
 
     Returns (mean_spin[N], mean_edge_corr[E], final_m, noise_state), with
     moments averaged over chains and post-burn-in sweeps — exactly the
-    statistics contrastive divergence needs.  With backend="fused_sparse"
-    the whole phase (every sweep AND the moment accumulation) is one kernel
-    launch; edge correlations are read out of the (D, N) per-slot table.
+    statistics contrastive divergence needs.  With backend="fused" or
+    "fused_sparse" the whole phase (every sweep AND the moment
+    accumulation) is one kernel launch; edge correlations are read out of
+    the Gram matrix (dense) or the (D, N) per-slot table (slot layout).
+    Every division by a count is a multiply by its float32 reciprocal, as
+    the reference compiles it.
     """
     backend = resolve_backend(backend)
     dev = init_m.device
     edges = torch.as_tensor(edges, device=dev).to(torch.int64)
     e0, e1 = edges[:, 0], edges[:, 1]
     betas = torch.full((n_sweeps,), beta, dtype=torch.float32, device=dev)
-    denom = float(max(n_sweeps - burn_in, 1))
+    denom = max(n_sweeps - burn_in, 1)
     measured = (torch.arange(n_sweeps, device=dev) >= burn_in).to(
         torch.float32)
 
     if _use_fused(backend, kernel):
         from repro_torch.kernels import ops as kernel_ops
+        sparse = backend == "fused_sparse"
         m, ns, s_sum, c_sum = kernel_ops.fused_sweeps(
             init_m, chip, color, betas, noise_state,
             getattr(noise_fn, "spec", None),
             clamp_mask=clamp_mask, clamp_values=clamp_values,
-            measured=measured)
-        scale = denom * init_m.shape[0]
-        # edge (i, j) lives at slot row d with nbr_idx[d, i] == j
-        slot = torch.argmax(
-            (chip.nbr_idx[:, e0] == e1[None, :]).to(torch.int8), dim=0)
-        return s_sum / scale, c_sum[slot, e0] / scale, m, ns
+            measured=measured, sparse=sparse)
+        inv = _recip(np.float32(denom) * np.float32(init_m.shape[0])).to(dev)
+        if sparse:
+            # edge (i, j) lives at slot row d with nbr_idx[d, i] == j
+            slot = torch.argmax(
+                (chip.nbr_idx[:, e0] == e1[None, :]).to(torch.int8), dim=0)
+            c_edge = c_sum[slot, e0]
+        else:
+            c_edge = c_sum[e0, e1]
+        return s_sum * inv, c_edge * inv, m, ns
 
     sweep = make_sweep_fn(chip, color, noise_fn, clamp_mask, clamp_values,
-                          kernel)
+                          _resolve_kernel(backend, kernel))
+    inv_b = _recip(init_m.shape[0]).to(dev)
     m, ns = init_m, noise_state
     s_sum = torch.zeros((init_m.shape[1],), dtype=torch.float32, device=dev)
     c_sum = torch.zeros((edges.shape[0],), dtype=torch.float32, device=dev)
     for t in range(n_sweeps):
         m, ns = sweep(m, ns, betas[t])
         w = measured[t]
-        s_sum = s_sum + w * m.mean(dim=0)
-        c_sum = c_sum + w * (m[:, e0] * m[:, e1]).mean(dim=0)
-    return s_sum / denom, c_sum / denom, m, ns
+        s_sum = s_sum + w * (m.sum(dim=0) * inv_b)
+        c_sum = c_sum + w * ((m[:, e0] * m[:, e1]).sum(dim=0) * inv_b)
+    inv = _recip(denom).to(dev)
+    return s_sum * inv, c_sum * inv, m, ns
 
 
 def gibbs_visible_hist(
@@ -332,10 +385,11 @@ def gibbs_visible_hist(
             from repro_torch.kernels import ops as kernel_ops
             m, ns, hist = kernel_ops.fused_visible_hist(
                 init_m, chip, color, betas, noise_state, spec, visible_idx,
-                measured)
+                measured, sparse=(backend == "fused_sparse"))
             return hist, m, ns
 
-    sweep = make_sweep_fn(chip, color, noise_fn, clamp_mask, clamp_values)
+    sweep = make_sweep_fn(chip, color, noise_fn, clamp_mask, clamp_values,
+                          _resolve_kernel(backend, None))
     vis = torch.as_tensor(visible_idx, device=dev).to(torch.int64)
     pow2 = 2 ** torch.arange(nv, device=dev)
     m, ns = init_m, noise_state

@@ -32,16 +32,19 @@
 //   * float decisions use explicit round-to-nearest intrinsics so nothing is
 //     contracted into an FMA differently than the eager PyTorch version; build
 //     without --use_fast_math (tanhf must stay the libdevice tanhf).
+//   * the noise streams, the decision, clamps, histogram and the reduction are
+//     shared with the dense kernels K2 and K3 (pbit_common.cuh).
 //
 // Plain C interface (loaded with ctypes); every function launches on the given
 // stream, allocates nothing, does not synchronise, and returns cudaGetLastError().
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pbit_common.cuh"
+
 namespace {
 
-constexpr uint32_t kGaloisMask = 0x80200003u;
-constexpr int kNoiseLfsr = 1;  // noise_mode: 0 counter hash, 1 Galois LFSR
+using pbit::kNoiseLfsr;
 
 struct Params {
   const float* m_in;          // (B, N) spins, +-1
@@ -76,23 +79,6 @@ struct Params {
   int tb;                     // chains per block
 };
 
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ float byte_to_uniform(uint32_t b) {
-  return __fdiv_rn(__fsub_rn((float)b, 127.5f), 128.0f);
-}
-
-__device__ __forceinline__ int8_t sign_spin(float x) {
-  return x >= 0.0f ? (int8_t)1 : (int8_t)-1;
-}
-
 __host__ __device__ inline size_t spin_bytes(int tb, int N) {
   return (((size_t)tb * (size_t)N) + 15) & ~(size_t)15;
 }
@@ -117,7 +103,7 @@ __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
   const int NB = p.part_h ? (1 << p.n_visible) : 0;
 
   for (int k = tid; k < nb * N; k += nt)
-    sp[k] = sign_spin(p.m_in[(size_t)b0 * N + k]);
+    sp[k] = pbit::sign_spin(p.m_in[(size_t)b0 * N + k]);
   if (lfsr)
     for (int k = tid; k < nb * C; k += nt) lf[k] = p.noise_in[(size_t)b0 * C + k];
   if (p.part_s)
@@ -142,24 +128,17 @@ __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
     // clamps are re-imposed at the start of every sweep, and once at the
     // start of a window that opens on the second half of a sweep
     if (has_clamp && (c == 0 || j == 0)) {
-      for (int k = tid; k < nb * N; k += nt) {
-        const int i = k % N;
-        if (p.clamp_mask[i]) sp[k] = sign_spin(p.clamp_values[(size_t)b0 * N + k]);
-      }
+      pbit::impose_clamps(sp, nb, N, p.clamp_mask,
+                          p.clamp_values + (size_t)b0 * N, tid, nt);
       __syncthreads();
     }
 
     uint32_t half_key = 0;
     if (lfsr) {
-      for (int k = tid; k < nb * C; k += nt) {
-        uint32_t st = lf[k];
-        for (int t = 0; t < p.decimation; ++t)
-          st = (st >> 1) ^ ((st & 1u) ? kGaloisMask : 0u);
-        lf[k] = st;
-      }
+      pbit::lfsr_step_tile(lf, nb * C, p.decimation, tid, nt);
       __syncthreads();
     } else {
-      half_key = mix32(seed ^ ((ctr0 + (uint32_t)j) * 0x9E3779B9u));
+      half_key = pbit::counter_half_key(seed, ctr0 + (uint32_t)j);
     }
 
     const uint8_t* mask = c ? p.mask1 : p.mask0;
@@ -177,17 +156,11 @@ __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
       const float h_i = p.h[i], gain_i = p.gain[i], off_i = p.off[i];
       const float rg_i = p.rg[i], co_i = p.co[i];
       uint32_t col_key = 0;
-      int byte_shift = 0, cell = 0;
-      bool reversed = false;
-      if (lfsr) {
-        const int col = p.perm[i];
-        const int kk = col / C;
-        cell = col - kk * C;
-        byte_shift = 8 * (kk & 3);
-        reversed = kk >= 4;
-      } else {
-        col_key = ((uint32_t)i + p.col0) * 0xC2B2AE3Du;
-      }
+      pbit::LfsrTap tap{};
+      if (lfsr)
+        tap = pbit::lfsr_tap(p.perm[i], C);
+      else
+        col_key = pbit::counter_col_key(i, p.col0);
       for (int b = 0; b < nb; ++b) {
         const int8_t* row = sp + (size_t)b * N;
         float acc = 0.0f;
@@ -197,21 +170,12 @@ __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
           const float w = DT ? wv[d] : p.nbr_w[(size_t)d * N + i];
           acc = __fadd_rn(acc, __fmul_rn(w, (float)row[ix]));
         }
-        const float I = __fadd_rn(acc, h_i);
+        const uint32_t byte =
+            lfsr ? pbit::lfsr_byte(lf + b * C, tap)
+                 : pbit::counter_byte(half_key, b0 + b, p.row0, col_key);
         const float beta = p.betas[(size_t)s * B + b0 + b];
-        const float act =
-            tanhf(__fmul_rn(__fmul_rn(beta, gain_i), __fadd_rn(I, off_i)));
-        uint32_t byte;
-        if (lfsr) {
-          byte = (lf[b * C + cell] >> byte_shift) & 0xFFu;
-          if (reversed) byte = __brev(byte) >> 24;
-        } else {
-          const uint32_t row_key = ((uint32_t)(b0 + b) + p.row0) * 0x85EBCA77u;
-          byte = mix32(half_key ^ row_key ^ col_key) & 0xFFu;
-        }
-        const float decision = __fadd_rn(
-            __fadd_rn(act, __fmul_rn(rg_i, byte_to_uniform(byte))), co_i);
-        sp[(size_t)b * N + i] = sign_spin(decision);
+        sp[(size_t)b * N + i] = pbit::sign_spin(
+            pbit::decision(acc, h_i, beta, gain_i, off_i, rg_i, co_i, byte));
       }
     }
     __syncthreads();
@@ -236,17 +200,9 @@ __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
             }
           }
         }
-        if (p.part_h && tid == 0) {
-          // one thread walks the tile's chains in order: two chains of a
-          // tile may share a bin
-          for (int b = 0; b < nb; ++b) {
-            int code = 0;
-            for (int k = 0; k < p.n_visible; ++k)
-              code |= (sp[(size_t)b * N + p.visible_idx[k]] > 0) << k;
-            float* dh = p.part_h + (size_t)blk * NB + code;
-            *dh = __fadd_rn(*dh, wgt);
-          }
-        }
+        if (p.part_h && tid == 0)
+          pbit::hist_accumulate(sp, nb, N, p.visible_idx, p.n_visible, wgt,
+                                p.part_h + (size_t)blk * NB);
         __syncthreads();  // the next half-sweep overwrites what was read
       }
     }
@@ -262,27 +218,9 @@ __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
   }
 }
 
-// out[k] = sum over blocks of part[blk][k], in block order (fixed, so the
-// result does not depend on scheduling).
-__global__ void reduce_partials_kernel(const float* part, float* out,
-                                       int n_blocks, int len) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= len) return;
-  float acc = 0.0f;
-  for (int j = 0; j < n_blocks; ++j)
-    acc = __fadd_rn(acc, part[(size_t)j * len + k]);
-  out[k] = acc;
-}
-
 __global__ void tanh_probe_kernel(const float* x, float* y, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) y[i] = tanhf(x[i]);
-}
-
-void reduce_partials(const float* part, float* out, int n_blocks, int len,
-                     cudaStream_t stream) {
-  reduce_partials_kernel<<<(len + 255) / 256, 256, 0, stream>>>(part, out,
-                                                               n_blocks, len);
 }
 
 }  // namespace
@@ -332,10 +270,12 @@ int sweep_sparse_launch(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (part_s) {
-    reduce_partials(part_s, out_s, n_blocks, N, stream);
-    reduce_partials(part_c, out_c, n_blocks, D * N, stream);
+    pbit::reduce_partials(part_s, out_s, n_blocks, N, stream);
+    pbit::reduce_partials(part_c, out_c, n_blocks, (size_t)D * N, stream);
   }
-  if (part_h) reduce_partials(part_h, out_h, n_blocks, 1 << n_visible, stream);
+  if (part_h)
+    pbit::reduce_partials(part_h, out_h, n_blocks, (size_t)1 << n_visible,
+                          stream);
   return (int)cudaGetLastError();
 }
 

@@ -1,23 +1,52 @@
 """Public wrappers around the kernels, in the chip + graph-colour view.
 
-`sparse_half_sweep` adapts the plain slot-layout half-sweep to the
-sampler's ``half_sweep(m, chip, update_mask, beta, u)`` signature (the
-"sparse" scan backend).  `fused_sweeps` / `fused_visible_hist` adapt the
-sweep-resident engine (`kernels/sweep_fused.py`) to the chip + colour view
-`core/pbit.py` works with.  Counterpart of ``repro.kernels.ops``, sparse
-layout only.
+`make_kernel_half_sweep` adapts the dense half-sweep kernel (K2,
+`kernels/pbit_update.py`) to the sampler's ``half_sweep(m, chip,
+update_mask, beta, u)`` signature (the "pallas" backend); `ref_half_sweep`
+and `sparse_half_sweep` adapt the plain dense and slot-layout half-sweeps
+(the "ref" and "sparse" scan backends).  `fused_sweeps` /
+`fused_visible_hist` adapt the sweep-resident engines
+(`kernels/sweep_fused.py`) — dense (K3) or slot layout (K1) — to the chip +
+colour view `core/pbit.py` works with.  Counterpart of ``repro.kernels.ops``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.hardware import EffectiveChip
-from repro_torch.kernels.ref import pbit_sparse_half_sweep_ref
-from repro_torch.kernels.sweep_fused import sweep_sparse
+from repro_torch.kernels.pbit_update import pbit_half_sweep
+from repro_torch.kernels.ref import (
+    pbit_half_sweep_ref,
+    pbit_sparse_half_sweep_ref,
+)
+from repro_torch.kernels.sweep_fused import sweep_fused, sweep_sparse
 
-_DENSE_MSG = ("the dense sweep-resident engine (sparse=False) is not ported "
-              "yet; it comes with the dense-backends slice — use the slot "
-              "layout (sparse=True)")
+
+def make_kernel_half_sweep():
+    """The dense half-sweep kernel in the sampler's signature."""
+
+    def half_sweep(m, chip: EffectiveChip, update_mask, beta, u):
+        _require_dense(chip)
+        return pbit_half_sweep(
+            m, chip.W, chip.h, chip.tanh_gain, chip.tanh_offset,
+            chip.rand_gain, chip.comp_offset, update_mask, beta, u)
+
+    return half_sweep
+
+
+def ref_half_sweep(m, chip: EffectiveChip, update_mask, beta, u):
+    """Plain dense half-sweep."""
+    _require_dense(chip)
+    return pbit_half_sweep_ref(
+        m, chip.W, chip.h, chip.tanh_gain, chip.tanh_offset,
+        chip.rand_gain, chip.comp_offset, update_mask, beta, u)
+
+
+def _require_dense(chip: EffectiveChip) -> None:
+    if chip.W is None:
+        raise ValueError(
+            "this chip carries only the sparse slot layout (W=None); use a "
+            "sparse backend ('sparse' or 'fused_sparse')")
 
 
 def _require_sparse(chip: EffectiveChip) -> None:
@@ -38,20 +67,25 @@ def sparse_half_sweep(m, chip: EffectiveChip, update_mask, beta, u):
 
 
 def _fused_common(chip, color, betas, B, noise_spec, clamp_mask, sparse):
-    if not sparse:
-        raise NotImplementedError(_DENSE_MSG)
     if noise_spec is None or noise_spec.kind not in ("counter", "lfsr"):
         kind = None if noise_spec is None else noise_spec.kind
         raise ValueError(
             f"fused backend needs in-kernel noise ('counter' or 'lfsr'), "
             f"got {kind!r}; build the noise fn with make_counter_noise or "
             f"make_lfsr_noise")
-    _require_sparse(chip)
+    if sparse:
+        _require_sparse(chip)
+    elif chip.W is None:
+        raise ValueError(
+            "dense fused backend needs a chip with a dense W; this chip is "
+            "sparse-native (W=None) — use backend='fused_sparse' or "
+            "'sparse'")
     betas = torch.as_tensor(betas, dtype=torch.float32, device=chip.h.device)
     if betas.ndim == 1:
         betas = betas[:, None].expand(betas.shape[0], B)
-    # colour classes of a 2-coloured graph, minus clamped nodes: each an
-    # independent set, which is what lets the kernel update in place
+    # colour classes minus clamped nodes: on a 2-coloured graph each is an
+    # independent set, which lets the slot-layout kernel update in place
+    # (the dense kernel is synchronous and needs no such property)
     mask0 = (color == 0)
     mask1 = (color == 1)
     if clamp_mask is not None:
@@ -71,24 +105,33 @@ def fused_sweeps(
     clamp_values: torch.Tensor | None = None,
     measured: torch.Tensor | None = None,
     *,
-    sparse: bool = True,
+    sparse: bool = False,
 ):
     """Run S resident sweeps through the fused engine.
 
     Returns (m', noise_state') or, when ``measured`` is given,
-    (m', noise_state', s_sum[N], c_slots[D, N]) — raw sums over
-    (chains x measured sweeps); divide by B * sum(measured).
+    (m', noise_state', s_sum[N], c_sum) — raw sums over (chains x measured
+    sweeps); divide by B * sum(measured).  c_sum is the (N, N) Gram matrix
+    on the dense path and the (D, N) per-slot edge correlations on the
+    sparse path (read edge (i, j) at ``c_sum[slot_of(i→j), i]``, see
+    `ChimeraGraph.edge_slots`).
     """
     betas, mask0, mask1 = _fused_common(
         chip, color, betas, m.shape[0], noise_spec, clamp_mask, sparse)
-    return sweep_sparse(
-        m, chip.nbr_idx, chip.nbr_w, chip.h, chip.tanh_gain,
-        chip.tanh_offset, chip.rand_gain, chip.comp_offset,
-        mask0, mask1, betas, noise_state,
-        clamp_mask=clamp_mask, clamp_values=clamp_values, measured=measured,
-        noise_mode=noise_spec.kind, decimation=noise_spec.decimation,
-        gather_perm=noise_spec.gather_perm,
-        accumulate=measured is not None)
+    kw = dict(clamp_mask=clamp_mask, clamp_values=clamp_values,
+              measured=measured, noise_mode=noise_spec.kind,
+              decimation=noise_spec.decimation,
+              gather_perm=noise_spec.gather_perm,
+              accumulate=measured is not None)
+    if sparse:
+        return sweep_sparse(
+            m, chip.nbr_idx, chip.nbr_w, chip.h, chip.tanh_gain,
+            chip.tanh_offset, chip.rand_gain, chip.comp_offset,
+            mask0, mask1, betas, noise_state, **kw)
+    return sweep_fused(
+        m, chip.W, chip.h, chip.tanh_gain, chip.tanh_offset,
+        chip.rand_gain, chip.comp_offset, mask0, mask1, betas, noise_state,
+        **kw)
 
 
 def fused_visible_hist(
@@ -101,7 +144,7 @@ def fused_visible_hist(
     visible_idx,
     measured: torch.Tensor,            # (S,) histogram weights (burn-in mask)
     *,
-    sparse: bool = True,
+    sparse: bool = False,
 ):
     """S resident sweeps + in-kernel visible-pattern histogram.
 
@@ -111,11 +154,16 @@ def fused_visible_hist(
     """
     betas, mask0, mask1 = _fused_common(
         chip, color, betas, m.shape[0], noise_spec, None, sparse)
-    return sweep_sparse(
-        m, chip.nbr_idx, chip.nbr_w, chip.h, chip.tanh_gain,
-        chip.tanh_offset, chip.rand_gain, chip.comp_offset,
-        mask0, mask1, betas, noise_state,
-        measured=measured, visible_idx=visible_idx,
-        noise_mode=noise_spec.kind, decimation=noise_spec.decimation,
-        gather_perm=noise_spec.gather_perm,
-        collect_hist=True, n_visible=int(len(visible_idx)))
+    kw = dict(measured=measured, visible_idx=visible_idx,
+              noise_mode=noise_spec.kind, decimation=noise_spec.decimation,
+              gather_perm=noise_spec.gather_perm, collect_hist=True,
+              n_visible=int(len(visible_idx)))
+    if sparse:
+        return sweep_sparse(
+            m, chip.nbr_idx, chip.nbr_w, chip.h, chip.tanh_gain,
+            chip.tanh_offset, chip.rand_gain, chip.comp_offset,
+            mask0, mask1, betas, noise_state, **kw)
+    return sweep_fused(
+        m, chip.W, chip.h, chip.tanh_gain, chip.tanh_offset,
+        chip.rand_gain, chip.comp_offset, mask0, mask1, betas, noise_state,
+        **kw)

@@ -2,9 +2,16 @@
 
 `field_decision_update` is THE half-sweep body: eqn 2 (tanh activation,
 additive RNG, comparator sign, masked write) in one place.  The scan
-backend ("sparse") loops over it; the CUDA kernel in `sweep_fused`
-reproduces the same sequence term for term.  Counterpart of
-``repro.kernels.ref``.
+backends ("ref", "sparse") loop over it; the CUDA kernels in
+`sweep_fused` and `pbit_update` reproduce the same sequence term for term.
+Counterpart of ``repro.kernels.ref``.
+
+Eqn 1 has one summation order everywhere: a sequential float32 sum from
++0.0 in ascending source-node order, then ``+ h``.  Spins are ±1, so every
+product is exact, and adding a ±0.0 term to an accumulator that started at
++0.0 leaves it unchanged; so the dense row reduction over all j, the same
+reduction over a row's nonzero entries only, and the ascending slot sum of
+the Chimera layout are one and the same number, bit for bit.
 """
 from __future__ import annotations
 
@@ -57,6 +64,44 @@ def sparse_neuron_input(m, nbr_idx, nbr_w, h):
     for d in range(nbr_idx.shape[0]):
         acc = acc + nbr_w[d][None, :] * m.index_select(1, nbr_idx[d])
     return acc + h
+
+
+def row_tables(W):
+    """Each row's nonzero entries of the dense (N, N) W as a fixed-degree
+    table ``(idx, w)``, both (K, N) with K the largest row count: column
+    ``i`` lists row i's nonzero j ascending, padded with zero-weight
+    entries.  `sparse_neuron_input` on these tables is the dense row
+    reduction of `dense_neuron_input`, bit for bit."""
+    nonzero = W != 0
+    K = max(int(nonzero.sum(dim=1).max()), 1) if W.shape[0] else 1
+    # stable: the nonzero columns first, each group in ascending j
+    order = torch.argsort((~nonzero).to(torch.uint8), dim=1, stable=True)
+    idx = order[:, :K]
+    return idx.T.contiguous(), W.gather(1, idx).T.contiguous()
+
+
+def dense_neuron_input(m, W, h):
+    """Eqn 1 on the dense layout: I[b, i] = Σ_j W[i, j] m[b, j] + h[i], as
+    the sequential row reduction in ascending j from +0.0 (not ``m @ W.T``,
+    whose order is the library's).  Only each row's nonzero entries are
+    visited, which is the same sum (see the module docstring)."""
+    idx, w = row_tables(W)
+    return sparse_neuron_input(m, idx, w, h)
+
+
+def pbit_half_sweep_ref(m, W, h, gain, off, rand_gain, comp_off,
+                        update_mask, beta, u):
+    """Dense chromatic-Gibbs half-sweep, reference semantics.
+
+    m: (B, N) spins in {-1, +1};  W: (N, N) directional couplings
+    (I_i = Σ_j W[i, j] m_j);  h/gain/off/rand_gain/comp_off: (N,);
+    update_mask: (N,) bool;  beta: scalar or (B,) per-chain inverse
+    temperature;  u: (B, N) uniform noise.  Every input is read before any
+    spin is written (synchronous), whatever couplings W holds.
+    """
+    I = dense_neuron_input(m, W, h)
+    return field_decision_update(m, I, gain, off, rand_gain, comp_off,
+                                 update_mask, beta, u)
 
 
 def pbit_sparse_half_sweep_ref(m, nbr_idx, nbr_w, h, gain, off, rand_gain,

@@ -1,23 +1,30 @@
-"""Sweep-resident block-sparse sampling engine: CUDA kernel + plain version.
+"""Sweep-resident sampling engines: CUDA kernels + plain versions.
 
-`sweep_sparse` runs S chromatic sweeps (or a half-sweep window of them) of
-the p-bit update on the Chimera-native fixed-degree slot layout in ONE
-kernel launch: spins stay in shared memory, noise is generated in the
-kernel from the reference's own integer streams, and CD moments and the
-visible-pattern histogram accumulate in the launch.
+Two layouts, one launch per S chromatic sweeps: spins stay in shared
+memory, noise is generated in the kernel from the reference's own integer
+streams, and CD moments and the visible-pattern histogram accumulate in the
+launch.
 
-It replaces the TPU kernel ``repro.kernels.sweep_fused.sweep_sparse_pallas``
-(body ``_kernel`` with ``sparse=True``); the CUDA source is
-``csrc/sweep_sparse.cu``.  On an H100 the kernel is bound by operations
-(per flip: D gathers with a multiply-add, two 32-bit hashes, one tanhf),
-not by bytes — every input is read once per launch — so the design keeps
-the spins, the tile's LFSR registers and a node's weights on chip across
-all half-sweeps and pays one block-wide barrier per half-sweep.
+* `sweep_sparse` — the Chimera-native fixed-degree slot layout.  Replaces
+  the TPU kernel ``repro.kernels.sweep_fused.sweep_sparse_pallas`` (body
+  ``_kernel`` with ``sparse=True``); CUDA source ``csrc/sweep_sparse.cu``.
+  Bound by operations (per flip: D gathers with a multiply-add, two 32-bit
+  hashes, one tanhf), not by bytes; the design keeps the spins, the tile's
+  LFSR registers and a node's weights on chip across all half-sweeps and
+  pays one block-wide barrier per half-sweep.
+* `sweep_fused` — the dense (N, N) couplings.  Replaces
+  ``repro.kernels.sweep_fused.sweep_fused_pallas`` (``_kernel`` with
+  ``sparse=False``); CUDA source ``csrc/sweep_fused.cu``.  W does not fit a
+  block's shared memory at the chip's size, so it is read from L2 every
+  half-sweep (bound by those reads); a dense W may couple nodes of one
+  colour, so the update is synchronous (double-buffered spins); the second
+  moment is the Gram matrix Σ mᵀm.  `dense_tile_chains` /
+  `dense_resident_feasible` model its limits on Hopper.
 
-`sweep_sparse_ref` is the plain PyTorch version of the same function: a
-Python loop of `sparse_neuron_input` + `field_decision_update` with noise
-from `core.lfsr`.  The wrapper uses it only for tensors that lie on the
-CPU; on a CUDA tensor it launches the kernel or raises.
+`sweep_sparse_ref` / `sweep_fused_ref` are the plain PyTorch versions of
+the same functions: a Python loop of half-sweeps (`kernels/ref.py`) with
+noise from `core.lfsr`.  A wrapper uses its plain version only for tensors
+that lie on the CPU; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -28,7 +35,11 @@ import torch
 
 from repro_torch.core import lfsr as lfsr_mod
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import field_decision_update, sparse_neuron_input
+from repro_torch.kernels.ref import (
+    field_decision_update,
+    row_tables,
+    sparse_neuron_input,
+)
 
 NOISE_COUNTER = "counter"
 NOISE_LFSR = "lfsr"
@@ -37,6 +48,12 @@ _NOISE_CODE = {NOISE_COUNTER: 0, NOISE_LFSR: 1}
 MAX_HIST_VISIBLE = 12   # 2^nv histogram bins per block partial
 MAX_TILE_CHAINS = 8     # chains per block the tile heuristic will pick
 SMEM_LIMIT_FALLBACK = 232448  # 227 KB: Hopper's opt-in limit per block
+
+# The H100 (SXM) the dense engine's feasibility model is sized against
+H100_SMEM_PER_BLOCK = 232448    # opt-in shared memory of one block
+H100_L2_BYTES = 50 * 2 ** 20    # L2 cache
+H100_SMS = 132                  # streaming multiprocessors
+GRAM_PARTIAL_BYTES = 256 * 2 ** 20  # cap on the per-block Gram partials
 
 
 # ---------------------------------------------------------------------------
@@ -76,12 +93,12 @@ def _check_modes(noise_mode, gather_perm, coord_offset, accumulate,
     return accumulate, collect_hist
 
 
-def _identity_result(m, noise_state, N, D, accumulate, collect_hist,
+def _identity_result(m, noise_state, N, c_shape, accumulate, collect_hist,
                      n_visible):
     """An empty window: spins and noise state unchanged, zero statistics."""
     outs = [m, noise_state]
     if accumulate:
-        outs += [m.new_zeros((N,)), m.new_zeros((D, N))]
+        outs += [m.new_zeros((N,)), m.new_zeros(c_shape)]
     if collect_hist:
         outs.append(m.new_zeros((2 ** n_visible,)))
     return tuple(outs)
@@ -107,8 +124,59 @@ def sweep_sparse_ref(
         noise_mode, gather_perm, coord_offset, accumulate, collect_hist,
         measured, visible_idx, n_visible)
     if n_half == 0:
-        return _identity_result(m, noise_state, N, D, accumulate,
+        return _identity_result(m, noise_state, N, (D, N), accumulate,
                                 collect_hist, n_visible)
+    return _sweeps_ref(
+        m, lambda mm: sparse_neuron_input(mm, nbr_idx, nbr_w, h),
+        lambda mm: torch.stack([(mm * mm.index_select(1, nbr_idx[d])).sum(0)
+                                for d in range(D)]),
+        (D, N), gain, off, rand_gain, comp_off, mask0, mask1, betas,
+        noise_state, clamp_mask, clamp_values, measured, visible_idx,
+        coord_offset, noise_mode=noise_mode, decimation=decimation,
+        gather_perm=gather_perm, accumulate=accumulate,
+        collect_hist=collect_hist, n_visible=n_visible,
+        half_offset=half_offset, n_half=n_half)
+
+
+def sweep_fused_ref(
+    m, W, h, gain, off, rand_gain, comp_off, mask0, mask1, betas,
+    noise_state, clamp_mask=None, clamp_values=None, measured=None,
+    visible_idx=None, coord_offset=None, *, noise_mode=NOISE_COUNTER,
+    decimation=8, gather_perm=None, accumulate=False, collect_hist=False,
+    n_visible=0,
+):
+    """`sweep_fused` in plain PyTorch, any device: same arguments, same
+    return tuple.  Eqn 1 is `kernels/ref.py`'s ascending row reduction (on
+    each row's nonzero entries: the same sum); the Gram matrix of a sweep is
+    ``mᵀm`` by `torch.matmul`, exact because its entries are integers."""
+    B, N = m.shape
+    S = betas.shape[0]
+    accumulate, collect_hist = _check_modes(
+        noise_mode, gather_perm, coord_offset, accumulate, collect_hist,
+        measured, visible_idx, n_visible)
+    if S == 0:
+        return _identity_result(m, noise_state, N, (N, N), accumulate,
+                                collect_hist, n_visible)
+    idx, w = row_tables(W)
+    return _sweeps_ref(
+        m, lambda mm: sparse_neuron_input(mm, idx, w, h),
+        lambda mm: torch.matmul(mm.T, mm), (N, N), gain, off, rand_gain,
+        comp_off, mask0, mask1, betas, noise_state, clamp_mask, clamp_values,
+        measured, visible_idx, coord_offset, noise_mode=noise_mode,
+        decimation=decimation, gather_perm=gather_perm,
+        accumulate=accumulate, collect_hist=collect_hist,
+        n_visible=n_visible, half_offset=0, n_half=2 * S)
+
+
+def _sweeps_ref(
+    m, neuron_input, pair_sums, c_shape, gain, off, rand_gain, comp_off,
+    mask0, mask1, betas, noise_state, clamp_mask, clamp_values, measured,
+    visible_idx, coord_offset, *, noise_mode, decimation, gather_perm,
+    accumulate, collect_hist, n_visible, half_offset, n_half,
+):
+    """The plain half-sweep loop of both engines: ``neuron_input(m)`` is
+    eqn 1, ``pair_sums(m)`` a sweep's second-moment sums over chains."""
+    B, N = m.shape
     dev = m.device
     has_clamp = clamp_mask is not None and clamp_values is not None
     masks = (mask0.to(torch.bool), mask1.to(torch.bool))
@@ -122,7 +190,7 @@ def sweep_sparse_ref(
         st = lfsr_mod.to_u64(noise_state)
     if accumulate:
         s_sum = torch.zeros((N,), dtype=torch.float32, device=dev)
-        c_slots = torch.zeros((D, N), dtype=torch.float32, device=dev)
+        c_sum = torch.zeros(c_shape, dtype=torch.float32, device=dev)
     if collect_hist:
         vis = torch.as_tensor(visible_idx, device=dev).to(torch.int64)
         pow2 = 2 ** torch.arange(n_visible, device=dev)
@@ -138,16 +206,14 @@ def sweep_sparse_ref(
         else:
             st = lfsr_mod.lfsr_step_n(st, decimation)
             u = lfsr_mod.flat_cell_uniforms(st).index_select(-1, perm)
-        I = sparse_neuron_input(m, nbr_idx, nbr_w, h)
+        I = neuron_input(m)
         m = field_decision_update(m, I, gain, off, rand_gain, comp_off,
                                   masks[c], betas[s], u)
         if c == 1 and (accumulate or collect_hist):
             w = measured[s]
             if accumulate:
                 s_sum = s_sum + w * m.sum(dim=0)
-                c_slots = c_slots + w * torch.stack([
-                    (m * m.index_select(1, nbr_idx[d])).sum(dim=0)
-                    for d in range(D)])
+                c_sum = c_sum + w * pair_sums(m)
             if collect_hist:
                 codes = ((m.index_select(1, vis) > 0).to(torch.int64)
                          * pow2).sum(dim=1)
@@ -162,14 +228,14 @@ def sweep_sparse_ref(
         noise_out = lfsr_mod.from_u64(st)
     outs = [m, noise_out]
     if accumulate:
-        outs += [s_sum, c_slots]
+        outs += [s_sum, c_sum]
     if collect_hist:
         outs.append(hist)
     return tuple(outs)
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel's wrapper
+# the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
 _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _LAUNCH_ARGTYPES = (
@@ -322,7 +388,7 @@ def sweep_sparse(
         noise_mode, gather_perm, coord_offset, accumulate, collect_hist,
         measured, visible_idx, n_visible)
     if n_half == 0:
-        return _identity_result(m, noise_state, N, D, accumulate,
+        return _identity_result(m, noise_state, N, (D, N), accumulate,
                                 collect_hist, n_visible)
 
     dev = m.device
@@ -409,6 +475,242 @@ def sweep_sparse(
 
 
 sweep_sparse.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the dense engine: Hopper feasibility model + wrapper
+# ---------------------------------------------------------------------------
+def dense_smem_bytes(tb: int, N: int, C: int = 0) -> int:
+    """Shared memory of one K3 block (``csrc/sweep_fused.cu``,
+    ``dense_smem_bytes``): two float32 spin buffers of the tile, its LFSR
+    registers, the two colours' update lists and the compaction scratch."""
+    return 2 * tb * N * 4 + tb * C * 4 + 2 * N * 4 + 33 * 4
+
+
+def dense_tile_chains(N: int, B: int, *, C: int = 0, gram: bool = False,
+                      block_b: int | None = None,
+                      smem_limit: int = H100_SMEM_PER_BLOCK,
+                      sms: int = H100_SMS) -> int:
+    """Chains per K3 block: enough blocks to cover the SMs (at most
+    `MAX_TILE_CHAINS` chains each), within a block's shared memory; with
+    ``gram`` (moments requested), widened until the per-block Gram
+    partials, ``n_blocks · N² · 4`` bytes, fit `GRAM_PARTIAL_BYTES`.
+    Raises ValueError when no tiling fits."""
+    if dense_smem_bytes(1, N, C) > smem_limit:
+        raise ValueError(
+            f"one chain of N={N} spins needs {dense_smem_bytes(1, N, C)} "
+            f"bytes of shared memory in the dense engine; a block can use "
+            f"{smem_limit}: use the slot layout (fused_sparse)")
+    if block_b is None:
+        block_b = min(MAX_TILE_CHAINS, -(-B // sms))
+    tb = max(1, min(int(block_b), B))
+    while dense_smem_bytes(tb, N, C) > smem_limit:
+        tb -= 1
+    while gram and -(-B // tb) * 4 * N * N > GRAM_PARTIAL_BYTES:
+        if tb >= B or dense_smem_bytes(tb + 1, N, C) > smem_limit:
+            raise ValueError(
+                f"the Gram partials of N={N} spins over {B} chains need "
+                f"more than {GRAM_PARTIAL_BYTES} bytes at every tiling "
+                f"that fits a block's shared memory; use the slot layout "
+                f"(fused_sparse)")
+        tb += 1
+    return tb
+
+
+def dense_resident_feasible(N: int, B: int, *,
+                            l2_bytes: int = H100_L2_BYTES,
+                            smem_limit: int = H100_SMEM_PER_BLOCK,
+                            sms: int = H100_SMS) -> bool:
+    """Hopper's model of the dense resident engine's limits (K3): W
+    (4·N² bytes) fits the L2, from which every half-sweep reads it, and
+    some chain tiling fits a block's shared memory with the CD Gram
+    partials within `GRAM_PARTIAL_BYTES`.  The TPU's model
+    (``repro.api.spec.dense_vmem_feasible``) asked whether W fits 16 MB of
+    VMEM instead, which depends on N alone."""
+    if 4 * N * N > l2_bytes:
+        return False
+    try:
+        dense_tile_chains(N, B, gram=True, smem_limit=smem_limit, sms=sms)
+    except ValueError:
+        return False
+    return True
+
+
+_DENSE_ARGTYPES = (
+    [_VP, _VP, _I, _I, _I, _VP]         # m_in, m_out, B, N, S, WT
+    + [_VP] * 8                         # h, gain, off, rg, co, masks, betas
+    + [_VP, _VP, _VP, _VP, _I]          # clamp mask/values, measured, vis, nv
+    + [_I, _VP, _VP, _I, _VP, _I]       # noise mode/in/out, C, perm, decimation
+    + [_U, _U]                          # row0, col0
+    + [_VP] * 6                         # part_s, part_c, out_s, out_c, part_h, out_h
+    + [_I, _I, _VP]                     # tb, threads, stream
+)
+
+
+def _dense_library() -> ctypes.CDLL:
+    lib = build.load("sweep_fused")
+    if lib.sweep_fused_launch.argtypes is None:
+        lib.sweep_fused_launch.argtypes = _DENSE_ARGTYPES
+        lib.sweep_fused_launch.restype = _I
+        lib.sweep_fused_smem_bytes.argtypes = [_I, _I, _I]
+        lib.sweep_fused_smem_bytes.restype = ctypes.c_longlong
+        lib.sweep_fused_error_string.argtypes = [_I]
+        lib.sweep_fused_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def sweep_fused(
+    m: torch.Tensor,              # (B, N) float32 spins in {-1, +1}
+    W: torch.Tensor,              # (N, N) float32 directional couplings
+    h: torch.Tensor,              # (N,) float32 rows
+    gain: torch.Tensor,
+    off: torch.Tensor,
+    rand_gain: torch.Tensor,
+    comp_off: torch.Tensor,
+    mask0: torch.Tensor,          # (N,) bool — colour-0 update set
+    mask1: torch.Tensor,          # (N,) bool — colour-1 update set
+    betas: torch.Tensor,          # (S, B) float32
+    noise_state: torch.Tensor,    # int32 bits: counter (2,), lfsr (B, C)
+    clamp_mask: torch.Tensor | None = None,      # (N,) bool
+    clamp_values: torch.Tensor | None = None,    # (B, N) float32, ±1
+    measured: torch.Tensor | None = None,        # (S,) float32 weights
+    visible_idx: torch.Tensor | None = None,     # (n_visible,) histogram nodes
+    coord_offset=None,            # (row0, col0) Python ints, counter mode
+    *,
+    noise_mode: str = NOISE_COUNTER,
+    decimation: int = 8,
+    gather_perm=None,             # node -> flat LFSR column (length N)
+    accumulate: bool = False,
+    collect_hist: bool = False,
+    n_visible: int = 0,
+    block_b: int | None = None,   # chains per block; None -> fill the SMs
+):
+    """Run S resident sweeps on the dense (N, N) couplings.
+
+    Returns ``(m', noise_state'[, s_sum, c_sum][, hist])``: s_sum (N,) and
+    the Gram matrix c_sum (N, N) ``= Σ mᵀm`` over (chains x measured
+    sweeps) — read edge (i, j) at ``c_sum[i, j]``; hist (2^n_visible,) as
+    in `sweep_sparse`.  All need dividing by their sample counts.
+    ``coord_offset`` shifts the counter hash to global (chain, node)
+    coordinates.
+
+    The update within a half-sweep is synchronous: every input is computed
+    from the spins before the half-sweep, so ``mask0`` / ``mask1`` may hold
+    nodes that W couples.  With integer-valued ``measured`` every partial
+    sum is an integer below 2^24 and the statistics equal
+    `sweep_fused_ref`'s bit for bit.
+
+    CPU tensors go to `sweep_fused_ref`.  A CUDA tensor launches the kernel
+    or raises; ``sweep_fused.launches`` counts the launches.
+    """
+    if not m.is_cuda:
+        return sweep_fused_ref(
+            m, W, h, gain, off, rand_gain, comp_off, mask0, mask1, betas,
+            noise_state, clamp_mask, clamp_values, measured, visible_idx,
+            coord_offset, noise_mode=noise_mode, decimation=decimation,
+            gather_perm=gather_perm, accumulate=accumulate,
+            collect_hist=collect_hist, n_visible=n_visible)
+
+    B, N = m.shape
+    S = betas.shape[0]
+    accumulate, collect_hist = _check_modes(
+        noise_mode, gather_perm, coord_offset, accumulate, collect_hist,
+        measured, visible_idx, n_visible)
+    if S == 0:
+        return _identity_result(m, noise_state, N, (N, N), accumulate,
+                                collect_hist, n_visible)
+
+    dev = m.device
+    f32 = torch.float32
+    _want("m", m, f32, (B, N))
+    _want("W", W, f32, (N, N))
+    rows = [_want(n, t, f32, (N,)) for n, t in (
+        ("h", h), ("gain", gain), ("off", off), ("rand_gain", rand_gain),
+        ("comp_off", comp_off))]
+    mask0 = _mask_u8("mask0", mask0, N)
+    mask1 = _mask_u8("mask1", mask1, N)
+    _want("betas", betas, f32, (S, B))
+    has_clamp = clamp_mask is not None and clamp_values is not None
+    if has_clamp:
+        clamp_mask = _mask_u8("clamp_mask", clamp_mask, N)
+        _want("clamp_values", clamp_values, f32, (B, N))
+    if accumulate or collect_hist:
+        _want("measured", measured, f32, (S,))
+    if collect_hist:
+        visible_idx = torch.as_tensor(visible_idx, device=dev).to(
+            torch.int32).contiguous()
+        _want("visible_idx", visible_idx, torch.int32, (n_visible,))
+    noise_code = _NOISE_CODE[noise_mode]
+    row0 = col0 = 0
+    C = 0
+    perm = None
+    if noise_mode == NOISE_COUNTER:
+        _want("noise_state", noise_state, torch.int32, (2,))
+        if coord_offset is not None:
+            row0, col0 = (int(x) & 0xFFFFFFFF for x in coord_offset)
+    else:
+        if noise_state.ndim != 2:
+            raise ValueError("lfsr noise_state must be (B, C)")
+        C = noise_state.shape[1]
+        _want("noise_state", noise_state, torch.int32, (B, C))
+        perm = torch.as_tensor(np.asarray(gather_perm, np.int32), device=dev)
+        _want("gather_perm", perm, torch.int32, (N,))
+
+    props = torch.cuda.get_device_properties(dev)
+    tb = dense_tile_chains(
+        N, B, C=C, gram=accumulate, block_b=block_b,
+        smem_limit=getattr(props, "shared_memory_per_block_optin",
+                           SMEM_LIMIT_FALLBACK),
+        sms=props.multi_processor_count)
+    n_blocks = -(-B // tb)
+    threads = min(1024, max(64, 32 * (-(-tb * (-(-N // 2)) // 32))))
+    lib = _dense_library()
+    WT = W.t().contiguous()       # threads over nodes read one j's column
+
+    m_out = torch.empty_like(m)
+    noise_out = torch.empty_like(noise_state)
+    part_s = part_c = out_s = out_c = part_h = out_h = None
+    if accumulate:
+        part_s = torch.empty((n_blocks, N), dtype=f32, device=dev)
+        part_c = torch.empty((n_blocks, N, N), dtype=f32, device=dev)
+        out_s = torch.empty((N,), dtype=f32, device=dev)
+        out_c = torch.empty((N, N), dtype=f32, device=dev)
+    if collect_hist:
+        part_h = torch.empty((n_blocks, 2 ** n_visible), dtype=f32,
+                             device=dev)
+        out_h = torch.empty((2 ** n_visible,), dtype=f32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        rc = lib.sweep_fused_launch(
+            ptr(m), ptr(m_out), B, N, S, ptr(WT),
+            *(ptr(r) for r in rows), ptr(mask0), ptr(mask1), ptr(betas),
+            ptr(clamp_mask) if has_clamp else None,
+            ptr(clamp_values) if has_clamp else None,
+            ptr(measured) if (accumulate or collect_hist) else None,
+            ptr(visible_idx) if collect_hist else None,
+            n_visible if collect_hist else 0,
+            noise_code, ptr(noise_state), ptr(noise_out), C, ptr(perm),
+            int(decimation), row0, col0,
+            ptr(part_s), ptr(part_c), ptr(out_s), ptr(out_c), ptr(part_h),
+            ptr(out_h), tb, threads,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        msg = lib.sweep_fused_error_string(rc).decode()
+        raise RuntimeError(f"sweep_fused launch: CUDA error {rc} ({msg})")
+    sweep_fused.launches += 1
+
+    outs = [m_out, noise_out]
+    if accumulate:
+        outs += [out_s, out_c]
+    if collect_hist:
+        outs.append(out_h)
+    return tuple(outs)
+
+
+sweep_fused.launches = 0
 
 
 def tanh_probe(x: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,7 @@ import torch
 
 from repro import api as ref_api
 from repro.core import energy as ref_energy
+from repro.core import pbit as ref_pbit
 from repro.core.chimera import make_chimera
 from repro_torch import api as port_api
 from repro_torch.core import cd as port_cd
@@ -120,17 +121,38 @@ def test_backend_resolution(monkeypatch):
     with pytest.raises(ValueError, match="counter"):
         mk(noise="philox", backend="fused_sparse").session(chains=2)
     for dense in ("ref", "pallas", "fused"):
-        with pytest.raises(NotImplementedError, match="dense"):
-            mk(noise="counter", backend=dense).session(chains=2)
-    with pytest.raises(NotImplementedError, match="dense"):
-        mk(noise="counter").sampler_spec(attach_sparse=False).validate() \
-            and port_api.Session(
-                mk(noise="counter").sampler_spec(attach_sparse=False))
+        assert mk(noise="counter", backend=dense).session(
+            chains=2).backend == dense
+        with pytest.raises(ValueError, match="sparse-native"):
+            port_cd.PBitMachine.create(g, 0, device="cpu", sparse=True,
+                                       noise="counter", backend=dense
+                                       ).session(chains=2)
+    with pytest.raises(ValueError, match="counter"):
+        mk(noise="philox", backend="fused").session(chains=2)
+    # a dense-only spec: the dense resident engine when the noise is
+    # in-kernel (and Hopper's model admits it), else the plain loop
+    assert port_api.Session(mk(noise="counter").sampler_spec(
+        attach_sparse=False)).backend == "fused"
+    assert port_api.Session(mk(noise="philox").sampler_spec(
+        attach_sparse=False)).backend == "ref"
     with pytest.raises(ValueError, match="schedule"):
         s = mk(noise="counter").session(chains=2)
         st = s.init_state(s.generator(0))
         s.sample(s.program_master(np.zeros(g.n_edges), np.zeros(8)), st.m,
                  st.noise_state)
+
+
+def test_default_backend_is_ref(monkeypatch):
+    """The engine layer's default is the reference's: the plain dense loop
+    "ref", a bit-exact sibling of the slot-layout backends on Chimera."""
+    monkeypatch.delenv("REPRO_PBIT_BACKEND", raising=False)
+    assert port_pbit.resolve_backend(None) == "ref"
+    assert port_pbit.resolve_backend("auto") == "ref"
+    assert port_pbit.resolve_backend(None) == ref_pbit.resolve_backend(None)
+    monkeypatch.setenv("REPRO_PBIT_BACKEND", "pallas")
+    assert port_pbit.resolve_backend(None) == "pallas"
+    with pytest.raises(ValueError, match="unknown backend"):
+        port_pbit.resolve_backend("dense")
 
 
 def test_init_state_is_seeded_and_typed():

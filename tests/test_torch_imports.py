@@ -58,7 +58,9 @@ def test_port_imports_without_pulling_in_jax():
     code = (
         "import sys; sys.path.insert(0, 'src'); sys.path.insert(0, '.');"
         "import repro_torch.api, repro_torch.core.cd, repro_torch.convert,"
-        " repro_torch.kernels.ops, chip_smoke;"
+        " repro_torch.kernels.ops, repro_torch.kernels.pbit_update,"
+        " repro_torch.core.tasks, repro_torch.core.annealing,"
+        " repro_torch.core.tempering, repro_torch.core.maxcut, chip_smoke;"
         "bad = [m for m in ('jax', 'jaxlib', 'repro') if m in sys.modules];"
         "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -73,6 +75,52 @@ def test_kernel_sources_ship_with_the_package():
     assert "use_fast_math" not in " ".join(
         importlib.import_module("repro_torch.kernels.build").NVCC_FLAGS)
     assert "csrc/*.cu" in (ROOT / "pyproject.toml").read_text()
+
+
+@pytest.mark.parametrize("name", ["sweep_sparse", "pbit_update",
+                                  "sweep_fused"])
+def test_every_kernel_source_ships_and_keys_its_headers(name, tmp_path,
+                                                        monkeypatch):
+    """Each library has its .cu with a plain C interface; its build key
+    covers every csrc header it includes, so an edited header rebuilds."""
+    import shutil
+
+    build = importlib.import_module("repro_torch.kernels.build")
+    assert name in build.LIBRARIES
+    text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+    assert 'extern "C"' in text and '#include "pbit_common.cuh"' in text
+    assert [p.name for p in build.sources(name)] == [f"{name}.cu",
+                                                     "pbit_common.cuh"]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    before = build.library_path(name)
+    header = csrc / "pbit_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert build.library_path(name) != before
+    assert build.library_path(name).parent == tmp_path / "build"
+
+
+@pytest.mark.parametrize("module,wrapper,plain", [
+    ("sweep_fused", "sweep_fused", "sweep_fused_ref"),
+    ("pbit_update", "pbit_half_sweep", "pbit_half_sweep_ref")])
+def test_dense_wrappers_take_the_plain_version_only_for_cpu_tensors(
+        module, wrapper, plain):
+    """As for K1: dispatch on the tensor's device alone, no try/except
+    around the launch, no library call standing in for the kernel."""
+    src = (PORT / "kernels" / f"{module}.py").read_text()
+    fn = next(n for n in ast.walk(ast.parse(src))
+              if isinstance(n, ast.FunctionDef) and n.name == wrapper)
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", "") == plain]
+    assert len(calls) == 1
+    body = ast.get_source_segment(src, fn)
+    assert "matmul" not in body and "torch.compile" not in body
+    cu = (PORT / "kernels" / "csrc" / ("pbit_update.cu" if module ==
+                                      "pbit_update" else "sweep_fused.cu"))
+    assert "cublas" not in cu.read_text().lower()
 
 
 def test_default_device_without_cuda_raises():
@@ -95,6 +143,9 @@ def test_default_device_without_cuda_raises():
         api.Session(spec)
     with pytest.raises(RuntimeError, match="cuda"):
         api.spec.require_device("cuda:0")
+    for backend in ("ref", "pallas", "fused"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            PBitMachine.create(g, 0, noise="counter", backend=backend)
 
 
 def test_smoke_script_refuses_to_run_without_a_gpu():
