@@ -167,14 +167,11 @@ def neuron_input(m: torch.Tensor, chip: EffectiveChip) -> torch.Tensor:
 def half_sweep(m: torch.Tensor, chip: EffectiveChip,
                update_mask: torch.Tensor, beta, u: torch.Tensor
                ) -> torch.Tensor:
-    """Parallel update of the nodes selected by ``update_mask`` (eqn 2).
-
-    ``beta`` may be a scalar or a (B,) per-chain vector (tempering ladder).
-    """
-    from repro_torch.kernels.ref import field_decision_update
-    return field_decision_update(
-        m, neuron_input(m, chip), chip.tanh_gain, chip.tanh_offset,
-        chip.rand_gain, chip.comp_offset, update_mask, beta, u)
+    """Parallel update of the nodes selected by ``update_mask`` (eqn 2),
+    the plain dense half-sweep.  ``beta`` may be a scalar or a (B,)
+    per-chain vector (tempering ladder)."""
+    from repro_torch.kernels import ops as kernel_ops
+    return kernel_ops.ref_half_sweep(m, chip, update_mask, beta, u)
 
 
 def make_sweep_fn(

@@ -9,12 +9,13 @@
 // s_sum (N,), the second moment as the Gram matrix sum m^T m (N, N), and the
 // visible-pattern histogram.
 //
-// What bounds it on this card: reading W.  At N=440 W is 774,400 bytes, more
-// than a block's 232,448 bytes of shared memory, so it stays in device memory
-// and is served from the 50 MB L2; every half-sweep each block reads the rows
-// of the colour it updates once (each element reused by the block's chains).
-// The arithmetic, 2*N flops per (chain, updated node), is the same order.
-// The design:
+// What bounds it on this card: the pass over W every half-sweep.  At N=440 W
+// is 774,400 bytes, more than a block's 232,448 bytes of shared memory, so it
+// stays in device memory and is served from the 50 MB L2: each thread's sum is
+// a chain of N dependent adds with one L2 load per term.  The arithmetic,
+// 2*N flops per (chain, updated node), is far below the card's rate.  In a CD
+// phase the Gram partials (n_blocks * N * N floats read and written per
+// measured sweep) cost more than the sweeps.  The design:
 //   * grid over chains as in K1: block `blk` owns chains [blk*tb, blk*tb+tb)
 //     for all half-sweeps; the ragged last tile is the block's own bound.
 //   * the product is the sequential float32 row reduction in ascending j from

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import pbit_half_sweep_ref
+from repro_torch.kernels.sweep_fused import SMEM_LIMIT_FALLBACK, _want
 
 __all__ = ["pbit_half_sweep", "pbit_half_sweep_ref"]
 
@@ -34,7 +35,6 @@ _LAUNCH_ARGTYPES = (
     + [_VP] * 6             # W, h, gain, off, rg, co
     + [_VP, _VP, _VP, _VP]  # mask, beta, u, stream
 )
-SMEM_LIMIT_FALLBACK = 232448  # 227 KB: Hopper's opt-in limit per block
 
 
 def _library() -> ctypes.CDLL:
@@ -47,21 +47,6 @@ def _library() -> ctypes.CDLL:
         lib.pbit_half_sweep_error_string.argtypes = [_I]
         lib.pbit_half_sweep_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _want(name, t, dtype, shape):
-    """Check a kernel operand: CUDA, dtype, shape, contiguous."""
-    if not t.is_cuda:
-        raise ValueError(f"{name} must lie on the CUDA device of m, got "
-                         f"{t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return t
 
 
 def beta_column(beta, B: int, device) -> torch.Tensor:

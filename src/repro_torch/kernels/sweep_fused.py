@@ -29,6 +29,7 @@ that lie on the CPU; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -310,6 +311,107 @@ def _tile_chains(lib, B, N, C, noise_code, dev, block_b):
     return tb
 
 
+class _Operands(NamedTuple):
+    """The operands both engines take beyond the weights, checked."""
+
+    rows: list           # h, gain, off, rand_gain, comp_off
+    mask0: torch.Tensor
+    mask1: torch.Tensor
+    clamp_mask: torch.Tensor | None     # None unless clamps are imposed
+    clamp_values: torch.Tensor | None
+    measured: torch.Tensor | None       # None unless statistics are taken
+    visible_idx: torch.Tensor | None    # None unless the histogram is
+    noise_code: int
+    C: int                              # LFSR cells per chain (0: counter)
+    perm: torch.Tensor | None           # (N,) gather permutation (lfsr)
+    row0: int
+    col0: int
+
+
+def _operands(m, rows, mask0, mask1, betas, noise_state, clamp_mask,
+              clamp_values, measured, visible_idx, coord_offset, *,
+              noise_mode, gather_perm, accumulate, collect_hist,
+              n_visible) -> _Operands:
+    """Check the shared operands of a launch (CUDA, dtype, shape,
+    contiguity) and convert masks and indices to what the kernels read."""
+    B, N = m.shape
+    S = betas.shape[0]
+    dev = m.device
+    f32 = torch.float32
+    _want("m", m, f32, (B, N))
+    rows = [_want(n, t, f32, (N,)) for n, t in zip(
+        ("h", "gain", "off", "rand_gain", "comp_off"), rows)]
+    mask0 = _mask_u8("mask0", mask0, N)
+    mask1 = _mask_u8("mask1", mask1, N)
+    _want("betas", betas, f32, (S, B))
+    if clamp_mask is not None and clamp_values is not None:
+        clamp_mask = _mask_u8("clamp_mask", clamp_mask, N)
+        _want("clamp_values", clamp_values, f32, (B, N))
+    else:
+        clamp_mask = clamp_values = None
+    if accumulate or collect_hist:
+        _want("measured", measured, f32, (S,))
+    else:
+        measured = None
+    if collect_hist:
+        visible_idx = torch.as_tensor(visible_idx, device=dev).to(
+            torch.int32).contiguous()
+        _want("visible_idx", visible_idx, torch.int32, (n_visible,))
+    else:
+        visible_idx = None
+    row0 = col0 = C = 0
+    perm = None
+    if noise_mode == NOISE_COUNTER:
+        _want("noise_state", noise_state, torch.int32, (2,))
+        if coord_offset is not None:
+            row0, col0 = (int(x) & 0xFFFFFFFF for x in coord_offset)
+    else:
+        if noise_state.ndim != 2:
+            raise ValueError("lfsr noise_state must be (B, C)")
+        C = noise_state.shape[1]
+        _want("noise_state", noise_state, torch.int32, (B, C))
+        perm = torch.as_tensor(np.asarray(gather_perm, np.int32), device=dev)
+        _want("gather_perm", perm, torch.int32, (N,))
+    return _Operands(rows, mask0, mask1, clamp_mask, clamp_values, measured,
+                     visible_idx, _NOISE_CODE[noise_mode], C, perm, row0,
+                     col0)
+
+
+def _outputs(m, noise_state, n_blocks, c_shape, accumulate, collect_hist,
+             n_visible) -> dict:
+    """Output and per-block partial buffers of a launch (None where a
+    statistic is not taken)."""
+    dev, f32, N = m.device, torch.float32, m.shape[1]
+    out = dict(m=torch.empty_like(m), noise=torch.empty_like(noise_state),
+               part_s=None, part_c=None, s=None, c=None, part_h=None,
+               h=None)
+    if accumulate:
+        out.update(part_s=torch.empty((n_blocks, N), dtype=f32, device=dev),
+                   part_c=torch.empty((n_blocks, *c_shape), dtype=f32,
+                                      device=dev),
+                   s=torch.empty((N,), dtype=f32, device=dev),
+                   c=torch.empty(c_shape, dtype=f32, device=dev))
+    if collect_hist:
+        out.update(part_h=torch.empty((n_blocks, 2 ** n_visible), dtype=f32,
+                                      device=dev),
+                   h=torch.empty((2 ** n_visible,), dtype=f32, device=dev))
+    return out
+
+
+def _result(out: dict) -> tuple:
+    """``(m', noise_state'[, s_sum, c_sum][, hist])`` from `_outputs`."""
+    keep = [out["m"], out["noise"]]
+    if out["s"] is not None:
+        keep += [out["s"], out["c"]]
+    if out["h"] is not None:
+        keep.append(out["h"])
+    return tuple(keep)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def sweep_sparse(
     m: torch.Tensor,              # (B, N) float32 spins in {-1, +1}
     nbr_idx: torch.Tensor,        # (D, N) int32 neighbor table
@@ -391,87 +493,35 @@ def sweep_sparse(
         return _identity_result(m, noise_state, N, (D, N), accumulate,
                                 collect_hist, n_visible)
 
-    dev = m.device
-    f32 = torch.float32
-    _want("m", m, f32, (B, N))
     _want("nbr_idx", nbr_idx, torch.int32, (D, N))
-    _want("nbr_w", nbr_w, f32, (D, N))
-    rows = [_want(n, t, f32, (N,)) for n, t in (
-        ("h", h), ("gain", gain), ("off", off), ("rand_gain", rand_gain),
-        ("comp_off", comp_off))]
-    mask0 = _mask_u8("mask0", mask0, N)
-    mask1 = _mask_u8("mask1", mask1, N)
-    _want("betas", betas, f32, (S, B))
-    has_clamp = clamp_mask is not None and clamp_values is not None
-    if has_clamp:
-        clamp_mask = _mask_u8("clamp_mask", clamp_mask, N)
-        _want("clamp_values", clamp_values, f32, (B, N))
-    if accumulate or collect_hist:
-        _want("measured", measured, f32, (S,))
-    if collect_hist:
-        visible_idx = torch.as_tensor(visible_idx, device=dev).to(
-            torch.int32).contiguous()
-        _want("visible_idx", visible_idx, torch.int32, (n_visible,))
-    noise_code = _NOISE_CODE[noise_mode]
-    row0 = col0 = 0
-    C = 0
-    perm = None
-    if noise_mode == NOISE_COUNTER:
-        _want("noise_state", noise_state, torch.int32, (2,))
-        if coord_offset is not None:
-            row0, col0 = (int(x) & 0xFFFFFFFF for x in coord_offset)
-    else:
-        if noise_state.ndim != 2:
-            raise ValueError("lfsr noise_state must be (B, C)")
-        C = noise_state.shape[1]
-        _want("noise_state", noise_state, torch.int32, (B, C))
-        perm = torch.as_tensor(np.asarray(gather_perm, np.int32), device=dev)
-        _want("gather_perm", perm, torch.int32, (N,))
-
+    _want("nbr_w", nbr_w, torch.float32, (D, N))
+    op = _operands(m, (h, gain, off, rand_gain, comp_off), mask0, mask1,
+                   betas, noise_state, clamp_mask, clamp_values, measured,
+                   visible_idx, coord_offset, noise_mode=noise_mode,
+                   gather_perm=gather_perm, accumulate=accumulate,
+                   collect_hist=collect_hist, n_visible=n_visible)
+    dev = m.device
     lib = _library()
-    tb = _tile_chains(lib, B, N, C, noise_code, dev, block_b)
+    tb = _tile_chains(lib, B, N, op.C, op.noise_code, dev, block_b)
     n_blocks = -(-B // tb)
     threads = min(1024, max(64, 32 * (-(-N // 32))))
-
-    m_out = torch.empty_like(m)
-    noise_out = torch.empty_like(noise_state)
-    part_s = part_c = out_s = out_c = part_h = out_h = None
-    if accumulate:
-        part_s = torch.empty((n_blocks, N), dtype=f32, device=dev)
-        part_c = torch.empty((n_blocks, D, N), dtype=f32, device=dev)
-        out_s = torch.empty((N,), dtype=f32, device=dev)
-        out_c = torch.empty((D, N), dtype=f32, device=dev)
-    if collect_hist:
-        part_h = torch.empty((n_blocks, 2 ** n_visible), dtype=f32,
-                             device=dev)
-        out_h = torch.empty((2 ** n_visible,), dtype=f32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    out = _outputs(m, noise_state, n_blocks, (D, N), accumulate,
+                   collect_hist, n_visible)
     with torch.cuda.device(dev):
         rc = lib.sweep_sparse_launch(
-            ptr(m), ptr(m_out), B, N, D, S, ptr(nbr_idx), ptr(nbr_w),
-            *(ptr(r) for r in rows), ptr(mask0), ptr(mask1), ptr(betas),
-            ptr(clamp_mask) if has_clamp else None,
-            ptr(clamp_values) if has_clamp else None,
-            ptr(measured) if (accumulate or collect_hist) else None,
-            ptr(visible_idx) if collect_hist else None,
-            n_visible if collect_hist else 0,
-            noise_code, ptr(noise_state), ptr(noise_out), C, ptr(perm),
-            int(decimation), row0, col0, int(half_offset), int(n_half),
-            ptr(part_s), ptr(part_c), ptr(out_s), ptr(out_c), ptr(part_h),
-            ptr(out_h), tb, threads,
+            _ptr(m), _ptr(out["m"]), B, N, D, S, _ptr(nbr_idx), _ptr(nbr_w),
+            *map(_ptr, op.rows), _ptr(op.mask0), _ptr(op.mask1), _ptr(betas),
+            _ptr(op.clamp_mask), _ptr(op.clamp_values), _ptr(op.measured),
+            _ptr(op.visible_idx), n_visible if collect_hist else 0,
+            op.noise_code, _ptr(noise_state), _ptr(out["noise"]), op.C,
+            _ptr(op.perm), int(decimation), op.row0, op.col0,
+            int(half_offset), int(n_half), _ptr(out["part_s"]),
+            _ptr(out["part_c"]), _ptr(out["s"]), _ptr(out["c"]),
+            _ptr(out["part_h"]), _ptr(out["h"]), tb, threads,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_cuda(lib, rc, "sweep_sparse launch")
     sweep_sparse.launches += 1
-
-    outs = [m_out, noise_out]
-    if accumulate:
-        outs += [out_s, out_c]
-    if collect_hist:
-        outs.append(out_h)
-    return tuple(outs)
+    return _result(out)
 
 
 sweep_sparse.launches = 0
@@ -517,20 +567,17 @@ def dense_tile_chains(N: int, B: int, *, C: int = 0, gram: bool = False,
     return tb
 
 
-def dense_resident_feasible(N: int, B: int, *,
-                            l2_bytes: int = H100_L2_BYTES,
-                            smem_limit: int = H100_SMEM_PER_BLOCK,
-                            sms: int = H100_SMS) -> bool:
+def dense_resident_feasible(N: int, B: int) -> bool:
     """Hopper's model of the dense resident engine's limits (K3): W
     (4·N² bytes) fits the L2, from which every half-sweep reads it, and
     some chain tiling fits a block's shared memory with the CD Gram
     partials within `GRAM_PARTIAL_BYTES`.  The TPU's model
     (``repro.api.spec.dense_vmem_feasible``) asked whether W fits 16 MB of
     VMEM instead, which depends on N alone."""
-    if 4 * N * N > l2_bytes:
+    if 4 * N * N > H100_L2_BYTES:
         return False
     try:
-        dense_tile_chains(N, B, gram=True, smem_limit=smem_limit, sms=sms)
+        dense_tile_chains(N, B, gram=True)
     except ValueError:
         return False
     return True
@@ -620,45 +667,16 @@ def sweep_fused(
         return _identity_result(m, noise_state, N, (N, N), accumulate,
                                 collect_hist, n_visible)
 
+    _want("W", W, torch.float32, (N, N))
+    op = _operands(m, (h, gain, off, rand_gain, comp_off), mask0, mask1,
+                   betas, noise_state, clamp_mask, clamp_values, measured,
+                   visible_idx, coord_offset, noise_mode=noise_mode,
+                   gather_perm=gather_perm, accumulate=accumulate,
+                   collect_hist=collect_hist, n_visible=n_visible)
     dev = m.device
-    f32 = torch.float32
-    _want("m", m, f32, (B, N))
-    _want("W", W, f32, (N, N))
-    rows = [_want(n, t, f32, (N,)) for n, t in (
-        ("h", h), ("gain", gain), ("off", off), ("rand_gain", rand_gain),
-        ("comp_off", comp_off))]
-    mask0 = _mask_u8("mask0", mask0, N)
-    mask1 = _mask_u8("mask1", mask1, N)
-    _want("betas", betas, f32, (S, B))
-    has_clamp = clamp_mask is not None and clamp_values is not None
-    if has_clamp:
-        clamp_mask = _mask_u8("clamp_mask", clamp_mask, N)
-        _want("clamp_values", clamp_values, f32, (B, N))
-    if accumulate or collect_hist:
-        _want("measured", measured, f32, (S,))
-    if collect_hist:
-        visible_idx = torch.as_tensor(visible_idx, device=dev).to(
-            torch.int32).contiguous()
-        _want("visible_idx", visible_idx, torch.int32, (n_visible,))
-    noise_code = _NOISE_CODE[noise_mode]
-    row0 = col0 = 0
-    C = 0
-    perm = None
-    if noise_mode == NOISE_COUNTER:
-        _want("noise_state", noise_state, torch.int32, (2,))
-        if coord_offset is not None:
-            row0, col0 = (int(x) & 0xFFFFFFFF for x in coord_offset)
-    else:
-        if noise_state.ndim != 2:
-            raise ValueError("lfsr noise_state must be (B, C)")
-        C = noise_state.shape[1]
-        _want("noise_state", noise_state, torch.int32, (B, C))
-        perm = torch.as_tensor(np.asarray(gather_perm, np.int32), device=dev)
-        _want("gather_perm", perm, torch.int32, (N,))
-
     props = torch.cuda.get_device_properties(dev)
     tb = dense_tile_chains(
-        N, B, C=C, gram=accumulate, block_b=block_b,
+        N, B, C=op.C, gram=accumulate, block_b=block_b,
         smem_limit=getattr(props, "shared_memory_per_block_optin",
                            SMEM_LIMIT_FALLBACK),
         sms=props.multi_processor_count)
@@ -666,48 +684,24 @@ def sweep_fused(
     threads = min(1024, max(64, 32 * (-(-tb * (-(-N // 2)) // 32))))
     lib = _dense_library()
     WT = W.t().contiguous()       # threads over nodes read one j's column
-
-    m_out = torch.empty_like(m)
-    noise_out = torch.empty_like(noise_state)
-    part_s = part_c = out_s = out_c = part_h = out_h = None
-    if accumulate:
-        part_s = torch.empty((n_blocks, N), dtype=f32, device=dev)
-        part_c = torch.empty((n_blocks, N, N), dtype=f32, device=dev)
-        out_s = torch.empty((N,), dtype=f32, device=dev)
-        out_c = torch.empty((N, N), dtype=f32, device=dev)
-    if collect_hist:
-        part_h = torch.empty((n_blocks, 2 ** n_visible), dtype=f32,
-                             device=dev)
-        out_h = torch.empty((2 ** n_visible,), dtype=f32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    out = _outputs(m, noise_state, n_blocks, (N, N), accumulate,
+                   collect_hist, n_visible)
     with torch.cuda.device(dev):
         rc = lib.sweep_fused_launch(
-            ptr(m), ptr(m_out), B, N, S, ptr(WT),
-            *(ptr(r) for r in rows), ptr(mask0), ptr(mask1), ptr(betas),
-            ptr(clamp_mask) if has_clamp else None,
-            ptr(clamp_values) if has_clamp else None,
-            ptr(measured) if (accumulate or collect_hist) else None,
-            ptr(visible_idx) if collect_hist else None,
-            n_visible if collect_hist else 0,
-            noise_code, ptr(noise_state), ptr(noise_out), C, ptr(perm),
-            int(decimation), row0, col0,
-            ptr(part_s), ptr(part_c), ptr(out_s), ptr(out_c), ptr(part_h),
-            ptr(out_h), tb, threads,
+            _ptr(m), _ptr(out["m"]), B, N, S, _ptr(WT),
+            *map(_ptr, op.rows), _ptr(op.mask0), _ptr(op.mask1), _ptr(betas),
+            _ptr(op.clamp_mask), _ptr(op.clamp_values), _ptr(op.measured),
+            _ptr(op.visible_idx), n_visible if collect_hist else 0,
+            op.noise_code, _ptr(noise_state), _ptr(out["noise"]), op.C,
+            _ptr(op.perm), int(decimation), op.row0, op.col0,
+            _ptr(out["part_s"]), _ptr(out["part_c"]), _ptr(out["s"]),
+            _ptr(out["c"]), _ptr(out["part_h"]), _ptr(out["h"]), tb, threads,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.sweep_fused_error_string(rc).decode()
         raise RuntimeError(f"sweep_fused launch: CUDA error {rc} ({msg})")
     sweep_fused.launches += 1
-
-    outs = [m_out, noise_out]
-    if accumulate:
-        outs += [out_s, out_c]
-    if collect_hist:
-        outs.append(out_h)
-    return tuple(outs)
+    return _result(out)
 
 
 sweep_fused.launches = 0

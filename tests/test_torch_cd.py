@@ -165,3 +165,24 @@ def test_and_gate_learning_under_mismatch():
     codes = port_hw.quantize_codes(torch.as_tensor(res_real.Jm)).numpy()
     assert codes.min() >= -128 and codes.max() <= 127
     assert (res_real.Jm[~g.adjacency()] == 0).all()
+
+
+def test_pcd_momentum_decay_smoke():
+    """Persistent chains, momentum, weight decay and a separate bias rate
+    (tests/test_tempering.py::test_pcd_momentum_smoke's options, plus the
+    two rates) train without divergence, within the DAC range."""
+    g = make_chimera(1, 1)
+    task = port_tasks.and_gate_task(g)
+    mach = port_cd.PBitMachine.create(g, 0, noise="counter", backend="fused",
+                                      w_scale=0.05, device="cpu")
+    cfg = port_cd.CDConfig(lr=3.0, cd_k=10, pos_sweeps=10, chains=128,
+                           epochs=30, persistent=True, momentum=0.5,
+                           weight_decay=0.01, h_lr_scale=0.5)
+    res = task.train(mach, cfg, 1, eval_every=30)
+    assert np.isfinite(res.kl_history[-1][1])
+    assert np.abs(res.Jm).max() <= 127.0 and np.abs(res.hm).max() <= 127.0
+    assert not any(m["update_skipped"] for m in res.metric_history)
+    plain = task.train(mach, port_cd.CDConfig(lr=3.0, cd_k=10, pos_sweeps=10,
+                                              chains=128, epochs=30), 1,
+                       eval_every=30)
+    assert not np.array_equal(plain.J_edges, res.J_edges)

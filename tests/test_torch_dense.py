@@ -134,6 +134,7 @@ CASES = {
     "moments": dict(measured=BURN),
     "moments_clamped": dict(measured=BURN, clamp=True),
     "hist_nv3": dict(measured=BURN, visible=[0, 5, 9]),
+    "hist_nv12": dict(measured=BURN, visible=list(range(0, 24, 2))),
     "intra_colour": dict(intra=True, measured=BURN),
 }
 LAUNCHES = [("2x2", 8, case) for case in CASES] + [
