@@ -27,7 +27,7 @@ through the plain version.  Any failed phase raises and the exit code is
 non-zero; without a GPU it exits 1 and prints no result.
 
 Output: one JSON object per line —
-  {"phase": "env", ...}            versions, card name and power limit
+  {"phase": "env", ...}            versions, card name, power limit, limits
   {"phase": "build", ...}          seconds to build each library
   {"phase": "kernel_checks", ...}  one line per kernel (and dense_vs_sparse)
   {"phase": "main_path", ...}      the sample path: launches, replays, times
@@ -1051,10 +1051,14 @@ def dense_kernel_records(seed: int, dense_checks: list, train: dict,
                   if k not in ("measured", "accumulate")}
     cd_sweeps_ms = cuda_ms(lambda: sweep_fused(*cd_args, **no_moments))
     _, cd_plain_ms = timed_once(lambda: sweep_fused_ref(*cd_args, **cd_kw))
+    cd_B = cd_args[0].shape[0]
     cd_S = cd_args[9].shape[0]
     meas = int(cd_kw["measured"].sum())
-    cd_ops = (B * n * cd_S * (2 * n + DECISION_OPS + UNIFORM_OPS + HASH_OPS)
-              + meas * (B * n * n * 2 + B * n))
+    # per measured sweep: s_sum's B·N adds, and a multiply-add per chain
+    # for each of the Gram's N(N+1)/2 distinct entries (mᵀm is symmetric)
+    cd_ops = (cd_B * n * cd_S
+              * (2 * n + DECISION_OPS + UNIFORM_OPS + HASH_OPS)
+              + meas * (cd_B * n * (n + 1) + cd_B * n))
     k3 = {"name": "sweep_fused", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/sweep_fused.cu",
           "replaces": "src/repro/kernels/sweep_fused.py:545",
@@ -1121,14 +1125,20 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.sweep_fused import H100, card_limits
 
     smi = nvidia_smi_line()
     nvcc = subprocess.run([build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True).stdout
+    limits = card_limits(DEVICE)
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc.strip().splitlines()[-2].strip(),
-          "card": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+          "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          # what the dense engine's tiling and feasibility model read here,
+          # and whether it is the H100 model a CPU-resolved spec uses
+          "card_limits": limits._asdict(),
+          "card_limits_equal_h100_model": limits == H100})
 
     t0 = time.perf_counter()
     seconds = build.build_all()

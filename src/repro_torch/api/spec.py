@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core.chimera import ChimeraGraph
 from repro_torch.core.hardware import HardwareConfig, Mismatch, SparseMismatch
-from repro_torch.kernels.sweep_fused import dense_resident_feasible
+from repro_torch.kernels.sweep_fused import card_limits, dense_resident_feasible
 
 BACKENDS = ("ref", "pallas", "fused", "sparse", "fused_sparse")
 FUSED_BACKENDS = ("fused", "fused_sparse")
@@ -254,10 +254,12 @@ def _auto_backend(spec: SamplerSpec) -> str:
     be generated in it, else the half-sweep loop.  A dense-only spec takes
     the dense resident engine when it fits Hopper's limits
     (`dense_resident_feasible`: W in L2, the tile's spins in shared memory,
-    the Gram partials bounded) and the noise is in-kernel, else "ref"."""
+    the Gram partials bounded, on the spec's card: `card_limits`) and the
+    noise is in-kernel, else "ref"."""
     in_kernel = spec.noise in IN_KERNEL_NOISE
     if spec.has_slot_layout:
         return "fused_sparse" if in_kernel else "sparse"
-    if in_kernel and dense_resident_feasible(spec.graph.n_nodes, spec.chains):
+    if in_kernel and dense_resident_feasible(
+            spec.graph.n_nodes, spec.chains, card_limits(spec.device)):
         return "fused"
     return "ref"

@@ -97,14 +97,25 @@ __device__ __forceinline__ void lfsr_step_tile(uint32_t* lf, int count,
 // ---------------------------------------------------------------------------
 // eqn 2: the pre-comparator decision, in the order of
 // kernels/ref.py::decision_value — I = acc + h, act = tanh((beta*gain) *
-// (I + off)), decision = (act + rg*u) + co
+// (I + off)), decision = (act + rg*u) + co.  K1 issues the tanh before it
+// draws the noise byte (activation, then decide): the other order measured
+// slower there.
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ float activation(float acc, float h, float beta,
+                                            float gain, float off) {
+  const float I = __fadd_rn(acc, h);
+  return tanhf(__fmul_rn(__fmul_rn(beta, gain), __fadd_rn(I, off)));
+}
+
+__device__ __forceinline__ float decide(float act, float rg, float co,
+                                        float u) {
+  return __fadd_rn(__fadd_rn(act, __fmul_rn(rg, u)), co);
+}
+
 __device__ __forceinline__ float decision_u(float acc, float h, float beta,
                                             float gain, float off, float rg,
                                             float co, float u) {
-  const float I = __fadd_rn(acc, h);
-  const float act = tanhf(__fmul_rn(__fmul_rn(beta, gain), __fadd_rn(I, off)));
-  return __fadd_rn(__fadd_rn(act, __fmul_rn(rg, u)), co);
+  return decide(activation(acc, h, beta, gain, off), rg, co, u);
 }
 
 // The same with the uniform drawn from a noise byte.

@@ -77,14 +77,9 @@ struct Params {
   int tb;                     // chains per block
 };
 
-__host__ __device__ inline size_t dense_smem_bytes(int tb, int N, int C) {
-  return (size_t)2 * tb * N * sizeof(float)      // two spin buffers
-         + (size_t)tb * C * sizeof(uint32_t)     // LFSR registers
-         + (size_t)2 * N * sizeof(int)           // colour update lists
-         + 33 * sizeof(int);                     // compaction scratch
-}
-
 __global__ void __launch_bounds__(1024) sweep_fused_kernel(const Params p) {
+  // Layout of the dynamic shared memory; its size is computed once, by the
+  // wrapper (kernels/sweep_fused.py::dense_smem_bytes), and passed in.
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nt = blockDim.x, blk = blockIdx.x;
   const int N = p.N, B = p.B, C = p.C, tb = p.tb;
@@ -215,12 +210,8 @@ __global__ void __launch_bounds__(1024) sweep_fused_kernel(const Params p) {
 
 extern "C" {
 
-// Shared-memory bytes one block needs; the wrapper checks this against the
-// card's opt-in limit before choosing `tb`.
-long long sweep_fused_smem_bytes(int tb, int N, int C) {
-  return (long long)dense_smem_bytes(tb, N, C);
-}
-
+// smem: one block's dynamic shared memory for `tb` chains, as the wrapper's
+// dense_smem_bytes sizes the layout at the top of sweep_fused_kernel.
 int sweep_fused_launch(
     const float* m_in, float* m_out, int B, int N, int S, const float* WT,
     const float* h, const float* gain, const float* off, const float* rg,
@@ -230,7 +221,7 @@ int sweep_fused_launch(
     int noise_mode, const uint32_t* noise_in, uint32_t* noise_out, int C,
     const int* perm, int decimation, uint32_t row0, uint32_t col0,
     float* part_s, float* part_c, float* out_s, float* out_c, float* part_h,
-    float* out_h, int tb, int threads, void* stream_ptr) {
+    float* out_h, int tb, int threads, int smem, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   Params p;
   p.m_in = m_in; p.m_out = m_out; p.B = B; p.N = N; p.S = S; p.WT = WT;
@@ -244,7 +235,6 @@ int sweep_fused_launch(
   p.tb = tb;
 
   const int n_blocks = (B + tb - 1) / tb;
-  const int smem = (int)dense_smem_bytes(tb, N, C);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         sweep_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

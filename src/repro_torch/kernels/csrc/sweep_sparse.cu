@@ -170,12 +170,13 @@ __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
           const float w = DT ? wv[d] : p.nbr_w[(size_t)d * N + i];
           acc = __fadd_rn(acc, __fmul_rn(w, (float)row[ix]));
         }
+        const float beta = p.betas[(size_t)s * B + b0 + b];
+        const float act = pbit::activation(acc, h_i, beta, gain_i, off_i);
         const uint32_t byte =
             lfsr ? pbit::lfsr_byte(lf + b * C, tap)
                  : pbit::counter_byte(half_key, b0 + b, p.row0, col_key);
-        const float beta = p.betas[(size_t)s * B + b0 + b];
         sp[(size_t)b * N + i] = pbit::sign_spin(
-            pbit::decision(acc, h_i, beta, gain_i, off_i, rg_i, co_i, byte));
+            pbit::decide(act, rg_i, co_i, pbit::byte_to_uniform(byte)));
       }
     }
     __syncthreads();

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import pbit_half_sweep_ref
-from repro_torch.kernels.sweep_fused import SMEM_LIMIT_FALLBACK, _want
+from repro_torch.kernels.sweep_fused import _want, card_limits
 
 __all__ = ["pbit_half_sweep", "pbit_half_sweep_ref"]
 
@@ -83,9 +83,7 @@ def pbit_half_sweep(m, W, h, gain, off, rand_gain, comp_off, update_mask,
     _want("u", u, f32, (B, N))
 
     lib = _library()
-    props = torch.cuda.get_device_properties(m.device)
-    limit = getattr(props, "shared_memory_per_block_optin",
-                    SMEM_LIMIT_FALLBACK)
+    limit = card_limits(m.device).smem_per_block
     if lib.pbit_half_sweep_smem_bytes(N) > limit - 16 * 1024:
         raise ValueError(f"the update list of N={N} nodes does not fit the "
                          f"shared memory of one block on this card")

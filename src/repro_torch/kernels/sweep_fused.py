@@ -48,13 +48,42 @@ _NOISE_CODE = {NOISE_COUNTER: 0, NOISE_LFSR: 1}
 
 MAX_HIST_VISIBLE = 12   # 2^nv histogram bins per block partial
 MAX_TILE_CHAINS = 8     # chains per block the tile heuristic will pick
-SMEM_LIMIT_FALLBACK = 232448  # 227 KB: Hopper's opt-in limit per block
 
-# The H100 (SXM) the dense engine's feasibility model is sized against
-H100_SMEM_PER_BLOCK = 232448    # opt-in shared memory of one block
-H100_L2_BYTES = 50 * 2 ** 20    # L2 cache
-H100_SMS = 132                  # streaming multiprocessors
-GRAM_PARTIAL_BYTES = 256 * 2 ** 20  # cap on the per-block Gram partials
+
+class CardLimits(NamedTuple):
+    """What bounds the resident engines' tiling on one card."""
+
+    smem_per_block: int   # opt-in shared memory of one block
+    sms: int              # streaming multiprocessors
+    l2_bytes: int         # L2 cache, from which K3 reads W
+    memory_bytes: int     # device memory
+
+    @property
+    def gram_partial_bytes(self) -> int:
+        """Room for one K3 launch's per-block Gram partials: an eighth of
+        device memory, the rest left to the chips, the chains and the
+        caching allocator."""
+        return self.memory_bytes // 8
+
+
+# NVIDIA H100 80GB HBM3 (SXM, sm_90a), the card the port targets, as
+# `torch.cuda.get_device_properties` reports it
+H100 = CardLimits(smem_per_block=232448, sms=132, l2_bytes=52428800,
+                  memory_bytes=85_017_493_504)
+
+
+def card_limits(device) -> CardLimits:
+    """The limits of the CUDA card ``device``.  Any other device (a spec
+    resolved on the CPU, or a CUDA device where there is none) gets the
+    H100's, so a spec resolves as it would on the port's target card."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return H100
+    props = torch.cuda.get_device_properties(dev)
+    return CardLimits(smem_per_block=props.shared_memory_per_block_optin,
+                      sms=props.multi_processor_count,
+                      l2_bytes=props.L2_cache_size,
+                      memory_bytes=props.total_memory)
 
 
 # ---------------------------------------------------------------------------
@@ -291,22 +320,20 @@ def _mask_u8(name, t, N):
     return _want(name, t, torch.uint8, (N,))
 
 
-def _tile_chains(lib, B, N, C, noise_code, dev, block_b):
-    """Chains per block: enough blocks to cover the SMs, within the
-    shared-memory limit a block may opt in to."""
-    props = torch.cuda.get_device_properties(dev)
-    limit = getattr(props, "shared_memory_per_block_optin",
-                    SMEM_LIMIT_FALLBACK)
-    if lib.sweep_sparse_smem_bytes(1, N, C, noise_code) > limit:
+def _tile_chains(B, tile_bytes, limits: CardLimits, block_b, what: str):
+    """Chains per block: enough blocks to cover the SMs (at most
+    `MAX_TILE_CHAINS` chains each), within the shared memory a block may
+    opt in to.  ``tile_bytes(tb)`` is one block's shared memory at ``tb``
+    chains; ``what`` ends the error raised when one chain does not fit."""
+    limit = limits.smem_per_block
+    if tile_bytes(1) > limit:
         raise ValueError(
-            f"one chain of N={N} spins (plus {C} LFSR registers) does not "
-            f"fit the {limit} bytes of shared memory a block can use on "
-            f"this card; shard the lattice")
+            f"one chain needs {tile_bytes(1)} bytes of shared memory, a "
+            f"block can use {limit} on this card: {what}")
     if block_b is None:
-        block_b = min(MAX_TILE_CHAINS,
-                      -(-B // props.multi_processor_count))
+        block_b = min(MAX_TILE_CHAINS, -(-B // limits.sms))
     tb = max(1, min(int(block_b), B))
-    while lib.sweep_sparse_smem_bytes(tb, N, C, noise_code) > limit:
+    while tile_bytes(tb) > limit:
         tb -= 1
     return tb
 
@@ -502,7 +529,11 @@ def sweep_sparse(
                    collect_hist=collect_hist, n_visible=n_visible)
     dev = m.device
     lib = _library()
-    tb = _tile_chains(lib, B, N, op.C, op.noise_code, dev, block_b)
+    tb = _tile_chains(
+        B, lambda t: lib.sweep_sparse_smem_bytes(t, N, op.C, op.noise_code),
+        card_limits(dev), block_b,
+        f"N={N} spins (plus {op.C} LFSR registers) is too large for one "
+        f"block; shard the lattice")
     n_blocks = -(-B // tb)
     threads = min(1024, max(64, 32 * (-(-N // 32))))
     out = _outputs(m, noise_state, n_blocks, (D, N), accumulate,
@@ -531,53 +562,46 @@ sweep_sparse.launches = 0
 # the dense engine: Hopper feasibility model + wrapper
 # ---------------------------------------------------------------------------
 def dense_smem_bytes(tb: int, N: int, C: int = 0) -> int:
-    """Shared memory of one K3 block (``csrc/sweep_fused.cu``,
-    ``dense_smem_bytes``): two float32 spin buffers of the tile, its LFSR
-    registers, the two colours' update lists and the compaction scratch."""
+    """Shared memory of one K3 block, the layout ``csrc/sweep_fused.cu``
+    carves up (the launch is given this number): two float32 spin buffers
+    of the tile, its LFSR registers, the two colours' update lists and the
+    compaction scratch."""
     return 2 * tb * N * 4 + tb * C * 4 + 2 * N * 4 + 33 * 4
 
 
 def dense_tile_chains(N: int, B: int, *, C: int = 0, gram: bool = False,
                       block_b: int | None = None,
-                      smem_limit: int = H100_SMEM_PER_BLOCK,
-                      sms: int = H100_SMS) -> int:
-    """Chains per K3 block: enough blocks to cover the SMs (at most
-    `MAX_TILE_CHAINS` chains each), within a block's shared memory; with
-    ``gram`` (moments requested), widened until the per-block Gram
-    partials, ``n_blocks · N² · 4`` bytes, fit `GRAM_PARTIAL_BYTES`.
+                      limits: CardLimits = H100) -> int:
+    """Chains per K3 block: `_tile_chains`' choice and, with ``gram``
+    (moments requested), widened until the per-block Gram partials,
+    ``n_blocks · N² · 4`` bytes, fit ``limits.gram_partial_bytes``.
     Raises ValueError when no tiling fits."""
-    if dense_smem_bytes(1, N, C) > smem_limit:
-        raise ValueError(
-            f"one chain of N={N} spins needs {dense_smem_bytes(1, N, C)} "
-            f"bytes of shared memory in the dense engine; a block can use "
-            f"{smem_limit}: use the slot layout (fused_sparse)")
-    if block_b is None:
-        block_b = min(MAX_TILE_CHAINS, -(-B // sms))
-    tb = max(1, min(int(block_b), B))
-    while dense_smem_bytes(tb, N, C) > smem_limit:
-        tb -= 1
-    while gram and -(-B // tb) * 4 * N * N > GRAM_PARTIAL_BYTES:
-        if tb >= B or dense_smem_bytes(tb + 1, N, C) > smem_limit:
+    tb = _tile_chains(B, lambda t: dense_smem_bytes(t, N, C), limits,
+                      block_b, f"N={N} spins in the dense engine; use the "
+                      f"slot layout (fused_sparse)")
+    cap = limits.gram_partial_bytes
+    while gram and -(-B // tb) * 4 * N * N > cap:
+        if tb >= B or dense_smem_bytes(tb + 1, N, C) > limits.smem_per_block:
             raise ValueError(
                 f"the Gram partials of N={N} spins over {B} chains need "
-                f"more than {GRAM_PARTIAL_BYTES} bytes at every tiling "
-                f"that fits a block's shared memory; use the slot layout "
-                f"(fused_sparse)")
+                f"more than {cap} bytes at every tiling that fits a "
+                f"block's shared memory; use the slot layout (fused_sparse)")
         tb += 1
     return tb
 
 
-def dense_resident_feasible(N: int, B: int) -> bool:
-    """Hopper's model of the dense resident engine's limits (K3): W
-    (4·N² bytes) fits the L2, from which every half-sweep reads it, and
-    some chain tiling fits a block's shared memory with the CD Gram
-    partials within `GRAM_PARTIAL_BYTES`.  The TPU's model
+def dense_resident_feasible(N: int, B: int,
+                            limits: CardLimits = H100) -> bool:
+    """The model of the dense resident engine's limits (K3) on a Hopper
+    card: W (4·N² bytes) fits the L2, from which every half-sweep reads
+    it, and some chain tiling fits a block's shared memory with the CD
+    Gram partials within ``limits.gram_partial_bytes``.  The TPU's model
     (``repro.api.spec.dense_vmem_feasible``) asked whether W fits 16 MB of
     VMEM instead, which depends on N alone."""
-    if 4 * N * N > H100_L2_BYTES:
+    if 4 * N * N > limits.l2_bytes:
         return False
     try:
-        dense_tile_chains(N, B, gram=True)
+        dense_tile_chains(N, B, gram=True, limits=limits)
     except ValueError:
         return False
     return True
@@ -590,7 +614,7 @@ _DENSE_ARGTYPES = (
     + [_I, _VP, _VP, _I, _VP, _I]       # noise mode/in/out, C, perm, decimation
     + [_U, _U]                          # row0, col0
     + [_VP] * 6                         # part_s, part_c, out_s, out_c, part_h, out_h
-    + [_I, _I, _VP]                     # tb, threads, stream
+    + [_I, _I, _I, _VP]                 # tb, threads, smem bytes, stream
 )
 
 
@@ -599,8 +623,6 @@ def _dense_library() -> ctypes.CDLL:
     if lib.sweep_fused_launch.argtypes is None:
         lib.sweep_fused_launch.argtypes = _DENSE_ARGTYPES
         lib.sweep_fused_launch.restype = _I
-        lib.sweep_fused_smem_bytes.argtypes = [_I, _I, _I]
-        lib.sweep_fused_smem_bytes.restype = ctypes.c_longlong
         lib.sweep_fused_error_string.argtypes = [_I]
         lib.sweep_fused_error_string.restype = ctypes.c_char_p
     return lib
@@ -674,12 +696,8 @@ def sweep_fused(
                    gather_perm=gather_perm, accumulate=accumulate,
                    collect_hist=collect_hist, n_visible=n_visible)
     dev = m.device
-    props = torch.cuda.get_device_properties(dev)
-    tb = dense_tile_chains(
-        N, B, C=op.C, gram=accumulate, block_b=block_b,
-        smem_limit=getattr(props, "shared_memory_per_block_optin",
-                           SMEM_LIMIT_FALLBACK),
-        sms=props.multi_processor_count)
+    tb = dense_tile_chains(N, B, C=op.C, gram=accumulate, block_b=block_b,
+                           limits=card_limits(dev))
     n_blocks = -(-B // tb)
     threads = min(1024, max(64, 32 * (-(-tb * (-(-N // 2)) // 32))))
     lib = _dense_library()
@@ -696,6 +714,7 @@ def sweep_fused(
             _ptr(op.perm), int(decimation), op.row0, op.col0,
             _ptr(out["part_s"]), _ptr(out["part_c"]), _ptr(out["s"]),
             _ptr(out["c"]), _ptr(out["part_h"]), _ptr(out["h"]), tb, threads,
+            dense_smem_bytes(tb, N, op.C),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.sweep_fused_error_string(rc).decode()

@@ -298,21 +298,32 @@ def test_dense_kernels_equal_slot_layout_plain_versions():
 
 
 def test_hopper_feasibility_boundary():
-    """W must fit the 50 MB L2; a chain tiling must fit a block's shared
-    memory with the Gram partials within GRAM_PARTIAL_BYTES."""
+    """W must fit the L2; a chain tiling must fit a block's shared memory
+    with the Gram partials within an eighth of device memory — the H100's
+    limits off the card, any card's when they are given."""
     f = port_sf.dense_resident_feasible
-    # 256 chains: the Gram partials bind first
-    assert f(1879, 256) and not f(1880, 256)
-    tb = port_sf.dense_tile_chains(1879, 256, gram=True)
-    assert -(-256 // tb) * 4 * 1879 ** 2 <= port_sf.GRAM_PARTIAL_BYTES
-    assert port_sf.dense_smem_bytes(tb, 1879) <= port_sf.H100_SMEM_PER_BLOCK
+    h100 = port_sf.H100
+    assert port_sf.card_limits("cpu") is h100
     # few chains: W in L2 binds (4 * 3620^2 <= 50 MiB < 4 * 3621^2)
     assert f(3620, 8) and not f(3621, 8)
+    assert f(3620, 256) and not f(3621, 256)
     assert f(440, 256) and port_sf.dense_tile_chains(440, 256) == 2
+    # many chains: the Gram partials bind first (a card of 80 GiB, whose
+    # eighth is 10 GiB: tiles of up to 17 chains fit at N ~ 1600)
+    card = h100._replace(memory_bytes=80 * 2 ** 30)
+    assert f(3620, 1428, card) and not f(3620, 1429, card)
+    assert f(1619, 16384, card) and not f(1620, 16384, card)
+    tb = port_sf.dense_tile_chains(1619, 16384, gram=True, limits=card)
+    assert -(-16384 // tb) * 4 * 1619 ** 2 <= card.gram_partial_bytes
+    assert port_sf.dense_smem_bytes(tb, 1619) <= card.smem_per_block
+    # a card with a smaller L2 and less memory
+    small = h100._replace(l2_bytes=40 * 2 ** 20, memory_bytes=40 * 2 ** 30)
+    assert f(3300, 256) and not f(3300, 256, small)
+    assert f(1500, 16384) and not f(1500, 16384, small)
     with pytest.raises(ValueError, match="shared memory"):
         port_sf.dense_tile_chains(29100, 1)
     with pytest.raises(ValueError, match="Gram"):
-        port_sf.dense_tile_chains(2048, 256, gram=True)
+        port_sf.dense_tile_chains(2048, 16384, gram=True)
 
 
 def test_auto_resolution_of_dense_only_specs(monkeypatch):
@@ -333,8 +344,9 @@ def test_auto_resolution_of_dense_only_specs(monkeypatch):
     assert resolve(7, 8, 256) == "fused"            # 448 spins
     assert resolve(7, 8, 256, "philox") == "ref"
     assert resolve(15, 15, 256) == "fused"          # 1800 spins
-    assert resolve(15, 16, 256) == "ref"            # 1920: Gram partials
-    assert resolve(15, 16, 8) == "fused"            # ... fewer chains fit
+    assert resolve(15, 16, 256) == "fused"          # 1920
+    assert resolve(15, 16, 16384) == "ref"          # ... Gram partials
+    assert resolve(21, 21, 256) == "fused"          # 3528
     assert resolve(29, 29, 8) == "ref"              # 6728: W exceeds L2
     assert resolve(7, 8, 256) == port_api.resolve_backend(
         port_api.SamplerSpec(graph=make_chimera(7, 8),
