@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0]
 
 Needs one CUDA device, ``nvcc`` and the sources of this checkout; imports
-nothing of JAX or of the JAX package.  It builds the three CUDA kernel
+nothing of JAX or of the JAX package.  It builds the four CUDA kernel
 libraries from ``src/repro_torch/kernels/csrc`` into ``build/`` (one
 ``nvcc`` each, in parallel) and holds every kernel against its plain
 PyTorch version on the card.  Then it drives the port's paths, each with
@@ -21,6 +21,13 @@ the kernels' launch counts set to 0 just before it and read just after:
   and the transferred weights;
 * workloads: annealing and Max-Cut through K2, parallel tempering through
   K3, on the 440-spin chip.
+* streaming: programs as runtime operands on the 440-spin chip through
+  K1 (`sample_program`, `sample_fleet`, fleet CD of the full adder on four
+  virtual chips, each equal to its sequential counterpart), and a program
+  chain through the double-buffered stream kernel K4; then the program
+  swap and the K4 chain against serialized K1 launches are timed;
+* lattice_soa: vertical Gibbs half-steps of a 32768-spin SoA Chimera
+  lattice through K6.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -34,6 +41,8 @@ Output: one JSON object per line —
   {"phase": "training", ...}       the CD path through three backends
   {"phase": "learning", ...}       AND-gate KLs
   {"phase": "workloads", ...}      anneal, Max-Cut, tempering
+  {"phase": "streaming", ...}      program operand, fleet, fleet CD, K4 chain
+  {"phase": "lattice_soa", ...}    K6 half-steps
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -60,7 +69,8 @@ FP32_OPS_PER_S = 67e12
 DEVICE = "cuda"    # the script has no CPU mode: main() refuses without a GPU
 B = 256            # chains everywhere on the main path
 CHECK_SWEEPS = 8   # sweeps per mode in the kernel_checks phase
-KERNELS = ("sweep_sparse", "pbit_half_sweep", "sweep_fused")
+KERNELS = ("sweep_sparse", "pbit_half_sweep", "sweep_fused",
+           "sweep_sparse_stream", "lattice_vertical_update")
 
 
 def emit(obj) -> None:
@@ -484,13 +494,190 @@ def check_dense_kernels(seed: int) -> list[dict]:
     return lines
 
 
+def sk_edge_codes(graph, rng, scale: float = 32.0):
+    """An SK-style program in the edge-list layout: Gaussian coupling codes
+    (E,) and zero bias codes (N,), int32."""
+    J = np.clip(np.round(rng.normal(size=graph.n_edges) * scale), -128, 127)
+    return J.astype(np.int32), np.zeros(graph.n_nodes, np.int32)
+
+
+def check_stream_kernel(seed: int) -> dict:
+    """K4 against `sweep_sparse_stream_ref` on the card, case by case, and
+    an 8-program chain through K4 (over a two-slot ring) against 8
+    serialized K1 launches with the program swapped between them.  Rule:
+    equality in every output (spins, noise state, staged weights and
+    biases)."""
+    from repro_torch import api
+    from repro_torch.core.cd import PBitMachine
+    from repro_torch.core.chimera import make_chimera, make_chip_graph
+    from repro_torch.kernels.sweep_fused import (
+        sweep_sparse, sweep_sparse_stream, sweep_sparse_stream_ref)
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    rng = np.random.default_rng(seed + 11)
+    S = CHECK_SWEEPS
+    cases = []
+
+    def programmed(graph, chains, sparse, n_programs):
+        mach = PBitMachine.create(graph, gen, noise="counter", sparse=sparse,
+                                  device=DEVICE)
+        ses = mach.session(schedule=api.Constant(n_sweeps=S), chains=chains)
+        return ses, [ses.program_edges(*sk_edge_codes(graph, rng))
+                     for _ in range(n_programs)]
+
+    def case(name, graph, chains, *, sparse=False, clamp=False,
+             coord_offset=None, window=None, block_b=None):
+        ses, (chip, nxt) = programmed(graph, chains, sparse, 2)
+        args, _ = kernel_operands(ses, chip, gen, n_sweeps=S, tempered=True,
+                                  clamp=clamp)
+        head, clamps = args[:12], args[12:]
+        tail = [nxt.nbr_w, nxt.h, *clamps, coord_offset]
+        kw = dict(window or {})
+        want = sweep_sparse_stream_ref(*head, *tail, **kw)
+        got = sweep_sparse_stream(*head, *tail, block_b=block_b, **kw)
+        torch.cuda.synchronize()
+        diff, spins = compare_outputs(got, want)
+        cases.append({"case": name, "N": graph.n_nodes, "B": chains,
+                      "max_abs_diff": diff, "spins_differing": spins})
+
+    chip_graph = make_chip_graph()
+    case("plain", chip_graph, B)
+    case("clamped", chip_graph, B, clamp=True)
+    case("coord_offset", chip_graph, B, coord_offset=(1000, 77))
+    case("clamped_coord_offset", chip_graph, B, clamp=True,
+         coord_offset=(2 ** 32 - 3, 2 ** 32 - 100))
+    case("window", chip_graph, B, clamp=True,
+         window=dict(half_offset=5, n_half=6))
+    case("ragged_B5", chip_graph, 5, block_b=2)
+    case("lattice_8192", make_chimera(32, 32), B, sparse=True)
+    case("lattice_8192_clamped", make_chimera(32, 32), B, sparse=True,
+         clamp=True)
+
+    # the chain: launch i runs program i and stages program i+1 into the
+    # free slot of a two-slot ring; serialized K1 runs the same programs
+    L = 8
+    ses, chips = programmed(chip_graph, B, False, L)
+    args, _ = kernel_operands(ses, chips[0], gen, n_sweeps=S, tempered=True)
+    m0, ns0 = args[0], args[11]
+    rest = args[4:11]                     # the instance's rows, masks, betas
+    ring = [(chips[0].nbr_w.clone(), chips[0].h.clone()),
+            (torch.empty_like(chips[0].nbr_w), torch.empty_like(chips[0].h))]
+    m_d, ns_d = m0, ns0
+    m_s, ns_s = m0, ns0
+    staged_equal = True
+    for i, chip in enumerate(chips):
+        nxt = chips[(i + 1) % L]
+        cur, free = ring[i % 2], ring[(i + 1) % 2]
+        m_d, ns_d, _, _ = sweep_sparse_stream(
+            m_d, chip.nbr_idx, cur[0], cur[1], *rest, ns_d, nxt.nbr_w,
+            nxt.h, staged=free)
+        m_s, ns_s = sweep_sparse(m_s, chip.nbr_idx, chip.nbr_w, chip.h,
+                                 *rest, ns_s)
+        torch.cuda.synchronize()
+        staged_equal &= bool(torch.equal(free[0], nxt.nbr_w)
+                             and torch.equal(free[1], nxt.h))
+    diff, spins = compare_outputs((m_d, ns_d), (m_s, ns_s))
+    ctr = int(ns_d[1]) & 0xFFFFFFFF
+    ctr_want = (int(ns0[1]) + L * 2 * S) & 0xFFFFFFFF
+    chain = {"case": f"chain_{L}_programs_vs_serialized_K1", "N": 440,
+             "B": B, "max_abs_diff": diff, "spins_differing": spins,
+             "staged_equal_next": staged_equal,
+             "noise_counter_advanced_by": L * 2 * S,
+             "noise_counter_ok": ctr == ctr_want}
+    out = {"phase": "kernel_checks", "kernel": "sweep_sparse_stream",
+           "rule": "bit for bit (spins, noise state, staged_w, staged_h)",
+           "max_abs_diff": max(r["max_abs_diff"] for r in cases + [chain]),
+           "spins_differing": sum(r["spins_differing"]
+                                  for r in cases + [chain]),
+           "cases": cases, "chain": chain}
+    emit(out)
+    bad = [r for r in cases + [chain]
+           if r["max_abs_diff"] != 0.0 or r["spins_differing"] != 0]
+    if bad or not (staged_equal and chain["noise_counter_ok"]):
+        raise AssertionError(f"sweep_sparse_stream disagrees: {bad} "
+                             f"{chain}")
+    return out
+
+
+def soa_lattice(chains, R, C, gen, *, gain_scale=1.0):
+    """A chain-batched SoA Chimera lattice at random: (B, R, C, 4) spin
+    planes, couplings, biases, gains (beta folded in) and the global cell
+    parity, on the card."""
+    k = 4
+    dev = torch.device(DEVICE)
+
+    def spins():
+        return (torch.randint(0, 2, (chains, R, C, k), generator=gen,
+                              device=dev) * 2 - 1).to(torch.float32)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rc = torch.arange(R, device=dev)[:, None] + torch.arange(C, device=dev)
+    return dict(m_v=spins(), m_h=spins(), W_vh=normal(R, C, k, k) * 0.5,
+                wv_up=normal(R, C, k), wv_dnin=normal(R, C, k),
+                h=normal(R, C, k) * 0.3,
+                gain=gain_scale * (1 + 0.1 * normal(R, C, k)),
+                parity=(rc % 2).to(torch.int32).contiguous())
+
+
+def neighbour_planes(m_v):
+    """The vertical spins of the cells above (r-1) and below (r+1), zero
+    past the lattice's edge."""
+    up = torch.zeros_like(m_v)
+    dn = torch.zeros_like(m_v)
+    up[:, 1:] = m_v[:, :-1]
+    dn[:, :-1] = m_v[:, 1:]
+    return up, dn
+
+
+def lattice_args(lat, m_v, u):
+    up, dn = neighbour_planes(m_v)
+    return (m_v, lat["m_h"], up, dn, lat["W_vh"], lat["wv_up"],
+            lat["wv_dnin"], lat["h"], lat["gain"], u, lat["parity"])
+
+
+def check_lattice_kernel(seed: int) -> dict:
+    """K6 against `lattice_vertical_update_ref` on the card: both colours
+    at B=256, R=C=64, k=4 (the 32768-spin lattice in SoA form) and on a
+    ragged small shape.  Rule: equality."""
+    from repro_torch.kernels.lattice_update import (
+        lattice_vertical_update, lattice_vertical_update_ref)
+
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(seed + 13)
+    cases = []
+    for name, (b, r, c) in (("lattice_32768", (B, 64, 64)),
+                            ("ragged_B3_R5_C3", (3, 5, 3))):
+        lat = soa_lattice(b, r, c, gen)
+        u = torch.rand(lat["m_v"].shape, generator=gen, device=DEVICE) * 2 - 1
+        args = lattice_args(lat, lat["m_v"], u)
+        for color in (0, 1):
+            got = lattice_vertical_update(*args, color)
+            want = lattice_vertical_update_ref(*args, color)
+            torch.cuda.synchronize()
+            diff, spins = compare_outputs((got,), (want,))
+            cases.append({"case": f"{name}_color{color}", "B": b, "R": r,
+                          "C": c, "k": 4, "max_abs_diff": diff,
+                          "spins_differing": spins})
+    out = {"phase": "kernel_checks", "kernel": "lattice_vertical_update",
+           "rule": "bit for bit (vertical spins)",
+           "max_abs_diff": max(r["max_abs_diff"] for r in cases),
+           "spins_differing": sum(r["spins_differing"] for r in cases),
+           "cases": cases}
+    emit(out)
+    if out["max_abs_diff"] != 0.0 or out["spins_differing"] != 0:
+        raise AssertionError(f"lattice_vertical_update disagrees: {cases}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the paths: launch counts and recorded launches
 # ---------------------------------------------------------------------------
 class LaunchRecorder:
-    """Stands between `kernels.ops` and one kernel wrapper while a path
-    runs: passes every call through and keeps its operands and outputs, so
-    each launch can be replayed through the plain version."""
+    """Stands between a path and one kernel wrapper while the path runs:
+    passes every call through and keeps its operands and outputs, so each
+    launch can be replayed through the plain version."""
 
     def __init__(self, wrapper):
         self.wrapper = wrapper
@@ -501,47 +688,74 @@ class LaunchRecorder:
         self.calls.append((args, kwargs, out))
         return out
 
+    # a wrapper whose own module is the seam (K6) counts through its module
+    # name, which then names the recorder: the count stays the wrapper's
+    @property
+    def launches(self) -> int:
+        return self.wrapper.launches
 
-def _wrappers() -> dict:
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.wrapper.launches = n
+
+
+def _seams() -> dict:
+    """Each kernel's wrapper and the module through which the paths reach
+    it: `kernels.ops` for the sampling engines, its own module for K6."""
+    from repro_torch.kernels import lattice_update, ops
     from repro_torch.kernels.pbit_update import pbit_half_sweep
-    from repro_torch.kernels.sweep_fused import sweep_fused, sweep_sparse
-    return {"sweep_sparse": sweep_sparse, "pbit_half_sweep": pbit_half_sweep,
-            "sweep_fused": sweep_fused}
+    from repro_torch.kernels.sweep_fused import (sweep_fused, sweep_sparse,
+                                                 sweep_sparse_stream)
+    return {"sweep_sparse": (sweep_sparse, ops),
+            "pbit_half_sweep": (pbit_half_sweep, ops),
+            "sweep_fused": (sweep_fused, ops),
+            "sweep_sparse_stream": (sweep_sparse_stream, ops),
+            "lattice_vertical_update": (
+                lattice_update.lattice_vertical_update, lattice_update)}
 
 
 def _plain(name: str):
     from repro_torch.kernels.pbit_update import pbit_half_sweep_ref
-    from repro_torch.kernels.sweep_fused import sweep_fused_ref, sweep_sparse_ref
+    from repro_torch.kernels.ref import lattice_vertical_update_ref
+    from repro_torch.kernels.sweep_fused import (sweep_fused_ref,
+                                                 sweep_sparse_ref,
+                                                 sweep_sparse_stream_ref)
     return {"sweep_sparse": sweep_sparse_ref,
             "pbit_half_sweep": pbit_half_sweep_ref,
-            "sweep_fused": sweep_fused_ref}[name]
+            "sweep_fused": sweep_fused_ref,
+            "sweep_sparse_stream": sweep_sparse_stream_ref,
+            "lattice_vertical_update": lattice_vertical_update_ref}[name]
 
 
 def drive(path_fn):
     """Run ``path_fn()`` with every kernel's launch count set to 0 just
     before and read just after, and every launch recorded.  Returns
     (result, counts, recorded calls per kernel)."""
-    from repro_torch.kernels import ops
-
-    wrappers = _wrappers()
-    recorders = {k: LaunchRecorder(w) for k, w in wrappers.items()}
-    for k in KERNELS:
-        setattr(ops, k, recorders[k])
+    seams = _seams()
+    recorders = {k: LaunchRecorder(w) for k, (w, _) in seams.items()}
+    for k, (_, module) in seams.items():
+        setattr(module, k, recorders[k])
     try:
-        for w in wrappers.values():
+        for w, _ in seams.values():
             w.launches = 0
         result = path_fn()
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = {k: w.launches for k, (w, _) in seams.items()}
     finally:
-        for k, w in wrappers.items():
-            setattr(ops, k, w)
+        for k, (w, module) in seams.items():
+            setattr(module, k, w)
     for k in KERNELS:
         if counts[k] != len(recorders[k].calls):
             raise AssertionError(
                 f"{k} launched {counts[k]} times through "
                 f"{len(recorders[k].calls)} calls of its wrapper")
     return result, counts, {k: recorders[k].calls for k in KERNELS}
+
+
+_SWEEP_OUTPUTS = {"sweep_sparse": ("m", "noise_state"),
+                  "sweep_fused": ("m", "noise_state"),
+                  "sweep_sparse_stream": ("m", "noise_state", "staged_w",
+                                          "staged_h")}
 
 
 def replay_through_plain_version(name: str, calls) -> list[dict]:
@@ -551,20 +765,20 @@ def replay_through_plain_version(name: str, calls) -> list[dict]:
     rows = []
     for args, kwargs, got in calls:
         want, plain_ms = timed_once(lambda: plain(*args, **kwargs))
-        if name == "pbit_half_sweep":
+        if not isinstance(got, tuple):
             got, want = (got,), (want,)
         diff, spins = compare_outputs(got, want)
-        row = {"N": args[0].shape[1], "B": args[0].shape[0],
+        row = {"N": args[0][0].numel(), "B": args[0].shape[0],
                "max_abs_diff": diff, "spins_differing": spins,
                "plain_ms": plain_ms}
-        if name != "pbit_half_sweep":
-            outputs = ["m", "noise_state"]
+        if name in _SWEEP_OUTPUTS:
+            outputs = list(_SWEEP_OUTPUTS[name])
             if kwargs.get("accumulate"):
                 outputs += ["s_sum", "c_slots" if name == "sweep_sparse"
                             else "Gram"]
             if kwargs.get("collect_hist"):
                 outputs.append(f"hist_nv{kwargs['n_visible']}")
-            betas = args[10] if name == "sweep_sparse" else args[9]
+            betas = args[9] if name == "sweep_fused" else args[10]
             row.update(S=betas.shape[0], noise=kwargs["noise_mode"],
                        outputs=outputs)
         rows.append(row)
@@ -815,7 +1029,7 @@ def training(seed: int) -> tuple[dict, dict]:
             and np.abs(ref_res.J_edges).max() > 0):
         raise AssertionError("training left the master weights untouched "
                              "or not finite")
-    for k in KERNELS:
+    for k in ("sweep_sparse", "pbit_half_sweep", "sweep_fused"):
         if counts[k] <= 0:
             raise AssertionError(f"the training path never launched {k}")
     out["_worst"] = worst
@@ -939,6 +1153,271 @@ def workloads(seed: int) -> dict:
         raise AssertionError(f"the workloads missed a dense kernel: {counts}")
     out["_worst"] = worst
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase: programs as runtime operands (K1, K4) and the SoA lattice (K6)
+# ---------------------------------------------------------------------------
+STREAM_SWEEPS = 100   # sweeps per program on the streaming path
+STREAM_PROGRAMS = 8   # SK programs, fleet members and chain length
+FLEET_CHIPS = 4       # virtual chips of the fleet CD
+FLEET_EPOCHS = 3
+
+
+def _host_ms(fn, repeats: int = 5) -> float:
+    """Median host-clock ms of ``fn()`` ending in a synchronise (after a
+    warm-up): what a caller waits for one call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _fleet_cd(mach, task, seed):
+    """Fleet CD of the full adder on FLEET_CHIPS virtual chips, and the same
+    epochs chip by chip through ``make_cd_step(...).with_mismatch``: (the
+    fleet's final state and metrics, whether every epoch's master weights,
+    chains, noise, velocities and metrics were equal)."""
+    from repro_torch.api import fleet_member
+    from repro_torch.core import energy
+    from repro_torch.core.cd import CDConfig, make_cd_fleet_step
+
+    cfg = CDConfig(cd_k=10, pos_sweeps=10, burn_in=2, chains=B,
+                   epochs=FLEET_EPOCHS)
+    K = FLEET_CHIPS
+    ses = mach.session(chains=B)
+    dev = ses.device
+    mms = mach.fleet_mismatch(seed + 320, K)
+    fleet = make_cd_fleet_step(mach, cfg, task.visible_idx)
+    single = ses.make_cd_step(cfg, task.visible_idx).with_mismatch
+    gen = ses.generator(seed + 321)
+    states = [ses.init_state(gen) for _ in range(K)]
+    E, n = mach.graph.n_edges, mach.graph.n_nodes
+    zeros = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    f_state = [zeros(K, E), zeros(K, n), torch.stack([s.m for s in states]),
+               torch.stack([s.noise_state for s in states]),
+               (zeros(K, E), zeros(K, n))]
+    s_state = [[zeros(E), zeros(n), s.m, s.noise_state, (zeros(E), zeros(n))]
+               for s in states]
+    vis_codes = torch.as_tensor(energy.all_states(len(task.visible_idx)),
+                                dtype=torch.float32, device=dev)
+    target = torch.as_tensor(task.target_dist, dtype=torch.float64,
+                             device=dev)
+    equal, history = True, []
+    for _ in range(cfg.epochs):
+        data = vis_codes[torch.multinomial(target, B, replacement=True,
+                                           generator=gen)]
+        Jm, hm, m, ns, vel, metrics = fleet(
+            mms, f_state[0], f_state[1], data, f_state[2], f_state[3],
+            f_state[4])
+        f_state = [Jm, hm, m, ns, vel]
+        for k in range(K):
+            st = s_state[k]
+            out = single(fleet_member(mms, k), st[0], st[1], data, st[2],
+                         st[3], st[4])
+            s_state[k] = list(out[:5])
+            equal &= all(bool(torch.equal(a[k], b))
+                         for a, b in zip((Jm, hm, m, ns, *vel),
+                                         (*out[:4], *out[4])))
+            equal &= all(bool(torch.equal(metrics[name][k], v))
+                         for name, v in out[5].items())
+        history.append({name: v.tolist() for name, v in metrics.items()})
+    return f_state, history, equal, cfg
+
+
+def streaming(seed: int) -> tuple[dict, dict]:
+    """Programs as runtime operands on the 440-spin chip, counter noise,
+    `fused_sparse`, 256 chains, `Anneal(0.05, 3.0, n_sweeps=100)`, 8 SK
+    programs from seeds, driven once (`drive`): (a) `sample_program` ==
+    `program_edges` + `sample`; (b) `sample_fleet` of the 8 == 8 sequential
+    `sample_program` calls; (c) fleet CD of the full adder on 4 virtual
+    chips, 3 epochs == the chips' epochs one by one; (d) an 8-program chain
+    through K4 (`ops.stream_sweeps`, each launch staging the next program)
+    == 8 `sample` calls.  Every K1 / K4 launch is replayed through its plain
+    version.  Then, outside the driven run, the program swap and the K4
+    chain against serialized K1 launches are timed."""
+    from repro_torch import api
+    from repro_torch.core import tasks
+    from repro_torch.core.cd import PBitMachine
+    from repro_torch.core.chimera import make_chip_graph
+    from repro_torch.kernels import ops
+
+    g = make_chip_graph()
+    rng = np.random.default_rng(seed + 300)
+    mach = PBitMachine.create(g, seed + 300, noise="counter", device=DEVICE)
+    ses = mach.session(schedule=api.Anneal(0.05, 3.0,
+                                           n_sweeps=STREAM_SWEEPS), chains=B)
+    codes = [sk_edge_codes(g, rng) for _ in range(STREAM_PROGRAMS)]
+    color = torch.as_tensor(g.color, device=ses.device)
+    spec = ses._noise_step.spec
+    betas = ses.default_betas
+
+    def chain(chips, m, ns, first, stage):
+        """Launch i runs program i from the buffers the previous launch
+        staged (``first`` for launch 0) and stages program i+1 into
+        ``stage(i)`` (None: new buffers)."""
+        w, h = first
+        for i, chip in enumerate(chips):
+            nxt = chips[(i + 1) % len(chips)]
+            cur = dataclasses.replace(chip, nbr_w=w, h=h)
+            m, ns, w, h = ops.stream_sweeps(m, cur, color, betas, ns, spec,
+                                            nxt.nbr_w, nxt.h,
+                                            staged=stage(i))
+        return m, ns
+
+    def path():
+        st = ses.init_state(ses.generator(seed + 301))
+        progs, operand = [], []
+        for J, h in codes:                                        # (a)
+            prog = ses.make_program(J, h)
+            progs.append(prog)
+            m_o, ns_o, _ = ses.sample_program(prog, st.m, st.noise_state)
+            m_c, ns_c, _ = ses.sample(ses.program_edges(J, h), st.m,
+                                      st.noise_state)
+            operand.append(bool(torch.equal(m_o, m_c)
+                                and torch.equal(ns_o, ns_c)))
+        states = [ses.init_state(ses.generator(seed + 310 + k))   # (b)
+                  for k in range(STREAM_PROGRAMS)]
+        m0 = torch.stack([s.m for s in states])
+        ns0 = torch.stack([s.noise_state for s in states])
+        m_f, ns_f, _ = ses.sample_fleet(api.stack_programs(progs), m0, ns0)
+        fleet = []
+        for k in range(STREAM_PROGRAMS):
+            m_k, ns_k, _ = ses.sample_program(progs[k], m0[k], ns0[k])
+            fleet.append(bool(torch.equal(m_f[k], m_k)
+                              and torch.equal(ns_f[k], ns_k)))
+        cd = _fleet_cd(mach, tasks.full_adder_task(g), seed)      # (c)
+        chips = [ses.program_edges(J, h) for J, h in codes]       # (d)
+        m_d, ns_d = chain(chips, st.m, st.noise_state,
+                          (chips[0].nbr_w, chips[0].h), lambda i: None)
+        m_s, ns_s = st.m, st.noise_state
+        for chip in chips:
+            m_s, ns_s, _ = ses.sample(chip, m_s, ns_s)
+        chain_equal = bool(torch.equal(m_d, m_s) and torch.equal(ns_d, ns_s))
+        return operand, m_f, fleet, cd, chips, chain_equal, st
+
+    (operand, m_f, fleet, cd, chips, chain_equal, st), counts, calls = \
+        drive(path)
+    summary, worst = replay_all(calls)
+    (Jm, hm, _, _, _), cd_history, cd_equal, cfg = cd
+
+    # (d) times, outside the driven run
+    J, h = codes[0]
+    chip0 = chips[0]
+    swap_ms = _host_ms(lambda: ses.sample_program(ses.make_program(J, h),
+                                                  st.m, st.noise_state))
+    resident_ms = _host_ms(lambda: ses.sample(chip0, st.m, st.noise_state))
+    ring = [(chip0.nbr_w.clone(), chip0.h.clone()),
+            (torch.empty_like(chip0.nbr_w), torch.empty_like(chip0.h))]
+    resident = (chip0.nbr_w.clone(), chip0.h.clone())
+
+    def double_buffered():    # a two-slot ring: run one, stage the other
+        ring[0][0].copy_(chip0.nbr_w)
+        ring[0][1].copy_(chip0.h)
+        return chain(chips, st.m, st.noise_state, ring[0],
+                     lambda i: ring[(i + 1) % 2])
+
+    def serialized():
+        m, ns = st.m, st.noise_state
+        for chip in chips:        # the host swaps the program in, then K1
+            resident[0].copy_(chip.nbr_w)
+            resident[1].copy_(chip.h)
+            cur = dataclasses.replace(chip, nbr_w=resident[0],
+                                      h=resident[1])
+            m, ns = ops.fused_sweeps(m, cur, color, betas, ns, spec,
+                                     sparse=True)
+        return m, ns
+
+    ab = {"double_buffered": [], "serialized": []}
+    for name in ("serialized", "double_buffered", "double_buffered",
+                 "serialized"):
+        fn = double_buffered if name == "double_buffered" else serialized
+        ab[name].append(cuda_ms(fn) / len(chips))
+    same_chain = compare_outputs(double_buffered(), serialized())
+    staged_bytes = 4 * (chip0.nbr_w.numel() + chip0.h.numel())
+
+    out = {"phase": "streaming", "graph": "make_chip_graph", "N": g.n_nodes,
+           "B": B, "S": STREAM_SWEEPS, "backend": ses.backend,
+           "programs": STREAM_PROGRAMS, "launches": counts,
+           "launches_vs_plain_version": summary,
+           "operand_equals_constant": operand,
+           "fleet_equals_sequential": fleet,
+           "fleet_cd": {"chips": FLEET_CHIPS, "task": "full_adder",
+                        "config": dataclasses.asdict(cfg),
+                        "equal_to_sequential": cd_equal,
+                        "metrics_per_epoch": cd_history,
+                        "max_abs_Jm": float(Jm.abs().max())},
+           "chain_equals_sample": chain_equal,
+           "program_swap_ms": swap_ms,
+           "preprogrammed_sample_ms": resident_ms,
+           "ms_per_launch": {k: float(np.mean(v)) for k, v in ab.items()},
+           "ms_per_launch_runs": ab,
+           "ab_order": "serialized, double_buffered x2, serialized",
+           "ab_chains_equal": same_chain == (0.0, 0),
+           "staged_bytes_per_launch": staged_bytes}
+    emit(out)
+    if not (all(operand) and all(fleet) and cd_equal and chain_equal
+            and out["ab_chains_equal"]):
+        raise AssertionError("a streaming path disagrees with its "
+                             "sequential counterpart")
+    if not (bool((m_f.abs() == 1).all()) and bool(torch.isfinite(Jm).all())
+            and float(Jm.abs().max()) > 0):
+        raise AssertionError("streaming returned malformed spins or left the "
+                             "fleet's master weights untouched")
+    for k in ("sweep_sparse", "sweep_sparse_stream"):
+        if counts[k] <= 0:
+            raise AssertionError(f"the streaming path never launched {k}")
+    out["_worst"] = worst
+    return out, calls
+
+
+def lattice_soa(seed: int, steps: int = 20) -> tuple[dict, dict]:
+    """Vertical Gibbs half-steps of a 32768-spin SoA Chimera lattice (B=256
+    chains, 64 x 64 cells, k=4, couplings from a seed, gain 2 with beta
+    folded in, the horizontal spins held fixed) through K6, colours
+    alternating, driven once (`drive`) and replayed through the plain
+    version.  Gate: the vertical spins' mean alignment with their local
+    field, m_v · I, rises from its random start and ends positive."""
+    from repro_torch.kernels import lattice_update
+
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(seed + 17)
+    lat = soa_lattice(B, 64, 64, gen, gain_scale=2.0)
+
+    def alignment(m_v):
+        up, dn = neighbour_planes(m_v)
+        I = (torch.einsum("rcij,brcj->brci", lat["W_vh"], lat["m_h"])
+             + lat["wv_dnin"] * up + lat["wv_up"] * dn + lat["h"])
+        return float((m_v * I).mean())
+
+    def path():
+        m_v = lat["m_v"]
+        for t in range(steps):
+            u = torch.rand(m_v.shape, generator=gen, device=DEVICE) * 2 - 1
+            m_v = lattice_update.lattice_vertical_update(
+                *lattice_args(lat, m_v, u), t % 2)
+        return m_v
+
+    m_v, counts, calls = drive(path)
+    summary, worst = replay_all(calls)
+    a0, a1 = alignment(lat["m_v"]), alignment(m_v)
+    out = {"phase": "lattice_soa", "B": B, "R": 64, "C": 64, "k": 4,
+           "spins": 64 * 64 * 8, "half_steps": steps, "launches": counts,
+           "launches_vs_plain_version": summary,
+           "alignment_first_last": [a0, a1]}
+    emit(out)
+    if not (bool((m_v.abs() == 1).all()) and a1 > a0 and a1 > 0):
+        raise AssertionError(f"the SoA half-steps did not align the vertical "
+                             f"spins with their field: {a0} -> {a1}")
+    if counts["lattice_vertical_update"] != steps:
+        raise AssertionError(f"K6 launched {counts} times for {steps} "
+                             f"half-steps")
+    out["_worst"] = worst
+    return out, calls
 
 
 # ---------------------------------------------------------------------------
@@ -1114,6 +1593,79 @@ def dense_kernel_records(seed: int, dense_checks: list, train: dict,
     return [k2, k3]
 
 
+def stream_kernel_record(checks: dict, stream: dict, calls: dict,
+                         launches_by_path: dict, worst: float) -> dict:
+    """K4's record at the streaming path's first chain launch: N=440,
+    B=256, S=100, counter noise.  Operations as K1's; the bytes include the
+    next program read and the staged program written.  ``k1_ms`` is K1 on
+    the same operands without the stage, timed in the same call."""
+    from repro_torch.kernels.sweep_fused import (sweep_sparse,
+                                                 sweep_sparse_stream,
+                                                 sweep_sparse_stream_ref)
+
+    args, kwargs, outs = calls["sweep_sparse_stream"][0]
+    Bc, n = args[0].shape
+    S, D = args[10].shape[0], args[1].shape[0]
+    run = lambda: sweep_sparse_stream(*args, **kwargs)  # noqa: E731
+    k1 = lambda: sweep_sparse(*args[:12], *args[14:16],  # noqa: E731
+                              noise_mode=kwargs["noise_mode"])
+    _, plain_ms = timed_once(
+        lambda: sweep_sparse_stream_ref(*args, **kwargs))
+    ops = Bc * n * S * (2 * D + DECISION_OPS + UNIFORM_OPS + HASH_OPS)
+    times = {"k4": [], "k1": []}
+    for name in ("k1", "k4", "k4", "k1"):
+        times[name].append(cuda_ms(run if name == "k4" else k1))
+    return {"name": "sweep_sparse_stream", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sweep_sparse.cu",
+            "replaces": "src/repro/kernels/sweep_fused.py:662",
+            "launches": stream["launches"]["sweep_sparse_stream"],
+            "launches_by_path": launches_by_path,
+            "max_abs_err": max(checks["max_abs_diff"], worst),
+            "ms": float(np.mean(times["k4"])), "plain_ms": plain_ms,
+            "device_ms": device_kernel_ms(run, "sweep_sparse_kernel", 3),
+            **_bound(_moved(args, kwargs, outs), ops),
+            "library_ms": None,
+            "k1_ms": float(np.mean(times["k1"])), "ab_runs": times,
+            "ab_order": "k1, k4, k4, k1",
+            "staged_bytes": 4 * (outs[2].numel() + outs[3].numel()),
+            "shape": {"N": n, "B": Bc, "S": S, "D": D, "noise": "counter"}}
+
+
+def lattice_kernel_record(checks: dict, soa: dict, calls: dict,
+                          launches_by_path: dict, worst: float) -> dict:
+    """K6's record at the lattice_soa path's first launch: B=256, R=C=64,
+    k=4.  Bound by bytes (six planes); operations per node: 2k for the
+    in-cell sum, 4 for the vertical couplers, 1 for h, 1 for the gain,
+    tanhf as 1, 1 add and 1 compare.  ``library_ms`` is the in-cell
+    product alone as `torch.einsum`."""
+    from repro_torch.kernels.lattice_update import (
+        lattice_vertical_update, lattice_vertical_update_ref)
+
+    args, kwargs, out = calls["lattice_vertical_update"][0]
+    m_v, m_h, W_vh = args[0], args[1], args[4]
+    k = m_v.shape[-1]
+    run = lambda: lattice_vertical_update(*args, **kwargs)  # noqa: E731
+    _, plain_ms = timed_once(
+        lambda: lattice_vertical_update_ref(*args, **kwargs))
+    return {"name": "lattice_vertical_update", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lattice_update.cu",
+            "replaces": "src/repro/kernels/lattice_update.py:66",
+            "launches": soa["launches"]["lattice_vertical_update"],
+            "launches_by_path": launches_by_path,
+            "max_abs_err": max(checks["max_abs_diff"], worst),
+            "ms": cuda_ms(run), "plain_ms": plain_ms,
+            "device_ms": device_kernel_ms(
+                run, "lattice_vertical_update_kernel", 20),
+            **_bound(_moved(args, kwargs, (out,)),
+                     m_v.numel() * (2 * k + 9)),
+            "library_ms": cuda_ms(
+                lambda: torch.einsum("rcij,brcj->brci", W_vh, m_h)),
+            "library_what": 'torch.einsum("rcij,brcj->brci", W_vh, m_h): '
+                            "the in-cell product alone",
+            "shape": {"B": m_v.shape[0], "R": m_v.shape[1],
+                      "C": m_v.shape[2], "k": k}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1150,20 +1702,33 @@ def main() -> int:
     t_run = time.perf_counter()
     checks = check_kernels(args.seed)
     dense_checks = check_dense_kernels(args.seed)
+    stream_checks = check_stream_kernel(args.seed)
+    lattice_checks = check_lattice_kernel(args.seed)
     path, calls = main_path(args.seed)
     train, train_calls = training(args.seed)
     learn = learning(args.seed)
     work = workloads(args.seed)
+    stream, stream_calls = streaming(args.seed)
+    soa, soa_calls = lattice_soa(args.seed)
     by_path = {"sample": path["launches"], "training": train["launches"],
-               "learning": learn["launches"], "workloads": work["launches"]}
+               "learning": learn["launches"], "workloads": work["launches"],
+               "streaming": stream["launches"], "lattice_soa": soa["launches"]}
     worst = {"training": train.pop("_worst"), "learning": learn.pop("_worst"),
-             "workloads": work.pop("_worst")}
-    records = [kernel_record(checks, path, calls,
-                             {p: c["sweep_sparse"] for p, c in by_path.items()})]
+             "workloads": work.pop("_worst"),
+             "streaming": stream.pop("_worst"),
+             "lattice_soa": soa.pop("_worst")}
+    per_path = lambda k: {p: c[k] for p, c in by_path.items()}  # noqa: E731
+    records = [kernel_record(checks, path, calls, per_path("sweep_sparse"))]
     records += dense_kernel_records(args.seed, dense_checks, train,
                                     train_calls, by_path, worst)
     records[0]["max_abs_err"] = max(records[0]["max_abs_err"],
                                     *worst.values())
+    records.append(stream_kernel_record(
+        stream_checks, stream, stream_calls, per_path("sweep_sparse_stream"),
+        worst["streaming"]))
+    records.append(lattice_kernel_record(
+        lattice_checks, soa, soa_calls, per_path("lattice_vertical_update"),
+        worst["lattice_soa"]))
     emit({"kernels": records})
     emit({"phase": "timing", "run_seconds": time.perf_counter() - t_run})
 

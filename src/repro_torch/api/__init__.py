@@ -8,10 +8,13 @@
     chip = session.program(J_codes, h_codes)
     state = session.init_state(session.generator(0))
     m, ns, _ = session.sample(chip, state.m, state.noise_state)
+    prog = session.make_program(J_edge_codes, h_codes)   # or as an operand
+    m, ns, _ = session.sample_program(prog, state.m, state.noise_state)
 
 `core.cd.PBitMachine.session(...)` builds specs/sessions from the familiar
 machine object.  Counterpart of ``repro.api``.
 """
+from repro_torch.api.program import Program, fleet_member, stack_programs
 from repro_torch.api.spec import (
     BACKENDS,
     FUSED_BACKENDS,
@@ -29,6 +32,7 @@ from repro_torch.api.session import (
     Session,
     SessionState,
     program,
+    program_chip,
     program_edges,
     program_master,
 )
@@ -39,5 +43,6 @@ __all__ = [
     "Schedule", "Constant", "Anneal", "Tempered",
     "SamplerSpec", "Session", "SessionState",
     "program", "program_edges", "program_master",
+    "Program", "fleet_member", "program_chip", "stack_programs",
     "resolve_backend",
 ]

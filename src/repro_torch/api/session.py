@@ -8,7 +8,9 @@ the noise step function, moves the graph's colour / edge / slot tables to
 the device and materializes the spec's `Schedule`.
 
 State threading is explicit everywhere: chips, spins and noise state are
-arguments and return values, never hidden attributes.  Counterpart of
+arguments and return values, never hidden attributes.  A problem can also
+arrive as a runtime `Program` (`make_program` / `sample_program`), and a
+stack of them as a fleet (`sample_fleet`, `make_cd_fleet_step`).  Counterpart of
 ``repro.api.session``; PyTorch runs eagerly, so the reference's cache of
 compiled closures has nothing to cache and is gone.
 """
@@ -20,6 +22,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.api.program import Program, fleet_member
 from repro_torch.api.spec import SamplerSpec, require_device, resolve_backend
 from repro_torch.core import pbit
 from repro_torch.core.hardware import (
@@ -127,6 +130,25 @@ def program_master(spec: SamplerSpec, Jm, hm, *, tables=None
                    tables=tables)
 
 
+def program_chip(spec: SamplerSpec, prog: Program, *, tables=None
+                 ) -> EffectiveChip:
+    """Program a runtime `Program` through the spec's analog model.
+
+    A program-borne ``mismatch`` overrides the spec's draw (its type must
+    be the spec's; `Session.make_program` enforces that)."""
+    if prog.mismatch is not None:
+        spec = spec.replace(mismatch=prog.mismatch)
+    return program_edges(spec, prog.J_codes, prog.h_codes, tables=tables)
+
+
+def _stack_states(states):
+    """Stacked noise states of a fleet: a (K, ...) tensor for counter /
+    lfsr bit patterns, the list of K generators for philox."""
+    if isinstance(states[0], torch.Tensor):
+        return torch.stack(states)
+    return list(states)
+
+
 class Session:
     """A resolved solver: spec-level programming + sampling entry points."""
 
@@ -210,6 +232,84 @@ class Session:
                               tables=self._nbr).to(self.device)
 
     # ------------------------------------------------------------------
+    # runtime weight streaming (the program as an operand)
+    # ------------------------------------------------------------------
+    def make_program(self, J_edge_codes, h_codes, *, mismatch=None,
+                     clamp_mask=None, clamp_values=None,
+                     betas=None) -> Program:
+        """Package edge-list codes (E,) + bias codes (N,) as a runtime
+        `Program` for `sample_program` / `sample_fleet`, on this Session's
+        device.  An explicit ``mismatch`` must be the same type as the
+        spec's: the dense/sparse programming route is fixed by the spec.
+        """
+        E, n = self.graph.n_edges, self.graph.n_nodes
+        dev = self.device
+        J = torch.as_tensor(J_edge_codes, device=dev)
+        h = torch.as_tensor(h_codes, device=dev)
+        if tuple(J.shape) != (E,):
+            raise ValueError(
+                f"J_edge_codes must be edge-list shaped ({E},), got "
+                f"{tuple(J.shape)}; scatter dense codes to the edge list "
+                f"first")
+        if tuple(h.shape) != (n,):
+            raise ValueError(f"h_codes must be ({n},), got {tuple(h.shape)}")
+        if mismatch is not None:
+            if type(mismatch) is not type(self.spec.mismatch):
+                raise ValueError(
+                    f"program mismatch type {type(mismatch).__name__} does "
+                    f"not match the spec's "
+                    f"{type(self.spec.mismatch).__name__}; the dense/sparse "
+                    f"programming route is fixed by the spec")
+            mismatch = mismatch.to(dev)
+        if clamp_mask is not None:
+            clamp_mask = torch.as_tensor(clamp_mask, device=dev).to(
+                torch.bool)
+            if clamp_values is not None:
+                clamp_values = torch.as_tensor(
+                    clamp_values, dtype=torch.float32, device=dev)
+        elif clamp_values is not None:
+            raise ValueError("clamp_values without clamp_mask")
+        if betas is not None:
+            betas = self._betas(betas)
+        return Program(J_codes=J, h_codes=h, mismatch=mismatch,
+                       clamp_mask=clamp_mask, clamp_values=clamp_values,
+                       betas=betas)
+
+    def sample_program(self, prog: Program, m, noise_state, betas=None, *,
+                       collect: bool = False):
+        """`sample`, with the chip programmed from a runtime `Program`:
+        (m', state', traj|None).  Equal bit for bit to `program_edges` of
+        the same codes followed by `sample` with the program's clamps.
+        Beta priority: explicit ``betas`` > ``prog.betas`` > the spec's
+        schedule.
+        """
+        if betas is None:
+            betas = prog.betas
+        chip = program_chip(self.spec, prog, tables=self._nbr).to(
+            self.device)
+        return self.sample(chip, m, noise_state, betas,
+                           clamp_mask=prog.clamp_mask,
+                           clamp_values=prog.clamp_values, collect=collect)
+
+    def sample_fleet(self, progs: Program, m, noise_state, betas=None):
+        """Run a stacked K-program fleet (see `api.stack_programs`):
+        (m'[K, B, N], state'[K, ...], None).
+
+        ``m`` / ``noise_state`` carry a leading K axis (philox: a sequence
+        of K generators); ``betas`` (or the spec's schedule) is shared
+        across the fleet unless the programs carry their own.  Each member
+        runs through this Session's own backend (``fused_sparse``: one K1
+        launch per member), so the fleet equals K sequential
+        `sample_program` calls bit for bit.
+        """
+        K = progs.J_codes.shape[0]
+        outs = [self.sample_program(fleet_member(progs, k), m[k],
+                                    noise_state[k], betas)
+                for k in range(K)]
+        return (torch.stack([o[0] for o in outs]),
+                _stack_states([o[1] for o in outs]), None)
+
+    # ------------------------------------------------------------------
     # sampling
     # ------------------------------------------------------------------
     def sample(self, chip: EffectiveChip, m, noise_state, betas=None, *,
@@ -263,6 +363,37 @@ class Session:
                 f"chains={self.spec.chains}; build the session with "
                 f"chains=cfg.chains")
         return self._build_cd_step(cfg, np.asarray(visible_idx))
+
+    def make_cd_fleet_step(self, cfg, visible_idx: np.ndarray):
+        """Build the K-replica hardware-aware CD step: per-chip mismatch
+        draws are operands.
+
+        Returns step(mismatches, Jm, hm, data_vis, m, noise_state, vel)
+        -> (Jm, hm, m, noise_state, vel, metrics) where every argument
+        except ``data_vis`` (the shared data batch) carries a leading K
+        fleet axis: ``mismatches`` is a stacked draw (see
+        `core.cd.PBitMachine.fleet_mismatch`), Jm (K, E), hm (K, N),
+        m (K, B, N), vel a pair of (K, E) / (K, N) tensors; metrics come
+        back stacked per chip.  Chip k runs ``make_cd_step``'s
+        ``with_mismatch`` on its own draw, so the fleet equals K
+        sequential per-chip epochs bit for bit.
+        """
+        step_mm = self.make_cd_step(cfg, visible_idx).with_mismatch
+
+        def step(mismatches, Jm, hm, data_vis, m, noise_state, vel):
+            outs = [step_mm(fleet_member(mismatches, k), Jm[k], hm[k],
+                            data_vis, m[k], noise_state[k],
+                            (vel[0][k], vel[1][k]))
+                    for k in range(Jm.shape[0])]
+            Jm, hm, m = (torch.stack([o[i] for o in outs]) for i in range(3))
+            vel = tuple(torch.stack([o[4][i] for o in outs])
+                        for i in range(2))
+            metrics = {name: torch.stack([o[5][name] for o in outs])
+                       for name in outs[0][5]}
+            return (Jm, hm, m, _stack_states([o[3] for o in outs]), vel,
+                    metrics)
+
+        return step
 
     def _build_cd_step(self, cfg, visible_idx):
         step_mm = self._build_cd_step_mm(cfg, visible_idx)

@@ -180,6 +180,41 @@ class SamplerSpec:
     def replace(self, **kw) -> "SamplerSpec":
         return dataclasses.replace(self, **kw)
 
+    def fingerprint(self) -> tuple:
+        """Shape-bucket key for this spec (a hashable tuple).
+
+        Two specs with equal fingerprints give interchangeable Sessions:
+        the *resolved* backend (so ``backend="auto"`` and the name it
+        resolves to share a key), the device type, the graph's shape
+        (rows/cols/k/masked cells), the schedule/chains/beta/decimation
+        statics and the mismatch *structure* (type + per-field dtype and
+        shape, never the drawn values).  Chips, `Program`s and mismatch
+        draws are runtime operands (`Session.sample_program`, the CD step's
+        ``with_mismatch``), so two chip instances of one SKU share a key.
+        The analog `HardwareConfig` scalars are not keyed: a cache mixing
+        them must key on ``hw`` separately.  ``REPRO_PBIT_BACKEND`` is read
+        as `Session` construction reads it.  Single device: the port has
+        no partition or mesh term yet.
+        """
+        g = self.graph
+        graph_sig = ("chimera", int(g.rows), int(g.cols), int(g.k),
+                     tuple(sorted(tuple(c) for c in g.masked_cells)),
+                     int(g.n_nodes), int(g.edges.shape[0]))
+        mm = self.mismatch
+        mm_sig = (type(mm).__name__,
+                  tuple((f.name, str(getattr(mm, f.name).dtype),
+                         tuple(getattr(mm, f.name).shape))
+                        for f in dataclasses.fields(mm)))
+        sched_sig = None
+        if self.schedule is not None:
+            sched_sig = (type(self.schedule).__name__,
+                         tuple(sorted(dataclasses.asdict(
+                             self.schedule).items())))
+        return (graph_sig, mm_sig, self.noise, resolve_backend(self),
+                torch.device(self.device).type, int(self.chains),
+                float(self.beta), float(self.w_scale), int(self.decimation),
+                bool(self.attach_sparse), sched_sig)
+
     def validate(self) -> "SamplerSpec":
         """Static sanity checks; raises ValueError naming the fix."""
         if self.noise not in NOISE_KINDS:

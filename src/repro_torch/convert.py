@@ -4,7 +4,8 @@ The reference (`repro`, JAX) and this package never import each other.
 What crosses between them crosses as numpy: ``np.asarray`` of a spin or
 noise array, or the leaves of an `EffectiveChip` / `Mismatch` /
 `SparseMismatch` in field order (what ``jax.tree_util.tree_leaves`` gives,
-with absent ``None`` fields dropped) or a ``{field: array}`` dict.  The
+with absent ``None`` fields dropped) or a ``{field: array}`` dict; a
+`Program` crosses as a ``{field: array}`` dict.  The
 tests use only these functions to move state between the packages.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.api.program import Program
 from repro_torch.core import lfsr as lfsr_mod
 from repro_torch.core.hardware import EffectiveChip, Mismatch, SparseMismatch
 
@@ -64,13 +66,36 @@ def chip_from_numpy(arrays, device="cuda") -> EffectiveChip:
 
 def mismatch_from_numpy(arrays, device="cuda") -> Mismatch | SparseMismatch:
     """Dense or sparse mismatch from its 8 numpy leaves (field order) or a
-    dict; a (D, N) or (N, N) ``edge_gain`` with D != N tells which."""
+    dict; a (D, N) or (N, N) ``edge_gain`` with D != N tells which.  A
+    stacked fleet draw (every leaf with a leading K axis, as
+    ``PBitMachine.fleet_mismatch`` returns it in both packages) converts
+    the same way, into a stacked record."""
     named = _named(arrays, _MISMATCH_FIELDS)
-    n = np.asarray(named["tanh_gain"]).shape[0]
-    dense = np.asarray(named["edge_gain"]).shape == (n, n) and \
-        np.asarray(named["dac_bit_j"]).shape == (n, n, 8)
+    n = np.asarray(named["tanh_gain"]).shape[-1]
+    dense = np.asarray(named["edge_gain"]).shape[-2:] == (n, n) and \
+        np.asarray(named["dac_bit_j"]).shape[-3:] == (n, n, 8)
     cls = Mismatch if dense else SparseMismatch
     return cls(**{k: _f32(named[k], device) for k in _MISMATCH_FIELDS})
+
+
+def program_from_numpy(fields: dict, device="cuda") -> Program:
+    """`api.Program` from a ``{field: array}`` dict (absent or ``None``
+    fields stay absent): int32 codes, a bool clamp mask, float32 clamp
+    values and betas; ``mismatch`` as `mismatch_from_numpy` takes it
+    (leaves or a dict, stacked or not).  Stacked fields convert as they
+    are."""
+    def opt(name, dtype):
+        a = fields.get(name)
+        return None if a is None else torch.as_tensor(
+            np.asarray(a, dtype).copy(), device=device)
+
+    mm = fields.get("mismatch")
+    return Program(
+        J_codes=opt("J_codes", np.int32), h_codes=opt("h_codes", np.int32),
+        mismatch=None if mm is None else mismatch_from_numpy(mm, device),
+        clamp_mask=opt("clamp_mask", bool),
+        clamp_values=opt("clamp_values", np.float32),
+        betas=opt("betas", np.float32))
 
 
 def noise_state_from_numpy(state, device="cuda") -> torch.Tensor:

@@ -14,8 +14,8 @@ and are quantized to 8-bit DAC codes on every re-program.
 
 `PBitMachine` owns the chip description (graph + mismatch + noise/backend
 choices) and hands out `api.Session`s; all sampling and programming goes
-through them.  Counterpart of ``repro.core.cd`` (crash-safe training and
-the fleet step come with the faults and program-streaming slices).
+through them.  Counterpart of ``repro.core.cd`` (crash-safe training
+comes with the faults slice).
 Random draws come from `torch.Generator`s and agree with the reference's
 in distribution only.
 """
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import api
+from repro_torch.api.program import stack_fleet
 from repro_torch.core import energy as energy_mod
 from repro_torch.core.chimera import ChimeraGraph
 from repro_torch.core.hardware import (
@@ -152,6 +153,33 @@ class PBitMachine:
         return api.program_master(self.sampler_spec(), Jm, hm,
                                   tables=self.neighbor_tables())
 
+    def fleet_mismatch(self, gen: torch.Generator | int, n_chips: int):
+        """Draw a stacked (K, ...) fleet of chip-instance mismatches.
+
+        Every field gains a leading ``n_chips`` axis; the result feeds the
+        fleet axis (`make_cd_fleet_step`, `api.Session.make_cd_fleet_step`,
+        `api.Session.make_program(mismatch=api.fleet_member(draws, k))`).
+        Draw k is the k-th of ``n_chips`` consecutive draws from ``gen`` (a
+        `torch.Generator` on the machine's device, or an int seed for a new
+        one), of this machine's type: dense, or sparse-native.  The draws
+        agree with the reference's ``split(key)`` draws in distribution
+        only.
+        """
+        dev = torch.device(self.device)
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(device=dev).manual_seed(int(gen))
+        if self.sparse_native:
+            nbr_idx, _ = self.graph.neighbor_table()
+            draws = [sample_mismatch_sparse(gen, self.graph.n_nodes,
+                                            nbr_idx.shape[0], self.hw,
+                                            device=dev)
+                     for _ in range(n_chips)]
+        else:
+            draws = [sample_mismatch(gen, self.graph.n_nodes, self.hw,
+                                     device=dev)
+                     for _ in range(n_chips)]
+        return stack_fleet(draws)
+
 
 @dataclasses.dataclass
 class CDConfig:
@@ -175,6 +203,20 @@ def make_cd_step(machine: PBitMachine, cfg: CDConfig,
     couplings, hm the (n,) master biases, data_vis (chains, n_visible) ±1
     data for the positive phase."""
     return machine.session(chains=cfg.chains).make_cd_step(cfg, visible_idx)
+
+
+def make_cd_fleet_step(machine: PBitMachine, cfg: CDConfig,
+                       visible_idx: np.ndarray):
+    """The K-replica CD step (shim over `Session.make_cd_fleet_step`):
+    K virtual chip instances — K mismatch draws of the machine's SKU,
+    stacked by `PBitMachine.fleet_mismatch` — each with its own master
+    weights, chains and noise stream but a shared data batch:
+
+        step(mismatches, Jm[K,E], hm[K,N], data_vis, m[K,B,N],
+             noise_state[K,...], vel) -> the same, stacked
+    """
+    return machine.session(chains=cfg.chains).make_cd_fleet_step(
+        cfg, visible_idx)
 
 
 def sample_visible_dist(machine: PBitMachine, Jm, hm,

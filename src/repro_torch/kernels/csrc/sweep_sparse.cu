@@ -35,6 +35,19 @@
 //   * the noise streams, the decision, clamps, histogram and the reduction are
 //     shared with the dense kernels K2 and K3 (pbit_common.cuh).
 //
+// K4, the double-buffered program stream, is the same kernel with Stream =
+// true (`sweep_sparse_stream_launch`).  Replaces the TPU kernel
+// src/repro/kernels/sweep_fused.py::sweep_sparse_stream_pallas (`_kernel` with
+// stream=True): counter noise only, no moments or histogram; while the CURRENT
+// program sweeps, the NEXT program's (D, N) slot weights and (N,) biases are
+// copied into the staged output buffers.  Bound as K1 (operations) plus the
+// staged bytes (2 x 4(D+1)N: 12 KB read and written at N=440, D=6).  Each block
+// copies its own disjoint slice with 16-byte loads before its first barrier, so
+// on the card the copy overlaps the other blocks' sweeps; the staged buffers are
+// distinct from the current program's (the wrapper refuses aliasing), so the
+// copy never races the sweep's reads.  The TPU kernel aliased the next-program
+// inputs to the staged outputs; here the caller swaps a two-slot ring instead.
+//
 // Plain C interface (loaded with ctypes); every function launches on the given
 // stream, allocates nothing, does not synchronise, and returns cudaGetLastError().
 #include <cuda_runtime.h>
@@ -77,16 +90,45 @@ struct Params {
   float* part_c;              // (n_blocks, D, N) or null
   float* part_h;              // (n_blocks, 2^n_visible) or null
   int tb;                     // chains per block
+  const float* next_w;        // K4: (D, N) next program's slot weights
+  const float* next_h;        // K4: (N,) next program's biases
+  float* staged_w;            // K4: (D, N) copy of next_w
+  float* staged_h;            // K4: (N,) copy of next_h
 };
 
 __host__ __device__ inline size_t spin_bytes(int tb, int N) {
   return (((size_t)tb * (size_t)N) + 15) & ~(size_t)15;
 }
 
+// dst[0..n) = src[0..n): block `blk` of `n_blocks` copies its own contiguous
+// slice, as 16-byte vectors when both pointers allow it.
+__device__ __forceinline__ void copy_slice(const float* src, float* dst,
+                                           size_t n, int blk, int n_blocks,
+                                           int tid, int nt) {
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
+       15u) == 0;
+  const size_t units = vec ? n / 4 : n;
+  const size_t per = (units + n_blocks - 1) / n_blocks;
+  const size_t start = (size_t)blk * per;
+  const size_t lo = start < units ? start : units;
+  const size_t hi = lo + per < units ? lo + per : units;
+  if (vec) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (size_t k = lo + tid; k < hi; k += nt) d4[k] = s4[k];
+    if (blk == n_blocks - 1)  // the tail that is not a whole vector
+      for (size_t k = units * 4 + tid; k < n; k += nt) dst[k] = src[k];
+  } else {
+    for (size_t k = lo + tid; k < hi; k += nt) dst[k] = src[k];
+  }
+}
+
 // DT > 0: the slot count is the compile-time constant DT and a node's slot
 // weights/indices live in registers across the tile's chains.  DT == 0: any
-// slot count, read from device memory (L1-cached) per chain.
-template <int DT>
+// slot count, read from device memory (L1-cached) per chain.  Stream: K4,
+// which also stages the next program (see the head of this file).
+template <int DT, bool Stream>
 __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sp = reinterpret_cast<int8_t*>(smem);  // [tb][N] spins
@@ -117,6 +159,10 @@ __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
   if (!lfsr) {
     seed = p.noise_in[0];
     ctr0 = p.noise_in[1];
+  }
+  if (Stream) {  // before the first barrier: overlaps the other blocks' sweeps
+    copy_slice(p.next_w, p.staged_w, (size_t)D * N, blk, gridDim.x, tid, nt);
+    copy_slice(p.next_h, p.staged_h, (size_t)N, blk, gridDim.x, tid, nt);
   }
   __syncthreads();
 
@@ -224,6 +270,28 @@ __global__ void tanh_probe_kernel(const float* x, float* y, int n) {
   if (i < n) y[i] = tanhf(x[i]);
 }
 
+// Shared-memory bytes of one block: the tile's int8 spins and, in LFSR mode,
+// its registers.
+size_t smem_bytes(int tb, int N, int C, int noise_mode) {
+  size_t bytes = spin_bytes(tb, N);
+  if (noise_mode == kNoiseLfsr) bytes += (size_t)tb * (size_t)C * sizeof(uint32_t);
+  return bytes;
+}
+
+// One launch of an instantiation, with the shared memory the tile needs (opted
+// in above 48 KB).
+cudaError_t launch(void (*kernel)(const Params), const Params& p, int n_blocks,
+                   int threads, cudaStream_t stream) {
+  const size_t smem = smem_bytes(p.tb, p.N, p.C, p.noise_mode);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<n_blocks, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -231,9 +299,7 @@ extern "C" {
 // Shared-memory bytes one block needs; the wrapper checks this against the
 // card's opt-in limit before choosing `tb`.
 int sweep_sparse_smem_bytes(int tb, int N, int C, int noise_mode) {
-  size_t bytes = spin_bytes(tb, N);
-  if (noise_mode == kNoiseLfsr) bytes += (size_t)tb * (size_t)C * sizeof(uint32_t);
-  return (int)bytes;
+  return (int)smem_bytes(tb, N, C, noise_mode);
 }
 
 int sweep_sparse_launch(
@@ -248,7 +314,7 @@ int sweep_sparse_launch(
     float* part_c, float* out_s, float* out_c, float* part_h, float* out_h,
     int tb, int threads, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  Params p;
+  Params p = {};
   p.m_in = m_in; p.m_out = m_out; p.B = B; p.N = N; p.D = D; p.S = S;
   p.nbr_idx = nbr_idx; p.nbr_w = nbr_w; p.h = h; p.gain = gain; p.off = off;
   p.rg = rg; p.co = co; p.mask0 = mask0; p.mask1 = mask1; p.betas = betas;
@@ -260,15 +326,9 @@ int sweep_sparse_launch(
   p.part_s = part_s; p.part_c = part_c; p.part_h = part_h; p.tb = tb;
 
   const int n_blocks = (B + tb - 1) / tb;
-  const int smem = sweep_sparse_smem_bytes(tb, N, C, noise_mode);
-  auto kernel = (D == 6) ? sweep_sparse_kernel<6> : sweep_sparse_kernel<0>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<n_blocks, threads, smem, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+  auto kernel = (D == 6) ? sweep_sparse_kernel<6, false>
+                         : sweep_sparse_kernel<0, false>;
+  cudaError_t err = launch(kernel, p, n_blocks, threads, stream);
   if (err != cudaSuccess) return (int)err;
   if (part_s) {
     pbit::reduce_partials(part_s, out_s, n_blocks, N, stream);
@@ -278,6 +338,35 @@ int sweep_sparse_launch(
     pbit::reduce_partials(part_h, out_h, n_blocks, (size_t)1 << n_visible,
                           stream);
   return (int)cudaGetLastError();
+}
+
+// K4: K1 with counter noise and no statistics, staging (next_w, next_h) into
+// (staged_w, staged_h) during the launch.
+int sweep_sparse_stream_launch(
+    const float* m_in, float* m_out, int B, int N, int D, int S,
+    const int* nbr_idx, const float* nbr_w, const float* h, const float* gain,
+    const float* off, const float* rg, const float* co, const uint8_t* mask0,
+    const uint8_t* mask1, const float* betas, const uint8_t* clamp_mask,
+    const float* clamp_values, const uint32_t* noise_in, uint32_t* noise_out,
+    uint32_t row0, uint32_t col0, int half_offset, int n_half,
+    const float* next_w, const float* next_h, float* staged_w,
+    float* staged_h, int tb, int threads, void* stream_ptr) {
+  Params p = {};
+  p.m_in = m_in; p.m_out = m_out; p.B = B; p.N = N; p.D = D; p.S = S;
+  p.nbr_idx = nbr_idx; p.nbr_w = nbr_w; p.h = h; p.gain = gain; p.off = off;
+  p.rg = rg; p.co = co; p.mask0 = mask0; p.mask1 = mask1; p.betas = betas;
+  p.clamp_mask = clamp_mask; p.clamp_values = clamp_values;
+  p.noise_mode = 0; p.noise_in = noise_in; p.noise_out = noise_out;
+  p.row0 = row0; p.col0 = col0; p.half_offset = half_offset;
+  p.n_half = n_half; p.tb = tb;
+  p.next_w = next_w; p.next_h = next_h; p.staged_w = staged_w;
+  p.staged_h = staged_h;
+
+  const int n_blocks = (B + tb - 1) / tb;
+  auto kernel = (D == 6) ? sweep_sparse_kernel<6, true>
+                         : sweep_sparse_kernel<0, true>;
+  return (int)launch(kernel, p, n_blocks, threads,
+                     reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 // Diagnostic: y = tanhf(x), to check this build's tanhf against torch.tanh.

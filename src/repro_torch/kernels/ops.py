@@ -7,7 +7,9 @@ and `sparse_half_sweep` adapt the plain dense and slot-layout half-sweeps
 (the "ref" and "sparse" scan backends).  `fused_sweeps` /
 `fused_visible_hist` adapt the sweep-resident engines
 (`kernels/sweep_fused.py`) — dense (K3) or slot layout (K1) — to the chip +
-colour view `core/pbit.py` works with.  Counterpart of ``repro.kernels.ops``.
+colour view `core/pbit.py` works with, and `stream_sweeps` the slot-layout
+engine with the double-buffered program stream (K4).  Counterpart of
+``repro.kernels.ops``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,11 @@ from repro_torch.kernels.ref import (
     pbit_half_sweep_ref,
     pbit_sparse_half_sweep_ref,
 )
-from repro_torch.kernels.sweep_fused import sweep_fused, sweep_sparse
+from repro_torch.kernels.sweep_fused import (
+    sweep_fused,
+    sweep_sparse,
+    sweep_sparse_stream,
+)
 
 
 def make_kernel_half_sweep():
@@ -167,3 +173,33 @@ def fused_visible_hist(
         m, chip.W, chip.h, chip.tanh_gain, chip.tanh_offset,
         chip.rand_gain, chip.comp_offset, mask0, mask1, betas, noise_state,
         **kw)
+
+
+def stream_sweeps(
+    m: torch.Tensor,
+    chip: EffectiveChip,
+    color: torch.Tensor,
+    betas: torch.Tensor,               # (S,) or (S, B)
+    noise_state: torch.Tensor,         # (2,) counter state
+    noise_spec,                        # core/pbit.py NoiseSpec (counter)
+    next_nbr_w: torch.Tensor,          # (D, N) the next program's slots
+    next_h: torch.Tensor,              # (N,) the next program's biases
+    clamp_mask: torch.Tensor | None = None,
+    clamp_values: torch.Tensor | None = None,
+    *,
+    staged=None,
+):
+    """S resident sweeps of ``chip`` (slot layout, counter noise) while the
+    next program's ``(nbr_w, h)`` is staged: (m', noise_state', staged_w,
+    staged_h).  A program chain feeds the staged pair back as the next
+    launch's chip ``nbr_w`` / ``h`` (the chip's other fields belong to the
+    chip instance and stay), with ``staged`` the free slot of a two-slot
+    ring; each launch equals `fused_sweeps` on its own program bit for
+    bit."""
+    betas, mask0, mask1 = _fused_common(
+        chip, color, betas, m.shape[0], noise_spec, clamp_mask, True)
+    return sweep_sparse_stream(
+        m, chip.nbr_idx, chip.nbr_w, chip.h, chip.tanh_gain,
+        chip.tanh_offset, chip.rand_gain, chip.comp_offset, mask0, mask1,
+        betas, noise_state, next_nbr_w, next_h, clamp_mask, clamp_values,
+        noise_mode=noise_spec.kind, staged=staged)

@@ -12,6 +12,12 @@ launch.
   hashes, one tanhf), not by bytes; the design keeps the spins, the tile's
   LFSR registers and a node's weights on chip across all half-sweeps and
   pays one block-wide barrier per half-sweep.
+* `sweep_sparse_stream` — K1 with the double-buffered program stream (K4):
+  counter noise, no statistics; while the current program sweeps, the
+  next program's ``(nbr_w, h)`` is copied into staged output buffers.
+  Replaces ``repro.kernels.sweep_fused.sweep_sparse_stream_pallas``
+  (``_kernel`` with ``stream=True``); the same CUDA kernel, instantiated
+  with ``Stream = true``.  Bound as K1, plus the staged bytes.
 * `sweep_fused` — the dense (N, N) couplings.  Replaces
   ``repro.kernels.sweep_fused.sweep_fused_pallas`` (``_kernel`` with
   ``sparse=False``); CUDA source ``csrc/sweep_fused.cu``.  W does not fit a
@@ -21,7 +27,8 @@ launch.
   moment is the Gram matrix Σ mᵀm.  `dense_tile_chains` /
   `dense_resident_feasible` model its limits on Hopper.
 
-`sweep_sparse_ref` / `sweep_fused_ref` are the plain PyTorch versions of
+`sweep_sparse_ref` / `sweep_sparse_stream_ref` / `sweep_fused_ref` are the
+plain PyTorch versions of
 the same functions: a Python loop of half-sweeps (`kernels/ref.py`) with
 noise from `core.lfsr`.  A wrapper uses its plain version only for tensors
 that lie on the CPU; on a CUDA tensor it launches the kernel or raises.
@@ -168,6 +175,73 @@ def sweep_sparse_ref(
         half_offset=half_offset, n_half=n_half)
 
 
+def _check_stream(noise_mode, measured, accumulate, collect_hist, next_h):
+    """The program stream's refusals, with the reference's messages."""
+    if noise_mode != NOISE_COUNTER:
+        raise ValueError(
+            "program streaming runs on the sparse counter-noise engine (the "
+            "launch-resident serving configuration)")
+    if next_h is None:
+        raise ValueError("next_nbr_w without next_h")
+    if accumulate or collect_hist or measured is not None:
+        raise ValueError(
+            "program streaming excludes in-kernel moment/histogram "
+            "accumulation — a swapped program invalidates the accumulators "
+            "mid-grid")
+
+
+def _same_storage(a, b) -> bool:
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+def _check_stream_buffers(nbr_w, h, next_nbr_w, next_h, staged):
+    """The next program and the staged outputs are buffers of their own:
+    one storage may not be both the current and the next program, or a
+    staged output (a two-slot ring that the caller swaps is the idiom)."""
+    current = {"nbr_w": nbr_w, "h": h}
+    for name, t in (("next_nbr_w", next_nbr_w), ("next_h", next_h)):
+        for cname, c in current.items():
+            if _same_storage(t, c):
+                raise ValueError(
+                    f"{name} shares its storage with the current program's "
+                    f"{cname}; stage the next program from a buffer of its "
+                    f"own")
+    if staged is not None:
+        others = {**current, "next_nbr_w": next_nbr_w, "next_h": next_h}
+        for name, t in zip(("staged_w", "staged_h"), staged):
+            for oname, o in others.items():
+                if _same_storage(t, o):
+                    raise ValueError(
+                        f"{name} shares its storage with {oname}; the "
+                        f"staged outputs must be the free slot of a "
+                        f"two-slot ring")
+
+
+def sweep_sparse_stream_ref(
+    m, nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off, mask0, mask1,
+    betas, noise_state, next_nbr_w, next_h, clamp_mask=None,
+    clamp_values=None, coord_offset=None, *, noise_mode=NOISE_COUNTER,
+    measured=None, accumulate=False, collect_hist=False, staged=None,
+    half_offset=0, n_half=None,
+):
+    """`sweep_sparse_stream` in plain PyTorch, any device: `sweep_sparse_ref`
+    on the current program (counter noise), and the next program copied into
+    ``staged`` (a ``(staged_w, staged_h)`` pair) or into new tensors."""
+    _check_stream(noise_mode, measured, accumulate, collect_hist, next_h)
+    _check_stream_buffers(nbr_w, h, next_nbr_w, next_h, staged)
+    m_out, ns = sweep_sparse_ref(
+        m, nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off, mask0, mask1,
+        betas, noise_state, clamp_mask, clamp_values, None, None,
+        coord_offset, noise_mode=NOISE_COUNTER, half_offset=half_offset,
+        n_half=n_half)
+    if staged is None:
+        staged = (torch.empty_like(next_nbr_w, dtype=torch.float32),
+                  torch.empty_like(next_h, dtype=torch.float32))
+    staged[0].copy_(next_nbr_w)
+    staged[1].copy_(next_h)
+    return m_out, ns, staged[0], staged[1]
+
+
 def sweep_fused_ref(
     m, W, h, gain, off, rand_gain, comp_off, mask0, mask1, betas,
     noise_state, clamp_mask=None, clamp_values=None, measured=None,
@@ -284,6 +358,8 @@ def _library() -> ctypes.CDLL:
     if lib.sweep_sparse_launch.argtypes is None:
         lib.sweep_sparse_launch.argtypes = _LAUNCH_ARGTYPES
         lib.sweep_sparse_launch.restype = _I
+        lib.sweep_sparse_stream_launch.argtypes = _STREAM_ARGTYPES
+        lib.sweep_sparse_stream_launch.restype = _I
         lib.sweep_sparse_smem_bytes.argtypes = [_I, _I, _I, _I]
         lib.sweep_sparse_smem_bytes.restype = _I
         lib.tanh_probe.argtypes = [_VP, _VP, _I, _VP]
@@ -556,6 +632,116 @@ def sweep_sparse(
 
 
 sweep_sparse.launches = 0
+
+
+_STREAM_ARGTYPES = (
+    [_VP, _VP, _I, _I, _I, _I]          # m_in, m_out, B, N, D, S
+    + [_VP] * 10                        # idx, w, h, gain, off, rg, co, masks, betas
+    + [_VP, _VP, _VP, _VP]              # clamp mask/values, noise in/out
+    + [_U, _U, _I, _I]                  # row0, col0, half_offset, n_half
+    + [_VP] * 4                         # next_w, next_h, staged_w, staged_h
+    + [_I, _I, _VP]                     # tb, threads, stream
+)
+
+
+def sweep_sparse_stream(
+    m: torch.Tensor,              # (B, N) float32 spins in {-1, +1}
+    nbr_idx: torch.Tensor,        # (D, N) int32 neighbor table
+    nbr_w: torch.Tensor,          # (D, N) float32 CURRENT program's slots
+    h: torch.Tensor,              # (N,)   float32 CURRENT program's biases
+    gain: torch.Tensor,
+    off: torch.Tensor,
+    rand_gain: torch.Tensor,
+    comp_off: torch.Tensor,
+    mask0: torch.Tensor,          # (N,) bool — colour-0 update set
+    mask1: torch.Tensor,          # (N,) bool — colour-1 update set
+    betas: torch.Tensor,          # (S, B) float32
+    noise_state: torch.Tensor,    # (2,) int32 counter state
+    next_nbr_w: torch.Tensor,     # (D, N) float32 NEXT program's slots
+    next_h: torch.Tensor,         # (N,)   float32 NEXT program's biases
+    clamp_mask: torch.Tensor | None = None,      # (N,) bool
+    clamp_values: torch.Tensor | None = None,    # (B, N) float32, ±1
+    coord_offset=None,            # (row0, col0) Python ints
+    *,
+    noise_mode: str = NOISE_COUNTER,
+    measured=None,
+    accumulate: bool = False,
+    collect_hist: bool = False,
+    staged=None,                  # (staged_w, staged_h) buffers, or None
+    block_b: int | None = None,
+    half_offset: int = 0,
+    n_half: int | None = None,
+):
+    """`sweep_sparse` with a double-buffered program upload: run the
+    CURRENT program's sweeps while the NEXT program is copied into the
+    staged buffers.
+
+    Returns ``(m', noise_state', staged_w, staged_h)``: spins and noise
+    state equal `sweep_sparse`'s on the current program bit for bit
+    (``noise_state'`` is ``ctr0 + n_half``), and the staged pair equals
+    ``(next_nbr_w, next_h)`` exactly — feed it back as the next launch's
+    ``(nbr_w, h)``.  ``staged`` names the output buffers (the free slot of
+    a two-slot ring the caller swaps); None allocates them.  No buffer may
+    share its storage with another role (current, next, staged): the
+    wrapper raises.  Counter noise only, no moments or histogram (the
+    ``noise_mode`` / ``measured`` / ``accumulate`` / ``collect_hist``
+    arguments exist to be refused, as the reference refuses them).
+
+    CPU tensors go to `sweep_sparse_stream_ref`.  A CUDA tensor launches
+    the kernel or raises; ``sweep_sparse_stream.launches`` counts the
+    launches.
+    """
+    if not m.is_cuda:
+        return sweep_sparse_stream_ref(
+            m, nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off, mask0,
+            mask1, betas, noise_state, next_nbr_w, next_h, clamp_mask,
+            clamp_values, coord_offset, noise_mode=noise_mode,
+            measured=measured, accumulate=accumulate,
+            collect_hist=collect_hist, staged=staged,
+            half_offset=half_offset, n_half=n_half)
+
+    _check_stream(noise_mode, measured, accumulate, collect_hist, next_h)
+    _check_stream_buffers(nbr_w, h, next_nbr_w, next_h, staged)
+    B, N = m.shape
+    D = nbr_idx.shape[0]
+    S = betas.shape[0]
+    n_half = _window(S, half_offset, n_half)
+    _want("nbr_idx", nbr_idx, torch.int32, (D, N))
+    _want("nbr_w", nbr_w, torch.float32, (D, N))
+    _want("next_nbr_w", next_nbr_w, torch.float32, (D, N))
+    _want("next_h", next_h, torch.float32, (N,))
+    if staged is None:
+        staged = (torch.empty_like(next_nbr_w), torch.empty_like(next_h))
+    _want("staged_w", staged[0], torch.float32, (D, N))
+    _want("staged_h", staged[1], torch.float32, (N,))
+    op = _operands(m, (h, gain, off, rand_gain, comp_off), mask0, mask1,
+                   betas, noise_state, clamp_mask, clamp_values, None, None,
+                   coord_offset, noise_mode=NOISE_COUNTER, gather_perm=None,
+                   accumulate=False, collect_hist=False, n_visible=0)
+    dev = m.device
+    lib = _library()
+    tb = _tile_chains(
+        B, lambda t: lib.sweep_sparse_smem_bytes(t, N, 0, 0),
+        card_limits(dev), block_b,
+        f"N={N} spins is too large for one block; shard the lattice")
+    threads = min(1024, max(64, 32 * (-(-N // 32))))
+    m_out = torch.empty_like(m)
+    ns_out = torch.empty_like(noise_state)
+    with torch.cuda.device(dev):
+        rc = lib.sweep_sparse_stream_launch(
+            _ptr(m), _ptr(m_out), B, N, D, S, _ptr(nbr_idx), _ptr(nbr_w),
+            *map(_ptr, op.rows), _ptr(op.mask0), _ptr(op.mask1), _ptr(betas),
+            _ptr(op.clamp_mask), _ptr(op.clamp_values), _ptr(noise_state),
+            _ptr(ns_out), op.row0, op.col0, int(half_offset), int(n_half),
+            _ptr(next_nbr_w), _ptr(next_h), _ptr(staged[0]),
+            _ptr(staged[1]), tb, threads,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_cuda(lib, rc, "sweep_sparse_stream launch")
+    sweep_sparse_stream.launches += 1
+    return m_out, ns_out, staged[0], staged[1]
+
+
+sweep_sparse_stream.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -60,7 +60,9 @@ def test_port_imports_without_pulling_in_jax():
         "import repro_torch.api, repro_torch.core.cd, repro_torch.convert,"
         " repro_torch.kernels.ops, repro_torch.kernels.pbit_update,"
         " repro_torch.core.tasks, repro_torch.core.annealing,"
-        " repro_torch.core.tempering, repro_torch.core.maxcut, chip_smoke;"
+        " repro_torch.core.tempering, repro_torch.core.maxcut,"
+        " repro_torch.api.program, repro_torch.kernels.lattice_update,"
+        " chip_smoke;"
         "bad = [m for m in ('jax', 'jaxlib', 'repro') if m in sys.modules];"
         "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -78,7 +80,7 @@ def test_kernel_sources_ship_with_the_package():
 
 
 @pytest.mark.parametrize("name", ["sweep_sparse", "pbit_update",
-                                  "sweep_fused"])
+                                  "sweep_fused", "lattice_update"])
 def test_every_kernel_source_ships_and_keys_its_headers(name, tmp_path,
                                                         monkeypatch):
     """Each library has its .cu with a plain C interface; its build key
@@ -104,7 +106,10 @@ def test_every_kernel_source_ships_and_keys_its_headers(name, tmp_path,
 
 @pytest.mark.parametrize("module,wrapper,plain", [
     ("sweep_fused", "sweep_fused", "sweep_fused_ref"),
-    ("pbit_update", "pbit_half_sweep", "pbit_half_sweep_ref")])
+    ("pbit_update", "pbit_half_sweep", "pbit_half_sweep_ref"),
+    ("sweep_fused", "sweep_sparse_stream", "sweep_sparse_stream_ref"),
+    ("lattice_update", "lattice_vertical_update",
+     "lattice_vertical_update_ref")])
 def test_dense_wrappers_take_the_plain_version_only_for_cpu_tensors(
         module, wrapper, plain):
     """As for K1: dispatch on the tensor's device alone, no try/except
@@ -118,9 +123,12 @@ def test_dense_wrappers_take_the_plain_version_only_for_cpu_tensors(
     assert len(calls) == 1
     body = ast.get_source_segment(src, fn)
     assert "matmul" not in body and "torch.compile" not in body
-    cu = (PORT / "kernels" / "csrc" / ("pbit_update.cu" if module ==
-                                      "pbit_update" else "sweep_fused.cu"))
-    assert "cublas" not in cu.read_text().lower()
+    cu = {"pbit_update": "pbit_update.cu",
+          "lattice_update": "lattice_update.cu"}.get(
+        module, {"sweep_sparse_stream": "sweep_sparse.cu"}.get(
+            wrapper, "sweep_fused.cu"))
+    text = (PORT / "kernels" / "csrc" / cu).read_text()
+    assert "cublas" not in text.lower() and f"{wrapper}_launch" in text
 
 
 def test_default_device_without_cuda_raises():
