@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0]
 
 Needs one CUDA device, ``nvcc`` and the sources of this checkout; imports
-nothing of JAX or of the JAX package.  It builds the four CUDA kernel
+nothing of JAX or of the JAX package.  It builds the five CUDA kernel
 libraries from ``src/repro_torch/kernels/csrc`` into ``build/`` (one
 ``nvcc`` each, in parallel) and holds every kernel against its plain
 PyTorch version on the card.  Then it drives the port's paths, each with
@@ -27,7 +27,14 @@ the kernels' launch counts set to 0 just before it and read just after:
   chain through the double-buffered stream kernel K4; then the program
   swap and the K4 chain against serialized K1 launches are timed;
 * lattice_soa: vertical Gibbs half-steps of a 32768-spin SoA Chimera
-  lattice through K6.
+  lattice through K6;
+* sharded: the 32768-spin lattice on 8 row bands of the card (256 chains,
+  100 annealing sweeps): the barrier policy on the scan path equals the
+  unsharded K1 Session bit for bit, two launch-resident policies run
+  through the in-kernel halo exchange K5 (25 launches a call) and equal
+  the same launches emulated as K1 windows per band, the
+  launch-boundary policy through K1 per band; the sharded lattice anneal
+  and a CD step on a 2x2 rows x chains mesh equal their unsharded runs.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -43,6 +50,7 @@ Output: one JSON object per line —
   {"phase": "workloads", ...}      anneal, Max-Cut, tempering
   {"phase": "streaming", ...}      program operand, fleet, fleet CD, K4 chain
   {"phase": "lattice_soa", ...}    K6 half-steps
+  {"phase": "sharded", ...}        row bands: policies, K5, lattice, CD
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -52,6 +60,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -70,7 +79,8 @@ DEVICE = "cuda"    # the script has no CPU mode: main() refuses without a GPU
 B = 256            # chains everywhere on the main path
 CHECK_SWEEPS = 8   # sweeps per mode in the kernel_checks phase
 KERNELS = ("sweep_sparse", "pbit_half_sweep", "sweep_fused",
-           "sweep_sparse_stream", "lattice_vertical_update")
+           "sweep_sparse_stream", "lattice_vertical_update",
+           "sweep_sparse_exchange")
 
 
 def emit(obj) -> None:
@@ -671,6 +681,122 @@ def check_lattice_kernel(seed: int) -> dict:
     return out
 
 
+def exchange_launch(graph, bands, chains, gen, rng, *, mode, halo_every, S,
+                    clamp=False, moments=False, stream=False, block_b=None,
+                    sparse=False):
+    """One K5 launch as the sharded engine makes it: a programmed chip cut
+    into ``bands`` row bands (`ShardedEngine`'s plan and layout), its halos
+    exchanged once before the launch, through
+    `shard_sweep.fused_shard_exchange_resident`.  Returns the recorded
+    wrapper call (args, kwargs, outputs)."""
+    from repro_torch import api
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.cd import PBitMachine
+    from repro_torch.kernels import shard_sweep
+
+    mach = PBitMachine.create(graph, gen, noise="counter", sparse=sparse,
+                              device=DEVICE)
+    ses = mach.session(chains=chains)
+    chip = ses.program_edges(*sk_edge_codes(graph, rng))
+    sync = api.Sync(halo_every=halo_every, mode=mode, sweeps_per_launch=S)
+    eng = dist.ShardedEngine(graph, dist.make_mesh((bands,), ("data",)),
+                             api.Partition(), "counter", 8, chains,
+                             sync=sync, backend="fused_sparse", device=DEVICE)
+    d, parts = eng._dev, eng._chip_parts(chip)
+    st = ses.init_state(gen)
+    m = eng._m_parts(st.m)
+    halo_up, halo_dn = shard_sweep.halo_exchange(m, d["send_up"],
+                                                 d["send_dn"])
+    masks = [d["upd"][:, c] for c in (0, 1)]
+    kw = {}
+    if clamp:
+        cm = eng._part_cols(torch.rand(graph.n_nodes, generator=gen,
+                                       device=DEVICE) < 0.1)
+        masks = [mk & ~cm for mk in masks]
+        kw.update(clamp_mask=cm,
+                  clamp_values=eng._m_parts(ses.random_spins(gen)))
+    if moments:   # the 0/1 burn-in mask of a stats phase
+        kw["measured"] = (torch.arange(S, device=DEVICE) >= 1).to(
+            torch.float32)
+    if stream:
+        kw.update(next_nbr_w=parts["w"].flip(0).contiguous(),
+                  next_h=parts["h"].flip(0).contiguous())
+    betas = 0.2 + 1.6 * torch.rand((S, chains), generator=gen, device=DEVICE)
+    recorder = LaunchRecorder(shard_sweep.sweep_sparse_exchange)
+    shard_sweep.sweep_sparse_exchange = recorder
+    try:
+        shard_sweep.fused_shard_exchange_resident(
+            m, halo_up, halo_dn, d["nbr32"], parts["w"], parts["h"],
+            parts["gain"], parts["off"], parts["rg"], parts["co"], masks[0],
+            masks[1], betas, st.noise_state, 0, d["cols"][:, 0].tolist(),
+            d["send_up"], d["send_dn"], ex_pts=sync.exchange_points(),
+            mode=mode, block_b=block_b, **kw)
+    finally:
+        shard_sweep.sweep_sparse_exchange = recorder.wrapper
+    return recorder.calls[0]
+
+
+def check_exchange_kernel(seed: int) -> dict:
+    """K5 against `sweep_sparse_exchange_ref` on the card, barrier and
+    async, case by case: plain, clamped, moments with a 0/1 burn-in mask,
+    a staged next program, ``halo_every=3`` (windows that open and close on
+    half sweeps), ragged B=5 with 2 chains per block, 2 and 7 bands of the
+    440-spin chip, 8 bands of the 32768-spin lattice.  Rule: equality in
+    every output (spins with their halo columns, noise state, moments,
+    staged program)."""
+    from repro_torch.core.chimera import make_chimera, make_chip_graph
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    rng = np.random.default_rng(seed + 19)
+    chip_graph, lattice_graph = make_chip_graph(), make_chimera(64, 64)
+    cases = []
+    for mode in ("barrier", "async"):
+        for name, graph, bands, chains, kw in (
+                ("plain_k1", chip_graph, 2, B, dict(halo_every=1, S=2)),
+                ("clamped", chip_graph, 2, B, dict(halo_every=2, S=4,
+                                                   clamp=True)),
+                ("moments", chip_graph, 2, B, dict(halo_every=2, S=4,
+                                                   moments=True)),
+                ("moments_clamped", chip_graph, 2, B,
+                 dict(halo_every=4, S=4, moments=True, clamp=True)),
+                ("stream", chip_graph, 2, B, dict(halo_every=2, S=4,
+                                                  stream=True)),
+                ("odd_windows_k3", chip_graph, 2, B,
+                 dict(halo_every=3, S=4, moments=True, clamp=True)),
+                ("ragged_B5", chip_graph, 2, 5, dict(halo_every=2, S=4,
+                                                     moments=True,
+                                                     block_b=2)),
+                ("chip_7_bands", chip_graph, 7, B, dict(halo_every=2, S=4,
+                                                        moments=True)),
+                ("lattice_32768_8_bands", lattice_graph, 8, B,
+                 dict(halo_every=2, S=4, sparse=True)),
+                ("lattice_32768_8_bands_moments", lattice_graph, 8, B,
+                 dict(halo_every=2, S=4, sparse=True, moments=True,
+                      clamp=True))):
+            args, kwargs, got = exchange_launch(graph, bands, chains, gen,
+                                                rng, mode=mode, **kw)
+            kwargs = {k: v for k, v in kwargs.items() if k != "block_b"}
+            want = _plain("sweep_sparse_exchange")(*args, **kwargs)
+            torch.cuda.synchronize()
+            diff, spins = compare_outputs(got, want)
+            cases.append({"case": name, "mode": mode, "N": graph.n_nodes,
+                          "bands": bands, "B": chains,
+                          "ex_pts": list(kwargs["ex_pts"]),
+                          "outputs": len(got), "max_abs_diff": diff,
+                          "spins_differing": spins})
+    out = {"phase": "kernel_checks", "kernel": "sweep_sparse_exchange",
+           "rule": "bit for bit (spins incl. halo columns, noise state, "
+                   "s_sum, c_slots, staged_w, staged_h)",
+           "max_abs_diff": max(r["max_abs_diff"] for r in cases),
+           "spins_differing": sum(r["spins_differing"] for r in cases),
+           "cases": cases}
+    emit(out)
+    if out["max_abs_diff"] != 0.0 or out["spins_differing"] != 0:
+        raise AssertionError(f"sweep_sparse_exchange disagrees: {cases}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the paths: launch counts and recorded launches
 # ---------------------------------------------------------------------------
@@ -700,31 +826,38 @@ class LaunchRecorder:
 
 
 def _seams() -> dict:
-    """Each kernel's wrapper and the module through which the paths reach
-    it: `kernels.ops` for the sampling engines, its own module for K6."""
-    from repro_torch.kernels import lattice_update, ops
+    """Each kernel's wrapper and the modules through which the paths reach
+    it: `kernels.ops` for the sampling engines, `kernels.shard_sweep` for
+    the sharded engine's per-band K1 / K4 launches and for K5, its own
+    module for K6."""
+    from repro_torch.kernels import lattice_update, ops, shard_sweep
     from repro_torch.kernels.pbit_update import pbit_half_sweep
     from repro_torch.kernels.sweep_fused import (sweep_fused, sweep_sparse,
+                                                 sweep_sparse_exchange,
                                                  sweep_sparse_stream)
-    return {"sweep_sparse": (sweep_sparse, ops),
-            "pbit_half_sweep": (pbit_half_sweep, ops),
-            "sweep_fused": (sweep_fused, ops),
-            "sweep_sparse_stream": (sweep_sparse_stream, ops),
+    return {"sweep_sparse": (sweep_sparse, (ops, shard_sweep)),
+            "pbit_half_sweep": (pbit_half_sweep, (ops,)),
+            "sweep_fused": (sweep_fused, (ops,)),
+            "sweep_sparse_stream": (sweep_sparse_stream, (ops, shard_sweep)),
             "lattice_vertical_update": (
-                lattice_update.lattice_vertical_update, lattice_update)}
+                lattice_update.lattice_vertical_update, (lattice_update,)),
+            "sweep_sparse_exchange": (sweep_sparse_exchange,
+                                      (shard_sweep,))}
 
 
 def _plain(name: str):
     from repro_torch.kernels.pbit_update import pbit_half_sweep_ref
     from repro_torch.kernels.ref import lattice_vertical_update_ref
     from repro_torch.kernels.sweep_fused import (sweep_fused_ref,
+                                                 sweep_sparse_exchange_ref,
                                                  sweep_sparse_ref,
                                                  sweep_sparse_stream_ref)
     return {"sweep_sparse": sweep_sparse_ref,
             "pbit_half_sweep": pbit_half_sweep_ref,
             "sweep_fused": sweep_fused_ref,
             "sweep_sparse_stream": sweep_sparse_stream_ref,
-            "lattice_vertical_update": lattice_vertical_update_ref}[name]
+            "lattice_vertical_update": lattice_vertical_update_ref,
+            "sweep_sparse_exchange": sweep_sparse_exchange_ref}[name]
 
 
 def drive(path_fn):
@@ -733,8 +866,9 @@ def drive(path_fn):
     (result, counts, recorded calls per kernel)."""
     seams = _seams()
     recorders = {k: LaunchRecorder(w) for k, (w, _) in seams.items()}
-    for k, (_, module) in seams.items():
-        setattr(module, k, recorders[k])
+    for k, (_, modules) in seams.items():
+        for module in modules:
+            setattr(module, k, recorders[k])
     try:
         for w, _ in seams.values():
             w.launches = 0
@@ -742,8 +876,9 @@ def drive(path_fn):
         torch.cuda.synchronize()
         counts = {k: w.launches for k, (w, _) in seams.items()}
     finally:
-        for k, (w, module) in seams.items():
-            setattr(module, k, w)
+        for k, (w, modules) in seams.items():
+            for module in modules:
+                setattr(module, k, w)
     for k in KERNELS:
         if counts[k] != len(recorders[k].calls):
             raise AssertionError(
@@ -764,14 +899,24 @@ def replay_through_plain_version(name: str, calls) -> list[dict]:
     plain = _plain(name)
     rows = []
     for args, kwargs, got in calls:
-        want, plain_ms = timed_once(lambda: plain(*args, **kwargs))
+        # the plain versions have no tiling to choose
+        kw = {k: v for k, v in kwargs.items() if k != "block_b"}
+        want, plain_ms = timed_once(lambda: plain(*args, **kw))
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         diff, spins = compare_outputs(got, want)
         row = {"N": args[0][0].numel(), "B": args[0].shape[0],
                "max_abs_diff": diff, "spins_differing": spins,
                "plain_ms": plain_ms}
-        if name in _SWEEP_OUTPUTS:
+        if name == "sweep_sparse_exchange":
+            outputs = ["m", "noise_state"] + (
+                ["s_sum", "c_slots"] if args[16] is not None else
+                ["staged_w", "staged_h"] if len(got) == 4 else [])
+            row.update(bands=args[0].shape[0], B=args[0].shape[1],
+                       N=args[0].shape[2], S=args[10].shape[0],
+                       ex_pts=list(kwargs["ex_pts"]),
+                       mode=kwargs.get("mode", "barrier"), outputs=outputs)
+        elif name in _SWEEP_OUTPUTS:
             outputs = list(_SWEEP_OUTPUTS[name])
             if kwargs.get("accumulate"):
                 outputs += ["s_sum", "c_slots" if name == "sweep_sparse"
@@ -779,7 +924,8 @@ def replay_through_plain_version(name: str, calls) -> list[dict]:
             if kwargs.get("collect_hist"):
                 outputs.append(f"hist_nv{kwargs['n_visible']}")
             betas = args[9] if name == "sweep_fused" else args[10]
-            row.update(S=betas.shape[0], noise=kwargs["noise_mode"],
+            row.update(S=betas.shape[0],
+                       noise=kwargs.get("noise_mode", "counter"),
                        outputs=outputs)
         rows.append(row)
     return rows
@@ -1420,6 +1566,204 @@ def lattice_soa(seed: int, steps: int = 20) -> tuple[dict, dict]:
     return out, calls
 
 
+SHARD_BANDS = 8       # row bands of the 32768-spin lattice on the card
+SHARD_SWEEPS = 100    # annealing sweeps per call (25 launches of 4)
+
+
+def sharded(seed: int) -> tuple[dict, dict]:
+    """The row-band sharded engine on the card, driven once (`drive`): the
+    64x64-cell Chimera lattice (32768 spins, sparse-native, SK couplings
+    from a seed) on 8 row bands, 256 chains, counter noise,
+    `Anneal(0.05, 3.0, n_sweeps=100)`:
+
+    (a) ``Sync()`` on ``sparse`` (the scan over the bands) equals the
+        unsharded Session (`fused_sparse`: K1) bit for bit, spins and noise;
+    (b) ``Sync(halo_every=2, sweeps_per_launch=4)``, barrier and async,
+        resolves through ``auto`` to ``fused_sparse`` with the exchange
+        inside K5 (25 launches a call); each is run twice (equal), equals
+        the engine's emulation of the same launches (K1 windows per band,
+        spins and noise state) and differs from (a);
+    (c) ``Sync(halo_every=inf, sweeps_per_launch=4)`` runs K1 per band;
+    (d) `make_lattice_anneal` at 64x64 cells, 256 chains: 8 bands == 1;
+    (e) one CD step of the full adder on the 440-spin chip on a 2x2
+        rows x chains mesh (``fused_sparse``: K1 windows per band) equals
+        the unsharded step.
+    Every launch is replayed through its plain version.  Then, outside the
+    driven run, each policy's call and K5's launch are timed against the
+    same schedule as K1 windows per band (the emulation) and against the
+    launch-boundary shape (K1 per band)."""
+    from repro_torch import api
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import energy, tasks
+    from repro_torch.core.cd import CDConfig, PBitMachine, make_cd_step
+    from repro_torch.core.chimera import make_chimera, make_chip_graph
+    from repro_torch.core.hardware import HardwareConfig
+
+    g = make_chimera(64, 64)
+    rng = np.random.default_rng(seed + 400)
+    mach = PBitMachine.create(g, seed + 400, sparse=True, noise="counter",
+                              device=DEVICE)
+    sched = api.Anneal(0.05, 3.0, n_sweeps=SHARD_SWEEPS)
+    ses0 = mach.session(schedule=sched, chains=B)
+    chip = ses0.program_edges(*sk_edge_codes(g, rng))
+    mesh = dist.make_mesh((SHARD_BANDS,), ("data",))
+    policies = {
+        "barrier_sparse": (api.Sync(), "sparse"),
+        "k2_L4_barrier": (api.Sync(halo_every=2, sweeps_per_launch=4),
+                          "auto"),
+        "k2_L4_async": (api.Sync(halo_every=2, mode="async",
+                                 sweeps_per_launch=4), "auto"),
+        "inf_L4": (api.Sync(halo_every=math.inf, sweeps_per_launch=4),
+                   "auto")}
+    sessions = {name: api.Session(mach.sampler_spec(
+        schedule=sched, chains=B, mesh=mesh, sync=sync).replace(
+            backend=backend)) for name, (sync, backend) in policies.items()}
+    resident = ("k2_L4_barrier", "k2_L4_async")
+
+    lat_spec = dist.LatticeSpec(64, 64, chains=B)
+    lat = dist.make_sk_lattice(
+        lat_spec, torch.Generator(device=DEVICE).manual_seed(seed + 402),
+        HardwareConfig.ideal(), device=DEVICE)
+    lat_betas = torch.linspace(0.1, 2.0, 20, device=DEVICE)
+
+    gc = make_chip_graph()
+    task = tasks.full_adder_task(gc)
+    cfg = CDConfig(lr=6.0, cd_k=10, pos_sweeps=10, burn_in=2, chains=B)
+    base = PBitMachine.create(gc, seed + 403, noise="counter",
+                              backend="fused_sparse", device=DEVICE)
+    grid = dataclasses.replace(
+        base, mesh=dist.make_mesh((2, 2), ("r", "c")),
+        partition=api.Partition(rows="r", chains="c"))
+
+    def cd_epoch(machine):
+        step = make_cd_step(machine, cfg, task.visible_idx)
+        ses = machine.session(chains=B)
+        st = ses.init_state(ses.generator(seed + 404))
+        gen = ses.generator(seed + 405)
+        Jm = torch.randn(gc.n_edges, generator=gen, device=DEVICE) * 20.0
+        hm = torch.randn(gc.n_nodes, generator=gen, device=DEVICE) * 10.0
+        codes = torch.as_tensor(energy.all_states(len(task.visible_idx)),
+                                device=DEVICE)
+        data = codes[torch.multinomial(
+            torch.as_tensor(task.target_dist, device=DEVICE), B,
+            replacement=True, generator=gen)]
+        vel = (torch.zeros_like(Jm), torch.zeros_like(hm))
+        return step(Jm, hm, data, st.m, st.noise_state, vel), ses.backend
+
+    def path():
+        st = ses0.init_state(ses0.generator(seed + 401))
+        unsharded = ses0.sample(chip, st.m, st.noise_state)
+        runs = {}
+        for name, ses in sessions.items():
+            out = ses.sample(chip, st.m, st.noise_state)
+            again = (ses.sample(chip, st.m, st.noise_state)
+                     if name in resident else None)
+            runs[name] = (out, again)
+        anneals = [dist.make_lattice_anneal(
+            lat_spec, m_, n_sweeps=20, record_every=10, device=DEVICE)(
+                lat, torch.Generator(device=DEVICE).manual_seed(seed + 406),
+                lat_betas) for m_ in (None, mesh)]
+        cds = [cd_epoch(base), cd_epoch(grid)]
+        return st, unsharded, runs, anneals, cds
+
+    (st, unsharded, runs, anneals, cds), counts, calls = drive(path)
+    summary, worst = replay_all(calls)
+
+    def same(a, b):
+        return bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+
+    per_spin = {name: float(dist.sparse_energy(chip, out[0]).mean())
+                / g.n_nodes for name, (out, _) in runs.items()}
+    per_spin["unsharded"] = float(dist.sparse_energy(
+        chip, unsharded[0]).mean()) / g.n_nodes
+    per_spin["initial"] = float(dist.sparse_energy(chip, st.m).mean()) \
+        / g.n_nodes
+    (cd0, backend0), (cd1, backend1) = cds
+    cd_equal = all(bool(torch.equal(a, b)) for a, b in zip(
+        (*cd0[:4], *cd0[4]), (*cd1[:4], *cd1[4])))
+    checks = {
+        "barrier_equals_unsharded_k1": same(runs["barrier_sparse"][0],
+                                            unsharded),
+        "resident_deterministic": {n: same(*runs[n]) for n in resident},
+        "resident_differs_from_barrier": {
+            n: not same(runs[n][0], runs["barrier_sparse"][0])
+            for n in resident},
+        "lattice_anneal_sharded_equals_unsharded": same(*anneals),
+        "cd_step_2x2_equals_unsharded": cd_equal,
+        "spins_are_pm1": all(bool((out[0].abs() == 1).all())
+                             for out, _ in runs.values())}
+    shapes = {n: (ses.backend, ses._engine.loop_shape)
+              for n, ses in sessions.items()}
+
+    # each K5 policy's Session call against the engine's emulation of the
+    # same launches (K1 windows per band, the exchanges between them): the
+    # engine code around K5 (the async halo priming, the drained halos,
+    # the extended tables) held at full width.  Outside the driven run:
+    # comparisons, not the path
+    def emulation(sync):
+        eng = dist.ShardedEngine(g, mesh, api.Partition(), "counter", 8, B,
+                                 sync=sync, backend="fused_sparse",
+                                 device=DEVICE, resident_exchange=False)
+        return lambda: eng.sample(chip, st.m, st.noise_state,
+                                  ses0.default_betas)
+
+    emus = {n: emulation(policies[n][0]) for n in resident}
+    checks["resident_equals_k1_windows"] = {
+        n: same(runs[n][0], emus[n]()) for n in resident}
+
+    # timings, outside the driven run: ms per call (25 launches of 4
+    # sweeps) on the same inputs, alternating the two halves of a pair
+    def call(ses):
+        return lambda: ses.sample(chip, st.m, st.noise_state)
+
+    emu = emus["k2_L4_barrier"]
+    ab = {"k5": [], "k1_windows": []}
+    for name in ("k1_windows", "k5", "k5", "k1_windows"):
+        fn = emu if name == "k1_windows" else call(sessions["k2_L4_barrier"])
+        ab[name].append(cuda_ms(fn))
+    times = {"unsharded_k1": cuda_ms(call(ses0)),
+             **{n: cuda_ms(call(ses)) for n, ses in sessions.items()}}
+    out = {"phase": "sharded", "graph": "make_chimera(64, 64)",
+           "N": g.n_nodes, "bands": SHARD_BANDS, "B": B,
+           "S": SHARD_SWEEPS, "n_loc": sessions["inf_L4"].partition_plan.n_loc,
+           "halo": sessions["inf_L4"].partition_plan.halo,
+           "backend_and_loop_shape": shapes, "launches": counts,
+           "launches_vs_plain_version": summary, "checks": checks,
+           "energy_per_spin": per_spin,
+           "cd_backends": [backend0, backend1],
+           "ms_per_call": times,
+           "k5_vs_k1_windows_ms_per_call": {
+               k: float(np.mean(v)) for k, v in ab.items()},
+           "k5_vs_k1_windows_runs": ab,
+           "ab_order": "k1_windows, k5, k5, k1_windows"}
+    emit(out)
+    flat = [checks["barrier_equals_unsharded_k1"],
+            checks["lattice_anneal_sharded_equals_unsharded"],
+            checks["cd_step_2x2_equals_unsharded"], checks["spins_are_pm1"],
+            *checks["resident_deterministic"].values(),
+            *checks["resident_equals_k1_windows"].values(),
+            *checks["resident_differs_from_barrier"].values()]
+    if not all(flat):
+        raise AssertionError(f"a sharded check failed: {checks}")
+    want = {"barrier_sparse": ("sparse", "unrolled launch"),
+            "k2_L4_barrier": ("fused_sparse", "fused-resident-exchange"),
+            "k2_L4_async": ("fused_sparse", "fused-resident-exchange"),
+            "inf_L4": ("fused_sparse", "fused")}
+    if shapes != want:
+        raise AssertionError(f"policies resolved to {shapes}, not {want}")
+    n_k5 = 2 * len(resident) * SHARD_SWEEPS // 4
+    if counts["sweep_sparse_exchange"] != n_k5:
+        raise AssertionError(f"K5 launched {counts['sweep_sparse_exchange']}"
+                             f" times, {n_k5} expected")
+    if counts["sweep_sparse"] <= 0:
+        raise AssertionError("the sharded path never launched K1")
+    out["_worst"] = worst
+    out["_times"] = {"k5_call_ms": float(np.mean(ab["k5"])),
+                     "k1_windows_call_ms": float(np.mean(ab["k1_windows"])),
+                     "fused_call_ms": times["inf_L4"]}
+    return out, calls
+
+
 # ---------------------------------------------------------------------------
 # the kernel records
 # ---------------------------------------------------------------------------
@@ -1666,6 +2010,62 @@ def lattice_kernel_record(checks: dict, soa: dict, calls: dict,
                       "C": m_v.shape[2], "k": k}}
 
 
+def exchange_kernel_record(checks: dict, shard: dict, calls: dict,
+                           launches_by_path: dict, worst: float) -> dict:
+    """K5's record at the sharded path's first launch: 8 bands of the
+    32768-spin lattice, B=256, S=4, ``halo_every=2`` barrier (exchange
+    points 0, 2, 4, 6).  Operations as K1's per update, over every band's
+    local nodes once per sweep (n_row·B·n_loc·S updates, half the nodes in
+    each half-sweep); bytes: the operands and outputs once.  The mailbox
+    (each exchange writes and reads 2·B·H int8 per band) is this
+    implementation's, not the function's, and stays out of the bound: it
+    is reported beside it as ``mailbox_bytes``.
+    ``emulation_ms`` / ``fused_shape_ms`` are per launch of the same path:
+    the same 100-sweep schedule as K1 windows per band with the exchanges
+    between them, and the launch-boundary policy (K1 per band, one
+    exchange per launch)."""
+    from repro_torch.kernels import sweep_fused
+    from repro_torch.kernels.sweep_fused import (sweep_sparse_exchange,
+                                                 sweep_sparse_exchange_ref)
+
+    args, kwargs, outs = calls["sweep_sparse_exchange"][0]
+    R, Bc, N = args[0].shape
+    S, D = args[10].shape[0], args[1].shape[1]
+    n_loc, H = kwargs["n_loc"], kwargs["halo"]
+    n_ex = len(kwargs["ex_pts"])
+    plain_kw = {k: v for k, v in kwargs.items() if k != "block_b"}
+    run = lambda: sweep_sparse_exchange(*args, **kwargs)  # noqa: E731
+    _, plain_ms = timed_once(lambda: sweep_sparse_exchange_ref(*args,
+                                                               **plain_kw))
+    ops = R * Bc * n_loc * S * (2 * D + DECISION_OPS + UNIFORM_OPS
+                                + HASH_OPS)
+    mailbox = n_ex * R * 2 * Bc * H * 2
+    launches = shard["launches"]["sweep_sparse_exchange"]
+    per_launch = SHARD_SWEEPS // S
+    t = shard["_times"]
+    return {"name": "sweep_sparse_exchange", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sweep_exchange.cu",
+            "replaces": "src/repro/kernels/sweep_fused.py:953",
+            "launches": launches, "launches_by_path": launches_by_path,
+            "max_abs_err": max(checks["max_abs_diff"], worst),
+            "ms": cuda_ms(run), "plain_ms": plain_ms,
+            "device_ms": device_kernel_ms(run, "sweep_exchange_kernel", 20),
+            **_bound(_moved(args, kwargs, outs), ops),
+            "library_ms": None,
+            "library_what": "none: no single PyTorch call computes it",
+            "mailbox_bytes": mailbox,
+            "session_ms_per_launch": t["k5_call_ms"] / per_launch,
+            "emulation_ms_per_launch": t["k1_windows_call_ms"] / per_launch,
+            "fused_shape_ms_per_launch": t["fused_call_ms"] / per_launch,
+            "chains_per_block": [tb for key, tb in
+                                 sweep_fused._EXCHANGE_TILES.items()
+                                 if key[1:4] == (R, Bc, N)],
+            "shape": {"bands": R, "B": Bc, "N_ext": N, "n_loc": n_loc,
+                      "halo": H, "S": S, "D": D,
+                      "ex_pts": list(kwargs["ex_pts"]),
+                      "mode": kwargs.get("mode", "barrier")}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1704,19 +2104,23 @@ def main() -> int:
     dense_checks = check_dense_kernels(args.seed)
     stream_checks = check_stream_kernel(args.seed)
     lattice_checks = check_lattice_kernel(args.seed)
+    exchange_checks = check_exchange_kernel(args.seed)
     path, calls = main_path(args.seed)
     train, train_calls = training(args.seed)
     learn = learning(args.seed)
     work = workloads(args.seed)
     stream, stream_calls = streaming(args.seed)
     soa, soa_calls = lattice_soa(args.seed)
+    shard, shard_calls = sharded(args.seed)
     by_path = {"sample": path["launches"], "training": train["launches"],
                "learning": learn["launches"], "workloads": work["launches"],
-               "streaming": stream["launches"], "lattice_soa": soa["launches"]}
+               "streaming": stream["launches"], "lattice_soa": soa["launches"],
+               "sharded": shard["launches"]}
     worst = {"training": train.pop("_worst"), "learning": learn.pop("_worst"),
              "workloads": work.pop("_worst"),
              "streaming": stream.pop("_worst"),
-             "lattice_soa": soa.pop("_worst")}
+             "lattice_soa": soa.pop("_worst"),
+             "sharded": shard.pop("_worst")}
     per_path = lambda k: {p: c[k] for p, c in by_path.items()}  # noqa: E731
     records = [kernel_record(checks, path, calls, per_path("sweep_sparse"))]
     records += dense_kernel_records(args.seed, dense_checks, train,
@@ -1729,6 +2133,9 @@ def main() -> int:
     records.append(lattice_kernel_record(
         lattice_checks, soa, soa_calls, per_path("lattice_vertical_update"),
         worst["lattice_soa"]))
+    records.append(exchange_kernel_record(
+        exchange_checks, shard, shard_calls,
+        per_path("sweep_sparse_exchange"), worst["sharded"]))
     emit({"kernels": records})
     emit({"phase": "timing", "run_seconds": time.perf_counter() - t_run})
 

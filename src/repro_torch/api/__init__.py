@@ -12,7 +12,9 @@
     m, ns, _ = session.sample_program(prog, state.m, state.noise_state)
 
 `core.cd.PBitMachine.session(...)` builds specs/sessions from the familiar
-machine object.  Counterpart of ``repro.api``.
+machine object.  A spec with ``mesh=core.distributed.make_mesh((4,),
+("data",))``, ``partition=api.Partition(rows="data")`` and
+``sync=api.Sync(...)`` runs row-band sharded (`core.distributed`).  Counterpart of ``repro.api``.
 """
 from repro_torch.api.program import Program, fleet_member, stack_programs
 from repro_torch.api.spec import (
@@ -23,8 +25,10 @@ from repro_torch.api.spec import (
     SPARSE_BACKENDS,
     Anneal,
     Constant,
+    Partition,
     SamplerSpec,
     Schedule,
+    Sync,
     Tempered,
     resolve_backend,
 )
@@ -41,7 +45,7 @@ __all__ = [
     "BACKENDS", "FUSED_BACKENDS", "IN_KERNEL_NOISE", "NOISE_KINDS",
     "SPARSE_BACKENDS",
     "Schedule", "Constant", "Anneal", "Tempered",
-    "SamplerSpec", "Session", "SessionState",
+    "SamplerSpec", "Session", "SessionState", "Partition", "Sync",
     "program", "program_edges", "program_master",
     "Program", "fleet_member", "program_chip", "stack_programs",
     "resolve_backend",

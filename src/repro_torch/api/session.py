@@ -5,7 +5,9 @@ execution backends in core/pbit.py + kernels/.  Construction does all the
 one-time work: validates the spec, resolves ``backend`` (the only place
 REPRO_PBIT_BACKEND is read) and ``device`` (a missing GPU raises), builds
 the noise step function, moves the graph's colour / edge / slot tables to
-the device and materializes the spec's `Schedule`.
+the device and materializes the spec's `Schedule`.  A spec with a mesh
+builds the row-band `core.distributed.ShardedEngine` here, and every
+sampling entry point delegates to it with the same array contracts.
 
 State threading is explicit everywhere: chips, spins and noise state are
 arguments and return values, never hidden attributes.  A problem can also
@@ -164,10 +166,26 @@ class Session:
         slot_ij, slot_ji = g.edge_slots(nbr_idx)
         self._nbr = (nbr_idx, nbr_mask, slot_ij, slot_ji)
         self._noise_init, self._noise_step = self._make_noise()
+        self._engine = None
+        if spec.mesh is not None:
+            # row-band sharded execution: the plan, the sync policy's loop
+            # and the per-band kernels live in core/distributed.py
+            from repro_torch.core.distributed import ShardedEngine
+            self._engine = ShardedEngine(
+                g, spec.mesh, spec.partitioning(), spec.noise,
+                spec.decimation, spec.chains, sync=spec.sync_policy(),
+                backend=self.backend, device=self.device)
         self.default_betas = (
             None if spec.schedule is None
             else torch.as_tensor(spec.schedule.betas(spec.chains),
                                  device=self.device))
+
+    @property
+    def partition_plan(self):
+        """The `core.distributed.RowPartition` of a sharded Session (None
+        when mesh=None): the handle for halo / boundary accounting
+        (`core.distributed.halo_bytes_per_sweep`)."""
+        return None if self._engine is None else self._engine.plan
 
     def _make_noise(self) -> tuple[Callable, pbit.NoiseFn]:
         spec, dev = self.spec, self.device
@@ -300,8 +318,13 @@ class Session:
         across the fleet unless the programs carry their own.  Each member
         runs through this Session's own backend (``fused_sparse``: one K1
         launch per member), so the fleet equals K sequential
-        `sample_program` calls bit for bit.
+        `sample_program` calls bit for bit.  Single-device only.
         """
+        if self._engine is not None:
+            raise ValueError(
+                "sample_fleet runs on single-device Sessions; a sharded "
+                "mesh already owns the device axis — run one fleet per "
+                "device instead")
         K = progs.J_codes.shape[0]
         outs = [self.sample_program(fleet_member(progs, k), m[k],
                                     noise_state[k], betas)
@@ -319,6 +342,10 @@ class Session:
         ``collect=True`` returns the (S, B, N) per-sweep trajectory and
         forces the half-sweep loop (the fused engine cannot emit it).
         """
+        if self._engine is not None:
+            return self._engine.sample(chip, m, noise_state,
+                                       self._betas(betas), clamp_mask,
+                                       clamp_values, collect)
         return pbit.gibbs_sample(
             chip, self._color, m, self._betas(betas), noise_state,
             self._noise_step, clamp_mask=clamp_mask,
@@ -331,6 +358,9 @@ class Session:
         """On-line first/second moments at the spec's base beta:
         (mean_spin[N], mean_edge_corr[E], m', noise_state')."""
         beta = self.spec.beta if beta is None else float(beta)
+        if self._engine is not None:
+            return self._engine.stats(chip, m, noise_state, beta, n_sweeps,
+                                      burn_in, clamp_mask, clamp_values)
         return pbit.gibbs_stats(
             chip, self._color, m, beta, n_sweeps, burn_in, noise_state,
             self._noise_step, self._edges, clamp_mask=clamp_mask,
@@ -339,6 +369,10 @@ class Session:
     def visible_hist(self, chip: EffectiveChip, m, noise_state,
                      visible_idx: np.ndarray, burn_in: int, betas=None):
         """Streaming visible-pattern histogram: (counts[2^nv], m', state')."""
+        if self._engine is not None:
+            return self._engine.visible_hist(chip, m, noise_state,
+                                             self._betas(betas), burn_in,
+                                             np.asarray(visible_idx))
         return pbit.gibbs_visible_hist(
             chip, self._color, m, self._betas(betas), burn_in, noise_state,
             self._noise_step, np.asarray(visible_idx), backend=self.backend)
@@ -376,8 +410,12 @@ class Session:
         m (K, B, N), vel a pair of (K, E) / (K, N) tensors; metrics come
         back stacked per chip.  Chip k runs ``make_cd_step``'s
         ``with_mismatch`` on its own draw, so the fleet equals K
-        sequential per-chip epochs bit for bit.
+        sequential per-chip epochs bit for bit.  Single-device only.
         """
+        if self._engine is not None:
+            raise ValueError(
+                "fleet CD runs on single-device Sessions; a sharded mesh "
+                "already owns the device axis — run one fleet per device")
         step_mm = self.make_cd_step(cfg, visible_idx).with_mismatch
 
         def step(mismatches, Jm, hm, data_vis, m, noise_state, vel):
@@ -416,6 +454,11 @@ class Session:
         beta = self.spec.beta
 
         def phase(chip, m0, n_sweeps, ns, cm=None, cv=None):
+            if self._engine is not None:
+                # sharded phases: the rows partition exchanges halos, a
+                # chains partition sums its shards' moments once per phase
+                return self._engine.stats(chip, m0, ns, beta, n_sweeps,
+                                          cfg.burn_in, cm, cv)
             return pbit.gibbs_stats(
                 chip, self._color, m0, beta, n_sweeps, cfg.burn_in, ns,
                 self._noise_step, self._edges, clamp_mask=cm,

@@ -19,18 +19,29 @@ Counterpart of ``repro.api.spec``, single device:
   * ``device`` — where chips, spins and noise live; default ``"cuda"``.
     A Session on the default device without a GPU raises — it does not
     carry on on the CPU.
+  * ``mesh`` + ``partition`` + ``sync`` — row-band sharded execution
+    (`core/distributed.py`).  A `Partition` names the mesh axis the cell
+    rows shard over (contiguous row bands; only the chain-coupler boundary
+    spins move between neighbouring bands) and/or the axis the chains
+    shard over; a `Sync` says how often the bands exchange halos.  On one
+    card every band lives on ``device``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.core.chimera import ChimeraGraph
 from repro_torch.core.hardware import HardwareConfig, Mismatch, SparseMismatch
-from repro_torch.kernels.sweep_fused import card_limits, dense_resident_feasible
+from repro_torch.core.distributed import plan_row_partition
+from repro_torch.kernels.sweep_fused import (card_limits,
+                                             dense_resident_feasible,
+                                             exchange_resident_feasible)
 
 BACKENDS = ("ref", "pallas", "fused", "sparse", "fused_sparse")
 FUSED_BACKENDS = ("fused", "fused_sparse")
@@ -143,6 +154,136 @@ class Tempered(Schedule):
 
 
 # ---------------------------------------------------------------------------
+# Partitioning
+# ---------------------------------------------------------------------------
+def _norm_axes(axes) -> tuple[str, ...]:
+    """None -> (); "data" -> ("data",); tuples pass through."""
+    if axes is None:
+        return ()
+    if isinstance(axes, str):
+        return (axes,)
+    return tuple(axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """Declarative partition choice, resolved at Session construction.
+
+    ``rows`` names the mesh axis (or axes, flattened in order) the Chimera
+    *cell rows* shard over: each band owns a contiguous range of cell rows
+    plus the O(D·n_loc) slice of the slot tables, and only the
+    chain-coupler boundary spins (the vertical nodes of the band's first
+    and last cell row — O(√N)) move between row neighbours.  ``chains``
+    names the axis the Gibbs chains shard over.  Spins equal the
+    single-device engine's for any chain count; the moments do too when
+    the chains are a power of two (their shards' raw sums are then
+    divided exactly).  Both may be set at once (rows x chains).  Sharded execution needs noise that regenerates per (chain,
+    node) coordinate: ``noise`` "counter" or "lfsr".
+    """
+
+    rows: str | tuple[str, ...] | None = "data"
+    chains: str | tuple[str, ...] | None = None
+
+    @property
+    def rows_axes(self) -> tuple[str, ...]:
+        return _norm_axes(self.rows)
+
+    @property
+    def chain_axes(self) -> tuple[str, ...]:
+        return _norm_axes(self.chains)
+
+
+# ---------------------------------------------------------------------------
+# Synchronization policy (sharded execution)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Sync:
+    """How often row bands exchange halos — a sampler property.
+
+    * ``halo_every=k`` — exchange the boundary spins before every k-th
+      half-sweep of a launch (a launch boundary always refreshes).  ``k=1``
+      (the default) is the bit-exact barrier; ``k>1`` lets bands run on
+      halos up to ``k-1`` half-sweeps stale; ``math.inf`` exchanges only at
+      launch boundaries.
+    * ``mode`` — ``"barrier"`` consumes each exchange at once; ``"async"``
+      double-buffers it: the values consumed at exchange point t are the
+      ones sent at point t-1 (deterministic, seeded staleness).
+    * ``sweeps_per_launch=S`` — fuse S sweeps into one launch between
+      launch boundaries.  With counter noise and ``fused_sparse`` a launch
+      runs inside K1 per band (no mid-launch exchange) or, with exchange
+      points inside the launch (``halo_every <= S``), inside K5, which
+      refreshes the halos itself.
+
+    ``halo_every=1`` keeps sharded == single-device bit for bit; anything
+    looser is a deterministic approximation.
+    """
+
+    halo_every: int | float = 1
+    mode: str = "barrier"
+    sweeps_per_launch: int = 1
+
+    def __post_init__(self):
+        k = self.halo_every
+        if not (k == math.inf or (isinstance(k, int) and k >= 1)):
+            raise ValueError(
+                f"Sync.halo_every must be an int >= 1 or math.inf, got "
+                f"{k!r}")
+        if self.mode not in ("barrier", "async"):
+            raise ValueError(
+                f"Sync.mode must be 'barrier' or 'async', got {self.mode!r}")
+        if not (isinstance(self.sweeps_per_launch, int)
+                and self.sweeps_per_launch >= 1):
+            raise ValueError(
+                f"Sync.sweeps_per_launch must be an int >= 1, got "
+                f"{self.sweeps_per_launch!r}")
+
+    @property
+    def bit_exact(self) -> bool:
+        """Does this policy keep the single-device spin trajectory
+        exactly?  Only the per-half-sweep barrier does."""
+        return self.mode == "barrier" and self.halo_every == 1
+
+    @property
+    def launch_resident(self) -> bool:
+        return self.sweeps_per_launch > 1
+
+    def exchange_points(self) -> tuple[int, ...]:
+        """Within-launch half-sweep indices at which halos refresh (a
+        launch spans ``2 * sweeps_per_launch`` half-sweeps; index 0, the
+        launch boundary, always refreshes)."""
+        n_half = 2 * self.sweeps_per_launch
+        if self.halo_every == math.inf:
+            return (0,)
+        k = int(self.halo_every)
+        return tuple(hs for hs in range(n_half) if hs % k == 0)
+
+    @property
+    def kernel_fusible(self) -> bool:
+        """No mid-launch exchange: a launch is one K1 launch per band."""
+        return self.exchange_points() == (0,)
+
+    @property
+    def fused_compatible(self) -> bool:
+        """Can a fused backend run this policy?  With no mid-launch
+        exchange (`kernel_fusible`), or when K5 owns the refresh: any
+        ``halo_every <= sweeps_per_launch``.  The infeasible window is
+        ``sweeps_per_launch < halo_every < 2 * sweeps_per_launch``."""
+        if self.kernel_fusible:
+            return True
+        return (isinstance(self.halo_every, int)
+                and self.halo_every <= self.sweeps_per_launch)
+
+    def exchanges_per_sweep(self, refresh_for_moments: bool = False
+                            ) -> float:
+        """Average halo exchanges per full sweep under this policy (the
+        halo-bytes model's multiplier)."""
+        per = len(self.exchange_points()) / self.sweeps_per_launch
+        if refresh_for_moments and self.bit_exact:
+            per += 1.0  # post-sweep refresh for boundary-edge correlations
+        return per
+
+
+# ---------------------------------------------------------------------------
 # The spec
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -166,6 +307,9 @@ class SamplerSpec:
     decimation: int = 8         # LFSR clocks per half-sweep
     attach_sparse: bool = True  # carry the Chimera slot layout on dense chips
     device: str | torch.device = "cuda"
+    mesh: Any = None            # core.distributed.Mesh; None -> unsharded
+    partition: Partition | None = None  # how to cut over mesh
+    sync: Sync | None = None    # halo exchange policy; None -> Sync()
 
     @property
     def sparse_native(self) -> bool:
@@ -180,6 +324,20 @@ class SamplerSpec:
     def replace(self, **kw) -> "SamplerSpec":
         return dataclasses.replace(self, **kw)
 
+    def partitioning(self) -> Partition | None:
+        """The effective Partition: rows over "data" when a mesh is given
+        without an explicit partition; None when unsharded."""
+        if self.mesh is None:
+            return None
+        return self.partition if self.partition is not None else Partition()
+
+    def sync_policy(self) -> Sync | None:
+        """The effective Sync policy: the bit-exact per-half-sweep barrier
+        when a mesh is given without an explicit sync; None unsharded."""
+        if self.mesh is None:
+            return None
+        return self.sync if self.sync is not None else Sync()
+
     def fingerprint(self) -> tuple:
         """Shape-bucket key for this spec (a hashable tuple).
 
@@ -193,8 +351,7 @@ class SamplerSpec:
         ``with_mismatch``), so two chip instances of one SKU share a key.
         The analog `HardwareConfig` scalars are not keyed: a cache mixing
         them must key on ``hw`` separately.  ``REPRO_PBIT_BACKEND`` is read
-        as `Session` construction reads it.  Single device: the port has
-        no partition or mesh term yet.
+        as `Session` construction reads it.
         """
         g = self.graph
         graph_sig = ("chimera", int(g.rows), int(g.cols), int(g.k),
@@ -205,6 +362,18 @@ class SamplerSpec:
                   tuple((f.name, str(getattr(mm, f.name).dtype),
                          tuple(getattr(mm, f.name).shape))
                         for f in dataclasses.fields(mm)))
+        mesh_sig = None
+        if self.mesh is not None:
+            mesh_sig = (tuple(self.mesh.axis_names),
+                        tuple(int(self.mesh.shape[a])
+                              for a in self.mesh.axis_names),
+                        tuple(int(d) for d in
+                              np.asarray(self.mesh.devices).reshape(-1)))
+        part = self.partitioning()
+        part_sig = None if part is None else (part.rows_axes, part.chain_axes)
+        sync = self.sync_policy()
+        sync_sig = None if sync is None else (
+            sync.halo_every, sync.mode, sync.sweeps_per_launch)
         sched_sig = None
         if self.schedule is not None:
             sched_sig = (type(self.schedule).__name__,
@@ -213,7 +382,8 @@ class SamplerSpec:
         return (graph_sig, mm_sig, self.noise, resolve_backend(self),
                 torch.device(self.device).type, int(self.chains),
                 float(self.beta), float(self.w_scale), int(self.decimation),
-                bool(self.attach_sparse), sched_sig)
+                bool(self.attach_sparse), mesh_sig, part_sig, sync_sig,
+                sched_sig)
 
     def validate(self) -> "SamplerSpec":
         """Static sanity checks; raises ValueError naming the fix."""
@@ -243,7 +413,84 @@ class SamplerSpec:
             raise ValueError(f"chains must be >= 1, got {self.chains}")
         if self.schedule is not None:
             self.schedule.betas(self.chains)  # raises on ladder mismatch
+        self._validate_partition()
         return self
+
+    def _validate_partition(self) -> None:
+        if self.partition is not None and self.mesh is None:
+            raise ValueError(
+                "partition= set but mesh=None; pass the mesh the partition "
+                "shards over (core.distributed.make_mesh)")
+        if self.sync is not None and self.mesh is None:
+            raise ValueError(
+                "sync= is a sharded-execution policy (how often row bands "
+                "exchange halos) but mesh=None; pass mesh= or drop sync=")
+        part = self.partitioning()
+        if part is None:
+            return
+        mesh_axes = tuple(self.mesh.axis_names)
+        rows, chains = part.rows_axes, part.chain_axes
+        if not rows and not chains:
+            raise ValueError(
+                "mesh= set but the Partition shards nothing; set "
+                "Partition(rows=...) and/or Partition(chains=...)")
+        for ax in rows + chains:
+            if ax not in mesh_axes:
+                raise ValueError(
+                    f"partition axis {ax!r} not in mesh axes {mesh_axes}")
+        if set(rows) & set(chains):
+            raise ValueError(
+                f"partition axes must be disjoint; {set(rows) & set(chains)}"
+                f" appear in both rows and chains")
+        if self.noise not in IN_KERNEL_NOISE:
+            raise ValueError(
+                f"sharded execution regenerates noise per (chain, node) "
+                f"coordinate and needs noise='counter' or 'lfsr', got "
+                f"{self.noise!r}")
+        if not self.has_slot_layout:
+            raise ValueError(
+                "sharded execution runs on the Chimera slot layout; use "
+                "attach_sparse=True or a sparse-native mismatch")
+        sync = self.sync_policy()
+        if self.backend not in (None, "auto", "sparse", "fused_sparse"):
+            raise ValueError(
+                f"sharded Sessions run the slot-layout scan path or, under "
+                f"a launch-resident sync policy, the fused per-band "
+                f"kernels; backend must be 'sparse', 'fused_sparse', or "
+                f"'auto', got {self.backend!r}")
+        if self.backend == "fused_sparse":
+            if not sync.fused_compatible:
+                S = sync.sweeps_per_launch
+                raise ValueError(
+                    f"backend 'fused_sparse' runs whole launches inside one "
+                    f"kernel; the kernel-resident halo exchange supports "
+                    f"halo_every <= sweeps_per_launch, but sync={sync} has "
+                    f"halo_every={sync.halo_every} with sweeps_per_launch="
+                    f"{S} (exchange points {sync.exchange_points()}); "
+                    f"nearest legal Sync: lower halo_every to {S} "
+                    f"(kernel-resident exchange), raise it to >= {2 * S} "
+                    f"or math.inf (launch-boundary exchange only), or use "
+                    f"backend='sparse'")
+            if self.noise != "counter":
+                raise ValueError(
+                    f"the fused per-band kernels regenerate noise in the "
+                    f"kernel from global (chain, node) coordinates and "
+                    f"need noise='counter', got {self.noise!r}; use "
+                    f"backend='sparse' for lfsr")
+        n_row = 1
+        for ax in rows:
+            n_row *= self.mesh.shape[ax]
+        if n_row > self.graph.rows:
+            raise ValueError(
+                f"cannot shard {self.graph.rows} cell rows over {n_row} "
+                f"devices; grow the lattice or shrink the rows axes")
+        n_chain = 1
+        for ax in chains:
+            n_chain *= self.mesh.shape[ax]
+        if self.chains % n_chain:
+            raise ValueError(
+                f"chains={self.chains} not divisible by the chain-axis "
+                f"size {n_chain}")
 
 
 def require_device(device) -> torch.device:
@@ -265,8 +512,11 @@ def resolve_backend(spec: SamplerSpec) -> str:
 
     Explicit names win; ``auto``/``None`` consults REPRO_PBIT_BACKEND and
     then `_auto_backend`.  The returned string is fixed in the Session —
-    no env read ever happens at call time.
+    no env read ever happens at call time.  A sharded spec (``mesh=``)
+    resolves by `_resolve_sharded_backend`.
     """
+    if spec.mesh is not None:
+        return _resolve_sharded_backend(spec)
     b = spec.backend
     if b in (None, "auto"):
         env = os.environ.get("REPRO_PBIT_BACKEND")
@@ -282,6 +532,63 @@ def resolve_backend(spec: SamplerSpec) -> str:
             f"REPRO_PBIT_BACKEND={b!r} cannot run a sparse-native spec "
             f"(no dense W); use 'sparse' or 'fused_sparse'")
     return b
+
+
+def _resolve_sharded_backend(spec: SamplerSpec) -> str:
+    """Backend resolution under a mesh: 'sparse' or 'fused_sparse' only.
+
+    ``auto`` picks 'fused_sparse' for a launch-resident, fused-compatible
+    policy with counter noise, else 'sparse' — and 'sparse' too when the
+    policy's mid-launch exchanges need K5 and K5's grid (every band's
+    chain tiles, resident at once) does not fit the spec's card
+    (`exchange_resident_feasible`, the card's own limits).  The env
+    default takes part as everywhere else, but a value the partition
+    cannot honour raises rather than being silently replaced.
+    """
+    sync = spec.sync_policy()
+    fused_ok = spec.noise == "counter" and sync.fused_compatible
+    b = spec.backend
+    src = f"backend={b!r}"
+    if b in (None, "auto"):
+        env = os.environ.get("REPRO_PBIT_BACKEND")
+        if env:
+            b, src = env, f"REPRO_PBIT_BACKEND={env!r}"
+        elif not (fused_ok and sync.launch_resident):
+            return "sparse"
+        elif sync.kernel_fusible:
+            return "fused_sparse"     # K1 per band: no grid-wide wait
+        else:
+            return ("fused_sparse" if _exchange_fits(spec) else "sparse")
+    if b == "sparse":
+        return b
+    if b == "fused_sparse":
+        if not fused_ok:
+            S = sync.sweeps_per_launch
+            raise ValueError(
+                f"{src} names the fused per-band kernels, but this sharded "
+                f"spec cannot run them (needs noise='counter' and a sync "
+                f"policy with halo_every <= sweeps_per_launch or no "
+                f"mid-launch exchange; got noise={spec.noise!r}, "
+                f"sync={sync}); nearest legal Sync: lower halo_every to "
+                f"{S}, raise it to >= {2 * S} or math.inf, or use "
+                f"backend='sparse'")
+        return b
+    raise ValueError(
+        f"{src} cannot run a mesh-sharded spec: the partitioned engine "
+        f"supports 'sparse' (scan over the bands) or 'fused_sparse' "
+        f"(launch-resident kernels per band), and the single-device "
+        f"backends cannot exchange halos")
+
+
+def _exchange_fits(spec: SamplerSpec) -> bool:
+    """Can one K5 launch of this sharded spec be resident on its card?"""
+    part = spec.partitioning()
+    n_row = int(np.prod([spec.mesh.shape[a] for a in part.rows_axes],
+                        dtype=np.int64))
+    plan = plan_row_partition(spec.graph, n_row)
+    return exchange_resident_feasible(n_row, spec.chains,
+                                      plan.n_loc + 2 * plan.halo,
+                                      card_limits(spec.device))
 
 
 def _auto_backend(spec: SamplerSpec) -> str:

@@ -3,9 +3,10 @@
 The reference (`repro`, JAX) and this package never import each other.
 What crosses between them crosses as numpy: ``np.asarray`` of a spin or
 noise array, or the leaves of an `EffectiveChip` / `Mismatch` /
-`SparseMismatch` in field order (what ``jax.tree_util.tree_leaves`` gives,
-with absent ``None`` fields dropped) or a ``{field: array}`` dict; a
-`Program` crosses as a ``{field: array}`` dict.  The
+`SparseMismatch` / `LatticeChip` in field order (what
+``jax.tree_util.tree_leaves`` gives, with absent ``None`` fields dropped)
+or a ``{field: array}`` dict; a `Program` crosses as a ``{field: array}``
+dict.  The
 tests use only these functions to move state between the packages.
 """
 from __future__ import annotations
@@ -17,10 +18,12 @@ import torch
 
 from repro_torch.api.program import Program
 from repro_torch.core import lfsr as lfsr_mod
+from repro_torch.core.distributed import LatticeChip
 from repro_torch.core.hardware import EffectiveChip, Mismatch, SparseMismatch
 
 _CHIP_FIELDS = tuple(f.name for f in dataclasses.fields(EffectiveChip))
 _MISMATCH_FIELDS = tuple(f.name for f in dataclasses.fields(Mismatch))
+_LATTICE_FIELDS = tuple(f.name for f in dataclasses.fields(LatticeChip))
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -96,6 +99,14 @@ def program_from_numpy(fields: dict, device="cuda") -> Program:
         clamp_mask=opt("clamp_mask", bool),
         clamp_values=opt("clamp_values", np.float32),
         betas=opt("betas", np.float32))
+
+
+def lattice_from_numpy(arrays, device="cuda") -> LatticeChip:
+    """`core.distributed.LatticeChip` from its 12 numpy leaves in field
+    order ``(W_vh, W_hv, Wv_dn, Wv_up, Wh_rt, Wh_lt, h_v, h_h, gain_v,
+    gain_h, off_v, off_h)`` or a ``{field: array}`` dict, float32."""
+    named = _named(arrays, _LATTICE_FIELDS)
+    return LatticeChip(**{k: _f32(named[k], device) for k in _LATTICE_FIELDS})
 
 
 def noise_state_from_numpy(state, device="cuda") -> torch.Tensor:

@@ -63,6 +63,9 @@ class PBitMachine:
     backend: str = "auto"   # auto | ref | pallas | fused | sparse | fused_sparse
     w_scale: float = 0.05   # weight-LSB -> coupling units (ext. resistor knob)
     device: str | torch.device = "cuda"
+    mesh: object = None     # core.distributed.Mesh -> row-band sharded sessions
+    partition: object = None  # api.Partition; None -> rows over "data"
+    sync: object = None     # api.Sync; None -> bit-exact barrier policy
 
     @staticmethod
     def create(graph: ChimeraGraph, gen: torch.Generator | int,
@@ -115,8 +118,13 @@ class PBitMachine:
     # -- the api seam ----------------------------------------------------
     def sampler_spec(self, schedule: api.Schedule | None = None,
                      chains: int = 256, **kw) -> api.SamplerSpec:
-        """The declarative `api.SamplerSpec` for this chip instance."""
+        """The declarative `api.SamplerSpec` for this chip instance
+        (the machine's mesh / partition / sync unless ``kw`` names
+        them)."""
         kw.setdefault("device", self.device)
+        kw.setdefault("mesh", self.mesh)
+        kw.setdefault("partition", self.partition)
+        kw.setdefault("sync", self.sync)
         return api.SamplerSpec(
             graph=self.graph, hw=self.hw, mismatch=self.mismatch,
             noise=self.noise, backend=self.backend, schedule=schedule,

@@ -1,0 +1,1095 @@
+"""Row-band sharded lattice: partition plan, halo exchange, engine.
+
+Counterpart of ``repro.core.distributed``.  The chip tiles its Chimera cell
+grid with only inter-cell wires crossing tile boundaries; the sharded
+engine cuts the cell grid into contiguous *row bands* and moves only the
+chain-coupler boundary spins (O(√N)) between neighbouring bands:
+
+  * `Mesh` / `make_mesh` name the logical devices a `SamplerSpec` shards
+    over.  On one card a "device" of the mesh is a row band (or a chain
+    shard) living on the spec's device; a mesh that names more than one
+    CUDA device raises (several cards through ``torch.distributed`` are
+    later work).
+  * `plan_row_partition` (numpy, memoized) cuts the grid into bands and
+    precomputes the padded per-band node slices, the (D, n_loc) neighbour
+    tables re-indexed into ``[local | halo_up | halo_dn]``, the boundary
+    send lists, the per-band edge lists for the moments and the LFSR cell
+    bands — array-equal to the reference's plan.
+  * `ShardedEngine` runs the spec's `api.Sync` policy over the plan.  All
+    bands live on one device with a leading band axis: the scan shapes run
+    every band in one batched op, the halo exchange is an index gather
+    over the band axis (edge bands read zeros), the launch-resident shape
+    runs K1 per band, and the fused-resident-exchange shape runs every
+    band of the card in one launch of K5
+    (`kernels/sweep_fused.py::sweep_sparse_exchange`), which refreshes the
+    halos inside the kernel.  Under the default barrier policy spins equal
+    the single-device engine bit for bit.
+
+`LatticeSpec` / `make_sk_lattice` generate SK-style lattice instances;
+`lattice_to_chip` converts them into the shared `EffectiveChip` slot
+layout and `make_lattice_anneal` drives them through a (sharded) Session.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import lfsr as lfsr_mod
+from repro_torch.core.chimera import ChimeraGraph, make_chimera
+from repro_torch.core.hardware import EffectiveChip, HardwareConfig
+from repro_torch.kernels.ref import (
+    halo_exchange_segments,
+    sparse_neuron_input,
+)
+from repro_torch.kernels.shard_sweep import (
+    exchange_launch,
+    exchange_tables,
+    fused_shard_sweeps,
+    halo_exchange,
+    halo_half_sweep,
+)
+
+
+# ---------------------------------------------------------------------------
+# The mesh: logical devices
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A mesh of logical devices, what a sharded `SamplerSpec` names.
+
+    ``axis_names`` in order, ``shape`` as ``{axis: size}`` and ``devices``
+    as an integer array of logical ids shaped like the axes — the parts of
+    a ``jax.sharding.Mesh`` the engine, the spec's validation and
+    `surviving_mesh` read.  Every logical device lives on the spec's
+    device: on one card a row band is a slice of a tensor, not a process.
+    """
+
+    axis_names: tuple
+    shape: dict
+    devices: np.ndarray
+
+
+def _logical_ids(devices, n: int) -> np.ndarray:
+    """Logical ids of ``devices`` (ints, or device names / `torch.device`s
+    of one card); raises when they name more than one CUDA device."""
+    if devices is None:
+        return np.arange(n, dtype=np.int64)
+    devs = list(np.asarray(devices, dtype=object).reshape(-1))
+    if len(devs) != n:
+        raise ValueError(f"the mesh has {n} positions but {len(devs)} "
+                         f"devices were given")
+    if all(isinstance(d, (int, np.integer)) for d in devs):
+        return np.asarray(devs, dtype=np.int64)
+    cards = {torch.device(d) for d in devs}
+    if len({(c.type, c.index) for c in cards if c.type == "cuda"}) > 1:
+        raise NotImplementedError(
+            f"this mesh names {len(cards)} CUDA devices; the sharded engine "
+            f"runs every row band on one card (several cards through "
+            f"torch.distributed are not built yet) — name one card, or "
+            f"leave devices=None")
+    return np.arange(n, dtype=np.int64)
+
+
+def make_mesh(axis_shapes, axis_names, *, devices=None) -> Mesh:
+    """`Mesh` of ``prod(axis_shapes)`` logical devices, mirroring
+    ``jax.make_mesh(axis_shapes, axis_names)``."""
+    axis_shapes = tuple(int(s) for s in axis_shapes)
+    axis_names = tuple(axis_names)
+    if len(axis_shapes) != len(axis_names):
+        raise ValueError(f"{len(axis_shapes)} axis sizes for "
+                         f"{len(axis_names)} axis names")
+    if any(s < 1 for s in axis_shapes):
+        raise ValueError(f"mesh axis sizes must be >= 1, got {axis_shapes}")
+    n = int(np.prod(axis_shapes, dtype=np.int64))
+    ids = _logical_ids(devices, n).reshape(axis_shapes)
+    return Mesh(axis_names, dict(zip(axis_names, axis_shapes)), ids)
+
+
+# ---------------------------------------------------------------------------
+# Partition plan (numpy, built once at Session construction)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class RowPartition:
+    """Static plan: Chimera cell rows -> n_shards contiguous row bands.
+
+    All arrays are numpy; band-varying tables carry a leading (n_shards,)
+    dim.  Padding entries (bands own unequal node counts on masked grids)
+    point at real in-bounds nodes and are masked out of updates.
+    """
+
+    n_shards: int
+    n_loc: int                 # padded nodes per band
+    halo: int                  # padded boundary spins per direction
+    node_starts: np.ndarray    # (n_shards + 1,) global node range bounds
+    part_ids: np.ndarray       # (n_shards, n_loc) global node id
+    valid: np.ndarray          # (n_shards, n_loc) bool
+    inv_ids: np.ndarray        # (N,) global node -> shard * n_loc + p
+    nbr_idx: np.ndarray        # (n_shards, D, n_loc) ext-local indices
+    send_up: np.ndarray        # (n_shards, halo) local idx -> band above
+    send_dn: np.ndarray        # (n_shards, halo) local idx -> band below
+    n_boundary: int            # true boundary spins over internal cuts
+    upd_masks: np.ndarray      # (n_shards, 2, n_loc) color masks & valid
+    e_loc: int                 # padded edges per band
+    edge_e0: np.ndarray        # (n_shards, e_loc) ext-local endpoint 0
+    edge_e1: np.ndarray        # (n_shards, e_loc) ext-local endpoint 1
+    edge_inv: np.ndarray       # (E,) global edge -> shard * e_loc + q
+    # LFSR cell bands (built only when the spec's noise is "lfsr")
+    c_loc: int = 0
+    cell_ids: np.ndarray | None = None   # (n_shards, c_loc) global cell
+    cell_valid: np.ndarray | None = None
+    cell_inv: np.ndarray | None = None   # (n_cells,) -> shard * c_loc + q
+    lfsr_perm: np.ndarray | None = None  # (n_shards, n_loc) local flat col
+
+
+# a ChimeraGraph is a pure function of (rows, cols, k, masked_cells), so
+# those four plus the band count key the plan exactly; plans are read-only
+_PLAN_CACHE: dict = {}
+PLAN_CACHE_STATS = {"hits": 0, "misses": 0}
+
+
+def plan_cache_stats() -> dict:
+    """Copy of the `plan_row_partition` memo hit/miss counters."""
+    return dict(PLAN_CACHE_STATS)
+
+
+def clear_plan_cache() -> None:
+    """Drop memoized plans and zero the counters (tests)."""
+    _PLAN_CACHE.clear()
+    PLAN_CACHE_STATS["hits"] = 0
+    PLAN_CACHE_STATS["misses"] = 0
+
+
+def plan_row_partition(graph: ChimeraGraph, n_shards: int,
+                       with_lfsr: bool = False) -> RowPartition:
+    """Cut the cell grid into contiguous row bands (see `RowPartition`),
+    memoized on (graph shape, n_shards, with_lfsr)."""
+    key = (graph.rows, graph.cols, graph.k, tuple(graph.masked_cells),
+           int(n_shards), bool(with_lfsr))
+    plan = _PLAN_CACHE.get(key)
+    if plan is not None:
+        PLAN_CACHE_STATS["hits"] += 1
+        return plan
+    plan = _plan_row_partition(graph, n_shards, with_lfsr)
+    PLAN_CACHE_STATS["misses"] += 1
+    _PLAN_CACHE[key] = plan
+    return plan
+
+
+def _plan_row_partition(graph: ChimeraGraph, n_shards: int,
+                        with_lfsr: bool = False) -> RowPartition:
+    if n_shards < 1 or n_shards > graph.rows:
+        raise ValueError(
+            f"cannot cut {graph.rows} cell rows into {n_shards} bands")
+    base, rem = divmod(graph.rows, n_shards)
+    counts = [base + (d < rem) for d in range(n_shards)]
+    r_start = np.concatenate([[0], np.cumsum(counts)])       # (n_shards+1,)
+    node_r = np.asarray(graph.node_r)
+    node_side = np.asarray(graph.node_side)
+    # nodes are numbered by (r, c, side, k): each band owns a contiguous
+    # id range regardless of cell masking
+    node_starts = np.searchsorted(node_r, r_start).astype(np.int64)
+    n_loc = max(1, int(np.max(np.diff(node_starts))))
+    N = graph.n_nodes
+    owner = np.searchsorted(node_starts[1:], np.arange(N), side="right")
+
+    # boundary send lists: vertical (side-0) nodes of each band's first /
+    # last cell row — the only nodes chain couplers carry across a cut
+    ids_all = np.arange(N)
+    send_up_ids, send_dn_ids = [], []
+    for d in range(n_shards):
+        sel = slice(node_starts[d], node_starts[d + 1])
+        ids = ids_all[sel]
+        vert = node_side[sel] == 0
+        send_up_ids.append(ids[vert & (node_r[sel] == r_start[d])])
+        send_dn_ids.append(ids[vert & (node_r[sel] == r_start[d + 1] - 1)])
+    H = max(1, max((len(x) for x in send_up_ids + send_dn_ids), default=1))
+    n_boundary = sum(len(send_dn_ids[d]) for d in range(n_shards - 1)) \
+        + sum(len(send_up_ids[d]) for d in range(1, n_shards))
+
+    nbr_g, _ = graph.neighbor_table()
+    D = nbr_g.shape[0]
+    part_ids = np.zeros((n_shards, n_loc), np.int32)
+    valid = np.zeros((n_shards, n_loc), bool)
+    local_nbr = np.zeros((n_shards, D, n_loc), np.int32)
+    send_up = np.zeros((n_shards, H), np.int32)
+    send_dn = np.zeros((n_shards, H), np.int32)
+    for d in range(n_shards):
+        s, e = int(node_starts[d]), int(node_starts[d + 1])
+        n_d = e - s
+        part_ids[d] = min(s, N - 1)
+        part_ids[d, :n_d] = np.arange(s, e)
+        valid[d, :n_d] = True
+        send_up[d, :len(send_up_ids[d])] = send_up_ids[d] - s
+        send_dn[d, :len(send_dn_ids[d])] = send_dn_ids[d] - s
+        g_nbr = nbr_g[:, s:e].astype(np.int64)       # (D, n_d) global ids
+        own = owner[g_nbr]
+        loc = (g_nbr - s).astype(np.int64)           # local by default
+        if d > 0:
+            up = own == d - 1
+            pos = np.searchsorted(send_dn_ids[d - 1], g_nbr[up])
+            if not np.array_equal(send_dn_ids[d - 1][pos], g_nbr[up]):
+                raise AssertionError("cross-band neighbor not on boundary")
+            loc[up] = n_loc + pos
+        if d < n_shards - 1:
+            dn = own == d + 1
+            pos = np.searchsorted(send_up_ids[d + 1], g_nbr[dn])
+            if not np.array_equal(send_up_ids[d + 1][pos], g_nbr[dn]):
+                raise AssertionError("cross-band neighbor not on boundary")
+            loc[dn] = n_loc + H + pos
+        if np.any(np.abs(own - d) > 1):
+            raise AssertionError("neighbor more than one row band away")
+        local_nbr[d, :, :n_d] = loc
+    inv_ids = (owner * n_loc
+               + (np.arange(N) - node_starts[owner])).astype(np.int32)
+
+    color = np.asarray(graph.color)[part_ids]
+    upd_masks = np.stack([(color == c) & valid for c in (0, 1)], axis=1)
+
+    # per-band edge lists (owner = endpoint-0's band; endpoint 1 is local
+    # or in the halo of the band below)
+    e0g, e1g = graph.edges[:, 0].astype(np.int64), \
+        graph.edges[:, 1].astype(np.int64)
+    e_own = owner[e0g]
+    e_loc = max(1, int(np.bincount(e_own, minlength=n_shards).max()))
+    edge_e0 = np.zeros((n_shards, e_loc), np.int32)
+    edge_e1 = np.zeros((n_shards, e_loc), np.int32)
+    edge_inv = np.zeros((graph.n_edges,), np.int32)
+    for d in range(n_shards):
+        s = int(node_starts[d])
+        sel = np.nonzero(e_own == d)[0]
+        edge_e0[d, :len(sel)] = e0g[sel] - s
+        le1 = e1g[sel] - s
+        far = owner[e1g[sel]] == d + 1
+        if np.any(far):
+            pos = np.searchsorted(send_up_ids[d + 1], e1g[sel][far])
+            le1[far] = n_loc + H + pos
+        edge_e1[d, :len(sel)] = le1
+        edge_inv[sel] = d * e_loc + np.arange(len(sel))
+
+    kw: dict[str, Any] = {}
+    if with_lfsr:
+        kw = _plan_lfsr_cells(graph, n_shards, r_start, part_ids, valid,
+                              node_starts)
+    return RowPartition(
+        n_shards=n_shards, n_loc=n_loc, halo=H, node_starts=node_starts,
+        part_ids=part_ids, valid=valid, inv_ids=inv_ids, nbr_idx=local_nbr,
+        send_up=send_up, send_dn=send_dn, n_boundary=int(n_boundary),
+        upd_masks=upd_masks, e_loc=e_loc, edge_e0=edge_e0, edge_e1=edge_e1,
+        edge_inv=edge_inv, **kw)
+
+
+def _plan_lfsr_cells(graph, n_shards, r_start, part_ids, valid, node_starts):
+    """Band the per-cell LFSRs the same way (cells sort by (r, c), exactly
+    the order `core.pbit.make_lfsr_noise` enumerates them)."""
+    cells = sorted(
+        {(int(r), int(c)) for r, c in zip(graph.node_r, graph.node_c)})
+    n_cells = len(cells)
+    vert = np.stack([graph.cell_nodes(r, c, side=0) for r, c in cells])
+    horiz = np.stack([graph.cell_nodes(r, c, side=1) for r, c in cells])
+    perm_g = lfsr_mod.node_gather_perm(vert, horiz, graph.n_nodes)
+    cell_rows = np.array([r for r, _ in cells])
+    cell_starts = np.searchsorted(cell_rows, r_start)
+    c_loc = max(1, int(np.max(np.diff(cell_starts))))
+    cell_ids = np.zeros((n_shards, c_loc), np.int32)
+    cell_valid = np.zeros((n_shards, c_loc), bool)
+    lfsr_perm = np.zeros(part_ids.shape, np.int32)
+    for d in range(n_shards):
+        s, e = int(cell_starts[d]), int(cell_starts[d + 1])
+        cell_ids[d] = min(s, n_cells - 1)
+        cell_ids[d, :e - s] = np.arange(s, e)
+        cell_valid[d, :e - s] = True
+        pg = perm_g[part_ids[d]]
+        kk, cell = pg // n_cells, pg % n_cells
+        lp = kk * c_loc + (cell - s)
+        lfsr_perm[d] = np.where(valid[d], lp, 0)
+    cell_own = np.searchsorted(cell_starts[1:], np.arange(n_cells),
+                               side="right")
+    cell_inv = (cell_own * c_loc
+                + (np.arange(n_cells) - cell_starts[cell_own])).astype(
+                    np.int32)
+    return dict(c_loc=c_loc, cell_ids=cell_ids, cell_valid=cell_valid,
+                cell_inv=cell_inv, lfsr_perm=lfsr_perm)
+
+
+def halo_bytes_per_sweep(plan: RowPartition, chains: int,
+                         refresh_for_moments: bool = False,
+                         sync=None):
+    """Total float32 bytes crossing internal band cuts per full sweep.
+
+    Under the default barrier policy: two half-sweeps, each moving every
+    internal boundary spin in both directions, for every chain; +1
+    exchange per sweep when moments are accumulated (the post-sweep
+    refresh for boundary-edge correlations).  An `api.Sync` policy scales
+    the multiplier by its exchange schedule (`Sync.exchanges_per_sweep`).
+    """
+    if sync is None:
+        from repro_torch.api.spec import Sync
+        sync = Sync()
+    return sync.exchanges_per_sweep(refresh_for_moments) \
+        * plan.n_boundary * chains * 4
+
+
+def surviving_mesh(mesh: Mesh, dead_ids) -> Mesh | None:
+    """Re-plan a 1-D row mesh onto the logical devices that outlived a
+    shard loss: the survivors keep the first axis name, so every
+    ``Partition(rows=axis)`` stays valid.  None when fewer than two
+    survive (the caller drops ``mesh=`` and runs unsharded); raises when
+    none does."""
+    dead = {int(d) for d in dead_ids}
+    ids = [int(d) for d in np.asarray(mesh.devices).reshape(-1)]
+    survivors = [d for d in ids if d not in dead]
+    if not survivors:
+        raise RuntimeError(
+            f"no devices survive: mesh {tuple(ids)} all marked dead "
+            f"({sorted(dead)})")
+    if len(survivors) < 2:
+        return None
+    axis = mesh.axis_names[0]
+    return Mesh((axis,), {axis: len(survivors)},
+                np.asarray(survivors, dtype=np.int64))
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine
+# ---------------------------------------------------------------------------
+def _recip(x) -> torch.Tensor:
+    """float32 ``1 / x`` (the reference's compiled division by a constant
+    is a multiply by this reciprocal; see `core.pbit._recip`)."""
+    return torch.tensor(np.float32(1.0) / np.float32(x))
+
+
+class ShardedEngine:
+    """Plan + mesh + sync policy -> the band-batched sweep implementations.
+
+    Built once at `api.Session` construction when the spec carries a mesh.
+    The public entry points (`sample` / `stats` / `visible_hist`) keep the
+    array contracts of the single-device engine (global (B, N) spins,
+    global noise state), so every workload shards without modification.
+
+    A "device" of the mesh is a row band (and a chain shard) on the
+    spec's device.  Spins live as ``(n_row, B, n_loc)``: one batched torch
+    op runs every band, and the halo exchange is an index gather over the
+    band axis.  The chain axis needs no layout of its own: its shards are
+    contiguous blocks of the chain axis, so their global noise rows
+    (`_chain_offsets`) concatenate to ``0..B-1``; what it changes is the
+    moments' order (``n_chain == 1``: per-sweep means accumulated;
+    ``n_chain > 1``: raw sums, the shards' sums added, one division).
+
+    The `api.Sync` policy picks one of four loop shapes (see
+    `_local_sweeps`); ``resident_exchange`` (None: the spec's device is
+    CUDA) runs the fused-resident-exchange shape through K5 instead of its
+    emulation.
+    """
+
+    def __init__(self, graph: ChimeraGraph, mesh, partition, noise: str,
+                 decimation: int, chains: int, *, sync=None,
+                 backend: str = "sparse", device="cuda",
+                 resident_exchange: bool | None = None):
+        if sync is None:
+            from repro_torch.api.spec import Sync
+            sync = Sync()
+        self.graph = graph
+        self.mesh = mesh
+        self.noise = noise
+        self.decimation = decimation
+        self.chains = chains
+        self.sync = sync
+        self.device = dev = torch.device(device)
+        self._fused = backend == "fused_sparse"
+        self.rows_axes = partition.rows_axes
+        self.chain_axes = partition.chain_axes
+        self.n_row = int(np.prod([mesh.shape[a] for a in self.rows_axes],
+                                 dtype=np.int64)) if self.rows_axes else 1
+        self.n_chain = int(np.prod([mesh.shape[a] for a in self.chain_axes],
+                                   dtype=np.int64)) if self.chain_axes else 1
+        if chains % self.n_chain:
+            raise ValueError(f"chains={chains} not divisible by the "
+                             f"chain-axis size {self.n_chain}")
+        self.b_loc = chains // self.n_chain
+        # fused-resident-exchange: with mid-launch exchange points the
+        # kernel owns the halo refresh.  On the card one K5 launch runs
+        # the whole chunk for every band; elsewhere the engine emulates
+        # the same launch bit for bit (half-sweep windows of K1 with an
+        # exchange between windows)
+        self._fused_exchange = self._fused and not sync.kernel_fusible
+        if resident_exchange is None:
+            resident_exchange = dev.type == "cuda"
+        self._resident = self._fused_exchange and bool(resident_exchange)
+        self.plan = plan_row_partition(graph, self.n_row,
+                                       with_lfsr=(noise == "lfsr"))
+        p = self.plan
+
+        def long(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+        self._part_ids = long(p.part_ids)
+        # each band's global column 0: the counter hash's coordinate offset
+        self._col0 = [int(c) for c in p.part_ids[:, 0]]
+        self._inv_ids = long(p.inv_ids)
+        self._edge_inv = long(p.edge_inv)
+        self._dev = {
+            "nbr": long(p.nbr_idx),
+            "send_up": long(p.send_up),
+            "send_dn": long(p.send_dn),
+            "upd": torch.as_tensor(p.upd_masks, device=dev),
+            "cols": long(p.part_ids),
+            "edge_e0": long(p.edge_e0),
+            "edge_e1": long(p.edge_e1),
+        }
+        if noise == "lfsr":
+            self._dev["lfsr_perm"] = long(p.lfsr_perm)
+            self._cell_ids = long(p.cell_ids)
+            self._cell_inv = long(p.cell_inv)
+        if self._fused:
+            # per-edge slot row into the kernels' (D, N_ext) correlation
+            # table: edge q of band b lives at c_slots[edge_slot[b, q],
+            # edge_e0[b, q]] (endpoint 0 is always local)
+            es = np.zeros((p.n_shards, p.e_loc), np.int64)
+            for b in range(p.n_shards):
+                hit = p.nbr_idx[b][:, p.edge_e0[b]] == p.edge_e1[b][None, :]
+                es[b] = np.argmax(hit, axis=0)
+            self._dev["edge_slot"] = long(es)
+            self._dev["nbr32"] = torch.as_tensor(p.nbr_idx, device=dev)
+        self.loop_shape = self._loop_shape(collect=False, hist=False)
+
+    # -- global <-> parts layout ----------------------------------------
+    def _chip_parts(self, chip: EffectiveChip) -> dict:
+        """The chip's per-band ``(n_row, ...)`` slices (gathers on the
+        plan's tables; the chip is an operand of every call)."""
+        if chip.nbr_w is None or chip.nbr_idx is None:
+            raise ValueError(
+                "sharded execution needs a chip carrying the slot layout "
+                "(program through the Session — e.g. Session.make_program "
+                "+ sample_program — or hardware.attach_sparse)")
+        ids = self._part_ids
+        return {
+            "w": chip.nbr_w[:, ids].permute(1, 0, 2).contiguous(),
+            "h": chip.h[ids],
+            "gain": chip.tanh_gain[ids],
+            "off": chip.tanh_offset[ids],
+            "rg": chip.rand_gain[ids],
+            "co": chip.comp_offset[ids],
+        }
+
+    def _m_parts(self, m: torch.Tensor) -> torch.Tensor:
+        """(B, N) -> (n_row, B, n_loc)."""
+        return m[:, self._part_ids].permute(1, 0, 2).contiguous()
+
+    def _m_global(self, parts: torch.Tensor) -> torch.Tensor:
+        flat = parts.permute(1, 0, 2).reshape(parts.shape[1], -1)
+        return flat[:, self._inv_ids]
+
+    def _ns_parts(self, ns):
+        if self.noise == "lfsr":
+            return ns[:, self._cell_ids].permute(1, 0, 2).contiguous()
+        return ns  # counter: one (2,) state for every band
+
+    def _ns_global(self, ns, parts):
+        if self.noise == "lfsr":
+            flat = parts.permute(1, 0, 2).reshape(parts.shape[1], -1)
+            return flat[:, self._cell_inv]
+        return parts
+
+    def _part_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """(N,) node vector -> (n_row, n_loc)."""
+        return x[self._part_ids]
+
+    # -- band-local pieces ----------------------------------------------
+    def _chain_offsets(self) -> list[int]:
+        """Global id of each chain shard's first chain, in shard order
+        (the reference's per-device ``_chain_offset``)."""
+        return [c * self.b_loc for c in range(self.n_chain)]
+
+    def _noise_step(self):
+        """Step fn regenerating the *global* noise stream's columns for
+        every band at once — bit-exact against `core.pbit`'s noise."""
+        dev = self.device
+        if self.noise == "counter":
+            rows = torch.cat([off + torch.arange(self.b_loc, device=dev)
+                              for off in self._chain_offsets()])[:, None]
+            cols = self._dev["cols"][:, None, :]
+
+            def step(st):
+                u = lfsr_mod.counter_uniform(st[0], st[1], rows, cols)
+                nxt = torch.stack([lfsr_mod.to_u64(st[0]),
+                                   (lfsr_mod.to_u64(st[1]) + 1)
+                                   & 0xFFFFFFFF])
+                return lfsr_mod.from_u64(nxt), u
+            return step
+
+        perm = self._dev["lfsr_perm"]
+
+        def step(st):
+            s = lfsr_mod.lfsr_step_n(lfsr_mod.to_u64(st), self.decimation)
+            flat = lfsr_mod.flat_cell_uniforms(s)
+            u = flat.gather(2, perm[:, None, :].expand(
+                -1, flat.shape[1], -1))
+            return lfsr_mod.from_u64(s), u
+        return step
+
+    def _loop_shape(self, collect: bool, hist: bool) -> str:
+        """Which of the four loop shapes a call takes (see
+        `_local_sweeps`)."""
+        sync = self.sync
+        use_fused = self._fused and not collect and not hist
+        if use_fused:
+            return ("fused" if sync.exchange_points() == (0,)
+                    else "fused-resident-exchange")
+        k, L = sync.halo_every, sync.sweeps_per_launch
+        if sync.exchange_points() == (0,) or (
+                isinstance(k, int) and k % 2 == 0 and (2 * L) % k == 0):
+            return "segment scan"
+        return "unrolled launch"
+
+    def _local_sweeps(self, clamped, collect, accumulate, hist_w):
+        """The band-batched launch loop.  Returns run(chip, m, ns, betas,
+        measured?, cm?, cv?, vis_idx?, vis_w?) -> ((m, ns, *accs), traj).
+
+        The sync policy places every halo exchange at a fixed exchange
+        point; between them the bands sample against a stale halo.  Async
+        mode double-buffers the exchange: the values consumed at an
+        exchange point were sent at the previous one.  Four loop shapes:
+
+          * fused — launch-resident counter-noise policies with
+            launch-boundary-only exchange run each launch as one K1 launch
+            per band (`fused_shard_sweeps`; collect/hist use a scan shape).
+          * fused-resident-exchange — fused backends whose policy has
+            mid-launch exchange points: the kernel owns the halo refresh.
+            On the card one K5 launch per chunk runs every band
+            (`exchange_launch`, its tables built once a call); on the
+            CPU, and for the bit-exact barrier's moments, the same launch
+            split at the exchange points into half-sweep windows of K1 per
+            band with an exchange between windows.
+          * segment scan — exchanges uniformly spaced at full-sweep
+            boundaries (``halo_every`` even or inf): one exchange, then the
+            sweeps of the segment.
+          * unrolled launch — odd ``halo_every`` (exchange points inside a
+            sweep, e.g. the k=1 barrier's two per sweep): every launch's
+            half-sweeps in order, exchanging at the policy's points.
+        """
+        n_loc = self.plan.n_loc
+        sync = self.sync
+        L = sync.sweeps_per_launch
+        ex_pts = sync.exchange_points()
+        async_ = sync.mode == "async"
+        k1_exact = sync.bit_exact
+        shape = self._loop_shape(collect, hist_w is not None)
+        # sweeps per step of the outer loop: a segment between two
+        # exchanges, or a whole launch
+        chunk = sync.halo_every // 2 \
+            if shape == "segment scan" and ex_pts != (0,) else L
+        dev = self.device
+        d = self._dev
+        send_up, send_dn, nbr = d["send_up"], d["send_dn"], d["nbr"]
+        R = self.n_row
+        inv_b = _recip(self.chains).to(dev)
+        col0 = self._col0
+
+        def exchange(m):
+            return halo_exchange(m, send_up, send_dn)
+
+        def run(chip, m, ns, betas, measured=None, cm=None, cv=None,
+                vis_idx=None, vis_w=None):
+            nstep = self._noise_step()
+            w, h = chip["w"], chip["h"]
+            gain, off = chip["gain"], chip["off"]
+            rg, co = chip["rg"], chip["co"]
+            masks = [d["upd"][:, c] for c in (0, 1)]
+            if clamped:
+                masks = [mk & ~cm for mk in masks]
+            impose = clamped and cv is not None
+            exact_stats = accumulate and k1_exact
+            tables = None
+            if (shape == "fused-resident-exchange" and self._resident
+                    and not exact_stats):
+                # what every K5 launch of this call shares, built once
+                kwc = dict(clamp_mask=cm, clamp_values=cv) if impose else {}
+                tables = exchange_tables(
+                    d["nbr32"], w, h, gain, off, rg, co, masks[0], masks[1],
+                    col0, send_up, send_dn, ex_pts=ex_pts, **kwc)
+
+            S_total = int(betas.shape[0])
+            if S_total % L:
+                raise ValueError(
+                    f"this Session's sync policy fuses sweeps_per_launch="
+                    f"{L} sweeps per launch, which must divide the "
+                    f"schedule length (got {S_total} sweeps); pad the "
+                    f"schedule or change the Sync policy")
+
+            def swap(m, hu, hd, pend):
+                """One exchange point: barrier consumes the fresh values;
+                async consumes the in-flight buffer and refills it."""
+                fresh = exchange(m)
+                if async_:
+                    return pend[0], pend[1], fresh
+                return fresh[0], fresh[1], pend
+
+            def sweep_stats(m, ru, rd, w_t, accs):
+                """Per-sweep moment / histogram accumulation against the
+                halo view (ru, rd) the policy defines."""
+                accs = list(accs)
+                if accumulate:
+                    m_ext = torch.cat([m, ru, rd], dim=2)
+                    B = m.shape[1]
+                    e0 = d["edge_e0"][:, None, :].expand(-1, B, -1)
+                    e1 = d["edge_e1"][:, None, :].expand(-1, B, -1)
+                    corr = m_ext.gather(2, e0) * m_ext.gather(2, e1)
+                    if self.n_chain == 1:
+                        # the single-device engine's order (any B)
+                        accs[0] = accs[0] + w_t * (m.sum(dim=1) * inv_b)
+                        accs[1] = accs[1] + w_t * (corr.sum(dim=1) * inv_b)
+                    else:
+                        # raw ±1 sums over every chain shard: one division
+                        # at the end (bit-exact for power-of-two chains)
+                        accs[0] = accs[0] + w_t * m.sum(dim=1)
+                        accs[1] = accs[1] + w_t * corr.sum(dim=1)
+                else:  # histogram: each band's visible bits, then summed
+                    vi = vis_idx[:, None, :].expand(-1, m.shape[1], -1)
+                    bits = (m.gather(2, vi) > 0).to(torch.int64)
+                    code = (bits * vis_w[:, None, :]).sum(dim=2).sum(dim=0)
+                    accs[0] = accs[0].index_add(0, code,
+                                                w_t.expand(code.shape[0]))
+                return accs
+
+            def band_launch(m, hu, hd, ns, betas_t, meas, h0=0, n_half=None):
+                """K1 on every band's extended block (halos frozen), one
+                launch per band; the per-band moments gathered to edges."""
+                outs_m, s_b, c_b = [], [], []
+                ns_out = ns
+                for r in range(R):
+                    kwc = {}
+                    if impose:
+                        kwc = dict(clamp_mask=cm[r], clamp_values=cv[r])
+                    res = fused_shard_sweeps(
+                        m[r], hu[r], hd[r], d["nbr32"][r], w[r], h[r],
+                        gain[r], off[r], rg[r], co[r], masks[0][r],
+                        masks[1][r], betas_t, ns, 0, col0[r],
+                        measured=meas, half_offset=h0, n_half=n_half, **kwc)
+                    outs_m.append(res[0])
+                    ns_out = res[1]
+                    if meas is not None:
+                        s_b.append(res[2])
+                        c_b.append(res[3][d["edge_slot"][r], d["edge_e0"][r]])
+                m = torch.stack(outs_m)
+                if meas is None:
+                    return m, ns_out, None, None
+                return m, ns_out, torch.stack(s_b), torch.stack(c_b)
+
+            def add_kernel_moments(accs, s_k, c_k, B):
+                if self.n_chain == 1:
+                    inv = _recip(B).to(dev)
+                    s_k, c_k = s_k * inv, c_k * inv
+                return [accs[0] + s_k, accs[1] + c_k]
+
+            def launch(state, betas_t, meas_t):
+                """One launch: fused (boundary-only or kernel-owned
+                exchange), or L sweeps of half-sweeps in order."""
+                m, ns, hu, hd, pend, accs = state
+                outs = []
+                B = m.shape[1]
+                if shape == "fused":
+                    if impose:
+                        m = torch.where(cm[:, None, :], cv, m)
+                    hu, hd, pend = swap(m, hu, hd, pend)
+                    m, ns, s_k, c_k = band_launch(
+                        m, hu, hd, ns, betas_t,
+                        meas_t if accumulate else None)
+                    if accumulate:
+                        accs = add_kernel_moments(accs, s_k, c_k, B)
+                elif shape == "fused-resident-exchange":
+                    if impose:
+                        m = torch.where(cm[:, None, :], cv, m)
+                    kern_meas = meas_t \
+                        if (accumulate and not exact_stats) else None
+                    if tables is not None:
+                        # one K5 launch for every band; async consumes the
+                        # pend buffer at point 0 and the kernel's drained
+                        # final exchange refills it
+                        hu_in, hd_in = pend if async_ else (hu, hd)
+                        res = exchange_launch(m, hu_in, hd_in, tables,
+                                              betas_t, ns, 0, kern_meas,
+                                              mode=sync.mode)
+                        m, ns, hu, hd = res[0], res[1], res[2], res[3]
+                        if async_:
+                            pend = (hu, hd)
+                        if kern_meas is not None:
+                            c_k = res[5][torch.arange(R, device=dev)[:, None],
+                                         d["edge_slot"], d["edge_e0"]]
+                            accs = add_kernel_moments(accs, res[4], c_k, B)
+                    else:
+                        # the bit-exact emulation: the launch split at the
+                        # exchange points into half-sweep windows of K1
+                        s_l = c_l = None
+                        for h0, h1 in halo_exchange_segments(ex_pts, 2 * L):
+                            hu, hd, pend = swap(m, hu, hd, pend)
+                            m, ns, s_w, c_w = band_launch(
+                                m, hu, hd, ns, betas_t, kern_meas, h0,
+                                h1 - h0)
+                            if kern_meas is not None:
+                                s_l = s_w if s_l is None else s_l + s_w
+                                c_l = c_w if c_l is None else c_l + c_w
+                            if exact_stats and h1 % 2 == 0:
+                                # post-sweep refresh for boundary edges —
+                                # part of the bit-exact contract
+                                ru, rd = exchange(m)
+                                accs = sweep_stats(
+                                    m, ru, rd, meas_t[h1 // 2 - 1], accs)
+                        if kern_meas is not None:
+                            accs = add_kernel_moments(accs, s_l, c_l, B)
+                else:
+                    for s in range(L):
+                        beta_t = betas_t[s]
+                        if impose:
+                            m = torch.where(cm[:, None, :], cv, m)
+                        for c in (0, 1):
+                            if 2 * s + c in ex_pts:
+                                hu, hd, pend = swap(m, hu, hd, pend)
+                            ns, u = nstep(ns)
+                            m = halo_half_sweep(m, hu, hd, nbr, w, h, gain,
+                                                off, rg, co, masks[c],
+                                                beta_t, u)
+                        if accumulate:
+                            if k1_exact:
+                                # post-sweep refresh for boundary edges —
+                                # part of the bit-exact contract
+                                ru, rd = exchange(m)
+                            else:
+                                # relaxed policies read the (stale) halo
+                                # the sweep itself saw
+                                ru, rd = hu, hd
+                            accs = sweep_stats(m, ru, rd, meas_t[s], accs)
+                        elif hist_w is not None:
+                            accs = sweep_stats(m, hu, hd, meas_t[s], accs)
+                        elif collect:
+                            outs.append(m)
+                return (m, ns, hu, hd, pend, accs), outs
+
+            def segment(state, betas_t, meas_t):
+                """One inter-exchange segment: swap once, then the
+                exchange-free sweeps of the segment."""
+                m, ns, hu, hd, pend, accs = state
+                if impose:
+                    m = torch.where(cm[:, None, :], cv, m)  # sent post-clamp
+                hu, hd, pend = swap(m, hu, hd, pend)
+                outs = []
+                for s in range(betas_t.shape[0]):
+                    if impose:
+                        m = torch.where(cm[:, None, :], cv, m)
+                    for c in (0, 1):
+                        ns, u = nstep(ns)
+                        m = halo_half_sweep(m, hu, hd, nbr, w, h, gain, off,
+                                            rg, co, masks[c], betas_t[s], u)
+                    if accumulate or hist_w is not None:
+                        accs = sweep_stats(m, hu, hd, meas_t[s], accs)
+                    elif collect:
+                        outs.append(m)
+                return (m, ns, hu, hd, pend, accs), outs
+
+            body = segment if shape == "segment scan" else launch
+            zh = m.new_zeros((R, m.shape[1], self.plan.halo))
+            pend = ()
+            if async_:
+                # prime the in-flight buffer with the initial boundary —
+                # post-clamp, exactly what the first barrier exchange
+                # would send — so the first consumption matches barrier
+                m_pr = torch.where(cm[:, None, :], cv, m) if impose else m
+                pend = exchange(m_pr)
+            accs = []
+            if accumulate:
+                accs = [torch.zeros((R, n_loc), dtype=torch.float32,
+                                    device=dev),
+                        torch.zeros((R, self.plan.e_loc),
+                                    dtype=torch.float32, device=dev)]
+            elif hist_w is not None:
+                accs = [torch.zeros((2 ** hist_w,), dtype=torch.float32,
+                                    device=dev)]
+            state = (m, ns, zh, zh, pend, accs)
+            traj = []
+            for t0 in range(0, S_total, chunk):
+                meas_t = None if measured is None \
+                    else measured[t0:t0 + chunk]
+                state, outs = body(state, betas[t0:t0 + chunk], meas_t)
+                traj += outs
+            m, ns, _, _, _, accs = state
+            return (m, ns, *accs), (torch.stack(traj) if collect else None)
+
+        return run
+
+    # ------------------------------------------------------------------
+    # public entry points (the Session delegates to these)
+    # ------------------------------------------------------------------
+    def _clamp_parts(self, cm, cv):
+        if cm is None:
+            return {}
+        kw = {"cm": self._part_cols(torch.as_tensor(cm, device=self.device)
+                                    .to(torch.bool))}
+        if cv is not None:
+            kw["cv"] = self._m_parts(torch.as_tensor(
+                cv, dtype=torch.float32, device=self.device))
+        return kw
+
+    def sample(self, chip, m, ns, betas, cm=None, cv=None, collect=False):
+        """(m', noise_state', traj|None), as `core.pbit.gibbs_sample`."""
+        run = self._local_sweeps(cm is not None, collect, False, None)
+        betas = torch.as_tensor(betas, dtype=torch.float32,
+                                device=self.device)
+        (m_o, ns_o), traj = run(self._chip_parts(chip), self._m_parts(m),
+                                self._ns_parts(ns), betas,
+                                **self._clamp_parts(cm, cv))
+        if collect:
+            # (S, n_row, B, n_loc) -> (S, B, N)
+            t = traj.permute(0, 2, 1, 3).reshape(traj.shape[0],
+                                                 traj.shape[2], -1)
+            traj = t[:, :, self._inv_ids]
+        return self._m_global(m_o), self._ns_global(ns, ns_o), traj
+
+    def stats(self, chip, m, ns, beta, n_sweeps, burn_in, cm=None, cv=None):
+        """(mean_spin[N], mean_edge_corr[E], m', noise_state'), as
+        `core.pbit.gibbs_stats`."""
+        dev = self.device
+        run = self._local_sweeps(cm is not None, False, True, None)
+        betas = torch.full((n_sweeps,), beta, dtype=torch.float32,
+                           device=dev)
+        measured = (torch.arange(n_sweeps, device=dev) >= burn_in).to(
+            torch.float32)
+        denom = max(n_sweeps - burn_in, 1)
+        (m_o, ns_o, s_acc, c_acc), _ = run(
+            self._chip_parts(chip), self._m_parts(m), self._ns_parts(ns),
+            betas, measured, **self._clamp_parts(cm, cv))
+        scale = (np.float32(denom) if self.n_chain == 1
+                 else np.float32(denom) * np.float32(self.chains))
+        inv = _recip(scale).to(dev)
+        s = s_acc.reshape(-1)[self._inv_ids] * inv
+        c = c_acc.reshape(-1)[self._edge_inv] * inv
+        return s, c, self._m_global(m_o), self._ns_global(ns, ns_o)
+
+    def visible_hist(self, chip, m, ns, betas, burn_in, visible_idx,
+                     cm=None, cv=None):
+        """(counts[2^nv], m', noise_state'), as
+        `core.pbit.gibbs_visible_hist`."""
+        dev = self.device
+        visible_idx = np.asarray(visible_idx)
+        nv = int(visible_idx.shape[0])
+        p = self.plan
+        vi = np.zeros((p.n_shards, nv), np.int64)
+        vw = np.zeros((p.n_shards, nv), np.int64)
+        owner = np.searchsorted(p.node_starts[1:], visible_idx,
+                                side="right")
+        for k, (v, d) in enumerate(zip(visible_idx, owner)):
+            vi[d, k] = v - p.node_starts[d]
+            vw[d, k] = 2 ** k
+        run = self._local_sweeps(cm is not None, False, False, nv)
+        betas = torch.as_tensor(betas, dtype=torch.float32, device=dev)
+        n_sweeps = betas.shape[0]
+        measured = (torch.arange(n_sweeps, device=dev) >= burn_in).to(
+            torch.float32)
+        (m_o, ns_o, hist), _ = run(
+            self._chip_parts(chip), self._m_parts(m), self._ns_parts(ns),
+            betas, measured, vis_idx=torch.as_tensor(vi, device=dev),
+            vis_w=torch.as_tensor(vw, device=dev),
+            **self._clamp_parts(cm, cv))
+        return hist, self._m_global(m_o), self._ns_global(ns, ns_o)
+
+
+# ---------------------------------------------------------------------------
+# SK lattices (SoA instance generator + Session-backed anneal)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class LatticeSpec:
+    cell_rows: int
+    cell_cols: int
+    k: int = 4
+    beta: float = 1.0
+    chains: int = 1   # Gibbs replicas: couplings are read once per
+                      # half-sweep and serve all chains
+
+    @property
+    def n_spins(self) -> int:
+        return self.cell_rows * self.cell_cols * 2 * self.k
+
+
+@dataclasses.dataclass
+class LatticeChip:
+    """SK-lattice couplings + neuron params, structure-of-arrays (O(N)).
+
+    The *instance description*; `lattice_to_chip` converts it into the
+    shared `EffectiveChip` slot layout the backends sample."""
+
+    W_vh: torch.Tensor
+    W_hv: torch.Tensor
+    Wv_dn: torch.Tensor
+    Wv_up: torch.Tensor
+    Wh_rt: torch.Tensor
+    Wh_lt: torch.Tensor
+    h_v: torch.Tensor
+    h_h: torch.Tensor
+    gain_v: torch.Tensor
+    gain_h: torch.Tensor
+    off_v: torch.Tensor
+    off_h: torch.Tensor
+
+
+def make_sk_lattice(spec: LatticeSpec, gen: torch.Generator,
+                    hw: HardwareConfig | None = None,
+                    dtype=torch.float32, device="cuda") -> LatticeChip:
+    """Random SK-style lattice instance with per-site mismatch baked in,
+    drawn from ``gen`` (a `torch.Generator` on ``device``): the
+    reference's formula, equal to its draw in distribution only."""
+    hw = hw or HardwareConfig()
+    R, C, k = spec.cell_rows, spec.cell_cols, spec.k
+
+    def g(shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, dtype=dtype,
+                                   device=device)
+
+    W_cell = g((R, C, k, k), 0.8)                       # shared edge DAC
+    mis_vh = 1.0 + hw.sigma_edge_gain * g((R, C, k, k))
+    mis_hv = 1.0 + hw.sigma_edge_gain * g((R, C, k, k))
+    Wv = g((R, C, k), 0.8)
+    Wh = g((R, C, k), 0.8)
+    row = torch.arange(R, device=device)[:, None, None]
+    col = torch.arange(C, device=device)[None, :, None]
+    # no couplers past the lattice edge
+    Wv = Wv * (row < R - 1)
+    Wh = Wh * (col < C - 1)
+    zeros = torch.zeros((R, C, k), dtype=dtype, device=device)
+    return LatticeChip(
+        W_vh=W_cell * mis_vh,
+        W_hv=torch.swapaxes(W_cell, -1, -2) * mis_hv,
+        Wv_dn=Wv * (1.0 + hw.sigma_edge_gain * g((R, C, k))),
+        Wv_up=Wv * (1.0 + hw.sigma_edge_gain * g((R, C, k))),
+        Wh_rt=Wh * (1.0 + hw.sigma_edge_gain * g((R, C, k))),
+        Wh_lt=Wh * (1.0 + hw.sigma_edge_gain * g((R, C, k))),
+        h_v=zeros,
+        h_h=zeros.clone(),
+        gain_v=1.0 + hw.sigma_tanh_gain * g((R, C, k)),
+        gain_h=1.0 + hw.sigma_tanh_gain * g((R, C, k)),
+        off_v=hw.sigma_tanh_offset * 0.01 * g((R, C, k)),
+        off_h=zeros.clone(),
+    )
+
+
+def lattice_to_chip(spec: LatticeSpec, lat: LatticeChip,
+                    graph: ChimeraGraph | None = None,
+                    tables=None) -> EffectiveChip:
+    """SoA lattice arrays -> the shared `EffectiveChip` slot layout, on the
+    lattice's device.
+
+    Directional: ``nbr_w[d, i] = W[i, nbr_idx[d, i]]`` (current INTO node
+    i).  O(D·N) gathers and selects, no arithmetic: bit-equal to the
+    reference's conversion of the same arrays.
+    """
+    g = graph if graph is not None else make_chimera(
+        spec.cell_rows, spec.cell_cols, spec.k)
+    if tables is None:
+        nbr_idx, _ = g.neighbor_table()
+        slot_ij, slot_ji = g.edge_slots(nbr_idx)
+    else:
+        nbr_idx, slot_ij, slot_ji = tables
+    dev = lat.W_vh.device
+    dtype = lat.W_vh.dtype
+
+    def long(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+    r_, c_, s_, k_ = (long(a) for a in (g.node_r, g.node_c, g.node_side,
+                                        g.node_k))
+    vert_node = s_ == 0
+    h = torch.where(vert_node, lat.h_v[r_, c_, k_], lat.h_h[r_, c_, k_])
+    gain = torch.where(vert_node, lat.gain_v[r_, c_, k_],
+                       lat.gain_h[r_, c_, k_])
+    off = torch.where(vert_node, lat.off_v[r_, c_, k_],
+                      lat.off_h[r_, c_, k_])
+
+    e0, e1 = long(g.edges[:, 0]), long(g.edges[:, 1])
+    r0, c0, k0 = r_[e0], c_[e0], k_[e0]
+    k1 = k_[e1]
+    incell = (r_[e1] == r0) & (c_[e1] == c0)
+    vert = (s_[e0] == 0) & (s_[e1] == 0)
+    w_in0 = torch.where(
+        incell, lat.W_vh[r0, c0, k0, k1],
+        torch.where(vert, lat.Wv_up[r0, c0, k0], lat.Wh_lt[r0, c0, k0]))
+    w_in1 = torch.where(
+        incell, lat.W_hv[r0, c0, k1, k0],
+        torch.where(vert, lat.Wv_dn[r0, c0, k0], lat.Wh_rt[r0, c0, k0]))
+    D = nbr_idx.shape[0]
+    nbr_w = torch.zeros((D, g.n_nodes), dtype=dtype, device=dev)
+    nbr_w[long(slot_ij), e0] = w_in0
+    nbr_w[long(slot_ji), e1] = w_in1
+    ones = torch.ones((g.n_nodes,), dtype=dtype, device=dev)
+    return EffectiveChip(
+        W=None, h=h.to(dtype), tanh_gain=gain.to(dtype),
+        tanh_offset=off.to(dtype), rand_gain=ones,
+        comp_offset=0.0 * ones,
+        nbr_idx=torch.as_tensor(np.asarray(nbr_idx, np.int32), device=dev),
+        nbr_w=nbr_w)
+
+
+def sparse_energy(chip: EffectiveChip, m: torch.Tensor) -> torch.Tensor:
+    """Symmetrized Ising energy per chain from the slot layout, O(B·N·D):
+    E = -1/2 Σ_i m_i Σ_j W_ij m_j - Σ_i h_i m_i (the directional W averaged
+    over its two directions)."""
+    I = sparse_neuron_input(m, chip.nbr_idx.to(torch.int64), chip.nbr_w,
+                            0.0)
+    return -0.5 * torch.sum(m * I, dim=1) - m @ chip.h
+
+
+def make_lattice_anneal(
+    spec: LatticeSpec,
+    mesh: Mesh | None,
+    *,
+    row_axes: tuple[str, ...] = ("data",),
+    col_axes: tuple[str, ...] = ("model",),
+    n_sweeps: int = 100,
+    record_every: int = 10,
+    device="cuda",
+):
+    """The (optionally row-band sharded) annealing run over the shared
+    engine: cell rows partition over ``row_axes`` exactly like every other
+    sharded `api.Session` workload (``col_axes`` is accepted for
+    signature compatibility — the spatial cut is 1-D over cell rows).
+
+    Returns run(lattice_chip, gen, betas) -> (final_m (chains, N),
+    energies (n_sweeps // record_every,)); ``gen`` is a `torch.Generator`
+    on ``device`` that draws the initial spins and the noise seed.
+    """
+    from repro_torch import api
+    from repro_torch.core import pbit
+    from repro_torch.core.hardware import sample_mismatch_sparse
+
+    if n_sweeps % record_every:
+        raise ValueError(f"n_sweeps={n_sweeps} must be a multiple of "
+                         f"record_every={record_every}")
+    del col_axes
+    g = make_chimera(spec.cell_rows, spec.cell_cols, spec.k)
+    nbr_idx, _ = g.neighbor_table()
+    tables = (nbr_idx, *g.edge_slots(nbr_idx))
+    ideal = HardwareConfig.ideal()
+    mm_gen = torch.Generator(device=torch.device(device)).manual_seed(0)
+    sp = api.SamplerSpec(
+        graph=g, hw=ideal,
+        mismatch=sample_mismatch_sparse(mm_gen, g.n_nodes, nbr_idx.shape[0],
+                                        ideal, device=device),
+        noise="counter", backend="sparse", chains=spec.chains,
+        beta=spec.beta, mesh=mesh, device=device,
+        partition=(api.Partition(rows=row_axes) if mesh is not None
+                   else None))
+    session = api.Session(sp)
+    n_rec = n_sweeps // record_every
+
+    def run(lat: LatticeChip, gen: torch.Generator, betas):
+        chip = lattice_to_chip(spec, lat, g, tables)
+        m = pbit.random_spins(gen, spec.chains, g.n_nodes, device=device)
+        ns = session.noise_state(gen)
+        betas = torch.as_tensor(betas, dtype=torch.float32, device=device)
+        segs = betas[:n_rec * record_every].reshape(n_rec, record_every)
+        energies = []
+        for b in segs:
+            m, ns, _ = session.sample(chip, m, ns, b)
+            energies.append(sparse_energy(chip, m).mean())
+        return m, torch.stack(energies)
+
+    return run

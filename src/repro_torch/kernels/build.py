@@ -21,7 +21,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-LIBRARIES = ("sweep_sparse", "pbit_update", "sweep_fused", "lattice_update")
+LIBRARIES = ("sweep_sparse", "pbit_update", "sweep_fused", "lattice_update",
+             "sweep_exchange")
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 NVCC_FLAGS = (

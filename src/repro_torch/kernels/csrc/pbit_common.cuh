@@ -1,10 +1,12 @@
 // Device code shared by the port's p-bit kernels (sm_90a): the noise streams,
-// the eqn-2 decision, clamp re-imposition, the visible-pattern histogram,
-// colour-mask compaction and the fixed-order reduction of per-block partials.
+// the eqn-2 decision, the slot-layout half-sweep of a tile of chains and its
+// moments (K1, K4 and K5 run the same body), clamp re-imposition, the
+// visible-pattern histogram, colour-mask compaction, a sliced copy and the
+// fixed-order reduction of per-block partials.
 //
-// Included by sweep_sparse.cu (K1), pbit_update.cu (K2) and sweep_fused.cu
-// (K3); each is built into its own library, so everything here has internal
-// linkage.  Every float operation is an explicit round-to-nearest intrinsic
+// Included by sweep_sparse.cu (K1, K4), pbit_update.cu (K2), sweep_fused.cu
+// (K3) and sweep_exchange.cu (K5); each is built into its own library, so
+// everything here has internal linkage.  Every float operation is an explicit round-to-nearest intrinsic
 // (no FMA contraction) and tanhf is libdevice's: the kernels equal their plain
 // PyTorch versions bit for bit (build without --use_fast_math).
 #pragma once
@@ -34,6 +36,13 @@ __device__ __forceinline__ float byte_to_uniform(uint32_t b) {
 
 __device__ __forceinline__ int8_t sign_spin(float x) {
   return x >= 0.0f ? (int8_t)1 : (int8_t)-1;
+}
+
+// A spin as the kernels hold it in shared memory: +1, -1, or 0 for a column
+// that is never updated and reads as no spin at all (a halo column past the
+// lattice's edge in the sharded engine).  Exact for every such input.
+__device__ __forceinline__ int8_t spin_of(float x) {
+  return x > 0.0f ? (int8_t)1 : (x < 0.0f ? (int8_t)-1 : (int8_t)0);
 }
 
 // ---------------------------------------------------------------------------
@@ -137,6 +146,102 @@ __device__ __forceinline__ void impose_clamps(T* sp, int nb, int N,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the slot-layout half-sweep of a tile of chains (K1, K4, K5)
+// ---------------------------------------------------------------------------
+// A tile's spins in shared memory: tb chains of N int8 columns, padded to 16
+// bytes.
+__host__ __device__ inline size_t tile_spin_bytes(int tb, int N) {
+  return (((size_t)tb * (size_t)N) + 15) & ~(size_t)15;
+}
+
+// Where a tile's noise bytes come from in one half-sweep: the counter hash
+// at (chain + row0, node + col0) under this half-sweep's key, or (lfsr) the
+// tile's registers read through the node's flat LFSR column perm[i].
+struct SlotNoise {
+  bool lfsr;
+  uint32_t half_key;   // counter
+  int b0;              // the tile's first chain
+  uint32_t row0, col0;
+  const uint32_t* lf;  // lfsr: [nb][C] registers, stepped for this half
+  int C;
+  const int* perm;
+};
+
+// One half-sweep of the tile: each node i of `mask` takes eqn 1 over its D
+// slots (float32, ascending d from +0.0, then + h) and eqn 2's decision, for
+// the tile's nb chains, in place.  Threads stride over nodes; with DT > 0 the
+// slot count is the compile-time DT and a node's slot weights/indices stay in
+// registers across the chains (DT == 0: any D, read per chain from device
+// memory).  beta: this sweep's row of betas from the tile's first chain.
+// Each mask must be an independent set of the slot graph.  No barrier.
+template <int DT>
+__device__ __forceinline__ void slot_half_sweep(
+    int8_t* sp, int nb, int N, int D, const int* nbr_idx, const float* nbr_w,
+    const float* h, const float* gain, const float* off, const float* rg,
+    const float* co, const uint8_t* mask, const float* beta,
+    const SlotNoise& noise, int tid, int nt) {
+  for (int i = tid; i < N; i += nt) {
+    if (!mask[i]) continue;
+    int iv[DT ? DT : 1];
+    float wv[DT ? DT : 1];
+    if (DT) {
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        iv[d] = nbr_idx[(size_t)d * N + i];
+        wv[d] = nbr_w[(size_t)d * N + i];
+      }
+    }
+    const float h_i = h[i], gain_i = gain[i], off_i = off[i];
+    const float rg_i = rg[i], co_i = co[i];
+    uint32_t col_key = 0;
+    LfsrTap tap{};
+    if (noise.lfsr)
+      tap = lfsr_tap(noise.perm[i], noise.C);
+    else
+      col_key = counter_col_key(i, noise.col0);
+    for (int b = 0; b < nb; ++b) {
+      const int8_t* row = sp + (size_t)b * N;
+      float acc = 0.0f;
+#pragma unroll
+      for (int d = 0; d < (DT ? DT : D); ++d) {
+        const int ix = DT ? iv[d] : nbr_idx[(size_t)d * N + i];
+        const float w = DT ? wv[d] : nbr_w[(size_t)d * N + i];
+        acc = __fadd_rn(acc, __fmul_rn(w, (float)row[ix]));
+      }
+      const float act = activation(acc, h_i, beta[b], gain_i, off_i);
+      const uint32_t byte =
+          noise.lfsr ? lfsr_byte(noise.lf + b * noise.C, tap)
+                     : counter_byte(noise.half_key, noise.b0 + b, noise.row0,
+                                    col_key);
+      sp[(size_t)b * N + i] =
+          sign_spin(decide(act, rg_i, co_i, byte_to_uniform(byte)));
+    }
+  }
+}
+
+// A sweep's moments over the tile's nb chains, weighted by wgt:
+// part_s[i] += wgt·Σ_b m_bi and part_c[d·N + i] += wgt·Σ_b m_bi·m_b,idx[d,i]
+// (integer chain sums; one owner thread per entry, in sweep order).  No
+// barrier.
+__device__ __forceinline__ void accumulate_slot_moments(
+    const int8_t* sp, int nb, int N, int D, const int* nbr_idx, float wgt,
+    float* part_s, float* part_c, int tid, int nt) {
+  for (int i = tid; i < N; i += nt) {
+    int sum = 0;
+    for (int b = 0; b < nb; ++b) sum += sp[(size_t)b * N + i];
+    part_s[i] = __fadd_rn(part_s[i], __fmul_rn(wgt, (float)sum));
+    for (int d = 0; d < D; ++d) {
+      const int ix = nbr_idx[(size_t)d * N + i];
+      int corr = 0;
+      for (int b = 0; b < nb; ++b)
+        corr += sp[(size_t)b * N + i] * sp[(size_t)b * N + ix];
+      float* dc = part_c + (size_t)d * N + i;
+      *dc = __fadd_rn(*dc, __fmul_rn(wgt, (float)corr));
+    }
+  }
+}
+
 // One thread walks the tile's chains in order (two chains of a tile may share
 // a bin): dst[code] += wgt for each chain's visible pattern.
 template <typename T>
@@ -182,6 +287,30 @@ __device__ int compact_mask(const uint8_t* mask, int N, int* list,
     __syncthreads();  // scratch is rewritten by the next chunk
   }
   return base;
+}
+
+// dst[0..n) = src[0..n): block `blk` of `n_blocks` copies its own contiguous
+// slice, as 16-byte vectors when both pointers allow it.
+__device__ __forceinline__ void copy_slice(const float* src, float* dst,
+                                           size_t n, int blk, int n_blocks,
+                                           int tid, int nt) {
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
+       15u) == 0;
+  const size_t units = vec ? n / 4 : n;
+  const size_t per = (units + n_blocks - 1) / n_blocks;
+  const size_t start = (size_t)blk * per;
+  const size_t lo = start < units ? start : units;
+  const size_t hi = lo + per < units ? lo + per : units;
+  if (vec) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (size_t k = lo + tid; k < hi; k += nt) d4[k] = s4[k];
+    if (blk == n_blocks - 1)  // the tail that is not a whole vector
+      for (size_t k = units * 4 + tid; k < n; k += nt) dst[k] = src[k];
+  } else {
+    for (size_t k = lo + tid; k < hi; k += nt) dst[k] = src[k];
+  }
 }
 
 // out[k] = sum over blocks of part[blk][k], in block order (fixed, so the

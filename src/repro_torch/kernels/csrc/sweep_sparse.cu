@@ -33,7 +33,8 @@
 //     contracted into an FMA differently than the eager PyTorch version; build
 //     without --use_fast_math (tanhf must stay the libdevice tanhf).
 //   * the noise streams, the decision, clamps, histogram and the reduction are
-//     shared with the dense kernels K2 and K3 (pbit_common.cuh).
+//     shared with the dense kernels K2 and K3, and the half-sweep body and its
+//     moments with K5 (pbit_common.cuh).
 //
 // K4, the double-buffered program stream, is the same kernel with Stream =
 // true (`sweep_sparse_stream_launch`).  Replaces the TPU kernel
@@ -96,44 +97,15 @@ struct Params {
   float* staged_h;            // K4: (N,) copy of next_h
 };
 
-__host__ __device__ inline size_t spin_bytes(int tb, int N) {
-  return (((size_t)tb * (size_t)N) + 15) & ~(size_t)15;
-}
-
-// dst[0..n) = src[0..n): block `blk` of `n_blocks` copies its own contiguous
-// slice, as 16-byte vectors when both pointers allow it.
-__device__ __forceinline__ void copy_slice(const float* src, float* dst,
-                                           size_t n, int blk, int n_blocks,
-                                           int tid, int nt) {
-  const bool vec =
-      ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
-       15u) == 0;
-  const size_t units = vec ? n / 4 : n;
-  const size_t per = (units + n_blocks - 1) / n_blocks;
-  const size_t start = (size_t)blk * per;
-  const size_t lo = start < units ? start : units;
-  const size_t hi = lo + per < units ? lo + per : units;
-  if (vec) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (size_t k = lo + tid; k < hi; k += nt) d4[k] = s4[k];
-    if (blk == n_blocks - 1)  // the tail that is not a whole vector
-      for (size_t k = units * 4 + tid; k < n; k += nt) dst[k] = src[k];
-  } else {
-    for (size_t k = lo + tid; k < hi; k += nt) dst[k] = src[k];
-  }
-}
-
-// DT > 0: the slot count is the compile-time constant DT and a node's slot
-// weights/indices live in registers across the tile's chains.  DT == 0: any
-// slot count, read from device memory (L1-cached) per chain.  Stream: K4,
-// which also stages the next program (see the head of this file).
+// DT > 0: the slot count is the compile-time constant DT (see
+// pbit::slot_half_sweep); DT == 0: any slot count.  Stream: K4, which also
+// stages the next program (see the head of this file).
 template <int DT, bool Stream>
 __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sp = reinterpret_cast<int8_t*>(smem);  // [tb][N] spins
-  uint32_t* lf =
-      reinterpret_cast<uint32_t*>(smem + spin_bytes(p.tb, p.N));  // [tb][C]
+  uint32_t* lf = reinterpret_cast<uint32_t*>(
+      smem + pbit::tile_spin_bytes(p.tb, p.N));  // [tb][C]
 
   const int tid = threadIdx.x, nt = blockDim.x, blk = blockIdx.x;
   const int N = p.N, B = p.B, C = p.C;
@@ -145,7 +117,7 @@ __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
   const int NB = p.part_h ? (1 << p.n_visible) : 0;
 
   for (int k = tid; k < nb * N; k += nt)
-    sp[k] = pbit::sign_spin(p.m_in[(size_t)b0 * N + k]);
+    sp[k] = pbit::spin_of(p.m_in[(size_t)b0 * N + k]);
   if (lfsr)
     for (int k = tid; k < nb * C; k += nt) lf[k] = p.noise_in[(size_t)b0 * C + k];
   if (p.part_s)
@@ -161,8 +133,8 @@ __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
     ctr0 = p.noise_in[1];
   }
   if (Stream) {  // before the first barrier: overlaps the other blocks' sweeps
-    copy_slice(p.next_w, p.staged_w, (size_t)D * N, blk, gridDim.x, tid, nt);
-    copy_slice(p.next_h, p.staged_h, (size_t)N, blk, gridDim.x, tid, nt);
+    pbit::copy_slice(p.next_w, p.staged_w, (size_t)D * N, blk, gridDim.x, tid, nt);
+    pbit::copy_slice(p.next_h, p.staged_h, (size_t)N, blk, gridDim.x, tid, nt);
   }
   __syncthreads();
 
@@ -179,74 +151,27 @@ __global__ void __launch_bounds__(1024) sweep_sparse_kernel(const Params p) {
       __syncthreads();
     }
 
-    uint32_t half_key = 0;
+    pbit::SlotNoise noise{lfsr, 0u, b0, p.row0, p.col0, lf, C, p.perm};
     if (lfsr) {
       pbit::lfsr_step_tile(lf, nb * C, p.decimation, tid, nt);
       __syncthreads();
     } else {
-      half_key = pbit::counter_half_key(seed, ctr0 + (uint32_t)j);
+      noise.half_key = pbit::counter_half_key(seed, ctr0 + (uint32_t)j);
     }
-
-    const uint8_t* mask = c ? p.mask1 : p.mask0;
-    for (int i = tid; i < N; i += nt) {
-      if (!mask[i]) continue;
-      int iv[DT ? DT : 1];
-      float wv[DT ? DT : 1];
-      if (DT) {
-#pragma unroll
-        for (int d = 0; d < DT; ++d) {
-          iv[d] = p.nbr_idx[(size_t)d * N + i];
-          wv[d] = p.nbr_w[(size_t)d * N + i];
-        }
-      }
-      const float h_i = p.h[i], gain_i = p.gain[i], off_i = p.off[i];
-      const float rg_i = p.rg[i], co_i = p.co[i];
-      uint32_t col_key = 0;
-      pbit::LfsrTap tap{};
-      if (lfsr)
-        tap = pbit::lfsr_tap(p.perm[i], C);
-      else
-        col_key = pbit::counter_col_key(i, p.col0);
-      for (int b = 0; b < nb; ++b) {
-        const int8_t* row = sp + (size_t)b * N;
-        float acc = 0.0f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          const int ix = DT ? iv[d] : p.nbr_idx[(size_t)d * N + i];
-          const float w = DT ? wv[d] : p.nbr_w[(size_t)d * N + i];
-          acc = __fadd_rn(acc, __fmul_rn(w, (float)row[ix]));
-        }
-        const float beta = p.betas[(size_t)s * B + b0 + b];
-        const float act = pbit::activation(acc, h_i, beta, gain_i, off_i);
-        const uint32_t byte =
-            lfsr ? pbit::lfsr_byte(lf + b * C, tap)
-                 : pbit::counter_byte(half_key, b0 + b, p.row0, col_key);
-        sp[(size_t)b * N + i] = pbit::sign_spin(
-            pbit::decide(act, rg_i, co_i, pbit::byte_to_uniform(byte)));
-      }
-    }
+    pbit::slot_half_sweep<DT>(sp, nb, N, D, p.nbr_idx, p.nbr_w, p.h, p.gain,
+                              p.off, p.rg, p.co, c ? p.mask1 : p.mask0,
+                              p.betas + (size_t)s * B + b0, noise, tid, nt);
     __syncthreads();
 
     // statistics after the sweep's second half, weighted by measured[s]
     if (c == 1 && p.measured != nullptr) {
       const float wgt = p.measured[s];
       if (wgt != 0.0f) {
-        if (p.part_s) {
-          for (int i = tid; i < N; i += nt) {
-            int sum = 0;
-            for (int b = 0; b < nb; ++b) sum += sp[(size_t)b * N + i];
-            float* dst = p.part_s + (size_t)blk * N + i;
-            *dst = __fadd_rn(*dst, __fmul_rn(wgt, (float)sum));
-            for (int d = 0; d < D; ++d) {
-              const int ix = p.nbr_idx[(size_t)d * N + i];
-              int corr = 0;
-              for (int b = 0; b < nb; ++b)
-                corr += sp[(size_t)b * N + i] * sp[(size_t)b * N + ix];
-              float* dc = p.part_c + ((size_t)blk * D + d) * N + i;
-              *dc = __fadd_rn(*dc, __fmul_rn(wgt, (float)corr));
-            }
-          }
-        }
+        if (p.part_s)
+          pbit::accumulate_slot_moments(sp, nb, N, D, p.nbr_idx, wgt,
+                                        p.part_s + (size_t)blk * N,
+                                        p.part_c + (size_t)blk * D * N, tid,
+                                        nt);
         if (p.part_h && tid == 0)
           pbit::hist_accumulate(sp, nb, N, p.visible_idx, p.n_visible, wgt,
                                 p.part_h + (size_t)blk * NB);
@@ -273,7 +198,7 @@ __global__ void tanh_probe_kernel(const float* x, float* y, int n) {
 // Shared-memory bytes of one block: the tile's int8 spins and, in LFSR mode,
 // its registers.
 size_t smem_bytes(int tb, int N, int C, int noise_mode) {
-  size_t bytes = spin_bytes(tb, N);
+  size_t bytes = pbit::tile_spin_bytes(tb, N);
   if (noise_mode == kNoiseLfsr) bytes += (size_t)tb * (size_t)C * sizeof(uint32_t);
   return bytes;
 }

@@ -112,6 +112,26 @@ def pbit_sparse_half_sweep_ref(m, nbr_idx, nbr_w, h, gain, off, rand_gain,
                                  update_mask, beta, u)
 
 
+def halo_exchange_segments(ex_pts, n_half):
+    """Exchange points -> half-sweep windows [(h0, h1), ...] of a launch.
+
+    The segmentation rule of the fused-resident-exchange loop shape: a
+    launch of ``n_half`` half-sweeps splits at its `Sync.exchange_points()`
+    into contiguous windows, each preceded by one halo refresh.  K5
+    (`sweep_fused.py::sweep_sparse_exchange`), its plain version and the
+    engine's emulation (`ShardedEngine` windows of K1) all consume this, so
+    their exchange placement is identical by construction.
+    """
+    pts = tuple(ex_pts)
+    if not pts or pts[0] != 0:
+        raise ValueError(f"exchange points must start at 0, got {pts}")
+    if any(not 0 <= p < n_half for p in pts):
+        raise ValueError(
+            f"exchange points {pts} outside the launch's {n_half} "
+            f"half-sweeps")
+    return tuple(zip(pts, pts[1:] + (n_half,)))
+
+
 def lattice_vertical_update_ref(m_v, m_h, m_v_up, m_v_dn, W_vh, wv_up,
                                 wv_dnin, h, gain, u, parity, color):
     """SoA Chimera-lattice vertical half-step, plain PyTorch.

@@ -18,6 +18,14 @@ launch.
   Replaces ``repro.kernels.sweep_fused.sweep_sparse_stream_pallas``
   (``_kernel`` with ``stream=True``); the same CUDA kernel, instantiated
   with ``Stream = true``.  Bound as K1, plus the staged bytes.
+* `sweep_sparse_exchange` — K1 on every row band of the sharded engine
+  in one launch, with the halo exchange inside it (K5): at every exchange
+  point each band publishes its boundary spins and reads its neighbours'
+  into its halo columns, through a mailbox in device memory and a grid
+  barrier (a cooperative launch).  Replaces
+  ``repro.kernels.sweep_fused.sweep_sparse_exchange_pallas``; CUDA source
+  ``csrc/sweep_exchange.cu``.  Bound as K1, plus one grid barrier per
+  exchange point.
 * `sweep_fused` — the dense (N, N) couplings.  Replaces
   ``repro.kernels.sweep_fused.sweep_fused_pallas`` (``_kernel`` with
   ``sparse=False``); CUDA source ``csrc/sweep_fused.cu``.  W does not fit a
@@ -27,10 +35,10 @@ launch.
   moment is the Gram matrix Σ mᵀm.  `dense_tile_chains` /
   `dense_resident_feasible` model its limits on Hopper.
 
-`sweep_sparse_ref` / `sweep_sparse_stream_ref` / `sweep_fused_ref` are the
-plain PyTorch versions of
-the same functions: a Python loop of half-sweeps (`kernels/ref.py`) with
-noise from `core.lfsr`.  A wrapper uses its plain version only for tensors
+`sweep_sparse_ref` / `sweep_sparse_stream_ref` /
+`sweep_sparse_exchange_ref` / `sweep_fused_ref` are the plain PyTorch
+versions of the same functions: a Python loop of half-sweeps
+(`kernels/ref.py`) with noise from `core.lfsr`.  A wrapper uses its plain version only for tensors
 that lie on the CPU; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
@@ -45,6 +53,7 @@ from repro_torch.core import lfsr as lfsr_mod
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (
     field_decision_update,
+    halo_exchange_segments,
     row_tables,
     sparse_neuron_input,
 )
@@ -64,6 +73,9 @@ class CardLimits(NamedTuple):
     sms: int              # streaming multiprocessors
     l2_bytes: int         # L2 cache, from which K3 reads W
     memory_bytes: int     # device memory
+    smem_per_sm: int      # shared memory of one SM (K5's residency)
+    threads_per_sm: int   # resident threads of one SM
+    regs_per_sm: int      # 32-bit registers of one SM
 
     @property
     def gram_partial_bytes(self) -> int:
@@ -76,7 +88,8 @@ class CardLimits(NamedTuple):
 # NVIDIA H100 80GB HBM3 (SXM, sm_90a), the card the port targets, as
 # `torch.cuda.get_device_properties` reports it
 H100 = CardLimits(smem_per_block=232448, sms=132, l2_bytes=52428800,
-                  memory_bytes=85_017_493_504)
+                  memory_bytes=85_017_493_504, smem_per_sm=233472,
+                  threads_per_sm=2048, regs_per_sm=65536)
 
 
 def card_limits(device) -> CardLimits:
@@ -90,7 +103,10 @@ def card_limits(device) -> CardLimits:
     return CardLimits(smem_per_block=props.shared_memory_per_block_optin,
                       sms=props.multi_processor_count,
                       l2_bytes=props.L2_cache_size,
-                      memory_bytes=props.total_memory)
+                      memory_bytes=props.total_memory,
+                      smem_per_sm=props.shared_memory_per_multiprocessor,
+                      threads_per_sm=props.max_threads_per_multi_processor,
+                      regs_per_sm=props.regs_per_multiprocessor)
 
 
 # ---------------------------------------------------------------------------
@@ -561,7 +577,8 @@ def sweep_sparse(
     coordinates.
 
     Preconditions the kernel relies on (the caller's to keep; `ops` does):
-    spins and clamp values are exactly ±1, and ``mask0`` / ``mask1`` are
+    spins are exactly ±1 (or 0 in a column no mask updates, such as a halo
+    column past the lattice's edge), clamp values exactly ±1, and ``mask0`` / ``mask1`` are
     each an independent set of the slot graph — no node of a mask has a
     non-padding slot pointing at another node of the same mask — because a
     colour's nodes are updated in place.  Both hold for the colour classes
@@ -742,6 +759,406 @@ def sweep_sparse_stream(
 
 
 sweep_sparse_stream.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: every row band of the card in one launch, halos refreshed inside it
+# ---------------------------------------------------------------------------
+def _check_exchange(m, n_loc, halo, mode, measured, next_nbr_w, next_h):
+    if mode not in ("barrier", "async"):
+        raise ValueError(f"mode must be 'barrier' or 'async', got {mode!r}")
+    if m.ndim != 3:
+        raise ValueError(f"m must be (bands, chains, n_loc + 2*halo), got "
+                         f"shape {tuple(m.shape)}")
+    if m.shape[2] != n_loc + 2 * halo:
+        raise ValueError(
+            f"m has {m.shape[2]} columns per band, the extended block "
+            f"[local | halo_up | halo_dn] has n_loc + 2*halo = "
+            f"{n_loc + 2 * halo}")
+    if next_nbr_w is not None:
+        if next_h is None:
+            raise ValueError("next_nbr_w without next_h")
+        if measured is not None:
+            raise ValueError(
+                "program streaming excludes in-kernel moment accumulation "
+                "— a swapped program invalidates the accumulators mid-launch")
+
+
+def _band_coords(coord_offset, R, device):
+    """(row0, col0): row0 a Python int in [0, 2**32), col0 each band's
+    global column 0 as an int32 tensor of uint32 bit patterns on
+    ``device``.  ``coord_offset`` names col0 as Python ints, or as that
+    tensor already (nothing to upload)."""
+    if coord_offset is None:
+        return 0, torch.zeros(R, dtype=torch.int32, device=device)
+    row0, col0 = coord_offset
+    if isinstance(col0, torch.Tensor):
+        if col0.dtype != torch.int32 or col0.device != torch.device(device):
+            raise ValueError(
+                f"coord_offset's band columns must be int32 bit patterns on "
+                f"{device}, got {col0.dtype} on {col0.device}")
+    else:
+        col0 = lfsr_mod.from_u64(torch.tensor(
+            [int(c) & 0xFFFFFFFF for c in col0], dtype=torch.int64,
+            device=device))
+    if tuple(col0.shape) != (R,):
+        raise ValueError(f"coord_offset names {tuple(col0.shape)} band "
+                         f"columns for {R} bands")
+    return int(row0) & 0xFFFFFFFF, col0
+
+
+def sweep_sparse_exchange_ref(
+    m, nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off, mask0, mask1,
+    betas, noise_state, send_up, send_dn, clamp_mask=None, clamp_values=None,
+    measured=None, coord_offset=None, next_nbr_w=None, next_h=None, *,
+    n_loc, halo, ex_pts, ex_pts_device=None, mode="barrier", staged=None,
+):
+    """`sweep_sparse_exchange` in plain PyTorch, any device: same
+    arguments (``ex_pts_device`` unused: it reads ``ex_pts``), same
+    return tuple.  Every band at once, one half-sweep at a
+    time (the arithmetic of `sweep_sparse_ref` with a band axis), the
+    exchanges as index gathers over the band axis."""
+    _check_exchange(m, n_loc, halo, mode, measured, next_nbr_w, next_h)
+    R, B, N = m.shape
+    D = nbr_idx.shape[1]
+    S = betas.shape[0]
+    dev = m.device
+    H = halo
+    segments = halo_exchange_segments(ex_pts, 2 * S)
+    row0, col0 = _band_coords(coord_offset, R, dev)
+    rows = torch.arange(B, device=dev)[:, None] + row0
+    cols = (torch.arange(N, device=dev)[None, None, :]
+            + lfsr_mod.to_u64(col0)[:, None, None])
+    seed, ctr0 = noise_state[0], lfsr_mod.to_u64(noise_state[1])
+    idx = [nbr_idx[:, d].to(torch.int64)[:, None, :].expand(R, B, N)
+           for d in range(D)]
+    up_cols = send_up.to(torch.int64)[:, None, :].expand(R, B, H)
+    dn_cols = send_dn.to(torch.int64)[:, None, :].expand(R, B, H)
+    rows_of = [x[:, None, :] for x in (h, gain, off, rand_gain, comp_off)]
+    masks = (mask0.to(torch.bool)[:, None, :],
+             mask1.to(torch.bool)[:, None, :])
+    has_clamp = clamp_mask is not None and clamp_values is not None
+    if has_clamp:
+        cmask = clamp_mask.to(torch.bool)[:, None, :]
+    accumulate = measured is not None
+    if accumulate:
+        s_sum = torch.zeros((R, N), dtype=torch.float32, device=dev)
+        c_sum = torch.zeros((R, D, N), dtype=torch.float32, device=dev)
+
+    def boundaries(m):
+        """What each band's neighbours send it: (halo_up, halo_dn)."""
+        last = m.gather(2, dn_cols)     # a band's last row -> the one below
+        first = m.gather(2, up_cols)    # its first row -> the one above
+        zero = m.new_zeros((1, B, H))
+        return (torch.cat([zero, last[:-1]]), torch.cat([first[1:], zero]))
+
+    def install(m, halos):
+        return torch.cat([m[:, :, :n_loc], halos[0], halos[1]], dim=2)
+
+    pend = None
+    for e, (h0, h1) in enumerate(segments):
+        sent = boundaries(m)
+        if mode == "barrier":
+            m = install(m, sent)
+        elif e > 0:
+            m = install(m, pend)
+        pend = sent
+        for g in range(h0, h1):
+            s, c = g // 2, g % 2
+            if has_clamp and (c == 0 or g == h0):
+                m = torch.where(cmask, clamp_values, m)
+            u = lfsr_mod.counter_uniform(seed, ctr0 + g, rows, cols)
+            acc = torch.zeros((R, B, N), dtype=torch.float32, device=dev)
+            for d in range(D):
+                acc = acc + nbr_w[:, d][:, None, :] * m.gather(2, idx[d])
+            m = field_decision_update(m, acc + rows_of[0], *rows_of[1:],
+                                      masks[c], betas[s], u)
+            if c == 1 and accumulate:
+                w = measured[s]
+                s_sum = s_sum + w * m.sum(dim=1)
+                c_sum = c_sum + w * torch.stack(
+                    [(m * m.gather(2, idx[d])).sum(dim=1)
+                     for d in range(D)], dim=1)
+    if mode == "async":
+        m = install(m, pend)
+
+    ns = torch.stack([lfsr_mod.to_u64(noise_state[0]),
+                      (ctr0 + 2 * S) & 0xFFFFFFFF])
+    outs = [m, lfsr_mod.from_u64(ns)]
+    if accumulate:
+        outs += [s_sum, c_sum]
+    elif next_nbr_w is not None:
+        if staged is None:
+            staged = (torch.empty_like(next_nbr_w, dtype=torch.float32),
+                      torch.empty_like(next_h, dtype=torch.float32))
+        staged[0].copy_(next_nbr_w)
+        staged[1].copy_(next_h)
+        outs += list(staged)
+    return tuple(outs)
+
+
+_EXCHANGE_ARGTYPES = (
+    [_VP, _VP] + [_I] * 7               # m_in, m_out, R, B, N, D, S, n_loc, H
+    + [_VP] * 10                        # idx, w, h, gain, off, rg, co, masks, betas
+    + [_VP] * 5                         # send_up/dn, clamp mask/values, measured
+    + [_VP, _VP, _U, _VP]               # noise in/out, row0, col0
+    + [_VP, _I, _I]                     # ex_pts, n_ex, async
+    + [_VP] * 4                         # part_s, part_c, out_s, out_c
+    + [_VP] * 4                         # next_w, next_h, staged_w, staged_h
+    + [_VP, _VP, _I, _I, _VP]           # mailbox, barrier, tb, threads, stream
+)
+_MAILBOX_SLOTS = 3
+_EXCHANGE_TILES: dict = {}   # launch shape on a card -> chains per block
+
+
+def _exchange_library() -> ctypes.CDLL:
+    lib = build.load("sweep_exchange")
+    if lib.sweep_sparse_exchange_launch.argtypes is None:
+        lib.sweep_sparse_exchange_launch.argtypes = _EXCHANGE_ARGTYPES
+        lib.sweep_sparse_exchange_launch.restype = _I
+        lib.sweep_exchange_max_blocks.argtypes = [
+            _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+        lib.sweep_exchange_max_blocks.restype = _I
+        lib.sweep_exchange_error_string.argtypes = [_I]
+        lib.sweep_exchange_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# K5's residency model, for resolving ``auto`` without the card: a block
+# takes the tile's spins plus the runtime's reserved kilobyte of shared
+# memory, and the kernel's __launch_bounds__(1024) lets the compiler use up
+# to 64 registers a thread, which the model assumes it does — so the model
+# never promises more resident blocks than the occupancy API finds.
+EXCHANGE_REGS_PER_THREAD = 64
+SMEM_RESERVED_PER_BLOCK = 1024
+MAX_BLOCKS_PER_SM = 32
+
+
+def exchange_threads(N: int) -> int:
+    """Threads of one K5 block over ``N`` extended columns."""
+    return min(1024, max(64, 32 * (-(-N // 32))))
+
+
+def exchange_smem_bytes(tb: int, N: int) -> int:
+    """Shared memory of one K5 block: ``tb`` chains of ``N`` int8 spins,
+    padded to 16 bytes (``pbit::tile_spin_bytes``)."""
+    return (tb * N + 15) & ~15
+
+
+def exchange_blocks_per_sm(tb: int, N: int,
+                           limits: CardLimits = H100) -> int:
+    """The model's resident K5 blocks per SM at ``tb`` chains per block (0
+    when one block's spins exceed a block's shared memory)."""
+    smem = exchange_smem_bytes(tb, N)
+    if smem > limits.smem_per_block:
+        return 0
+    threads = exchange_threads(N)
+    return min(MAX_BLOCKS_PER_SM, limits.threads_per_sm // threads,
+               limits.regs_per_sm // (EXCHANGE_REGS_PER_THREAD * threads),
+               limits.smem_per_sm // (smem + SMEM_RESERVED_PER_BLOCK))
+
+
+def exchange_resident_feasible(R: int, B: int, N: int,
+                               limits: CardLimits = H100) -> bool:
+    """Whether some chain tiling lets all ``R·ceil(B/tb)`` blocks of one
+    K5 launch (``R`` bands, ``B`` chains, ``N`` extended columns) be
+    resident at once, by the model above."""
+    for tb in range(1, B + 1):
+        per_sm = exchange_blocks_per_sm(tb, N, limits)
+        if per_sm == 0:       # wider tiles take more shared memory still
+            return False
+        if R * -(-B // tb) <= per_sm * limits.sms:
+            return True
+    return False
+
+
+def _exchange_tile_chains(lib, R, B, N, D, stream, threads, limits,
+                         block_b=None) -> int:
+    """Chains per K5 block: the fewest that let all ``R·ceil(B/tb)``
+    blocks be resident at once (the blocks wait for each other at every
+    exchange point), within a block's shared memory.  ``block_b`` is
+    checked instead of chosen.  Raises ValueError when no tiling fits."""
+    def resident(tb):
+        smem = exchange_smem_bytes(tb, N)
+        if smem > limits.smem_per_block:
+            return None
+        out = ctypes.c_int(0)
+        rc = lib.sweep_exchange_max_blocks(D, int(stream), threads, smem,
+                                           ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(
+                f"occupancy query: CUDA error {rc} "
+                f"({lib.sweep_exchange_error_string(rc).decode()})")
+        return out.value
+
+    candidates = [int(block_b)] if block_b is not None else range(1, B + 1)
+    for tb in candidates:
+        fits = resident(tb)
+        if fits is None:
+            break
+        if R * -(-B // tb) <= fits:
+            return tb
+    raise ValueError(
+        f"the halo-exchange kernel needs all its blocks resident at once: "
+        f"{R} bands x {B} chains of {N} columns do not fit the card at any "
+        f"tiling (block_b={block_b}); use fewer bands or chains, or "
+        f"backend='sparse'")
+
+
+def sweep_sparse_exchange(
+    m: torch.Tensor,              # (R, B, N) float32, N = n_loc + 2*halo
+    nbr_idx: torch.Tensor,        # (R, D, N) int32 extended-local table
+    nbr_w: torch.Tensor,          # (R, D, N) float32
+    h: torch.Tensor,              # (R, N) float32 rows
+    gain: torch.Tensor,
+    off: torch.Tensor,
+    rand_gain: torch.Tensor,
+    comp_off: torch.Tensor,
+    mask0: torch.Tensor,          # (R, N) bool — halo columns excluded
+    mask1: torch.Tensor,
+    betas: torch.Tensor,          # (S, B) float32
+    noise_state: torch.Tensor,    # (2,) int32 counter state
+    send_up: torch.Tensor,        # (R, H) int32 first-row columns
+    send_dn: torch.Tensor,        # (R, H) int32 last-row columns
+    clamp_mask: torch.Tensor | None = None,      # (R, N) bool
+    clamp_values: torch.Tensor | None = None,    # (R, B, N) float32, ±1
+    measured: torch.Tensor | None = None,        # (S,) float32 weights
+    coord_offset=None,            # (row0, col0 per band), see below
+    next_nbr_w: torch.Tensor | None = None,      # (R, D, N) next program
+    next_h: torch.Tensor | None = None,          # (R, N)
+    *,
+    n_loc: int,
+    halo: int,
+    ex_pts: tuple,                # launch-relative half-sweep indices
+    ex_pts_device: torch.Tensor | None = None,   # ex_pts as int32 on m's card
+    mode: str = "barrier",
+    staged=None,                  # (staged_w, staged_h) buffers, or None
+    block_b: int | None = None,   # chains per block; None -> fit the card
+):
+    """S resident sweeps of every row band in one launch, the halos
+    refreshed inside it at every exchange point — K5.
+
+    ``m`` holds each band's extended block ``[local | halo_up | halo_dn]``
+    (``halo`` columns each, never updated: keep them out of the masks).  At
+    each point of ``ex_pts`` every band publishes its columns ``send_up`` /
+    ``send_dn``; under ``mode="barrier"`` the next half-sweeps read the
+    fresh values, under ``"async"`` the previous exchange's (the first
+    window runs on the halo columns given) and the last exchange is
+    installed at the end.  Edge bands read zeros.  Counter noise at
+    ``(chain + row0, column + col0[band])``; ``coord_offset`` gives row0 as
+    a Python int and col0 as Python ints or as an int32 (R,) tensor of
+    uint32 bit patterns on m's device.  A caller that launches the same
+    shape many times passes col0 and ``ex_pts_device`` as tensors built
+    once, so a launch uploads nothing.
+
+    Returns ``(m', noise_state'[, s_sum (R, N), c_slots (R, D, N)])`` or,
+    with a next program, ``(m', noise_state', staged_w, staged_h)``;
+    ``noise_state'`` is ``ctr0 + 2S``.  With 0/1 ``measured`` the moments
+    are integer sums and equal `sweep_sparse_exchange_ref`'s bit for bit.
+
+    CPU tensors go to `sweep_sparse_exchange_ref`.  A CUDA tensor launches
+    the kernel (a cooperative launch: the grid must be resident at once,
+    or the wrapper raises) or raises; ``sweep_sparse_exchange.launches``
+    counts the launches.
+    """
+    if not m.is_cuda:
+        return sweep_sparse_exchange_ref(
+            m, nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off, mask0,
+            mask1, betas, noise_state, send_up, send_dn, clamp_mask,
+            clamp_values, measured, coord_offset, next_nbr_w, next_h,
+            n_loc=n_loc, halo=halo, ex_pts=ex_pts, mode=mode, staged=staged)
+
+    _check_exchange(m, n_loc, halo, mode, measured, next_nbr_w, next_h)
+    R, B, N = m.shape
+    D = nbr_idx.shape[1]
+    S = betas.shape[0]
+    H = halo
+    pts = halo_exchange_segments(ex_pts, 2 * S)
+    dev = m.device
+    f32, i32 = torch.float32, torch.int32
+    _want("m", m, f32, (R, B, N))
+    _want("nbr_idx", nbr_idx, i32, (R, D, N))
+    _want("nbr_w", nbr_w, f32, (R, D, N))
+    rows = [_want(n, t, f32, (R, N)) for n, t in zip(
+        ("h", "gain", "off", "rand_gain", "comp_off"),
+        (h, gain, off, rand_gain, comp_off))]
+    masks = [_want(n, t.to(torch.uint8) if t.dtype == torch.bool else t,
+                   torch.uint8, (R, N))
+             for n, t in (("mask0", mask0), ("mask1", mask1))]
+    _want("betas", betas, f32, (S, B))
+    _want("noise_state", noise_state, i32, (2,))
+    _want("send_up", send_up, i32, (R, H))
+    _want("send_dn", send_dn, i32, (R, H))
+    cm = cv = None
+    if clamp_mask is not None and clamp_values is not None:
+        cm = _want("clamp_mask", clamp_mask.to(torch.uint8)
+                   if clamp_mask.dtype == torch.bool else clamp_mask,
+                   torch.uint8, (R, N))
+        cv = _want("clamp_values", clamp_values, f32, (R, B, N))
+    if measured is not None:
+        _want("measured", measured, f32, (S,))
+    stream = next_nbr_w is not None
+    if stream:
+        _want("next_nbr_w", next_nbr_w, f32, (R, D, N))
+        _want("next_h", next_h, f32, (R, N))
+        if staged is None:
+            staged = (torch.empty_like(next_nbr_w), torch.empty_like(next_h))
+        _want("staged_w", staged[0], f32, (R, D, N))
+        _want("staged_h", staged[1], f32, (R, N))
+        _check_stream_buffers(nbr_w, h, next_nbr_w, next_h, staged)
+    row0, col0_t = _band_coords(coord_offset, R, dev)
+    if ex_pts_device is None:
+        ex_pts_device = torch.tensor([p0 for p0, _ in pts], dtype=i32,
+                                     device=dev)
+    _want("ex_pts_device", ex_pts_device, i32, (len(pts),))
+
+    lib = _exchange_library()
+    threads = exchange_threads(N)
+    with torch.cuda.device(dev):
+        key = (dev.index, R, B, N, D, stream, threads, block_b)
+        tb = _EXCHANGE_TILES.get(key)
+        if tb is None:
+            tb = _exchange_tile_chains(lib, R, B, N, D, stream, threads,
+                                      card_limits(dev), block_b)
+            _EXCHANGE_TILES[key] = tb
+        n_blocks = R * -(-B // tb)
+        m_out = torch.empty_like(m)
+        ns_out = torch.empty_like(noise_state)
+        part_s = part_c = s_out = c_out = None
+        if measured is not None:
+            part_s = torch.empty((n_blocks, N), dtype=f32, device=dev)
+            part_c = torch.empty((n_blocks, D, N), dtype=f32, device=dev)
+            s_out = torch.empty((R, N), dtype=f32, device=dev)
+            c_out = torch.empty((R, D, N), dtype=f32, device=dev)
+        mailbox = torch.empty((_MAILBOX_SLOTS, R, 2, B, H), dtype=torch.int8,
+                              device=dev)
+        barrier = torch.empty((1,), dtype=i32, device=dev)
+        rc = lib.sweep_sparse_exchange_launch(
+            _ptr(m), _ptr(m_out), R, B, N, D, S, int(n_loc), H,
+            _ptr(nbr_idx), _ptr(nbr_w), *map(_ptr, rows), _ptr(masks[0]),
+            _ptr(masks[1]), _ptr(betas), _ptr(send_up), _ptr(send_dn),
+            _ptr(cm), _ptr(cv), _ptr(measured), _ptr(noise_state),
+            _ptr(ns_out), row0, _ptr(col0_t), _ptr(ex_pts_device), len(pts),
+            int(mode == "async"), _ptr(part_s), _ptr(part_c), _ptr(s_out),
+            _ptr(c_out), _ptr(next_nbr_w), _ptr(next_h),
+            _ptr(staged[0] if stream else None),
+            _ptr(staged[1] if stream else None), _ptr(mailbox),
+            _ptr(barrier), tb, threads,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        msg = lib.sweep_exchange_error_string(rc).decode()
+        raise RuntimeError(f"sweep_sparse_exchange launch: CUDA error {rc} "
+                           f"({msg})")
+    sweep_sparse_exchange.launches += 1
+    outs = [m_out, ns_out]
+    if measured is not None:
+        outs += [s_out, c_out]
+    elif stream:
+        outs += list(staged)
+    return tuple(outs)
+
+
+sweep_sparse_exchange.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -62,6 +62,7 @@ def test_port_imports_without_pulling_in_jax():
         " repro_torch.core.tasks, repro_torch.core.annealing,"
         " repro_torch.core.tempering, repro_torch.core.maxcut,"
         " repro_torch.api.program, repro_torch.kernels.lattice_update,"
+        " repro_torch.core.distributed, repro_torch.kernels.shard_sweep,"
         " chip_smoke;"
         "bad = [m for m in ('jax', 'jaxlib', 'repro') if m in sys.modules];"
         "print(bad); sys.exit(1 if bad else 0)")
@@ -80,7 +81,8 @@ def test_kernel_sources_ship_with_the_package():
 
 
 @pytest.mark.parametrize("name", ["sweep_sparse", "pbit_update",
-                                  "sweep_fused", "lattice_update"])
+                                  "sweep_fused", "lattice_update",
+                                  "sweep_exchange"])
 def test_every_kernel_source_ships_and_keys_its_headers(name, tmp_path,
                                                         monkeypatch):
     """Each library has its .cu with a plain C interface; its build key
@@ -109,7 +111,8 @@ def test_every_kernel_source_ships_and_keys_its_headers(name, tmp_path,
     ("pbit_update", "pbit_half_sweep", "pbit_half_sweep_ref"),
     ("sweep_fused", "sweep_sparse_stream", "sweep_sparse_stream_ref"),
     ("lattice_update", "lattice_vertical_update",
-     "lattice_vertical_update_ref")])
+     "lattice_vertical_update_ref"),
+    ("sweep_fused", "sweep_sparse_exchange", "sweep_sparse_exchange_ref")])
 def test_dense_wrappers_take_the_plain_version_only_for_cpu_tensors(
         module, wrapper, plain):
     """As for K1: dispatch on the tensor's device alone, no try/except
@@ -125,7 +128,8 @@ def test_dense_wrappers_take_the_plain_version_only_for_cpu_tensors(
     assert "matmul" not in body and "torch.compile" not in body
     cu = {"pbit_update": "pbit_update.cu",
           "lattice_update": "lattice_update.cu"}.get(
-        module, {"sweep_sparse_stream": "sweep_sparse.cu"}.get(
+        module, {"sweep_sparse_stream": "sweep_sparse.cu",
+                 "sweep_sparse_exchange": "sweep_exchange.cu"}.get(
             wrapper, "sweep_fused.cu"))
     text = (PORT / "kernels" / "csrc" / cu).read_text()
     assert "cublas" not in text.lower() and f"{wrapper}_launch" in text
