@@ -74,6 +74,7 @@ ROOT = Path(__file__).resolve().parent
 # published peaks of one H100 SXM (NVIDIA data sheet): the roofline's rates
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT8_TC_OPS_PER_S = 1979e12   # int8 on the tensor cores, dense
 
 DEVICE = "cuda"    # the script has no CPU mode: main() refuses without a GPU
 B = 256            # chains everywhere on the main path
@@ -337,7 +338,9 @@ def check_dense_kernels(seed: int) -> list[dict]:
     from repro_torch.kernels.pbit_update import (pbit_half_sweep,
                                                  pbit_half_sweep_ref)
     from repro_torch.kernels.ref import pbit_sparse_half_sweep_ref
-    from repro_torch.kernels.sweep_fused import (sweep_fused, sweep_fused_ref,
+    from repro_torch.kernels.sweep_fused import (card_limits, dense_plan,
+                                                 resident_clusters,
+                                                 sweep_fused, sweep_fused_ref,
                                                  sweep_sparse)
 
     dev = torch.device(DEVICE)
@@ -360,19 +363,28 @@ def check_dense_kernels(seed: int) -> list[dict]:
 
     def k3_case(name, noise, graph, chains, *, tempered=False, clamp=False,
                 measured=False, visible=None, coord_offset=None,
-                block_b=None, intra=False):
+                block_b=None, intra=False, weights=None, sweeps=S,
+                overlap=False):
         ses, chip = programmed(graph, noise, chains)
         if intra:
             chip = intra_colour_chip(chip, gen)
-        args, kw = kernel_operands(ses, chip, gen, n_sweeps=S,
+        args, kw = kernel_operands(ses, chip, gen, n_sweeps=sweeps,
                                    tempered=tempered, clamp=clamp)
         args = dense_operands(args, chip)
+        if overlap:
+            # a fifth of the nodes in both update sets: more rows than a
+            # CTA holds, read from device memory
+            both = torch.rand(graph.n_nodes, generator=gen, device=dev) < 0.2
+            args[7], args[8] = args[7] | both, args[8] | both
         vis = None
         if visible is not None:
             vis = torch.as_tensor(
                 rng.choice(graph.n_nodes, visible, replace=False),
                 device=dev)
-        meas = burn if (measured or visible is not None) else None
+        meas = None
+        if measured or visible is not None:
+            meas = burn if weights is None else torch.tensor(
+                weights, dtype=torch.float32, device=dev)
         kw.update(accumulate=measured, collect_hist=visible is not None,
                   n_visible=visible or 0)
         tail = [meas, vis, coord_offset]
@@ -380,8 +392,14 @@ def check_dense_kernels(seed: int) -> list[dict]:
         got = sweep_fused(*args, *tail, block_b=block_b, **kw)
         torch.cuda.synchronize()
         diff, spins = compare_outputs(got, want)
+        C = args[10].shape[1] if noise == "lfsr" else 0
+        plan = dense_plan(graph.n_nodes, chains, C, card_limits(dev),
+                          block_b=block_b,
+                          resident=lambda p: resident_clusters(p, dev))
         k3.append({"case": name, "noise": noise, "N": graph.n_nodes,
-                   "B": chains, "max_abs_diff": diff,
+                   "B": chains, "S": sweeps, "body": plan.body,
+                   "cluster_size": plan.cluster_size,
+                   "chains_per_tile": plan.chains, "max_abs_diff": diff,
                    "spins_differing": spins})
 
     for noise in ("counter", "lfsr"):
@@ -402,6 +420,27 @@ def check_dense_kernels(seed: int) -> list[dict]:
             coord_offset=(1000, 77))
     k3_case("coord_offset_wrap", "counter", chip_graph, B,
             coord_offset=(2 ** 32 - 3, 2 ** 32 - 100))
+    # the statistics in the plain version's order: any float weights
+    frac = [0.0, 0.37, 1.25, 0.0, 0.37, 1.25, 0.37, 1.25][:S]
+    for noise in ("counter", "lfsr"):
+        k3_case("moments_fractional_weights", noise, chip_graph, B,
+                measured=True, weights=frac)
+    k3_case("hist_fractional_weights", "counter", chip_graph, B, visible=5,
+            weights=frac)
+    # each body and cluster size the plan can pick
+    k3_case("streamed_W_N1152", "counter", make_chimera(12, 12), 64,
+            measured=True)
+    k3_case("cluster_k2_N280", "counter", make_chimera(5, 7), B,
+            measured=True)
+    k3_case("cluster_k16_N600", "counter", make_chimera(5, 15), B,
+            measured=True, visible=4)
+    # W fits a cluster, but its clusters would take 10 waves
+    k3_case("streamed_waves_N864", "counter", make_chimera(12, 9), B,
+            measured=True)
+    k3_case("tempering_B16", "counter", chip_graph, 16, tempered=True,
+            sweeps=10)
+    k3_case("overlapping_masks", "counter", chip_graph, B, measured=True,
+            intra=True, overlap=True)
 
     # K2, one half-sweep per case
     k2 = []
@@ -1298,7 +1337,7 @@ def workloads(seed: int) -> dict:
     if counts["pbit_half_sweep"] <= 0 or counts["sweep_fused"] <= 0:
         raise AssertionError(f"the workloads missed a dense kernel: {counts}")
     out["_worst"] = worst
-    return out
+    return out, calls
 
 
 # ---------------------------------------------------------------------------
@@ -1767,12 +1806,18 @@ def sharded(seed: int) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 # the kernel records
 # ---------------------------------------------------------------------------
-def _bound(moved: int, ops: int) -> dict:
+def _bound(moved: int, ops: int, int8_ops: int = 0) -> dict:
+    """The roofline bound: bytes at the HBM rate against operations, each
+    type at its own peak (``ops`` at the float32 rate, ``int8_ops`` at the
+    int8 tensor-core rate; the two times add)."""
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "bytes_moved": moved, "operations": ops}
+    ops_ms = (ops / FP32_OPS_PER_S + int8_ops / INT8_TC_OPS_PER_S) * 1e3
+    out = {"bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+           "bytes_moved": moved, "operations": ops}
+    if int8_ops:
+        out["int8_tensor_core_operations"] = int8_ops
+    return out
 
 
 def _moved(args, kwargs, outs) -> int:
@@ -1823,11 +1868,13 @@ def kernel_record(checks: dict, path: dict, calls: list,
 
 
 def dense_kernel_records(seed: int, dense_checks: list, train: dict,
-                         train_calls: dict, launches_by_path: dict,
+                         train_calls: dict, work_calls: dict,
+                         launches_by_path: dict,
                          worst_by_path: dict) -> list[dict]:
     """K2 and K3 records.  K3 at N=440, B=256, S=1000 (counter noise, no
-    moments: the shape of K1's record) and at the training path's CD phase
-    (S=10, Gram); K2 at the training path's half-sweep, N=440, B=256.
+    moments: the shape of K1's record); at the training path's CD phase
+    (S=10, Gram), split into the sweeps and the statistics kernel; and at the workloads' tempering launch (B=16,
+    S=10).  K2 at the training path's half-sweep, N=440, B=256.
     Operations: the dense 2·N per updated (chain, node) — on a Chimera chip
     K1 needs only 2·D of them for the same sum."""
     from repro_torch import api
@@ -1835,11 +1882,26 @@ def dense_kernel_records(seed: int, dense_checks: list, train: dict,
     from repro_torch.core.chimera import make_chip_graph
     from repro_torch.kernels.pbit_update import (pbit_half_sweep,
                                                  pbit_half_sweep_ref)
-    from repro_torch.kernels.sweep_fused import sweep_fused, sweep_fused_ref
+    from repro_torch.kernels.sweep_fused import (card_limits, dense_plan,
+                                                 resident_clusters,
+                                                 sweep_fused, sweep_fused_ref)
 
     check_worst = {line["kernel"]: line["max_abs_diff"]
                    for line in dense_checks}
     path_worst = max(worst_by_path.values())
+    limits = card_limits(DEVICE)
+
+    def plan_of(args, kw):
+        C = args[10].shape[1] if kw.get("noise_mode") == "lfsr" else 0
+        plan = dense_plan(args[1].shape[0], args[0].shape[0], C, limits,
+                          block_b=kw.get("block_b"),
+                          resident=lambda p: resident_clusters(p, DEVICE))
+        out = {"body": plan.body, "cluster_size": plan.cluster_size,
+               "chains_per_cluster": plan.chains, "threads": plan.threads,
+               "smem_bytes": plan.smem_bytes}
+        if plan.body == "cluster":
+            out["resident_clusters"] = resident_clusters(plan, DEVICE)
+        return out
 
     # K3, the resident shape
     g = make_chip_graph()
@@ -1868,20 +1930,35 @@ def dense_kernel_records(seed: int, dense_checks: list, train: dict,
     # K3, the CD phase shape: the training path's first positive phase
     cd_args, cd_kw, cd_outs = next(
         c for c in train_calls["sweep_fused"] if c[1].get("accumulate"))
-    cd_ms = cuda_ms(lambda: sweep_fused(*cd_args, **cd_kw))
-    # the same launch without moments: what the Gram partials cost
+    cd_fn = lambda: sweep_fused(*cd_args, **cd_kw)  # noqa: E731
+    cd_ms = cuda_ms(cd_fn)
+    # the same launch without moments: what the statistics cost
     no_moments = {k: v for k, v in cd_kw.items()
                   if k not in ("measured", "accumulate")}
     cd_sweeps_ms = cuda_ms(lambda: sweep_fused(*cd_args, **no_moments))
     _, cd_plain_ms = timed_once(lambda: sweep_fused_ref(*cd_args, **cd_kw))
     cd_B = cd_args[0].shape[0]
     cd_S = cd_args[9].shape[0]
-    meas = int(cd_kw["measured"].sum())
-    # per measured sweep: s_sum's B·N adds, and a multiply-add per chain
-    # for each of the Gram's N(N+1)/2 distinct entries (mᵀm is symmetric)
+    meas = int((cd_kw["measured"] != 0).sum())
+    # the yardstick of the statistics kernel's Gram: one library product
+    # per recorded sweep on the same shape (the port never calls it)
+    cd_m = cd_outs[0]
+    gram_matmul_ms = cuda_ms(
+        lambda: [torch.matmul(cd_m.T, cd_m) for _ in range(meas)])
+    # per measured sweep: s_sum's B·N adds and, for each of the Gram's
+    # N(N+1)/2 distinct entries (mᵀm is symmetric), a multiply-add per
+    # chain on the int8 tensor cores and the weighted float add (2)
     cd_ops = (cd_B * n * cd_S
               * (2 * n + DECISION_OPS + UNIFORM_OPS + HASH_OPS)
-              + meas * (cd_B * n * (n + 1) + cd_B * n))
+              + meas * (cd_B * n + n * (n + 1)))
+    gram_ops = meas * cd_B * n * (n + 1)
+    cd_device = device_kernel_ms(cd_fn, "k3_")
+    cd_stats = device_kernel_ms(cd_fn, "k3_stats")
+
+    # K3, the workloads' tempering launch: 16 replicas, S=10
+    pt_args, pt_kw, _ = work_calls["sweep_fused"][0]
+    pt_fn = lambda: sweep_fused(*pt_args, **pt_kw)  # noqa: E731
+
     k3 = {"name": "sweep_fused", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/sweep_fused.cu",
           "replaces": "src/repro/kernels/sweep_fused.py:545",
@@ -1897,15 +1974,24 @@ def dense_kernel_records(seed: int, dense_checks: list, train: dict,
           "matmul_ms": matmul_ms,
           "matmul_what": "torch.matmul(m, W.T) 2*S times: the product alone",
           "shape": {"N": n, "B": B, "S": S, "noise": "counter"},
+          **plan_of(args, kw),
           "device_ms": device_kernel_ms(
-              lambda: sweep_fused(*args, **kw), "sweep_fused_kernel", 3),
+              lambda: sweep_fused(*args, **kw), "k3_", 3),
           "cd_phase": {"S": cd_S, "measured_sweeps": meas, "ms": cd_ms,
                        "ms_without_moments": cd_sweeps_ms,
-                       "device_ms": device_kernel_ms(
-                           lambda: sweep_fused(*cd_args, **cd_kw),
-                           "sweep_fused_kernel"),
+                       "device_ms": cd_device,
+                       "stats_device_ms": cd_stats,
+                       "gram_matmul_ms": gram_matmul_ms,
+                       "gram_matmul_what": "torch.matmul(m.T, m) once per "
+                                           "recorded sweep: a yardstick",
                        "plain_ms": cd_plain_ms, "clamped": True,
-                       **_bound(_moved(cd_args, cd_kw, cd_outs), cd_ops)}}
+                       **plan_of(cd_args, cd_kw),
+                       **_bound(_moved(cd_args, cd_kw, cd_outs), cd_ops,
+                                gram_ops)},
+          "tempering": {"B": pt_args[0].shape[0], "N": pt_args[1].shape[0],
+                        "S": pt_args[9].shape[0], "ms": cuda_ms(pt_fn),
+                        "device_ms": device_kernel_ms(pt_fn, "k3_"),
+                        **plan_of(pt_args, pt_kw)}}
 
     # K2, the training path's half-sweep at N=440, B=256
     k2_args, k2_kw, k2_out = train_calls["pbit_half_sweep"][0]
@@ -2108,7 +2194,7 @@ def main() -> int:
     path, calls = main_path(args.seed)
     train, train_calls = training(args.seed)
     learn = learning(args.seed)
-    work = workloads(args.seed)
+    work, work_calls = workloads(args.seed)
     stream, stream_calls = streaming(args.seed)
     soa, soa_calls = lattice_soa(args.seed)
     shard, shard_calls = sharded(args.seed)
@@ -2124,7 +2210,7 @@ def main() -> int:
     per_path = lambda k: {p: c[k] for p, c in by_path.items()}  # noqa: E731
     records = [kernel_record(checks, path, calls, per_path("sweep_sparse"))]
     records += dense_kernel_records(args.seed, dense_checks, train,
-                                    train_calls, by_path, worst)
+                                    train_calls, work_calls, by_path, worst)
     records[0]["max_abs_err"] = max(records[0]["max_abs_err"],
                                     *worst.values())
     records.append(stream_kernel_record(

@@ -453,16 +453,30 @@ class Session:
         clamp_mask[vis] = True
         beta = self.spec.beta
 
+        def f32(x):
+            return torch.tensor(np.float32(x), device=dev)
+
+        def decayed(W, lr, vel):
+            """(1 - wd)·W + lr·vel as the reference compiles it."""
+            if cfg.weight_decay == 0:
+                return pbit.fma32(lr, vel, W)
+            return pbit.fma32(f32(1.0 - cfg.weight_decay), W, lr * vel)
+
         def phase(chip, m0, n_sweeps, ns, cm=None, cv=None):
             if self._engine is not None:
                 # sharded phases: the rows partition exchanges halos, a
                 # chains partition sums its shards' moments once per phase
                 return self._engine.stats(chip, m0, ns, beta, n_sweeps,
-                                          cfg.burn_in, cm, cv)
+                                          cfg.burn_in, cm, cv, sums=True)
             return pbit.gibbs_stats(
                 chip, self._color, m0, beta, n_sweeps, cfg.burn_in, ns,
                 self._noise_step, self._edges, clamp_mask=cm,
-                clamp_values=cv, backend=self.backend)
+                clamp_values=cv, backend=self.backend, sums=True)
+
+        def difference(pos, neg):
+            """pos_acc·pos_inv - neg_acc·neg_inv as the reference's
+            compiled step fuses it: fma(pos_acc, pos_inv, -(neg moment))."""
+            return pbit.fma32(pos[0], pos[1], -(neg[0] * neg[1]))
 
         def step(mismatch, Jm, hm, data_vis, m, noise_state, vel):
             chip = program_edges(self.spec.replace(mismatch=mismatch),
@@ -474,26 +488,28 @@ class Session:
                 data_vis, dtype=torch.float32, device=dev)
 
             # positive phase: visibles pinned to data
-            pos_s, pos_c, m_pos, noise_state = phase(
+            pos_s, pos_c, pos_inv, m_pos, noise_state = phase(
                 chip, m, cfg.pos_sweeps, noise_state, clamp_mask,
                 clamp_values)
             # negative phase: CD-k from the positive-phase state, or from
             # the persistent chains (PCD)
             neg_init = m if cfg.persistent else m_pos
-            neg_s, neg_c, m_neg, noise_state = phase(
+            neg_s, neg_c, neg_inv, m_neg, noise_state = phase(
                 chip, neg_init, cfg.cd_k, noise_state)
 
-            gJ = pos_c - neg_c
-            gh = pos_s - neg_s
+            gJ = difference((pos_c, pos_inv), (neg_c, neg_inv))
+            gh = difference((pos_s, pos_inv), (neg_s, neg_inv))
             # skip-and-log guard: a non-finite gradient (bad data batch,
             # device fault) must never reach the master weights
             ok = torch.isfinite(gJ).all() & torch.isfinite(gh).all()
             vel_J, vel_h = vel
-            vel_J_new = cfg.momentum * vel_J + gJ
-            vel_h_new = cfg.momentum * vel_h + gh
-            Jm_new = (1.0 - cfg.weight_decay) * Jm + cfg.lr * vel_J_new
-            hm_new = (1.0 - cfg.weight_decay) * hm \
-                + cfg.lr * cfg.h_lr_scale * vel_h_new
+            # the reference's compiled update, each step one FMA:
+            # fma(mom, vel, g), then fma(lr, vel', W) without weight decay
+            # or fma(1 - wd, W, round(lr·vel')) with it
+            vel_J_new = pbit.fma32(f32(cfg.momentum), vel_J, gJ)
+            vel_h_new = pbit.fma32(f32(cfg.momentum), vel_h, gh)
+            Jm_new = decayed(Jm, f32(cfg.lr), vel_J_new)
+            hm_new = decayed(hm, f32(cfg.lr * cfg.h_lr_scale), vel_h_new)
             Jm_new = torch.clamp(Jm_new, WMIN, WMAX)
             hm_new = torch.clamp(hm_new, WMIN, WMAX)
             Jm = torch.where(ok, Jm_new, Jm)
@@ -505,8 +521,8 @@ class Session:
             inv_e = pbit._recip(gJ.shape[0]).to(dev)
             inv_n = pbit._recip(gh.shape[0]).to(dev)
             metrics = {
-                "corr_err": torch.abs(pos_c - neg_c).sum() * inv_e,
-                "mean_err": torch.abs(pos_s - neg_s).sum() * inv_n,
+                "corr_err": torch.abs(gJ).sum() * inv_e,
+                "mean_err": torch.abs(gh).sum() * inv_n,
                 "update_skipped": 1.0 - ok.to(torch.float32),
             }
             return Jm, hm, m_out, noise_state, (vel_J, vel_h), metrics

@@ -595,9 +595,9 @@ def _auto_backend(spec: SamplerSpec) -> str:
     """Prefer the slot layout: the sweep-resident kernel when the noise can
     be generated in it, else the half-sweep loop.  A dense-only spec takes
     the dense resident engine when it fits Hopper's limits
-    (`dense_resident_feasible`: W in L2, the tile's spins in shared memory,
-    the Gram partials bounded, on the spec's card: `card_limits`) and the
-    noise is in-kernel, else "ref"."""
+    (`dense_resident_feasible`: a chain of the tile in shared memory, and
+    W's rows in a cluster's shared memory or W in L2, on the spec's card:
+    `card_limits`) and the noise is in-kernel, else "ref"."""
     in_kernel = spec.noise in IN_KERNEL_NOISE
     if spec.has_slot_layout:
         return "fused_sparse" if in_kernel else "sparse"

@@ -40,6 +40,7 @@ import torch
 from repro_torch.core import lfsr as lfsr_mod
 from repro_torch.core.chimera import ChimeraGraph, make_chimera
 from repro_torch.core.hardware import EffectiveChip, HardwareConfig
+from repro_torch.core.pbit import fma32
 from repro_torch.kernels.ref import (
     halo_exchange_segments,
     sparse_neuron_input,
@@ -638,9 +639,11 @@ class ShardedEngine:
                     e1 = d["edge_e1"][:, None, :].expand(-1, B, -1)
                     corr = m_ext.gather(2, e0) * m_ext.gather(2, e1)
                     if self.n_chain == 1:
-                        # the single-device engine's order (any B)
-                        accs[0] = accs[0] + w_t * (m.sum(dim=1) * inv_b)
-                        accs[1] = accs[1] + w_t * (corr.sum(dim=1) * inv_b)
+                        # the single-device engine's order (any B):
+                        # fma(Σ_b m, w / B, acc), one rounding
+                        w_b = w_t * inv_b
+                        accs[0] = fma32(m.sum(dim=1), w_b, accs[0])
+                        accs[1] = fma32(corr.sum(dim=1), w_b, accs[1])
                     else:
                         # raw ±1 sums over every chain shard: one division
                         # at the end (bit-exact for power-of-two chains)
@@ -846,8 +849,10 @@ class ShardedEngine:
             traj = t[:, :, self._inv_ids]
         return self._m_global(m_o), self._ns_global(ns, ns_o), traj
 
-    def stats(self, chip, m, ns, beta, n_sweeps, burn_in, cm=None, cv=None):
-        """(mean_spin[N], mean_edge_corr[E], m', noise_state'), as
+    def stats(self, chip, m, ns, beta, n_sweeps, burn_in, cm=None, cv=None,
+              *, sums=False):
+        """(mean_spin[N], mean_edge_corr[E], m', noise_state'), or with
+        ``sums`` (s_acc, c_acc, inv, m', noise_state'), as
         `core.pbit.gibbs_stats`."""
         dev = self.device
         run = self._local_sweeps(cm is not None, False, True, None)
@@ -862,9 +867,12 @@ class ShardedEngine:
         scale = (np.float32(denom) if self.n_chain == 1
                  else np.float32(denom) * np.float32(self.chains))
         inv = _recip(scale).to(dev)
-        s = s_acc.reshape(-1)[self._inv_ids] * inv
-        c = c_acc.reshape(-1)[self._edge_inv] * inv
-        return s, c, self._m_global(m_o), self._ns_global(ns, ns_o)
+        s = s_acc.reshape(-1)[self._inv_ids]
+        c = c_acc.reshape(-1)[self._edge_inv]
+        m_o, ns_o = self._m_global(m_o), self._ns_global(ns, ns_o)
+        if sums:
+            return s, c, inv, m_o, ns_o
+        return s * inv, c * inv, m_o, ns_o
 
     def visible_hist(self, chip, m, ns, betas, burn_in, visible_idx,
                      cm=None, cv=None):

@@ -16,10 +16,11 @@ Counterpart of ``repro.core.pbit``.  Execution backends:
                      (`kernels/pbit_update.py`), one launch per half-sweep.
   * "fused"        — the dense sweep-resident CUDA engine
                      (`kernels/sweep_fused.py::sweep_fused`): S sweeps per
-                     launch, spins in shared memory, W read from L2, noise
-                     generated in the kernel, moments (Gram matrix) and
-                     histogram accumulated on-line.  Needs "counter" or
-                     "lfsr" noise.
+                     launch, spins on chip, W's rows in the shared memory
+                     of a thread-block cluster (read from L2 for large N),
+                     noise generated in the kernel, moments (Gram matrix)
+                     and histogram from the launch's record of spins.
+                     Needs "counter" or "lfsr" noise.
   * "sparse"       — the loop of "ref" on the Chimera slot layout.
   * "fused_sparse" — the sweep-resident engine on the slot layout
                      (`sweep_sparse`).  Needs "counter" or "lfsr" noise.
@@ -230,6 +231,33 @@ def _recip(x) -> torch.Tensor:
     return torch.tensor(np.float32(1.0) / np.float32(x))
 
 
+def fma32(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    reference's compiled moment accumulation and CD update contract a
+    multiply that feeds an add into one FMA (ROADMAP Queue 3 item 13).
+
+    The product of two float32 values is exact in float64; the sum is
+    rounded to float64 and then to float32, and where the float64 sum lies
+    exactly halfway between two float32 values its rounding error (TwoSum)
+    says which way the exact sum lies, so the result is the correctly
+    rounded fused value on any device."""
+    c = torch.as_tensor(c)
+    a64 = torch.as_tensor(a, device=c.device).to(torch.float64)
+    b64 = torch.as_tensor(b, device=c.device).to(torch.float64)
+    c64 = c.to(torch.float64)
+    p = a64 * b64
+    s = p + c64
+    bp = s - c64
+    err = (p - bp) + (c64 - (s - bp))
+    # a float32 midpoint has exactly the bit below float32's last place set
+    low = s.view(torch.int64) & ((1 << 29) - 1)
+    tie = (low == (1 << 28)) & (err != 0)
+    toward = torch.where(err > 0, torch.full_like(s, np.inf),
+                         torch.full_like(s, -np.inf))
+    s = torch.where(tie, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
 def gibbs_sample(
     chip: EffectiveChip,
     color: torch.Tensor,
@@ -290,6 +318,8 @@ def gibbs_stats(
     clamp_values: torch.Tensor | None = None,
     kernel: Callable | None = None,
     backend: str | None = None,
+    *,
+    sums: bool = False,
 ):
     """Accumulate first/second moments on-line (no trajectory storage).
 
@@ -300,7 +330,10 @@ def gibbs_stats(
     accumulation) is one kernel launch; edge correlations are read out of
     the Gram matrix (dense) or the (D, N) per-slot table (slot layout).
     Every division by a count is a multiply by its float32 reciprocal, as
-    the reference compiles it.
+    the reference compiles it.  With ``sums`` it returns (s_acc, c_acc,
+    inv, final_m, noise_state) instead, the moments being ``acc * inv``:
+    the CD update fuses that multiply into its gradient, as the
+    reference's compiled step does.
     """
     backend = resolve_backend(backend)
     dev = init_m.device
@@ -327,6 +360,8 @@ def gibbs_stats(
             c_edge = c_sum[slot, e0]
         else:
             c_edge = c_sum[e0, e1]
+        if sums:
+            return s_sum, c_edge, inv, m, ns
         return s_sum * inv, c_edge * inv, m, ns
 
     sweep = make_sweep_fn(chip, color, noise_fn, clamp_mask, clamp_values,
@@ -337,10 +372,13 @@ def gibbs_stats(
     c_sum = torch.zeros((edges.shape[0],), dtype=torch.float32, device=dev)
     for t in range(n_sweeps):
         m, ns = sweep(m, ns, betas[t])
-        w = measured[t]
-        s_sum = s_sum + w * (m.sum(dim=0) * inv_b)
-        c_sum = c_sum + w * ((m[:, e0] * m[:, e1]).sum(dim=0) * inv_b)
+        # the reference's compiled body: fma(Σ_b m, w / B, acc)
+        w_b = measured[t] * inv_b
+        s_sum = fma32(m.sum(dim=0), w_b, s_sum)
+        c_sum = fma32((m[:, e0] * m[:, e1]).sum(dim=0), w_b, c_sum)
     inv = _recip(denom).to(dev)
+    if sums:
+        return s_sum, c_sum, inv, m, ns
     return s_sum * inv, c_sum * inv, m, ns
 
 

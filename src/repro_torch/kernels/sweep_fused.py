@@ -28,12 +28,19 @@ launch.
   exchange point.
 * `sweep_fused` — the dense (N, N) couplings.  Replaces
   ``repro.kernels.sweep_fused.sweep_fused_pallas`` (``_kernel`` with
-  ``sparse=False``); CUDA source ``csrc/sweep_fused.cu``.  W does not fit a
-  block's shared memory at the chip's size, so it is read from L2 every
-  half-sweep (bound by those reads); a dense W may couple nodes of one
-  colour, so the update is synchronous (double-buffered spins); the second
-  moment is the Gram matrix Σ mᵀm.  `dense_tile_chains` /
-  `dense_resident_feasible` model its limits on Hopper.
+  ``sparse=False``); CUDA source ``csrc/sweep_fused.cu``.  Two bodies,
+  chosen by shape in `dense_plan`: where W fits the shared memory of a
+  thread-block cluster, each CTA of a cluster holds the rows of W of its
+  share of each colour and the spins travel between the CTAs through
+  distributed shared memory (bound by the dependent float32 add chain of
+  eqn 1); otherwise W is read from L2 every half-sweep.  A dense W may
+  couple nodes of one colour, so the update is synchronous
+  (double-buffered spins).  The statistics come from an int8 record of the
+  measured sweeps' spins, reduced after the sweeps in sweep order (the
+  Gram matrix Σ mᵀm on the int8 tensor cores), so they equal the plain
+  version's bit for bit; `dense_record_windows` splits a launch whose
+  record would outgrow its memory.  `dense_resident_feasible` models the
+  limits on Hopper.
 
 `sweep_sparse_ref` / `sweep_sparse_stream_ref` /
 `sweep_sparse_exchange_ref` / `sweep_fused_ref` are the plain PyTorch
@@ -78,10 +85,10 @@ class CardLimits(NamedTuple):
     regs_per_sm: int      # 32-bit registers of one SM
 
     @property
-    def gram_partial_bytes(self) -> int:
-        """Room for one K3 launch's per-block Gram partials: an eighth of
-        device memory, the rest left to the chips, the chains and the
-        caching allocator."""
+    def record_bytes(self) -> int:
+        """Room for one K3 launch's spin record: an eighth of device
+        memory, the rest left to the chips, the chains and the caching
+        allocator."""
         return self.memory_bytes // 8
 
 
@@ -263,18 +270,23 @@ def sweep_fused_ref(
     noise_state, clamp_mask=None, clamp_values=None, measured=None,
     visible_idx=None, coord_offset=None, *, noise_mode=NOISE_COUNTER,
     decimation=8, gather_perm=None, accumulate=False, collect_hist=False,
-    n_visible=0,
+    n_visible=0, stats_in=None,
 ):
     """`sweep_fused` in plain PyTorch, any device: same arguments, same
     return tuple.  Eqn 1 is `kernels/ref.py`'s ascending row reduction (on
     each row's nonzero entries: the same sum); the Gram matrix of a sweep is
-    ``mᵀm`` by `torch.matmul`, exact because its entries are integers."""
+    ``mᵀm`` by `torch.matmul`, exact because its entries are integers.
+    ``stats_in`` (the statistics a previous window returned) continues
+    their sums instead of starting from zero, as a windowed launch does
+    (`dense_record_windows`)."""
     B, N = m.shape
     S = betas.shape[0]
     accumulate, collect_hist = _check_modes(
         noise_mode, gather_perm, coord_offset, accumulate, collect_hist,
         measured, visible_idx, n_visible)
     if S == 0:
+        if stats_in is not None:
+            return (m, noise_state, *stats_in)
         return _identity_result(m, noise_state, N, (N, N), accumulate,
                                 collect_hist, n_visible)
     idx, w = row_tables(W)
@@ -285,17 +297,19 @@ def sweep_fused_ref(
         measured, visible_idx, coord_offset, noise_mode=noise_mode,
         decimation=decimation, gather_perm=gather_perm,
         accumulate=accumulate, collect_hist=collect_hist,
-        n_visible=n_visible, half_offset=0, n_half=2 * S)
+        n_visible=n_visible, half_offset=0, n_half=2 * S, stats_in=stats_in)
 
 
 def _sweeps_ref(
     m, neuron_input, pair_sums, c_shape, gain, off, rand_gain, comp_off,
     mask0, mask1, betas, noise_state, clamp_mask, clamp_values, measured,
     visible_idx, coord_offset, *, noise_mode, decimation, gather_perm,
-    accumulate, collect_hist, n_visible, half_offset, n_half,
+    accumulate, collect_hist, n_visible, half_offset, n_half, stats_in=None,
 ):
     """The plain half-sweep loop of both engines: ``neuron_input(m)`` is
-    eqn 1, ``pair_sums(m)`` a sweep's second-moment sums over chains."""
+    eqn 1, ``pair_sums(m)`` a sweep's second-moment sums over chains;
+    ``stats_in`` holds statistics to continue (``(s_sum, c_sum)`` and/or
+    ``(hist,)``, in the order they are returned)."""
     B, N = m.shape
     dev = m.device
     has_clamp = clamp_mask is not None and clamp_values is not None
@@ -308,13 +322,18 @@ def _sweeps_ref(
     else:
         perm = torch.as_tensor(np.asarray(gather_perm, np.int64), device=dev)
         st = lfsr_mod.to_u64(noise_state)
+    carried = list(stats_in) if stats_in is not None else None
     if accumulate:
         s_sum = torch.zeros((N,), dtype=torch.float32, device=dev)
         c_sum = torch.zeros(c_shape, dtype=torch.float32, device=dev)
+        if carried:
+            s_sum, c_sum = carried.pop(0).clone(), carried.pop(0).clone()
     if collect_hist:
         vis = torch.as_tensor(visible_idx, device=dev).to(torch.int64)
         pow2 = 2 ** torch.arange(n_visible, device=dev)
         hist = torch.zeros((2 ** n_visible,), dtype=torch.float32, device=dev)
+        if carried:
+            hist = carried.pop(0).clone()
 
     for j in range(n_half):
         g = half_offset + j
@@ -1162,62 +1181,205 @@ sweep_sparse_exchange.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the dense engine: Hopper feasibility model + wrapper
+# the dense engine: its plan on Hopper, the record windows, the wrapper
 # ---------------------------------------------------------------------------
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # CTAs a cluster of the dense engine may have
+MAX_CLUSTER_WAVES = 4             # more waves: the streamed body (measured)
+CHAINS_PER_THREAD = 4             # csrc/sweep_fused.cu kChainsPerThread
+MAX_CLUSTER_THREADS = 512         # its __launch_bounds__ (128 registers)
+MIN_CLUSTER_THREADS = 256         # enough warps to load W's rows quickly
+RECORD_CHAIN_ALIGN = 32           # the int8 mma's depth: the record's chains
+
+
+class DensePlan(NamedTuple):
+    """How one K3 launch runs: which body, CTAs per cluster, chains per tile
+    and the launch geometry the CUDA source expects."""
+
+    body: str           # "cluster" (W in a cluster's shared memory) or
+    #                     "streamed" (W read from L2 every half-sweep)
+    cluster_size: int   # CTAs per cluster (1 for the streamed body)
+    chains: int         # chains per tile: per cluster, or per block
+    rows_cap: int       # rows of W one CTA holds (cluster body; else 0)
+    threads: int
+    smem_bytes: int
+
+
 def dense_smem_bytes(tb: int, N: int, C: int = 0) -> int:
-    """Shared memory of one K3 block, the layout ``csrc/sweep_fused.cu``
-    carves up (the launch is given this number): two float32 spin buffers
-    of the tile, its LFSR registers, the two colours' update lists and the
-    compaction scratch."""
+    """Shared memory of one block of the streamed body, the layout
+    ``csrc/sweep_fused.cu::k3_streamed_sweeps`` carves up: two float32 spin
+    buffers of the tile, its LFSR registers, the two colours' update lists
+    and the compaction scratch."""
     return 2 * tb * N * 4 + tb * C * 4 + 2 * N * 4 + 33 * 4
 
 
-def dense_tile_chains(N: int, B: int, *, C: int = 0, gram: bool = False,
-                      block_b: int | None = None,
-                      limits: CardLimits = H100) -> int:
-    """Chains per K3 block: `_tile_chains`' choice and, with ``gram``
-    (moments requested), widened until the per-block Gram partials,
-    ``n_blocks · N² · 4`` bytes, fit ``limits.gram_partial_bytes``.
-    Raises ValueError when no tiling fits."""
+def cluster_rows(N: int, k: int) -> int:
+    """Rows of W one CTA of a k-CTA cluster holds: its pieces of both
+    colours' update lists, ``ceil(n0/k) + ceil(n1/k) <= ceil(N/k) + 1``
+    for disjoint colours (rows past it are read from device memory)."""
+    return -(-N // k) + 1
+
+
+def w_row_words(N: int) -> int:
+    """Stride of a row of W in the cluster body's shared memory: N rounded
+    up to 4 (zeros past N) and then to 4 mod 32, so that eight lanes
+    reading 16 bytes of eight consecutive rows hit 32 distinct banks
+    (``csrc/sweep_fused.cu::w_row_words``)."""
+    n4 = -(-N // 4) * 4
+    return -(-(n4 - 4) // 32) * 32 + 4
+
+
+def cluster_smem_bytes(k: int, tb: int, N: int, C: int = 0) -> int:
+    """Shared memory of one CTA of the cluster body
+    (``csrc/sweep_fused.cu::k3_cluster_sweeps``): two float32 spin buffers
+    of N rounded up to 4 rows by ``tb`` chains padded to
+    `CHAINS_PER_THREAD`, the rows of W (`w_row_words` each), the tile's
+    LFSR registers, the update lists, the compaction scratch and a byte
+    of colour bits per node."""
+    tbp = CHAINS_PER_THREAD * -(-tb // CHAINS_PER_THREAD)
+    n4 = -(-N // 4) * 4
+    return 4 * (2 * n4 * tbp + cluster_rows(N, k) * w_row_words(N)
+                + tb * C + 2 * N + 33) + N
+
+
+def _cluster_threads(N: int, k: int, tb: int) -> int:
+    """One thread per (row of a colour piece, group of four chains), at
+    least `MIN_CLUSTER_THREADS` (to load W's rows at the start) and at
+    most `MAX_CLUSTER_THREADS` (threads then stride over the pairs)."""
+    pairs = -(-N // k) * -(-tb // CHAINS_PER_THREAD)
+    return min(MAX_CLUSTER_THREADS,
+               max(MIN_CLUSTER_THREADS, 32 * -(-pairs // 32)))
+
+
+def _cluster_plan(N: int, k: int, tb: int, C: int) -> DensePlan:
+    return DensePlan("cluster", k, tb, cluster_rows(N, k),
+                     _cluster_threads(N, k, tb),
+                     cluster_smem_bytes(k, tb, N, C))
+
+
+def dense_plan(N: int, B: int, C: int = 0, limits: CardLimits = H100, *,
+               block_b: int | None = None, resident=None) -> DensePlan:
+    """The body, cluster size and chains per tile of a K3 launch.
+
+    The cluster body runs where the rows of W fit the shared memory of a
+    cluster and its clusters cover the chains in at most
+    `MAX_CLUSTER_WAVES` waves.  Of the cluster sizes (`CLUSTER_SIZES`) whose CTAs hold their
+    rows, it takes the smallest whose clusters the card holds at once
+    cover the B chains in one wave — ``ceil(B / resident)`` chains a
+    cluster, as far as they fit — and, where none does, the one with the
+    fewest waves.  ``resident(plan)`` is the number of clusters of
+    ``plan``'s shape the card holds at once: the wrapper asks the card
+    (`resident_clusters`); without it the model is ``sms // k``.
+    Otherwise the streamed body, with `_tile_chains`' blocks.  On an H100
+    (``benchmarks_torch/k3_parts.py``) the cluster body takes 5 % less
+    time at 2 waves (N=600, 256 chains) and 41 % less at 3 (N=864, 64
+    chains); the two are within 7 % of each other at 5 (N=800, 256
+    chains), and the streamed body takes 32 % less at 10 (N=864).
+    ``block_b`` asks for the chains per tile (a cluster's or a block's):
+    the smallest cluster that holds that many, else as many as fit.
+    `CLUSTER_SIZES` is read at each call, so a diagnostic may narrow it
+    (``()`` takes the streamed body).  Raises ValueError when one chain
+    does not fit."""
+    limit = limits.smem_per_block
+    if resident is None:
+        resident = lambda plan: max(1, limits.sms // plan.cluster_size)  # noqa: E731
+    best = None
+    for k in CLUSTER_SIZES:
+        if cluster_smem_bytes(k, 1, N, C) > limit:
+            continue
+        if block_b is not None:
+            # the smallest cluster that holds the asked chains, else the
+            # largest that holds W, with as many chains as fit
+            tb = max(1, min(int(block_b), B))
+            fits = cluster_smem_bytes(k, tb, N, C) <= limit
+            while cluster_smem_bytes(k, tb, N, C) > limit:
+                tb -= 1
+            best = (0, _cluster_plan(N, k, tb, C))
+            if fits:
+                break
+            continue
+        held = max(1, resident(_cluster_plan(N, k, 1, C)))
+        tb = max(1, min(B, -(-B // held)))
+        while cluster_smem_bytes(k, tb, N, C) > limit:
+            tb -= 1
+        plan = _cluster_plan(N, k, tb, C)
+        waves = -(-(-(-B // tb)) // max(1, resident(plan)))
+        if best is None or waves < best[0]:
+            best = (waves, plan)
+        if waves == 1:
+            break
+    if best is not None and best[0] <= MAX_CLUSTER_WAVES:
+        return best[1]
     tb = _tile_chains(B, lambda t: dense_smem_bytes(t, N, C), limits,
                       block_b, f"N={N} spins in the dense engine; use the "
                       f"slot layout (fused_sparse)")
-    cap = limits.gram_partial_bytes
-    while gram and -(-B // tb) * 4 * N * N > cap:
-        if tb >= B or dense_smem_bytes(tb + 1, N, C) > limits.smem_per_block:
-            raise ValueError(
-                f"the Gram partials of N={N} spins over {B} chains need "
-                f"more than {cap} bytes at every tiling that fits a "
-                f"block's shared memory; use the slot layout (fused_sparse)")
-        tb += 1
-    return tb
+    threads = min(1024, max(64, 32 * (-(-tb * (-(-N // 2)) // 32))))
+    return DensePlan("streamed", 1, tb, 0, threads,
+                     dense_smem_bytes(tb, N, C))
+
+
+def record_chains(B: int) -> int:
+    """Chains of a record row: B rounded up to `RECORD_CHAIN_ALIGN`."""
+    return RECORD_CHAIN_ALIGN * -(-B // RECORD_CHAIN_ALIGN)
+
+
+def dense_record_windows(S: int, N: int, B: int,
+                         limits: CardLimits = H100) -> list[tuple[int, int]]:
+    """The windows ``[s0, s1)`` of sweeps one K3 call with statistics runs
+    as consecutive launches, so that its spin record — ``(s1 - s0, N,
+    record_chains(B))`` int8 — stays within ``limits.record_bytes``.
+    Spins, noise state and the running statistics carry from one window
+    into the next (`run_windows`), so the result is the same bits as one
+    window.  Raises ValueError when one sweep's record does not fit."""
+    per_sweep = N * record_chains(B)
+    cap = limits.record_bytes
+    if per_sweep > cap:
+        raise ValueError(
+            f"one sweep's spin record of N={N} spins over {B} chains takes "
+            f"{per_sweep} bytes, more than the {cap} a launch may hold")
+    step = max(1, min(S, cap // per_sweep))
+    return [(s0, min(S, s0 + step)) for s0 in range(0, S, step)]
+
+
+def run_windows(launch, windows, m, noise_state, betas, measured):
+    """Chain ``launch(m, noise_state, betas_w, measured_w, stats_in)`` over
+    ``windows`` (`dense_record_windows`): spins and noise state flow from
+    one window into the next, and each continues the statistics the one
+    before returned (``stats_in`` None for the first).  Returns the last
+    window's ``(m', noise_state', *stats)``."""
+    stats = None
+    for s0, s1 in windows:
+        out = launch(m, noise_state, betas[s0:s1],
+                     None if measured is None else measured[s0:s1], stats)
+        m, noise_state, stats = out[0], out[1], tuple(out[2:])
+    return (m, noise_state, *(stats or ()))
 
 
 def dense_resident_feasible(N: int, B: int,
                             limits: CardLimits = H100) -> bool:
     """The model of the dense resident engine's limits (K3) on a Hopper
-    card: W (4·N² bytes) fits the L2, from which every half-sweep reads
-    it, and some chain tiling fits a block's shared memory with the CD
-    Gram partials within ``limits.gram_partial_bytes``.  The TPU's model
-    (``repro.api.spec.dense_vmem_feasible``) asked whether W fits 16 MB of
-    VMEM instead, which depends on N alone."""
-    if 4 * N * N > limits.l2_bytes:
-        return False
+    card: one chain of the tile fits shared memory, and either the rows of
+    W fit a cluster's shared memory (the cluster body) or W (4·N² bytes)
+    fits the L2 from which the streamed body reads it every half-sweep.
+    The statistics do not bind at any chain count: their record runs in
+    windows.  The TPU's model (``repro.api.spec.dense_vmem_feasible``)
+    asked whether W fits 16 MB of VMEM instead, which depends on N
+    alone."""
     try:
-        dense_tile_chains(N, B, gram=True, limits=limits)
+        plan = dense_plan(N, B, limits=limits)
     except ValueError:
         return False
-    return True
+    return plan.body == "cluster" or 4 * N * N <= limits.l2_bytes
 
 
 _DENSE_ARGTYPES = (
-    [_VP, _VP, _I, _I, _I, _VP]         # m_in, m_out, B, N, S, WT
+    [_VP, _VP, _I, _I, _I, _VP, _VP]    # m_in, m_out, B, N, S, W, WT
     + [_VP] * 8                         # h, gain, off, rg, co, masks, betas
     + [_VP, _VP, _VP, _VP, _I]          # clamp mask/values, measured, vis, nv
     + [_I, _VP, _VP, _I, _VP, _I]       # noise mode/in/out, C, perm, decimation
     + [_U, _U]                          # row0, col0
-    + [_VP] * 6                         # part_s, part_c, out_s, out_c, part_h, out_h
-    + [_I, _I, _I, _VP]                 # tb, threads, smem bytes, stream
+    + [_VP, _I, _VP, _VP, _VP, _I]      # rec, B_pad, out_s, out_c, out_h, carry
+    + [_I] * 6                          # body, k, tb, rows_cap, threads, smem
+    + [_VP]                             # stream
 )
 
 
@@ -1226,9 +1388,38 @@ def _dense_library() -> ctypes.CDLL:
     if lib.sweep_fused_launch.argtypes is None:
         lib.sweep_fused_launch.argtypes = _DENSE_ARGTYPES
         lib.sweep_fused_launch.restype = _I
+        lib.sweep_fused_max_clusters.argtypes = [
+            _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+        lib.sweep_fused_max_clusters.restype = _I
         lib.sweep_fused_error_string.argtypes = [_I]
         lib.sweep_fused_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_dense(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.sweep_fused_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+_CLUSTER_FIT: dict = {}
+
+
+def resident_clusters(plan: DensePlan, device) -> int:
+    """Clusters of ``plan``'s shape the card can hold at once
+    (``cudaOccupancyMaxActiveClusters``; 0: it cannot run)."""
+    dev = torch.device(device)
+    key = (dev.index, plan.cluster_size, plan.threads, plan.smem_bytes)
+    if key not in _CLUSTER_FIT:
+        lib = _dense_library()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = lib.sweep_fused_max_clusters(
+                plan.cluster_size, plan.threads, plan.smem_bytes,
+                ctypes.byref(out))
+        _raise_dense(lib, rc, "cudaOccupancyMaxActiveClusters")
+        _CLUSTER_FIT[key] = out.value
+    return _CLUSTER_FIT[key]
 
 
 def sweep_fused(
@@ -1255,7 +1446,7 @@ def sweep_fused(
     accumulate: bool = False,
     collect_hist: bool = False,
     n_visible: int = 0,
-    block_b: int | None = None,   # chains per block; None -> fill the SMs
+    block_b: int | None = None,   # chains per tile; None -> fill the SMs
 ):
     """Run S resident sweeps on the dense (N, N) couplings.
 
@@ -1268,12 +1459,16 @@ def sweep_fused(
 
     The update within a half-sweep is synchronous: every input is computed
     from the spins before the half-sweep, so ``mask0`` / ``mask1`` may hold
-    nodes that W couples.  With integer-valued ``measured`` every partial
-    sum is an integer below 2^24 and the statistics equal
-    `sweep_fused_ref`'s bit for bit.
+    nodes that W couples.  The statistics are summed over all chains of a
+    sweep, then over sweeps in order, as `sweep_fused_ref` sums them: they
+    equal the plain version's bit for bit for any float ``measured``.
+    `dense_plan` picks the body and the cluster size (``block_b``
+    overrides its chains per tile); a cluster shape the card cannot hold
+    raises.
 
-    CPU tensors go to `sweep_fused_ref`.  A CUDA tensor launches the kernel
-    or raises; ``sweep_fused.launches`` counts the launches.
+    CPU tensors go to `sweep_fused_ref`.  A CUDA tensor launches the kernels
+    or raises; ``sweep_fused.launches`` counts the calls that launch (a
+    call whose record runs in several windows counts once).
     """
     if not m.is_cuda:
         return sweep_fused_ref(
@@ -1299,31 +1494,52 @@ def sweep_fused(
                    gather_perm=gather_perm, accumulate=accumulate,
                    collect_hist=collect_hist, n_visible=n_visible)
     dev = m.device
-    tb = dense_tile_chains(N, B, C=op.C, gram=accumulate, block_b=block_b,
-                           limits=card_limits(dev))
-    n_blocks = -(-B // tb)
-    threads = min(1024, max(64, 32 * (-(-tb * (-(-N // 2)) // 32))))
+    limits = card_limits(dev)
+    plan = dense_plan(N, B, op.C, limits, block_b=block_b,
+                      resident=lambda p: resident_clusters(p, dev))
     lib = _dense_library()
-    WT = W.t().contiguous()       # threads over nodes read one j's column
-    out = _outputs(m, noise_state, n_blocks, (N, N), accumulate,
-                   collect_hist, n_visible)
-    with torch.cuda.device(dev):
-        rc = lib.sweep_fused_launch(
-            _ptr(m), _ptr(out["m"]), B, N, S, _ptr(WT),
-            *map(_ptr, op.rows), _ptr(op.mask0), _ptr(op.mask1), _ptr(betas),
-            _ptr(op.clamp_mask), _ptr(op.clamp_values), _ptr(op.measured),
-            _ptr(op.visible_idx), n_visible if collect_hist else 0,
-            op.noise_code, _ptr(noise_state), _ptr(out["noise"]), op.C,
-            _ptr(op.perm), int(decimation), op.row0, op.col0,
-            _ptr(out["part_s"]), _ptr(out["part_c"]), _ptr(out["s"]),
-            _ptr(out["c"]), _ptr(out["part_h"]), _ptr(out["h"]), tb, threads,
-            dense_smem_bytes(tb, N, op.C),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        msg = lib.sweep_fused_error_string(rc).decode()
-        raise RuntimeError(f"sweep_fused launch: CUDA error {rc} ({msg})")
+    if plan.body == "cluster" and resident_clusters(plan, dev) == 0:
+        raise ValueError(
+            f"no cluster of {plan.cluster_size} CTAs x {plan.threads} "
+            f"threads x {plan.smem_bytes} bytes of shared memory can run on "
+            f"this card")
+    cluster = plan.body == "cluster"
+    WT = None if cluster else W.t().contiguous()
+    record = accumulate or collect_hist
+    windows = (dense_record_windows(S, N, B, limits) if record
+               else [(0, S)])
+    B_pad = record_chains(B)
+    rec = (torch.empty((max(b - a for a, b in windows), N, B_pad),
+                       dtype=torch.int8, device=dev) if record else None)
+    f32 = torch.float32
+    stats = [torch.empty((N,), dtype=f32, device=dev) if accumulate else None,
+             torch.empty((N, N), dtype=f32, device=dev) if accumulate
+             else None,
+             torch.empty((2 ** n_visible,), dtype=f32, device=dev)
+             if collect_hist else None]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(m_w, ns_w, betas_w, meas_w, stats_in):
+        m_out = torch.empty_like(m_w)
+        ns_out = torch.empty_like(ns_w)
+        with torch.cuda.device(dev):
+            rc = lib.sweep_fused_launch(
+                _ptr(m_w), _ptr(m_out), B, N, betas_w.shape[0], _ptr(W),
+                _ptr(WT), *map(_ptr, op.rows), _ptr(op.mask0),
+                _ptr(op.mask1), _ptr(betas_w), _ptr(op.clamp_mask),
+                _ptr(op.clamp_values), _ptr(meas_w), _ptr(op.visible_idx),
+                n_visible if collect_hist else 0, op.noise_code, _ptr(ns_w),
+                _ptr(ns_out), op.C, _ptr(op.perm), int(decimation), op.row0,
+                op.col0, _ptr(rec), B_pad, *map(_ptr, stats),
+                int(stats_in is not None), int(cluster), plan.cluster_size,
+                plan.chains, plan.rows_cap, plan.threads, plan.smem_bytes,
+                stream)
+        _raise_dense(lib, rc, "sweep_fused launch")
+        return (m_out, ns_out, *(t for t in stats if t is not None))
+
+    out = run_windows(launch, windows, m, noise_state, betas, op.measured)
     sweep_fused.launches += 1
-    return _result(out)
+    return out
 
 
 sweep_fused.launches = 0

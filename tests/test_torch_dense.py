@@ -298,32 +298,35 @@ def test_dense_kernels_equal_slot_layout_plain_versions():
 
 
 def test_hopper_feasibility_boundary():
-    """W must fit the L2; a chain tiling must fit a block's shared memory
-    with the Gram partials within an eighth of device memory — the H100's
-    limits off the card, any card's when they are given."""
+    """One chain of a tile must fit a block's shared memory, and W either
+    fits the shared memory of a cluster (the cluster body) or the L2 from
+    which the streamed body reads it; the statistics' record runs in
+    windows and binds at no chain count — the H100's limits off the card,
+    any card's when they are given."""
     f = port_sf.dense_resident_feasible
     h100 = port_sf.H100
     assert port_sf.card_limits("cpu") is h100
     # few chains: W in L2 binds (4 * 3620^2 <= 50 MiB < 4 * 3621^2)
     assert f(3620, 8) and not f(3621, 8)
     assert f(3620, 256) and not f(3621, 256)
-    assert f(440, 256) and port_sf.dense_tile_chains(440, 256) == 2
-    # many chains: the Gram partials bind first (a card of 80 GiB, whose
-    # eighth is 10 GiB: tiles of up to 17 chains fit at N ~ 1600)
+    assert f(440, 256) and port_sf.dense_plan(440, 256).chains == 16
+    # many chains: nothing new binds (the record is windowed; before, the
+    # per-block Gram partials bound from 1429 chains at N = 3620)
     card = h100._replace(memory_bytes=80 * 2 ** 30)
-    assert f(3620, 1428, card) and not f(3620, 1429, card)
-    assert f(1619, 16384, card) and not f(1620, 16384, card)
-    tb = port_sf.dense_tile_chains(1619, 16384, gram=True, limits=card)
-    assert -(-16384 // tb) * 4 * 1619 ** 2 <= card.gram_partial_bytes
-    assert port_sf.dense_smem_bytes(tb, 1619) <= card.smem_per_block
+    assert f(3620, 1428, card) and f(3620, 1429, card)
+    assert f(1619, 16384, card) and f(1620, 16384, card)
+    windows = port_sf.dense_record_windows(1000, 1620, 16384, card)
+    assert windows == [(0, 404), (404, 808), (808, 1000)]
+    assert 404 * 1620 * 16384 <= card.record_bytes < 405 * 1620 * 16384
     # a card with a smaller L2 and less memory
     small = h100._replace(l2_bytes=40 * 2 ** 20, memory_bytes=40 * 2 ** 30)
     assert f(3300, 256) and not f(3300, 256, small)
-    assert f(1500, 16384) and not f(1500, 16384, small)
+    assert f(1500, 16384) and f(1500, 16384, small)
     with pytest.raises(ValueError, match="shared memory"):
-        port_sf.dense_tile_chains(29100, 1)
-    with pytest.raises(ValueError, match="Gram"):
-        port_sf.dense_tile_chains(2048, 16384, gram=True)
+        port_sf.dense_plan(29100, 1)
+    with pytest.raises(ValueError, match="record"):
+        port_sf.dense_record_windows(8, 2048, 16384,
+                                     h100._replace(memory_bytes=2 ** 20))
 
 
 def test_auto_resolution_of_dense_only_specs(monkeypatch):
@@ -345,7 +348,7 @@ def test_auto_resolution_of_dense_only_specs(monkeypatch):
     assert resolve(7, 8, 256, "philox") == "ref"
     assert resolve(15, 15, 256) == "fused"          # 1800 spins
     assert resolve(15, 16, 256) == "fused"          # 1920
-    assert resolve(15, 16, 16384) == "ref"          # ... Gram partials
+    assert resolve(15, 16, 16384) == "fused"        # any chain count
     assert resolve(21, 21, 256) == "fused"          # 3528
     assert resolve(29, 29, 8) == "ref"              # 6728: W exceeds L2
     assert resolve(7, 8, 256) == port_api.resolve_backend(
