@@ -20,17 +20,13 @@ tree's own ``build/`` and measures, at the shapes of ``chip_smoke.py``:
   call again with clusters of 4 and of 8 CTAs, forced by narrowing
   ``CLUSTER_SIZES`` to one size for the call.
 
-Runs go in the order given (``ABBA``: A, B, B, A), one JSON line each,
-then the card's name and power limit.  Compare two trees only inside one
-call of this script.
+Runs go in the order given (``ABBA``: A, B, B, A; the runner is
+``_ab.py``), one JSON line each, then the card's name and power limit.
+Compare two trees only inside one call of this script.
 """
 from __future__ import annotations
 
-import argparse
 import dataclasses
-import json
-import os
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -155,46 +151,6 @@ def measure(seed: int) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--trees", nargs=2, metavar=("A", "B"))
-    ap.add_argument("--order", default="ABBA")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--one", help=argparse.SUPPRESS)   # a child run's tree
-    args = ap.parse_args()
-
-    if args.one is not None:
-        import torch
-        if not torch.cuda.is_available():
-            print("k3_ab: no CUDA device", file=sys.stderr)
-            return 1
-        print(json.dumps(measure(args.seed)), flush=True)
-        return 0
-
-    if not args.trees:
-        ap.error("--trees A B is required")
-    trees = {"A": Path(args.trees[0]).resolve(),
-             "B": Path(args.trees[1]).resolve()}
-    for label in args.order:
-        tree = trees[label]
-        env = dict(os.environ, PYTHONPATH=str(tree / "src"),
-                   REPRO_TORCH_BUILD_DIR=str(tree / "build"))
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--one",
-             str(tree), "--seed", str(args.seed)],
-            env=env, capture_output=True, text=True)
-        if proc.returncode != 0:
-            print(proc.stderr[-3000:], file=sys.stderr)
-            return proc.returncode
-        row = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(json.dumps({"run": label, "tree": str(tree), **row}),
-              flush=True)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip(), flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    import _ab
+    sys.exit(_ab.main(measure, __file__, __doc__))

@@ -112,11 +112,13 @@ def cuda_ms(fn, repeats: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_kernel_ms(fn, kernel: str, repeats: int = 20):
+def device_kernel_ms(fn, kernel, repeats: int = 20):
     """Device time per call of the CUDA kernels whose name contains
-    ``kernel``, from `torch.profiler` over ``repeats`` calls of ``fn``
-    (after a warm-up): the kernel alone, without the host's gaps between
-    launches.  None when the profiler records no device time for it."""
+    ``kernel`` (a string, or a tuple of strings any of which may match),
+    from `torch.profiler` over ``repeats`` calls of ``fn`` (after a
+    warm-up): the kernels alone, without the host's gaps between launches.
+    None when the profiler records no device time for them."""
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -128,7 +130,7 @@ def device_kernel_ms(fn, kernel: str, repeats: int = 20):
         torch.cuda.synchronize()
     total = 0.0
     for evt in prof.key_averages():
-        if kernel in evt.key:
+        if any(n in evt.key for n in names):
             total += getattr(evt, "device_time_total",
                              getattr(evt, "cuda_time_total", 0.0))
     return total / repeats / 1e3 if total > 0 else None
@@ -192,8 +194,52 @@ def compare_outputs(got, want) -> tuple[float, int]:
     return worst, int((got[0] != want[0]).sum())
 
 
+def clamp_colour0(args, graph, gen):
+    """Clamp about a third of colour 0 only: the colour lists the kernel
+    builds come out unequal."""
+    dev = args[0].device
+    color = torch.as_tensor(graph.color, device=dev)
+    cm = (color == 0) & (torch.rand(graph.n_nodes, generator=gen,
+                                    device=dev) < 0.33)
+    args[12] = cm
+    args[13] = torch.where(torch.rand(args[0].shape, generator=gen,
+                                      device=dev) < 0.5, -1.0, 1.0)
+    args[8], args[9] = (color == 0) & ~cm, (color == 1) & ~cm
+
+
+def clamps_in_masks(args, graph, gen):
+    """Clamps whose nodes the colour masks still update: the kernel must
+    re-impose them at every sweep's start, as the plain version does."""
+    dev = args[0].device
+    color = torch.as_tensor(graph.color, device=dev)
+    args[12] = torch.rand(graph.n_nodes, generator=gen, device=dev) < 0.1
+    args[13] = torch.where(torch.rand(args[0].shape, generator=gen,
+                                      device=dev) < 0.5, -1.0, 1.0)
+    args[8], args[9] = color == 0, color == 1
+
+
+def colour_overflow(args, graph, gen, moved: int = 12):
+    """Colour 0 grows past the resident body's lanes: ``moved`` colour-1
+    nodes join it, with their couplings to colour 0 set to zero (each mask
+    stays an independent set of the nonzero couplings).  The kernel takes
+    the ranks past its lanes from device memory."""
+    dev = args[0].device
+    color = torch.as_tensor(graph.color, device=dev)
+    moved_mask = torch.zeros(graph.n_nodes, dtype=torch.bool, device=dev)
+    moved_mask[torch.nonzero(color == 1)[:moved, 0]] = True
+    idx, w = args[1].long(), args[2].clone()
+    nbr_moved = moved_mask[idx]                       # (D, N)
+    nbr_c0 = (color == 0)[idx]
+    w[(moved_mask[None, :] & nbr_c0) | ((color == 0)[None, :] & nbr_moved)] = 0
+    args[2] = w
+    args[8], args[9] = (color == 0) | moved_mask, (color == 1) & ~moved_mask
+
+
 def check_kernels(seed: int) -> dict:
-    """K1 against `sweep_sparse_ref` on the card, mode by mode.
+    """K1 against `sweep_sparse_ref` on the card, mode by mode, through
+    both bodies (`sparse_plan`): each case records the plan its launch ran
+    (the wrapper's ``last_plan``) and fails if its body is not the one the
+    case is there to reach.
 
     tanhf in the library equals torch.tanh bit for bit on this card (the
     probe below fails the run if that ever stops holding), and every
@@ -203,6 +249,7 @@ def check_kernels(seed: int) -> dict:
     from repro_torch import api
     from repro_torch.core.chimera import make_chimera, make_chip_graph
     from repro_torch.core.cd import PBitMachine
+    from repro_torch.kernels import sweep_fused as sf
     from repro_torch.kernels.sweep_fused import (
         sweep_sparse, sweep_sparse_ref, tanh_probe)
 
@@ -224,7 +271,8 @@ def check_kernels(seed: int) -> dict:
 
     def run_case(name, noise, graph, chains, *, tempered=False, clamp=False,
                  measured=None, visible=None, coord_offset=None,
-                 block_b=None, windows=None, sparse=False):
+                 block_b=None, windows=None, sparse=False, prepare=None,
+                 expect=None):
         mach = PBitMachine.create(graph, gen, noise=noise, sparse=sparse,
                                   device=DEVICE)
         ses = mach.session(schedule=api.Constant(n_sweeps=S), chains=chains)
@@ -232,6 +280,8 @@ def check_kernels(seed: int) -> dict:
                                   rng.normal(size=graph.n_nodes) * 20.0)
         args, kw = kernel_operands(ses, chip, gen, n_sweeps=S,
                                    tempered=tempered, clamp=clamp)
+        if prepare is not None:
+            prepare(args, graph, gen)
         meas = None
         if measured is not None:
             meas = torch.as_tensor(measured, dtype=torch.float32, device=dev)
@@ -245,7 +295,9 @@ def check_kernels(seed: int) -> dict:
                   n_visible=visible or 0)
         tail = [meas, vis, coord_offset]
         want = sweep_sparse_ref(*args, *tail, **kw)
+        sweep_sparse.last_plan = None
         got = sweep_sparse(*args, *tail, block_b=block_b, **kw)
+        plan = sweep_sparse.last_plan
         torch.cuda.synchronize()
         diff, spins = compare_outputs(got, want)
         if windows is not None:
@@ -256,8 +308,8 @@ def check_kernels(seed: int) -> dict:
             for h0, nh in windows:
                 w_args = list(args)
                 w_args[0], w_args[11] = m_w, ns_w
-                out = sweep_sparse(*w_args, *tail, half_offset=h0, n_half=nh,
-                                   block_b=block_b, **kw)
+                out = sweep_sparse(*w_args, *tail, half_offset=h0,
+                                   n_half=nh, block_b=block_b, **kw)
                 m_w, ns_w = out[0], out[1]
                 parts = (list(out[2:]) if parts is None
                          else [p + o for p, o in zip(parts, out[2:])])
@@ -265,11 +317,19 @@ def check_kernels(seed: int) -> dict:
             d2, s2 = compare_outputs((m_w, ns_w, *parts), want)
             diff, spins = max(diff, d2), spins + s2
         results.append({"case": name, "noise": noise, "N": graph.n_nodes,
-                        "B": chains, "max_abs_diff": diff,
-                        "spins_differing": spins})
+                        "B": chains, "body": plan.body, "tb": plan.chains,
+                        "threads": plan.threads,
+                        "expected_body": expect or plan.body,
+                        "max_abs_diff": diff, "spins_differing": spins})
 
     chip_graph = make_chip_graph()          # 440 spins, one masked cell
     burn = (np.arange(S) >= 2).astype(np.float32)
+    # the resident body's edges: every chains-per-block its plan can take
+    # at N=440, and the largest N it takes / the smallest it leaves
+    P440 = sf.resident_lanes(chip_graph.n_nodes)
+    tb_max = min(sf.MAX_RESIDENT_CHAINS, sf.MAX_RESIDENT_THREADS // P440)
+    largest = make_chimera(1, sf.MAX_RESIDENT_N // 8)
+    past = make_chimera(1, sf.MAX_RESIDENT_N // 8 + 1)
     for noise in ("counter", "lfsr"):
         run_case("plain", noise, chip_graph, B)
         run_case("clamped", noise, chip_graph, B, clamp=True)
@@ -285,22 +345,43 @@ def check_kernels(seed: int) -> dict:
         run_case("ragged_tiles", noise, make_chimera(
             4, 4, masked_cells=[(1, 2)]), 5, measured=burn, block_b=3)
         run_case("one_cell_degree4", noise, make_chimera(1, 1), B,
-                 measured=burn)
+                 measured=burn, expect="strided")
         # the main path's lattice sizes (sparse-native chips; 32768 spins
         # need more than 48 KB of shared memory per block)
         run_case("lattice_8192_moments", noise, make_chimera(32, 32), B,
-                 measured=burn, sparse=True)
+                 measured=burn, sparse=True, expect="strided")
         run_case("lattice_32768", noise, make_chimera(64, 64), B,
-                 sparse=True)
+                 sparse=True, expect="strided")
+        for tb in range(1, tb_max + 1):
+            run_case(f"resident_tb{tb}", noise, chip_graph, B, block_b=tb,
+                     measured=burn, expect="resident")
+        run_case(f"resident_ragged_B13_tb{tb_max}", noise, chip_graph, 13,
+                 block_b=tb_max, measured=burn, clamp=True,
+                 expect="resident")
+        run_case("clamps_unequal_colours", noise, chip_graph, B,
+                 measured=burn, prepare=clamp_colour0, expect="resident")
+        run_case("window_odd_clamped", noise, chip_graph, B, measured=burn,
+                 clamp=True, windows=[(0, 3), (3, 4), (7, 9)],
+                 expect="resident")
+        run_case("clamped_nodes_in_masks", noise, chip_graph, B,
+                 measured=burn, prepare=clamps_in_masks, expect="resident")
+        run_case("colour_overflow", noise, chip_graph, B, measured=burn,
+                 prepare=colour_overflow, expect="resident")
+        run_case(f"resident_largest_N{largest.n_nodes}", noise, largest, B,
+                 measured=burn, sparse=True, expect="resident")
+        run_case(f"strided_smallest_N{past.n_nodes}", noise, past, B,
+                 measured=burn, sparse=True, expect="strided")
     run_case("coord_offset", "counter", chip_graph, B,
-             coord_offset=(1000, 77))
+             coord_offset=(1000, 77), expect="resident")
     run_case("coord_offset_wrap", "counter", chip_graph, B,
              coord_offset=(2 ** 32 - 3, 2 ** 32 - 100))
 
     bad = [r for r in results
-           if r["max_abs_diff"] != 0.0 or r["spins_differing"] != 0]
+           if r["max_abs_diff"] != 0.0 or r["spins_differing"] != 0
+           or r["body"] != r["expected_body"]]
     out = {"phase": "kernel_checks", "kernel": "sweep_sparse",
-           "rule": "bit for bit (spins, noise state, s_sum, c_slots, hist)",
+           "rule": "bit for bit (spins, noise state, s_sum, c_slots, hist); "
+                   "each case in the body it is there to reach",
            "tanh_probe_inputs": x.numel(),
            "tanh_probe_mismatches": tanh_mismatches,
            "max_abs_diff": max(r["max_abs_diff"] for r in results),
@@ -576,7 +657,7 @@ def check_stream_kernel(seed: int) -> dict:
                      for _ in range(n_programs)]
 
     def case(name, graph, chains, *, sparse=False, clamp=False,
-             coord_offset=None, window=None, block_b=None):
+             coord_offset=None, window=None, block_b=None, expect=None):
         ses, (chip, nxt) = programmed(graph, chains, sparse, 2)
         args, _ = kernel_operands(ses, chip, gen, n_sweeps=S, tempered=True,
                                   clamp=clamp)
@@ -584,14 +665,19 @@ def check_stream_kernel(seed: int) -> dict:
         tail = [nxt.nbr_w, nxt.h, *clamps, coord_offset]
         kw = dict(window or {})
         want = sweep_sparse_stream_ref(*head, *tail, **kw)
+        sweep_sparse_stream.last_plan = None
         got = sweep_sparse_stream(*head, *tail, block_b=block_b, **kw)
+        plan = sweep_sparse_stream.last_plan
         torch.cuda.synchronize()
         diff, spins = compare_outputs(got, want)
         cases.append({"case": name, "N": graph.n_nodes, "B": chains,
+                      "body": plan.body, "tb": plan.chains,
+                      "threads": plan.threads,
+                      "expected_body": expect or plan.body,
                       "max_abs_diff": diff, "spins_differing": spins})
 
     chip_graph = make_chip_graph()
-    case("plain", chip_graph, B)
+    case("plain", chip_graph, B, expect="resident")
     case("clamped", chip_graph, B, clamp=True)
     case("coord_offset", chip_graph, B, coord_offset=(1000, 77))
     case("clamped_coord_offset", chip_graph, B, clamp=True,
@@ -599,9 +685,13 @@ def check_stream_kernel(seed: int) -> dict:
     case("window", chip_graph, B, clamp=True,
          window=dict(half_offset=5, n_half=6))
     case("ragged_B5", chip_graph, 5, block_b=2)
-    case("lattice_8192", make_chimera(32, 32), B, sparse=True)
+    case("lattice_8192", make_chimera(32, 32), B, sparse=True,
+         expect="strided")
     case("lattice_8192_clamped", make_chimera(32, 32), B, sparse=True,
          clamp=True)
+    case("resident_ragged_B13_tb2_odd_window", chip_graph, 13, clamp=True,
+         window=dict(half_offset=3, n_half=10), block_b=2,
+         expect="resident")
 
     # the chain: launch i runs program i and stages program i+1 into the
     # free slot of a two-slot ring; serialized K1 runs the same programs
@@ -642,7 +732,8 @@ def check_stream_kernel(seed: int) -> dict:
            "cases": cases, "chain": chain}
     emit(out)
     bad = [r for r in cases + [chain]
-           if r["max_abs_diff"] != 0.0 or r["spins_differing"] != 0]
+           if r["max_abs_diff"] != 0.0 or r["spins_differing"] != 0
+           or r.get("body") != r.get("expected_body")]
     if bad or not (staged_equal and chain["noise_counter_ok"]):
         raise AssertionError(f"sweep_sparse_stream disagrees: {bad} "
                              f"{chain}")
@@ -1835,6 +1926,22 @@ def _moved(args, kwargs, outs) -> int:
 DECISION_OPS, UNIFORM_OPS, HASH_OPS = 9, 2, 11
 
 
+# K1's and K4's kernels as the profiler names them: either body, and the
+# reduction of the per-block moment partials where moments are taken
+K1_KERNELS = ("sweep_sparse_kernel", "reduce_partials")
+
+
+def sparse_plan_of(args, kwargs):
+    """The `sparse_plan` a recorded K1 / K4 launch ran under."""
+    from repro_torch.kernels.sweep_fused import card_limits, sparse_plan
+
+    m, noise = args[0], args[11]
+    mode = kwargs.get("noise_mode", "counter")
+    return sparse_plan(m.shape[1], m.shape[0], args[1].shape[0],
+                       noise.shape[-1] if mode == "lfsr" else 0, mode,
+                       card_limits(m.device), kwargs.get("block_b"))
+
+
 def kernel_record(checks: dict, path: dict, calls: list,
                   launches_by_path: dict) -> dict:
     """K1's record at the sample path's first launch: the counter-noise
@@ -1845,6 +1952,7 @@ def kernel_record(checks: dict, path: dict, calls: list,
     replay = path["launches_vs_plain_version"][0]
     Bc, n = args[0].shape
     S, D = args[10].shape[0], args[1].shape[0]
+    plan = sparse_plan_of(args, kwargs)
     ms = cuda_ms(lambda: sweep_sparse(*args, **kwargs))
     # D multiply-adds per flip (2D) on a Chimera chip
     ops = Bc * n * S * (2 * D + DECISION_OPS + UNIFORM_OPS + HASH_OPS)
@@ -1859,10 +1967,10 @@ def kernel_record(checks: dict, path: dict, calls: list,
             "max_abs_err": worst,
             "ms": ms, "plain_ms": replay["plain_ms"],
             "device_ms": device_kernel_ms(
-                lambda: sweep_sparse(*args, **kwargs), "sweep_sparse_kernel",
-                3),
+                lambda: sweep_sparse(*args, **kwargs), K1_KERNELS, 3),
             **_bound(_moved(args, kwargs, outs), ops),
             "library_ms": None,
+            "body": plan.body, "tb": plan.chains, "threads": plan.threads,
             "shape": {"N": n, "B": Bc, "S": S, "D": D,
                       "noise": kwargs["noise_mode"]}}
 
@@ -2036,6 +2144,7 @@ def stream_kernel_record(checks: dict, stream: dict, calls: dict,
     args, kwargs, outs = calls["sweep_sparse_stream"][0]
     Bc, n = args[0].shape
     S, D = args[10].shape[0], args[1].shape[0]
+    plan = sparse_plan_of(args, kwargs)
     run = lambda: sweep_sparse_stream(*args, **kwargs)  # noqa: E731
     k1 = lambda: sweep_sparse(*args[:12], *args[14:16],  # noqa: E731
                               noise_mode=kwargs["noise_mode"])
@@ -2052,9 +2161,10 @@ def stream_kernel_record(checks: dict, stream: dict, calls: dict,
             "launches_by_path": launches_by_path,
             "max_abs_err": max(checks["max_abs_diff"], worst),
             "ms": float(np.mean(times["k4"])), "plain_ms": plain_ms,
-            "device_ms": device_kernel_ms(run, "sweep_sparse_kernel", 3),
+            "device_ms": device_kernel_ms(run, K1_KERNELS, 3),
             **_bound(_moved(args, kwargs, outs), ops),
             "library_ms": None,
+            "body": plan.body, "tb": plan.chains, "threads": plan.threads,
             "k1_ms": float(np.mean(times["k1"])), "ab_runs": times,
             "ab_order": "k1, k4, k4, k1",
             "staged_bytes": 4 * (outs[2].numel() + outs[3].numel()),

@@ -1,6 +1,6 @@
 // Device code shared by the port's p-bit kernels (sm_90a): the noise streams,
 // the eqn-2 decision, the slot-layout half-sweep of a tile of chains and its
-// moments (K1, K4 and K5 run the same body), clamp re-imposition, the
+// moments (K5 and K1's strided body run the same body), clamp re-imposition, the
 // visible-pattern histogram, colour-mask compaction, a sliced copy and the
 // fixed-order reduction of per-block partials.
 //
@@ -147,7 +147,8 @@ __device__ __forceinline__ void impose_clamps(T* sp, int nb, int N,
 }
 
 // ---------------------------------------------------------------------------
-// the slot-layout half-sweep of a tile of chains (K1, K4, K5)
+// the slot-layout half-sweep of a tile of chains (K5, and the strided body
+// of K1 and K4)
 // ---------------------------------------------------------------------------
 // A tile's spins in shared memory: tb chains of N int8 columns, padded to 16
 // bytes.
@@ -222,20 +223,21 @@ __device__ __forceinline__ void slot_half_sweep(
 
 // A sweep's moments over the tile's nb chains, weighted by wgt:
 // part_s[i] += wgt·Σ_b m_bi and part_c[d·N + i] += wgt·Σ_b m_bi·m_b,idx[d,i]
-// (integer chain sums; one owner thread per entry, in sweep order).  No
-// barrier.
+// (integer chain sums; one owner thread per entry, in sweep order).  T is
+// the tile's spin type (int8 or float holding -1, 0, +1).  No barrier.
+template <typename T>
 __device__ __forceinline__ void accumulate_slot_moments(
-    const int8_t* sp, int nb, int N, int D, const int* nbr_idx, float wgt,
+    const T* sp, int nb, int N, int D, const int* nbr_idx, float wgt,
     float* part_s, float* part_c, int tid, int nt) {
   for (int i = tid; i < N; i += nt) {
     int sum = 0;
-    for (int b = 0; b < nb; ++b) sum += sp[(size_t)b * N + i];
+    for (int b = 0; b < nb; ++b) sum += (int)sp[(size_t)b * N + i];
     part_s[i] = __fadd_rn(part_s[i], __fmul_rn(wgt, (float)sum));
     for (int d = 0; d < D; ++d) {
       const int ix = nbr_idx[(size_t)d * N + i];
       int corr = 0;
       for (int b = 0; b < nb; ++b)
-        corr += sp[(size_t)b * N + i] * sp[(size_t)b * N + ix];
+        corr += (int)sp[(size_t)b * N + i] * (int)sp[(size_t)b * N + ix];
       float* dc = part_c + (size_t)d * N + i;
       *dc = __fadd_rn(*dc, __fmul_rn(wgt, (float)corr));
     }

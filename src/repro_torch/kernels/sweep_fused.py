@@ -9,15 +9,19 @@ launch.
   the TPU kernel ``repro.kernels.sweep_fused.sweep_sparse_pallas`` (body
   ``_kernel`` with ``sparse=True``); CUDA source ``csrc/sweep_sparse.cu``.
   Bound by operations (per flip: D gathers with a multiply-add, two 32-bit
-  hashes, one tanhf), not by bytes; the design keeps the spins, the tile's
-  LFSR registers and a node's weights on chip across all half-sweeps and
-  pays one block-wide barrier per half-sweep.
+  hashes, one tanhf), not by bytes.  Two bodies, chosen by shape in
+  `sparse_plan`: at chip scale (D = 6, N <= 1024) the resident body gives
+  each (chain, node) of a colour its own thread, holds the node tables in
+  registers for the whole launch and synchronises each chain's warps
+  alone; otherwise the strided body (threads stride over nodes, each
+  walks the tile's chains, one block-wide barrier per half-sweep).
 * `sweep_sparse_stream` — K1 with the double-buffered program stream (K4):
   counter noise, no statistics; while the current program sweeps, the
   next program's ``(nbr_w, h)`` is copied into staged output buffers.
   Replaces ``repro.kernels.sweep_fused.sweep_sparse_stream_pallas``
-  (``_kernel`` with ``stream=True``); the same CUDA kernel, instantiated
-  with ``Stream = true``.  Bound as K1, plus the staged bytes.
+  (``_kernel`` with ``stream=True``); the same CUDA kernel and bodies,
+  instantiated with ``Stream = true``.  Bound as K1, plus the staged
+  bytes.
 * `sweep_sparse_exchange` — K1 on every row band of the sharded engine
   in one launch, with the halo exchange inside it (K5): at every exchange
   point each band publishes its boundary spins and reads its neighbours'
@@ -384,7 +388,7 @@ _LAUNCH_ARGTYPES = (
     + [_I, _VP, _VP, _I, _VP, _I]       # noise mode/in/out, C, perm, decimation
     + [_U, _U, _I, _I]                  # row0, col0, half_offset, n_half
     + [_VP] * 6                         # part_s, part_c, out_s, out_c, part_h, out_h
-    + [_I, _I, _VP]                     # tb, threads, stream
+    + [_I, _I, _I, _VP]                 # body, tb, threads, stream
 )
 
 
@@ -395,7 +399,7 @@ def _library() -> ctypes.CDLL:
         lib.sweep_sparse_launch.restype = _I
         lib.sweep_sparse_stream_launch.argtypes = _STREAM_ARGTYPES
         lib.sweep_sparse_stream_launch.restype = _I
-        lib.sweep_sparse_smem_bytes.argtypes = [_I, _I, _I, _I]
+        lib.sweep_sparse_smem_bytes.argtypes = [_I, _I, _I, _I, _I]
         lib.sweep_sparse_smem_bytes.restype = _I
         lib.tanh_probe.argtypes = [_VP, _VP, _I, _VP]
         lib.tanh_probe.restype = _I
@@ -447,6 +451,100 @@ def _tile_chains(B, tile_bytes, limits: CardLimits, block_b, what: str):
     while tile_bytes(tb) > limit:
         tb -= 1
     return tb
+
+
+# K1's bodies (csrc/sweep_sparse.cu); the launch takes the code
+SPARSE_BODIES = {"strided": 0, "resident": 1}
+RESIDENT_D = 6             # the slot count the resident body compiles for
+MAX_RESIDENT_CHAINS = 15   # named barriers 1..15 of a block, one a chain
+# its __launch_bounds__(kResidentThreads, 1): at 1024 threads ptxas holds
+# the body in 64 registers and spills, at 512 it does not (nvcc 12.9)
+MAX_RESIDENT_THREADS = 512
+MAX_RESIDENT_N = 2 * MAX_RESIDENT_THREADS   # one chain's lanes in a block
+
+
+class SparsePlan(NamedTuple):
+    """How one K1 or K4 launch runs: which body, chains per block and the
+    launch geometry the CUDA source expects."""
+
+    body: str           # "resident" or "strided"
+    chains: int         # chains per block (tb)
+    threads: int        # threads per block (resident: chains x P lanes)
+    smem_bytes: int
+
+
+def resident_lanes(N: int) -> int:
+    """Threads per chain of the resident body, P: half the nodes (a
+    2-coloured graph's larger colour) rounded up to a warp.  A colour with
+    more nodes than P takes its remaining ranks from device memory."""
+    half = -(-N // 2)
+    return 32 * -(-half // 32)
+
+
+def strided_smem_bytes(tb: int, N: int, C: int = 0) -> int:
+    """Shared memory of one block of the strided body: the tile's int8
+    spins padded to 16 bytes and, with LFSR noise, its registers
+    (``csrc/sweep_sparse.cu::smem_bytes``)."""
+    return ((tb * N + 15) & ~15) + 4 * tb * C
+
+
+def resident_smem_bytes(tb: int, N: int, C: int = 0,
+                        lfsr: bool = False) -> int:
+    """Shared memory of one block of the resident body: the tile's float
+    spins, the two colour lists, the compaction scratch and, with LFSR
+    noise, the eight-step table and two buffers of the tile's registers
+    (``csrc/sweep_sparse.cu::smem_bytes``)."""
+    return 4 * (tb * N + 2 * N + 33) + (4 * (256 + 2 * tb * C) if lfsr
+                                        else 0)
+
+
+def sparse_plan(N: int, B: int, D: int, C: int = 0,
+                noise_mode: str = NOISE_COUNTER, limits: CardLimits = H100,
+                block_b: int | None = None) -> SparsePlan:
+    """The body and tiling of a K1 / K4 launch over ``B`` chains of ``N``
+    spins with ``D`` slots (``C`` LFSR registers a chain).
+
+    The resident body takes D = `RESIDENT_D` and N up to `MAX_RESIDENT_N`,
+    P = `resident_lanes` threads a chain and at most `MAX_RESIDENT_CHAINS`
+    chains and `MAX_RESIDENT_THREADS` threads a block; with LFSR noise at
+    most one of the chain's C registers a lane (C <= P: a Chimera graph
+    has about N/8 cells to P >= N/2 lanes).  ``block_b`` asks for the
+    chains per block (capped there and by shared memory); by default
+    ``ceil(B / sms)`` chains.  Every other shape takes the strided body,
+    tiled as before (`_tile_chains`, one thread a node up to 1024).
+    Raises ValueError when one chain does not fit a block."""
+    lfsr = noise_mode == NOISE_LFSR
+    limit = limits.smem_per_block
+    P = resident_lanes(N)
+    if (D == RESIDENT_D and N <= MAX_RESIDENT_N and (not lfsr or C <= P)
+            and resident_smem_bytes(1, N, C, lfsr) <= limit):
+        cap = min(MAX_RESIDENT_CHAINS, MAX_RESIDENT_THREADS // P, B)
+        want = -(-B // limits.sms) if block_b is None else int(block_b)
+        tb = max(1, min(want, cap))
+        while resident_smem_bytes(tb, N, C, lfsr) > limit:
+            tb -= 1
+        return SparsePlan("resident", tb, tb * P,
+                          resident_smem_bytes(tb, N, C, lfsr))
+    what = (f"N={N} spins (plus {C} LFSR registers) is too large for one "
+            f"block; shard the lattice" if lfsr else
+            f"N={N} spins is too large for one block; shard the lattice")
+    tb = _tile_chains(B, lambda t: strided_smem_bytes(t, N, C), limits,
+                      block_b, what)
+    threads = min(1024, max(64, 32 * (-(-N // 32))))
+    return SparsePlan("strided", tb, threads, strided_smem_bytes(tb, N, C))
+
+
+def _launch_plan(lib, N, B, D, C, noise_mode, device, block_b) -> SparsePlan:
+    """`sparse_plan` on the card of ``device``, its shared memory checked
+    against the library's own count."""
+    plan = sparse_plan(N, B, D, C, noise_mode, card_limits(device), block_b)
+    smem = lib.sweep_sparse_smem_bytes(SPARSE_BODIES[plan.body], plan.chains,
+                                       N, C, _NOISE_CODE[noise_mode])
+    if smem != plan.smem_bytes:
+        raise RuntimeError(
+            f"sparse_plan counts {plan.smem_bytes} bytes of shared memory "
+            f"for {plan}, the kernel {smem}")
+    return plan
 
 
 class _Operands(NamedTuple):
@@ -610,7 +708,8 @@ def sweep_sparse(
     once: expect agreement to float32 rounding (about 1e-6 relative).
 
     CPU tensors go to `sweep_sparse_ref`.  A CUDA tensor launches the
-    kernel or raises; ``sweep_sparse.launches`` counts the launches.
+    kernel or raises; ``sweep_sparse.launches`` counts the launches and
+    ``sweep_sparse.last_plan`` is the `SparsePlan` the latest one ran.
     """
     if not m.is_cuda:
         return sweep_sparse_ref(
@@ -641,13 +740,8 @@ def sweep_sparse(
                    collect_hist=collect_hist, n_visible=n_visible)
     dev = m.device
     lib = _library()
-    tb = _tile_chains(
-        B, lambda t: lib.sweep_sparse_smem_bytes(t, N, op.C, op.noise_code),
-        card_limits(dev), block_b,
-        f"N={N} spins (plus {op.C} LFSR registers) is too large for one "
-        f"block; shard the lattice")
-    n_blocks = -(-B // tb)
-    threads = min(1024, max(64, 32 * (-(-N // 32))))
+    plan = _launch_plan(lib, N, B, D, op.C, noise_mode, dev, block_b)
+    n_blocks = -(-B // plan.chains)
     out = _outputs(m, noise_state, n_blocks, (D, N), accumulate,
                    collect_hist, n_visible)
     with torch.cuda.device(dev):
@@ -660,14 +754,17 @@ def sweep_sparse(
             _ptr(op.perm), int(decimation), op.row0, op.col0,
             int(half_offset), int(n_half), _ptr(out["part_s"]),
             _ptr(out["part_c"]), _ptr(out["s"]), _ptr(out["c"]),
-            _ptr(out["part_h"]), _ptr(out["h"]), tb, threads,
+            _ptr(out["part_h"]), _ptr(out["h"]), SPARSE_BODIES[plan.body],
+            plan.chains, plan.threads,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_cuda(lib, rc, "sweep_sparse launch")
     sweep_sparse.launches += 1
+    sweep_sparse.last_plan = plan
     return _result(out)
 
 
 sweep_sparse.launches = 0
+sweep_sparse.last_plan = None
 
 
 _STREAM_ARGTYPES = (
@@ -676,7 +773,7 @@ _STREAM_ARGTYPES = (
     + [_VP, _VP, _VP, _VP]              # clamp mask/values, noise in/out
     + [_U, _U, _I, _I]                  # row0, col0, half_offset, n_half
     + [_VP] * 4                         # next_w, next_h, staged_w, staged_h
-    + [_I, _I, _VP]                     # tb, threads, stream
+    + [_I, _I, _I, _VP]                 # body, tb, threads, stream
 )
 
 
@@ -725,7 +822,8 @@ def sweep_sparse_stream(
 
     CPU tensors go to `sweep_sparse_stream_ref`.  A CUDA tensor launches
     the kernel or raises; ``sweep_sparse_stream.launches`` counts the
-    launches.
+    launches and ``sweep_sparse_stream.last_plan`` is the `SparsePlan` the
+    latest one ran.
     """
     if not m.is_cuda:
         return sweep_sparse_stream_ref(
@@ -756,11 +854,7 @@ def sweep_sparse_stream(
                    accumulate=False, collect_hist=False, n_visible=0)
     dev = m.device
     lib = _library()
-    tb = _tile_chains(
-        B, lambda t: lib.sweep_sparse_smem_bytes(t, N, 0, 0),
-        card_limits(dev), block_b,
-        f"N={N} spins is too large for one block; shard the lattice")
-    threads = min(1024, max(64, 32 * (-(-N // 32))))
+    plan = _launch_plan(lib, N, B, D, 0, NOISE_COUNTER, dev, block_b)
     m_out = torch.empty_like(m)
     ns_out = torch.empty_like(noise_state)
     with torch.cuda.device(dev):
@@ -770,14 +864,16 @@ def sweep_sparse_stream(
             _ptr(op.clamp_mask), _ptr(op.clamp_values), _ptr(noise_state),
             _ptr(ns_out), op.row0, op.col0, int(half_offset), int(n_half),
             _ptr(next_nbr_w), _ptr(next_h), _ptr(staged[0]),
-            _ptr(staged[1]), tb, threads,
-            torch.cuda.current_stream(dev).cuda_stream)
+            _ptr(staged[1]), SPARSE_BODIES[plan.body], plan.chains,
+            plan.threads, torch.cuda.current_stream(dev).cuda_stream)
     _raise_cuda(lib, rc, "sweep_sparse_stream launch")
     sweep_sparse_stream.launches += 1
+    sweep_sparse_stream.last_plan = plan
     return m_out, ns_out, staged[0], staged[1]
 
 
 sweep_sparse_stream.launches = 0
+sweep_sparse_stream.last_plan = None
 
 
 # ---------------------------------------------------------------------------
