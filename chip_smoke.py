@@ -117,7 +117,9 @@ def device_kernel_ms(fn, kernel, repeats: int = 20):
     ``kernel`` (a string, or a tuple of strings any of which may match),
     from `torch.profiler` over ``repeats`` calls of ``fn`` (after a
     warm-up): the kernels alone, without the host's gaps between launches.
-    None when the profiler records no device time for them."""
+    Each kernel a call launches once counts its mean over the launches the
+    profiler recorded (it may drop a few).  None when the profiler records
+    no device time for them."""
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     from torch.profiler import ProfilerActivity, profile
 
@@ -130,10 +132,10 @@ def device_kernel_ms(fn, kernel, repeats: int = 20):
         torch.cuda.synchronize()
     total = 0.0
     for evt in prof.key_averages():
-        if any(n in evt.key for n in names):
+        if any(n in evt.key for n in names) and evt.count:
             total += getattr(evt, "device_time_total",
-                             getattr(evt, "cuda_time_total", 0.0))
-    return total / repeats / 1e3 if total > 0 else None
+                             getattr(evt, "cuda_time_total", 0.0)) / evt.count
+    return total / 1e3 if total > 0 else None
 
 
 def timed_once(fn):
@@ -523,38 +525,82 @@ def check_dense_kernels(seed: int) -> list[dict]:
     k3_case("overlapping_masks", "counter", chip_graph, B, measured=True,
             intra=True, overlap=True)
 
-    # K2, one half-sweep per case
+    # K2, one half-sweep per case, each in the plan (tile, body) it is
+    # there to reach, read from the wrapper's `last_plan`
     k2 = []
 
-    def k2_case(name, graph, chains, *, per_chain_beta=False,
-                random_mask=False, intra=False):
+    def k2_case(name, graph, chains, want_plan, *, per_chain_beta=False,
+                random_mask=False, intra=False, dense=False, mask="colour",
+                beta=None, cut=None):
         ses, chip = programmed(graph, "counter", chains)
         if intra:
             chip = intra_colour_chip(chip, gen)
+        if dense:       # a dense Gaussian W: every term of eqn 1 nonzero
+            chip = intra_colour_chip(chip, gen, scale=1.0)
         n = graph.n_nodes
         m = ses.random_spins(gen)
+        W, rows = chip.W, [chip.h, chip.tanh_gain, chip.tanh_offset,
+                           chip.rand_gain, chip.comp_offset]
+        if cut is not None:      # N not a multiple of 4
+            n = cut
+            m, W = m[:, :n].contiguous(), W[:n, :n].contiguous()
+            rows = [r[:n].contiguous() for r in rows]
         u = (torch.randint(0, 256, (chains, n), generator=gen, device=dev)
              .to(torch.float32) - 127.5) / 128.0
-        color = torch.as_tensor(graph.color, device=dev)
-        mask = (torch.rand(n, generator=gen, device=dev) < 0.5
-                if random_mask else color == 1)
-        beta = (0.2 + 1.6 * torch.rand(chains, generator=gen, device=dev)
-                if per_chain_beta else 0.8)
-        ops_ = (m, chip.W, chip.h, chip.tanh_gain, chip.tanh_offset,
-                chip.rand_gain, chip.comp_offset, mask, beta, u)
+        color = torch.as_tensor(graph.color[:n], device=dev)
+        upd = {"colour": color == 1,
+               "random": torch.rand(n, generator=gen, device=dev) < 0.5,
+               "none": torch.zeros(n, dtype=torch.bool, device=dev),
+               "all": torch.ones(n, dtype=torch.bool, device=dev)}[
+            "random" if random_mask else mask]
+        if beta is None:
+            beta = (0.2 + 1.6 * torch.rand(chains, generator=gen, device=dev)
+                    if per_chain_beta else 0.8)
+        ops_ = (m, W, *rows, upd, beta, u)
         want = pbit_half_sweep_ref(*ops_)
         got = pbit_half_sweep(*ops_)
         torch.cuda.synchronize()
+        plan = pbit_half_sweep.last_plan
         diff, spins = compare_outputs((got,), (want,))
-        k2.append({"case": name, "N": n, "B": chains, "max_abs_diff": diff,
-                   "spins_differing": spins})
+        k2.append({"case": name, "N": n, "B": chains,
+                   "n_upd": int(upd.sum()), "max_abs_diff": diff,
+                   "spins_differing": spins, **k2_plan_fields(plan),
+                   "plan_wanted": list(want_plan)})
 
-    k2_case("scalar_beta", chip_graph, B)
-    k2_case("per_chain_beta", chip_graph, B, per_chain_beta=True)
-    k2_case("random_mask", chip_graph, B, random_mask=True)
-    k2_case("ragged_B37", chip_graph, 37, per_chain_beta=True)
-    k2_case("intra_colour_W", chip_graph, B, random_mask=True, intra=True)
-    k2_case("one_cell_N8", make_chimera(1, 1), 5)
+    schedule = torch.linspace(0.3, 2.0, 10, device=dev)
+    # (body, list entries, chains) per block
+    k2_case("scalar_beta", chip_graph, B, ("staged", 16, 32))
+    k2_case("per_chain_beta", chip_graph, B, ("staged", 16, 32),
+            per_chain_beta=True)
+    k2_case("random_mask", chip_graph, B, ("staged", 16, 32),
+            random_mask=True)
+    k2_case("ragged_B37", chip_graph, 37, ("staged", 8, 8),
+            per_chain_beta=True)
+    k2_case("intra_colour_W", chip_graph, B, ("staged", 16, 32),
+            random_mask=True, intra=True)
+    k2_case("one_cell_N8", make_chimera(1, 1), 5, ("staged", 4, 8))
+    k2_case("workloads_B32", chip_graph, 32, ("staged", 8, 8),
+            beta=schedule[3])
+    k2_case("B128", chip_graph, 128, ("staged", 16, 16))
+    k2_case("B64", chip_graph, 64, ("staged", 8, 16))
+    k2_case("dense_gaussian_W", chip_graph, B, ("staged", 16, 32),
+            dense=True)
+    k2_case("dense_gaussian_W_B32", chip_graph, 32, ("staged", 8, 8),
+            dense=True)
+    k2_case("schedule_view_beta", chip_graph, B, ("staged", 16, 32),
+            beta=schedule[7])
+    k2_case("strided_chain_beta", chip_graph, B, ("staged", 16, 32),
+            beta=(0.2 + 1.6 * torch.rand((B, 3), generator=gen,
+                                         device=dev))[:, 1])
+    k2_case("empty_list", chip_graph, B, ("staged", 4, 8), mask="none")
+    k2_case("full_list", chip_graph, B, ("staged", 16, 32), mask="all")
+    # rows not 16-byte aligned: the tiled body's 4-byte copies
+    k2_case("odd_N437", chip_graph, 32, ("tiled", 8, 8), cut=437)
+    # the largest staged N at 256 chains is 1188 (PERF.md); 1152 stages
+    # 48 rows whole, 1248 takes the double-buffered column tiles
+    k2_case("staged_N1152", make_chimera(12, 12), B, ("staged", 16, 32))
+    k2_case("tiled_N1248", make_chimera(13, 12), B, ("tiled", 16, 32))
+    k2_case("tiled_N2048_B32", make_chimera(16, 16), 32, ("tiled", 16, 16))
 
     # dense == sparse on one attach_sparse chip
     ds = []
@@ -621,7 +667,19 @@ def check_dense_kernels(seed: int) -> list[dict]:
            if r["max_abs_diff"] != 0.0 or r["spins_differing"] != 0]
     if bad:
         raise AssertionError(f"a dense kernel disagrees: {bad}")
+    off_plan = [r for r in k2 if r["plan_wanted"]
+                != [r["body"], r["nodes"], r["chains"]]]
+    if off_plan:
+        raise AssertionError(f"a K2 case ran outside its plan: {off_plan}")
     return lines
+
+
+def k2_plan_fields(plan) -> dict:
+    """A `HalfSweepPlan` as a record's fields."""
+    return {"body": plan.body, "nodes": plan.nodes, "chains": plan.chains,
+            "reg_tile": [plan.reg_nodes, plan.reg_chains],
+            "threads": plan.threads, "grid": list(plan.grid),
+            "smem_bytes": plan.smem_bytes}
 
 
 def sk_edge_codes(graph, rng, scale: float = 32.0):
@@ -1029,8 +1087,9 @@ def replay_through_plain_version(name: str, calls) -> list[dict]:
     plain = _plain(name)
     rows = []
     for args, kwargs, got in calls:
-        # the plain versions have no tiling to choose
-        kw = {k: v for k, v in kwargs.items() if k != "block_b"}
+        # the plain versions have no tiling to choose and nothing to prepare
+        kw = {k: v for k, v in kwargs.items()
+              if k not in ("block_b", "prepared")}
         want, plain_ms = timed_once(lambda: plain(*args, **kw))
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
@@ -1038,7 +1097,11 @@ def replay_through_plain_version(name: str, calls) -> list[dict]:
         row = {"N": args[0][0].numel(), "B": args[0].shape[0],
                "max_abs_diff": diff, "spins_differing": spins,
                "plain_ms": plain_ms}
-        if name == "sweep_sparse_exchange":
+        if name == "pbit_half_sweep":
+            # the plan the launch ran: its preparation's
+            plan = kwargs["prepared"].plan
+            row["plan"] = [plan.body, plan.nodes, plan.chains]
+        elif name == "sweep_sparse_exchange":
             outputs = ["m", "noise_state"] + (
                 ["s_sum", "c_slots"] if args[16] is not None else
                 ["staged_w", "staged_h"] if len(got) == 4 else [])
@@ -1073,6 +1136,9 @@ def replay_all(calls: dict) -> tuple[dict, float]:
                                 default=0.0),
             "spins_differing": sum(r["spins_differing"] for r in rows),
             "plain_ms_total": sum(r["plain_ms"] for r in rows)}
+        if name == "pbit_half_sweep" and rows:
+            plans = sorted({tuple(r["plan"]) for r in rows})
+            summary[name]["plans"] = [list(p) for p in plans]
         worst = max(worst, summary[name]["max_abs_diff"])
         bad += [(name, r) for r in rows
                 if r["max_abs_diff"] != 0.0 or r["spins_differing"] != 0]
@@ -1926,6 +1992,16 @@ def _moved(args, kwargs, outs) -> int:
 DECISION_OPS, UNIFORM_OPS, HASH_OPS = 9, 2, 11
 
 
+def k2_moved(m, W, n_upd: int, beta) -> int:
+    """Bytes one dense half-sweep must move: the W rows of the ``n_upd``
+    updated nodes, their five per-node rows and list entries, u at the
+    updated nodes, beta, and the spins read and written whole (the kept
+    ones are copied)."""
+    B, N = m.shape
+    n_beta = beta.numel() if isinstance(beta, torch.Tensor) else 1
+    return 4 * (n_upd * N + 6 * n_upd + B * n_upd + 2 * B * N + n_beta)
+
+
 # K1's and K4's kernels as the profiler names them: either body, and the
 # reduction of the per-block moment partials where moments are taken
 K1_KERNELS = ("sweep_sparse_kernel", "reduce_partials")
@@ -1982,7 +2058,8 @@ def dense_kernel_records(seed: int, dense_checks: list, train: dict,
     """K2 and K3 records.  K3 at N=440, B=256, S=1000 (counter noise, no
     moments: the shape of K1's record); at the training path's CD phase
     (S=10, Gram), split into the sweeps and the statistics kernel; and at the workloads' tempering launch (B=16,
-    S=10).  K2 at the training path's half-sweep, N=440, B=256.
+    S=10).  K2 at the training path's half-sweep, N=440, B=256, and at
+    the workloads' (the anneal's first), B=32, each with its plan.
     Operations: the dense 2·N per updated (chain, node) — on a Chimera chip
     K1 needs only 2·D of them for the same sum."""
     from repro_torch import api
@@ -2101,13 +2178,25 @@ def dense_kernel_records(seed: int, dense_checks: list, train: dict,
                         "device_ms": device_kernel_ms(pt_fn, "k3_"),
                         **plan_of(pt_args, pt_kw)}}
 
-    # K2, the training path's half-sweep at N=440, B=256
-    k2_args, k2_kw, k2_out = train_calls["pbit_half_sweep"][0]
-    ms2 = cuda_ms(lambda: pbit_half_sweep(*k2_args, **k2_kw))
-    _, plain2 = timed_once(lambda: pbit_half_sweep_ref(*k2_args, **k2_kw))
-    m2, W2, mask2 = k2_args[0], k2_args[1], k2_args[7]
-    n_upd = int(mask2.sum())
-    ops2 = m2.shape[0] * n_upd * (2 * W2.shape[0] + DECISION_OPS)
+    # K2 at the training path's half-sweep (N=440, B=256) and at the
+    # workloads' (anneal, B=32)
+    def k2_shape(call):
+        args, kw, out = call
+        plain_kw = {k: v for k, v in kw.items() if k != "prepared"}
+        run = lambda: pbit_half_sweep(*args, **kw)  # noqa: E731
+        _, plain = timed_once(lambda: pbit_half_sweep_ref(*args, **plain_kw))
+        m2, W2, mask2 = args[0], args[1], args[7]
+        n_upd = int(mask2.sum())
+        ops2 = m2.shape[0] * n_upd * (2 * W2.shape[0] + DECISION_OPS)
+        return {"ms": cuda_ms(run), "plain_ms": plain,
+                "device_ms": device_kernel_ms(run, "pbit_half_sweep_kernel",
+                                              100),
+                **_bound(k2_moved(m2, W2, n_upd, args[8]), ops2),
+                "matmul_ms": cuda_ms(lambda: torch.matmul(m2, W2.T)),
+                "shape": {"N": W2.shape[0], "B": m2.shape[0],
+                          "updated_nodes": n_upd},
+                **k2_plan_fields(kw["prepared"].plan)}
+
     k2 = {"name": "pbit_half_sweep", "route": "cuda",
           "source": "src/repro_torch/kernels/csrc/pbit_update.cu",
           "replaces": "src/repro/kernels/pbit_update.py:76",
@@ -2116,18 +2205,13 @@ def dense_kernel_records(seed: int, dense_checks: list, train: dict,
                                for p, c in launches_by_path.items()},
           "max_abs_err": max(check_worst["pbit_half_sweep"],
                              check_worst["dense_vs_sparse"], path_worst),
-          "ms": ms2, "plain_ms": plain2,
-          "device_ms": device_kernel_ms(
-              lambda: pbit_half_sweep(*k2_args, **k2_kw),
-              "pbit_half_sweep_kernel", 100),
-          "ms_what": "one wrapper call, CUDA events around it: the host's "
+          **k2_shape(train_calls["pbit_half_sweep"][0]),
+          "ms_what": "one wrapper call through the sweep function's "
+                     "preparation, CUDA events around it: the host's "
                      "enqueue gap included, as the Python loop pays it",
-          **_bound(_moved(k2_args, k2_kw, (k2_out,)), ops2),
           "library_ms": None,
-          "matmul_ms": cuda_ms(lambda: torch.matmul(m2, W2.T)),
           "matmul_what": "torch.matmul(m, W.T) once: the product alone",
-          "shape": {"N": W2.shape[0], "B": m2.shape[0],
-                    "updated_nodes": n_upd}}
+          "workloads_B32": k2_shape(work_calls["pbit_half_sweep"][0])}
     return [k2, k3]
 
 

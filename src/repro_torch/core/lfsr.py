@@ -45,8 +45,9 @@ def from_u64(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
 
 
-def state_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
-    """numpy uint32 array -> public int32 bit-pattern tensor."""
+def state_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
+    """numpy uint32 array -> public int32 bit-pattern tensor on ``device``
+    (the card unless the caller asks for another)."""
     a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
     return torch.from_numpy(a.view(np.int32).copy()).to(device)
 
@@ -68,11 +69,12 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 # Galois LFSR
 # ---------------------------------------------------------------------------
 def seed_states(gen: torch.Generator, shape: tuple[int, ...],
-                device="cpu") -> torch.Tensor:
-    """Nonzero LFSR states of the given shape (public int32 bit pattern).
-
-    ``gen`` must live on ``device`` (a `torch.Generator` is bound to one).
-    """
+                device=None) -> torch.Tensor:
+    """Nonzero LFSR states of the given shape (public int32 bit pattern),
+    on ``gen``'s device unless ``device`` names it (a `torch.Generator` is
+    bound to one device, which must be ``device``)."""
+    if device is None:
+        device = gen.device
     bits = torch.randint(0, 2 ** 32, shape, generator=gen, device=device,
                          dtype=torch.int64)
     bits = torch.where(bits == 0, torch.full_like(bits, 0xDEADBEEF), bits)

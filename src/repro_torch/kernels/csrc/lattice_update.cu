@@ -3,11 +3,12 @@
 // Replaces the TPU kernel
 // src/repro/kernels/lattice_update.py::lattice_vertical_update_pallas.  On
 // (B, R, C, k) float32 planes, for every vertical node (b, r, c, i):
-//   I = sum_j W_vh[r, c, i, j] * m_h[b, r, c, j]          (ascending j, from +0)
-//       + wv_dnin[r, c, i] * m_v_up[b, r, c, i]
-//       + wv_up[r, c, i] * m_v_dn[b, r, c, i] + h[r, c, i]
+//   I = h[r, c, i] + wv_dnin[r, c, i] * m_v_up[b, r, c, i]
+//       + wv_up[r, c, i] * m_v_dn[b, r, c, i]
+//       + sum_j W_vh[r, c, i, j] * m_h[b, r, c, j]         (ascending j)
 //   m_v' = sgn(tanh(gain * I) + u)  where parity[r, c] == color, else m_v,
-// in the order of kernels/ref.py::lattice_vertical_update_ref, one
+// added left to right as the TPU kernel adds them (and as
+// kernels/ref.py::lattice_vertical_update_ref does), one
 // __fadd_rn(__fmul_rn) per term so nothing is contracted into an FMA
 // differently from the plain version (and -fmad=false; tanhf is libdevice's).
 //
@@ -64,12 +65,11 @@ __global__ void __launch_bounds__(kThreads)
   }
   const float* w = p.W_vh + node * k;
   const float* mh = p.m_h + (idx - (idx % k));       // the cell's k spins
-  float acc = 0.0f;
-#pragma unroll 4
-  for (int j = 0; j < k; ++j) acc = __fadd_rn(acc, __fmul_rn(w[j], mh[j]));
-  float I = __fadd_rn(acc, __fmul_rn(p.wv_dnin[node], p.m_v_up[idx]));
+  // the reference kernel's order: the vertical terms onto h, then W_vh's
+  float I = __fadd_rn(p.h[node], __fmul_rn(p.wv_dnin[node], p.m_v_up[idx]));
   I = __fadd_rn(I, __fmul_rn(p.wv_up[node], p.m_v_dn[idx]));
-  I = __fadd_rn(I, p.h[node]);
+#pragma unroll 4
+  for (int j = 0; j < k; ++j) I = __fadd_rn(I, __fmul_rn(w[j], mh[j]));
   const float act = tanhf(__fmul_rn(p.gain[node], I));
   p.out[idx] = (float)pbit::sign_spin(__fadd_rn(act, p.u[idx]));
 }

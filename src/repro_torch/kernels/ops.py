@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.hardware import EffectiveChip
-from repro_torch.kernels.pbit_update import pbit_half_sweep
+from repro_torch.kernels.pbit_update import PreparedHalfSweep, pbit_half_sweep
 from repro_torch.kernels.ref import (
     pbit_half_sweep_ref,
     pbit_sparse_half_sweep_ref,
@@ -29,14 +29,31 @@ from repro_torch.kernels.sweep_fused import (
 
 
 def make_kernel_half_sweep():
-    """The dense half-sweep kernel in the sampler's signature."""
+    """The dense half-sweep kernel in the sampler's signature.
+
+    A sweep function calls it with the same two colour masks and chip on
+    every sweep, so each (mask, chip, chain count) is prepared once — its
+    compacted update list, launch plan and checked operands
+    (`PreparedHalfSweep`, one host sync) — and every later half-sweep only
+    launches.  ``half_sweep.prepared`` maps each to its preparation."""
+    prepared = {}
 
     def half_sweep(m, chip: EffectiveChip, update_mask, beta, u):
         _require_dense(chip)
+        key = (id(update_mask), id(chip), m.shape[0])
+        entry = prepared.get(key)
+        if entry is None:
+            # the entry holds the mask and the chip, so their ids stay theirs
+            entry = prepared[key] = (PreparedHalfSweep(
+                chip.W, chip.h, chip.tanh_gain, chip.tanh_offset,
+                chip.rand_gain, chip.comp_offset, update_mask, m.shape[0]),
+                update_mask, chip)
         return pbit_half_sweep(
             m, chip.W, chip.h, chip.tanh_gain, chip.tanh_offset,
-            chip.rand_gain, chip.comp_offset, update_mask, beta, u)
+            chip.rand_gain, chip.comp_offset, update_mask, beta, u,
+            prepared=entry[0])
 
+    half_sweep.prepared = prepared
     return half_sweep
 
 

@@ -138,18 +138,18 @@ def lattice_vertical_update_ref(m_v, m_h, m_v_up, m_v_dn, W_vh, wv_up,
 
     Planes m_v/m_h/m_v_up/m_v_dn/u: (B, R, C, k);  W_vh: (R, C, k, k);
     wv_up/wv_dnin/h/gain: (R, C, k);  parity: (R, C) int;  color: 0 or 1.
-    ``I = Σ_j W_vh[r,c,i,j]·m_h[b,r,c,j] + wv_dnin·m_v_up + wv_up·m_v_dn +
-    h`` — the j sum sequential in ascending j from zero (not an einsum,
-    whose order is the library's), then the three terms in the reference's
-    order — and ``m_v' = sgn(tanh(gain·I) + u)`` where the cell's parity
-    equals ``color``, else ``m_v``.  The CUDA kernel
-    (`kernels/lattice_update.py`) repeats this term for term.
+    ``I = h + wv_dnin·m_v_up + wv_up·m_v_dn + Σ_j W_vh[r,c,i,j]·m_h[b,r,c,j]``
+    in the reference kernel's order (``lattice_vertical_update_pallas``):
+    the vertical terms onto ``h`` first, then the j terms in ascending j
+    (not an einsum, whose order is the library's) — and ``m_v' =
+    sgn(tanh(gain·I) + u)`` where the cell's parity equals ``color``, else
+    ``m_v``.  The CUDA kernel (`kernels/lattice_update.py`) repeats this
+    term for term.
     """
-    acc = torch.zeros(m_v.shape, dtype=torch.float32, device=m_v.device)
+    acc = h + wv_dnin * m_v_up + wv_up * m_v_dn
     for j in range(W_vh.shape[-1]):
         acc = acc + W_vh[..., j] * m_h[..., j:j + 1]
-    I = acc + wv_dnin * m_v_up + wv_up * m_v_dn + h
-    act = torch.tanh(gain * I)
+    act = torch.tanh(gain * acc)
     new = torch.where(act + u >= 0.0, 1.0, -1.0).to(m_v.dtype)
     upd = (parity == color)[None, :, :, None]
     return torch.where(upd, new, m_v)

@@ -4,12 +4,14 @@
 (`kernels/ref.py::lattice_vertical_update_ref`), held here against the
 reference's Pallas kernel in interpret mode and against its own plain
 oracle, on the shapes of ``tests/test_kernels.py::
-test_lattice_kernel_matches_ref`` and both colours.  The three sum the
-neuron input in different orders (the Pallas kernel adds ``h`` and the
-vertical couplers first, the JAX oracle's einsum in XLA's order, the port
-in ascending j from zero), so the couplings and biases are dyadic
+test_lattice_kernel_matches_ref`` and both colours.  The port adds the
+neuron input in the Pallas kernel's order (``h`` and the vertical couplers
+first, then the in-cell terms in ascending j); the JAX oracle's einsum
+adds in XLA's order, so the shared tests use dyadic couplings and biases
 (multiples of 2^-8 over a small range): every partial sum is then exact in
-float32 and every order gives the same input, bit for bit.  What is left
+float32 and every order gives the same input, bit for bit.  One test
+holds the order itself against the Pallas kernel with couplings whose
+partial sums round.  What is left
 is ``tanh``'s last place in the two frameworks (ROADMAP Queue 3 item 3),
 which flips a spin only where ``tanh(gain·I) + u`` lies within an ulp of
 zero; no element of these seeds does, so spins are compared for equality.
@@ -96,20 +98,18 @@ def test_lattice_update_ragged_rows_match_oracle(B, R, C):
 
 def test_lattice_update_input_is_the_ascending_sum():
     """With couplings that are not dyadic the plain version's input is the
-    ascending-j float32 sum from zero, then the vertical terms and ``h`` in
-    the reference oracle's order: its decision equals a float32 loop in
+    Pallas kernel's float32 sum: ``h``, then the vertical terms, then the
+    in-cell terms in ascending j; its decision equals a float32 loop in
     numpy that adds the terms in that order."""
     rng = np.random.default_rng(5)
     p = _problem(2, 4, 4, 6)
     p["W_vh"] = rng.normal(size=p["W_vh"].shape).astype(np.float32)
     p["h"] = rng.normal(size=p["h"].shape).astype(np.float32)
-    acc = np.zeros(p["m_v"].shape, np.float32)
-    for j in range(K):
-        acc = (acc + p["W_vh"][..., j] * p["m_h"][..., j:j + 1]).astype(
-            np.float32)
-    I = (acc + p["wv_dnin"] * p["m_v_up"]).astype(np.float32)
+    I = (p["h"] + p["wv_dnin"] * p["m_v_up"]).astype(np.float32)
     I = (I + p["wv_up"] * p["m_v_dn"]).astype(np.float32)
-    I = (I + p["h"]).astype(np.float32)
+    for j in range(K):
+        I = (I + p["W_vh"][..., j] * p["m_h"][..., j:j + 1]).astype(
+            np.float32)
     dec = np.tanh(p["gain"] * I).astype(np.float32) + p["u"]
     sure = np.abs(dec) > 1e-5          # numpy's tanh vs torch's last place
     want = np.where(dec >= 0, 1.0, -1.0).astype(np.float32)
@@ -119,6 +119,39 @@ def test_lattice_update_input_is_the_ascending_sum():
                               got.shape)
         np.testing.assert_array_equal(got[upd & sure], want[upd & sure])
         np.testing.assert_array_equal(got[~upd], p["m_v"][~upd])
+
+
+@pytest.mark.parametrize("color", [0, 1])
+def test_lattice_update_adds_in_the_reference_kernels_order(color):
+    """Couplings whose partial sums round: ``wv_dnin·m_v_up = 2^25``,
+    ``wv_up·m_v_dn = -2^25``, ``h = 0`` and in-cell terms summing to 1.0.
+    In the Pallas kernel's order (vertical terms first) I = 1; in the
+    order that adds the in-cell terms first, 2^25 + 1 rounds to 2^25 and
+    I = 0.  A gain of 100 saturates tanh to exactly 1.0 or leaves 0.0, and
+    u = -0.5 turns that into +1 or -1: the port must give +1, as the
+    kernel does, on every updated node."""
+    B, R, C = 2, 8, 4
+    p = _problem(B, R, C, 7)
+    big = np.float32(2.0 ** 25)
+    p["wv_dnin"] = (big * p["m_v_up"][0]).astype(np.float32)
+    p["wv_up"] = (-big * p["m_v_dn"][0]).astype(np.float32)
+    p["m_v_up"][:] = p["m_v_up"][:1]     # one plane for every chain
+    p["m_v_dn"][:] = p["m_v_dn"][:1]
+    p["h"] = np.zeros_like(p["h"])
+    # each in-cell term is w_ij·m_j = +0.25: the four sum to 1.0
+    p["W_vh"] = (0.25 * p["m_h"][0][..., None, :]
+                 * np.ones((1, 1, K, 1))).astype(np.float32)
+    p["m_h"][:] = p["m_h"][:1]
+    p["gain"] = np.full_like(p["gain"], 100.0)
+    p["u"] = np.full_like(p["u"], -0.5)
+    want = np.asarray(lattice_vertical_update_pallas(
+        *_jax(p), color=color, block_r=4, interpret=True))
+    got = lattice_vertical_update(*_port(p), color).numpy()
+    upd = np.broadcast_to((p["parity"] == color)[None, :, :, None],
+                          got.shape)
+    assert (want[upd] == 1.0).all()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[~upd], p["m_v"][~upd])
 
 
 def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():

@@ -166,3 +166,20 @@ def test_seed_states_nonzero_and_reproducible():
     hi_ref = (ref >> 31).mean()
     hi = (convert.noise_state_to_numpy(a) >> 31).mean()
     assert abs(hi - 0.5) < 0.05 and abs(hi_ref - 0.5) < 0.05
+
+
+def test_entry_points_default_to_the_card_or_the_generator():
+    """`seed_states` draws on its generator's device unless told otherwise;
+    `state_from_numpy` defaults to the card, as `convert.noise_state_from_
+    numpy` does (callers that want the CPU say so)."""
+    import inspect
+
+    st = port_lfsr.seed_states(torch.Generator().manual_seed(1), (3, 5))
+    assert st.device.type == "cpu"
+    default = inspect.signature(port_lfsr.state_from_numpy).parameters[
+        "device"].default
+    assert default == "cuda" == inspect.signature(
+        convert.noise_state_from_numpy).parameters["device"].default
+    w = _words(2, (4,))
+    t = port_lfsr.state_from_numpy(w, device="cpu")
+    np.testing.assert_array_equal(port_lfsr.state_to_numpy(t), w)
