@@ -22,7 +22,8 @@ the paths with ``chip_smoke.drive``):
   (host clock, 5 epochs and one evaluation, / 5);
 * one K4 launch, N=440, S=100, staging the next program: call and device;
 * one per-band K1 launch of the sharded path (64x64-cell lattice on 8 row
-  bands, ``Sync(halo_every=inf, sweeps_per_launch=4)``) and one K5 launch
+  bands, ``Sync(halo_every=inf, sweeps_per_launch=4)``, its engine with
+  ``resident_exchange=False``: K1 per band) and one K5 launch
   (``Sync(halo_every=2, sweeps_per_launch=4)``): call and device.
 
 Where the tree has `sparse_plan`, each K1/K4 row names the plan's body,
@@ -38,7 +39,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-K5_KERNELS = ("sweep_exchange",)
+K5_KERNELS = ("sweep_exchange_kernel", "sweep_exchange_cluster_kernel")
 
 
 def measure(seed: int) -> dict:
@@ -126,19 +127,21 @@ def measure(seed: int) -> dict:
     chip = ses0.program_edges(*cs.sk_edge_codes(g, rng))
     st = ses0.init_state(ses0.generator(seed + 401))
     mesh = dist.make_mesh((cs.SHARD_BANDS,), ("data",))
-    for name, sync, wrapper, key in (
-            ("band_k1", api.Sync(halo_every=float("inf"),
-                                 sweeps_per_launch=4),
-             sf.sweep_sparse, "sweep_sparse"),
-            ("k5", api.Sync(halo_every=2, sweeps_per_launch=4),
-             sf.sweep_sparse_exchange, "sweep_sparse_exchange")):
-        ses = api.Session(mach.sampler_spec(
-            schedule=sched, chains=B, mesh=mesh, sync=sync).replace(
-                backend="auto"))
-        _, _, calls = cs.drive(lambda: ses.sample(chip, st.m,
-                                                  st.noise_state))
-        names = K5_KERNELS if key == "sweep_sparse_exchange" else K1_KERNELS
-        out[name] = timed(wrapper, calls[key][0], names)
+    # the launch-boundary policy's K1 launches: its engine forced off K5
+    band = dist.ShardedEngine(
+        g, mesh, api.Partition(), "counter", 8, B,
+        sync=api.Sync(halo_every=float("inf"), sweeps_per_launch=4),
+        backend="fused_sparse", device=DEVICE, resident_exchange=False)
+    _, _, calls = cs.drive(lambda: band.sample(chip, st.m, st.noise_state,
+                                               ses0.default_betas))
+    out["band_k1"] = timed(sf.sweep_sparse, calls["sweep_sparse"][0])
+    ses = api.Session(mach.sampler_spec(
+        schedule=sched, chains=B, mesh=mesh,
+        sync=api.Sync(halo_every=2, sweeps_per_launch=4)).replace(
+            backend="auto"))
+    _, _, calls = cs.drive(lambda: ses.sample(chip, st.m, st.noise_state))
+    out["k5"] = timed(sf.sweep_sparse_exchange,
+                      calls["sweep_sparse_exchange"][0], K5_KERNELS)
     return out
 
 

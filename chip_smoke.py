@@ -30,11 +30,12 @@ the kernels' launch counts set to 0 just before it and read just after:
   lattice through K6;
 * sharded: the 32768-spin lattice on 8 row bands of the card (256 chains,
   100 annealing sweeps): the barrier policy on the scan path equals the
-  unsharded K1 Session bit for bit, two launch-resident policies run
-  through the in-kernel halo exchange K5 (25 launches a call) and equal
-  the same launches emulated as K1 windows per band, the
-  launch-boundary policy through K1 per band; the sharded lattice anneal
-  and a CD step on a 2x2 rows x chains mesh equal their unsharded runs.
+  unsharded K1 Session bit for bit; two launch-resident policies and the
+  launch-boundary policy run through the in-kernel halo exchange K5 (25
+  launches a call; the last with one exchange point a launch) and equal
+  the same launches emulated as K1 windows per band (K1 per band for the
+  launch-boundary policy); the sharded lattice anneal and a CD step on a
+  2x2 rows x chains mesh equal their unsharded runs.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -876,11 +877,11 @@ def exchange_launch(graph, bands, chains, gen, rng, *, mode, halo_every, S,
     into ``bands`` row bands (`ShardedEngine`'s plan and layout), its halos
     exchanged once before the launch, through
     `shard_sweep.fused_shard_exchange_resident`.  Returns the recorded
-    wrapper call (args, kwargs, outputs)."""
+    wrapper call (args, kwargs, outputs) and the `ExchangePlan` it ran."""
     from repro_torch import api
     from repro_torch.core import distributed as dist
     from repro_torch.core.cd import PBitMachine
-    from repro_torch.kernels import shard_sweep
+    from repro_torch.kernels import shard_sweep, sweep_fused
 
     mach = PBitMachine.create(graph, gen, noise="counter", sparse=sparse,
                               device=DEVICE)
@@ -921,17 +922,20 @@ def exchange_launch(graph, bands, chains, gen, rng, *, mode, halo_every, S,
             mode=mode, block_b=block_b, **kw)
     finally:
         shard_sweep.sweep_sparse_exchange = recorder.wrapper
-    return recorder.calls[0]
+    return recorder.calls[0], sweep_fused.sweep_sparse_exchange.last_plan
 
 
 def check_exchange_kernel(seed: int) -> dict:
     """K5 against `sweep_sparse_exchange_ref` on the card, barrier and
-    async, case by case: plain, clamped, moments with a 0/1 burn-in mask,
-    a staged next program, ``halo_every=3`` (windows that open and close on
-    half sweeps), ragged B=5 with 2 chains per block, 2 and 7 bands of the
-    440-spin chip, 8 bands of the 32768-spin lattice.  Rule: equality in
-    every output (spins with their halo columns, noise state, moments,
-    staged program)."""
+    async, case by case, each in the body it is there to reach (read from
+    the wrapper's `last_plan`): the cluster body at 2 and 7 bands of the
+    440-spin chip and at 8 and 16 bands of the 32768-spin lattice (plain,
+    clamped, moments with a 0/1 burn-in mask, a staged next program,
+    ``halo_every=3`` — windows that open and close on half sweeps — ragged
+    B=5 with 2 chains per block, ``halo_every=inf`` — one exchange point);
+    the mailbox body at 17 bands of the lattice (plain with moments, and
+    ragged B=5).  Rule: equality in every output (spins with their halo
+    columns, noise state, moments, staged program)."""
     from repro_torch.core.chimera import make_chimera, make_chip_graph
 
     dev = torch.device(DEVICE)
@@ -940,46 +944,67 @@ def check_exchange_kernel(seed: int) -> dict:
     chip_graph, lattice_graph = make_chip_graph(), make_chimera(64, 64)
     cases = []
     for mode in ("barrier", "async"):
-        for name, graph, bands, chains, kw in (
-                ("plain_k1", chip_graph, 2, B, dict(halo_every=1, S=2)),
-                ("clamped", chip_graph, 2, B, dict(halo_every=2, S=4,
-                                                   clamp=True)),
-                ("moments", chip_graph, 2, B, dict(halo_every=2, S=4,
-                                                   moments=True)),
-                ("moments_clamped", chip_graph, 2, B,
+        for name, graph, bands, chains, body, kw in (
+                ("plain_k1", chip_graph, 2, B, "cluster",
+                 dict(halo_every=1, S=2)),
+                ("clamped", chip_graph, 2, B, "cluster",
+                 dict(halo_every=2, S=4, clamp=True)),
+                ("moments", chip_graph, 2, B, "cluster",
+                 dict(halo_every=2, S=4, moments=True)),
+                ("moments_clamped", chip_graph, 2, B, "cluster",
                  dict(halo_every=4, S=4, moments=True, clamp=True)),
-                ("stream", chip_graph, 2, B, dict(halo_every=2, S=4,
-                                                  stream=True)),
-                ("odd_windows_k3", chip_graph, 2, B,
+                ("stream", chip_graph, 2, B, "cluster",
+                 dict(halo_every=2, S=4, stream=True)),
+                ("odd_windows_k3", chip_graph, 2, B, "cluster",
                  dict(halo_every=3, S=4, moments=True, clamp=True)),
-                ("ragged_B5", chip_graph, 2, 5, dict(halo_every=2, S=4,
-                                                     moments=True,
-                                                     block_b=2)),
-                ("chip_7_bands", chip_graph, 7, B, dict(halo_every=2, S=4,
-                                                        moments=True)),
-                ("lattice_32768_8_bands", lattice_graph, 8, B,
+                ("ragged_B5", chip_graph, 2, 5, "cluster",
+                 dict(halo_every=2, S=4, moments=True, block_b=2)),
+                ("one_exchange_point", chip_graph, 2, B, "cluster",
+                 dict(halo_every=math.inf, S=4, moments=True, clamp=True)),
+                ("chip_7_bands", chip_graph, 7, B, "cluster",
+                 dict(halo_every=2, S=4, moments=True)),
+                ("lattice_32768_8_bands", lattice_graph, 8, B, "cluster",
                  dict(halo_every=2, S=4, sparse=True)),
                 ("lattice_32768_8_bands_moments", lattice_graph, 8, B,
-                 dict(halo_every=2, S=4, sparse=True, moments=True,
-                      clamp=True))):
-            args, kwargs, got = exchange_launch(graph, bands, chains, gen,
-                                                rng, mode=mode, **kw)
-            kwargs = {k: v for k, v in kwargs.items() if k != "block_b"}
+                 "cluster", dict(halo_every=2, S=4, sparse=True,
+                                 moments=True, clamp=True)),
+                ("lattice_32768_8_bands_one_exchange_point", lattice_graph,
+                 8, B, "cluster", dict(halo_every=math.inf, S=4,
+                                       sparse=True)),
+                ("lattice_32768_16_bands", lattice_graph, 16, B, "cluster",
+                 dict(halo_every=2, S=4, sparse=True, moments=True)),
+                ("lattice_32768_17_bands", lattice_graph, 17, B, "mailbox",
+                 dict(halo_every=2, S=4, sparse=True, moments=True)),
+                ("lattice_32768_17_bands_ragged_B5", lattice_graph, 17, 5,
+                 "mailbox", dict(halo_every=3, S=4, sparse=True,
+                                 block_b=2))):
+            (args, kwargs, got), plan = exchange_launch(
+                graph, bands, chains, gen, rng, mode=mode, **kw)
+            kwargs = {k: v for k, v in kwargs.items()
+                      if k not in ("block_b", "prepared")}
             want = _plain("sweep_sparse_exchange")(*args, **kwargs)
             torch.cuda.synchronize()
             diff, spins = compare_outputs(got, want)
             cases.append({"case": name, "mode": mode, "N": graph.n_nodes,
                           "bands": bands, "B": chains,
                           "ex_pts": list(kwargs["ex_pts"]),
+                          "body": plan.body, "want_body": body,
+                          "cluster": plan.cluster, "chains": plan.chains,
                           "outputs": len(got), "max_abs_diff": diff,
                           "spins_differing": spins})
     out = {"phase": "kernel_checks", "kernel": "sweep_sparse_exchange",
            "rule": "bit for bit (spins incl. halo columns, noise state, "
-                   "s_sum, c_slots, staged_w, staged_h)",
+                   "s_sum, c_slots, staged_w, staged_h), each case in its "
+                   "body",
            "max_abs_diff": max(r["max_abs_diff"] for r in cases),
            "spins_differing": sum(r["spins_differing"] for r in cases),
+           "bodies": sorted({r["body"] for r in cases}),
            "cases": cases}
     emit(out)
+    wrong = [r["case"] for r in cases if r["body"] != r["want_body"]]
+    if wrong:
+        raise AssertionError(f"sweep_sparse_exchange ran outside the body a "
+                             f"case is there to reach: {wrong}")
     if out["max_abs_diff"] != 0.0 or out["spins_differing"] != 0:
         raise AssertionError(f"sweep_sparse_exchange disagrees: {cases}")
     return out
@@ -1779,15 +1804,18 @@ def sharded(seed: int) -> tuple[dict, dict]:
         inside K5 (25 launches a call); each is run twice (equal), equals
         the engine's emulation of the same launches (K1 windows per band,
         spins and noise state) and differs from (a);
-    (c) ``Sync(halo_every=inf, sweeps_per_launch=4)`` runs K1 per band;
+    (c) ``Sync(halo_every=inf, sweeps_per_launch=4)`` (loop shape
+        "fused") runs each launch as one K5 launch with one exchange point,
+        twice (equal), equal to its K1-per-band launches and different
+        from (a);
     (d) `make_lattice_anneal` at 64x64 cells, 256 chains: 8 bands == 1;
     (e) one CD step of the full adder on the 440-spin chip on a 2x2
         rows x chains mesh (``fused_sparse``: K1 windows per band) equals
         the unsharded step.
     Every launch is replayed through its plain version.  Then, outside the
-    driven run, each policy's call and K5's launch are timed against the
-    same schedule as K1 windows per band (the emulation) and against the
-    launch-boundary shape (K1 per band)."""
+    driven run, each policy's call is timed, the barrier policy's against
+    the same schedule as K1 windows per band (the emulation) and the
+    launch-boundary policy's against its K1-per-band launches."""
     from repro_torch import api
     from repro_torch.core import distributed as dist
     from repro_torch.core import energy, tasks
@@ -1814,7 +1842,7 @@ def sharded(seed: int) -> tuple[dict, dict]:
     sessions = {name: api.Session(mach.sampler_spec(
         schedule=sched, chains=B, mesh=mesh, sync=sync).replace(
             backend=backend)) for name, (sync, backend) in policies.items()}
-    resident = ("k2_L4_barrier", "k2_L4_async")
+    resident = ("k2_L4_barrier", "k2_L4_async", "inf_L4")   # through K5
 
     lat_spec = dist.LatticeSpec(64, 64, chains=B)
     lat = dist.make_sk_lattice(
@@ -1892,10 +1920,11 @@ def sharded(seed: int) -> tuple[dict, dict]:
               for n, ses in sessions.items()}
 
     # each K5 policy's Session call against the engine's emulation of the
-    # same launches (K1 windows per band, the exchanges between them): the
-    # engine code around K5 (the async halo priming, the drained halos,
-    # the extended tables) held at full width.  Outside the driven run:
-    # comparisons, not the path
+    # same launches (K1 windows per band, the exchanges between them; K1
+    # per band for inf_L4): the engine code around K5 (the async halo
+    # priming, the drained halos, the extended block kept between
+    # launches) held at full width.  Outside the driven run: comparisons,
+    # not the path
     def emulation(sync):
         eng = dist.ShardedEngine(g, mesh, api.Partition(), "counter", 8, B,
                                  sync=sync, backend="fused_sparse",
@@ -1912,10 +1941,13 @@ def sharded(seed: int) -> tuple[dict, dict]:
     def call(ses):
         return lambda: ses.sample(chip, st.m, st.noise_state)
 
-    emu = emus["k2_L4_barrier"]
-    ab = {"k5": [], "k1_windows": []}
-    for name in ("k1_windows", "k5", "k5", "k1_windows"):
-        fn = emu if name == "k1_windows" else call(sessions["k2_L4_barrier"])
+    ab = {"k5": [], "k1_windows": [], "k5_one_point": [], "k1_per_band": []}
+    for name in ("k1_windows", "k5", "k5", "k1_windows", "k1_per_band",
+                 "k5_one_point", "k5_one_point", "k1_per_band"):
+        fn = {"k1_windows": emus["k2_L4_barrier"],
+              "k5": call(sessions["k2_L4_barrier"]),
+              "k1_per_band": emus["inf_L4"],
+              "k5_one_point": call(sessions["inf_L4"])}[name]
         ab[name].append(cuda_ms(fn))
     times = {"unsharded_k1": cuda_ms(call(ses0)),
              **{n: cuda_ms(call(ses)) for n, ses in sessions.items()}}
@@ -1928,10 +1960,11 @@ def sharded(seed: int) -> tuple[dict, dict]:
            "energy_per_spin": per_spin,
            "cd_backends": [backend0, backend1],
            "ms_per_call": times,
-           "k5_vs_k1_windows_ms_per_call": {
+           "k5_vs_k1_ms_per_call": {
                k: float(np.mean(v)) for k, v in ab.items()},
-           "k5_vs_k1_windows_runs": ab,
-           "ab_order": "k1_windows, k5, k5, k1_windows"}
+           "k5_vs_k1_runs": ab,
+           "ab_order": "k1_windows, k5, k5, k1_windows, k1_per_band, "
+                       "k5_one_point, k5_one_point, k1_per_band"}
     emit(out)
     flat = [checks["barrier_equals_unsharded_k1"],
             checks["lattice_anneal_sharded_equals_unsharded"],
@@ -1947,7 +1980,7 @@ def sharded(seed: int) -> tuple[dict, dict]:
             "inf_L4": ("fused_sparse", "fused")}
     if shapes != want:
         raise AssertionError(f"policies resolved to {shapes}, not {want}")
-    n_k5 = 2 * len(resident) * SHARD_SWEEPS // 4
+    n_k5 = 2 * len(resident) * SHARD_SWEEPS // 4    # each policy twice
     if counts["sweep_sparse_exchange"] != n_k5:
         raise AssertionError(f"K5 launched {counts['sweep_sparse_exchange']}"
                              f" times, {n_k5} expected")
@@ -1956,7 +1989,10 @@ def sharded(seed: int) -> tuple[dict, dict]:
     out["_worst"] = worst
     out["_times"] = {"k5_call_ms": float(np.mean(ab["k5"])),
                      "k1_windows_call_ms": float(np.mean(ab["k1_windows"])),
-                     "fused_call_ms": times["inf_L4"]}
+                     "k5_one_point_call_ms": float(np.mean(
+                         ab["k5_one_point"])),
+                     "k1_per_band_call_ms": float(np.mean(
+                         ab["k1_per_band"]))}
     return out, calls
 
 
@@ -2290,36 +2326,40 @@ def lattice_kernel_record(checks: dict, soa: dict, calls: dict,
                       "C": m_v.shape[2], "k": k}}
 
 
+K5_KERNELS = ("sweep_exchange_kernel", "sweep_exchange_cluster_kernel",
+              "reduce_band_partials")   # the mailbox body, the cluster body
+
+
 def exchange_kernel_record(checks: dict, shard: dict, calls: dict,
                            launches_by_path: dict, worst: float) -> dict:
     """K5's record at the sharded path's first launch: 8 bands of the
     32768-spin lattice, B=256, S=4, ``halo_every=2`` barrier (exchange
-    points 0, 2, 4, 6).  Operations as K1's per update, over every band's
-    local nodes once per sweep (n_row·B·n_loc·S updates, half the nodes in
-    each half-sweep); bytes: the operands and outputs once.  The mailbox
-    (each exchange writes and reads 2·B·H int8 per band) is this
-    implementation's, not the function's, and stays out of the bound: it
-    is reported beside it as ``mailbox_bytes``.
-    ``emulation_ms`` / ``fused_shape_ms`` are per launch of the same path:
-    the same 100-sweep schedule as K1 windows per band with the exchanges
-    between them, and the launch-boundary policy (K1 per band, one
-    exchange per launch)."""
-    from repro_torch.kernels import sweep_fused
+    points 0, 2, 4, 6), in the body, cluster size and chains per block of
+    its plan.  Operations as K1's per update, over every band's local
+    nodes once per sweep (n_row·B·n_loc·S updates, half the nodes in each
+    half-sweep); bytes: the operands and outputs once (the boundary rows
+    each exchange moves are this implementation's, not the function's, and
+    stay out of the bound).  The ``*_ms_per_launch``
+    are per launch of the same path's Session calls (25 launches): K5 and
+    the same schedule as K1 windows per band, and the launch-boundary
+    policy through K5 (one exchange point) and as K1 per band."""
     from repro_torch.kernels.sweep_fused import (sweep_sparse_exchange,
                                                  sweep_sparse_exchange_ref)
 
     args, kwargs, outs = calls["sweep_sparse_exchange"][0]
+    plan = kwargs["prepared"].plan
     R, Bc, N = args[0].shape
     S, D = args[10].shape[0], args[1].shape[1]
     n_loc, H = kwargs["n_loc"], kwargs["halo"]
-    n_ex = len(kwargs["ex_pts"])
-    plain_kw = {k: v for k, v in kwargs.items() if k != "block_b"}
+    plain_kw = {k: v for k, v in kwargs.items()
+                if k not in ("block_b", "prepared")}
     run = lambda: sweep_sparse_exchange(*args, **kwargs)  # noqa: E731
     _, plain_ms = timed_once(lambda: sweep_sparse_exchange_ref(*args,
                                                                **plain_kw))
     ops = R * Bc * n_loc * S * (2 * D + DECISION_OPS + UNIFORM_OPS
                                 + HASH_OPS)
-    mailbox = n_ex * R * 2 * Bc * H * 2
+    moved = _moved(args, {k: v for k, v in kwargs.items()
+                          if k != "prepared"}, outs)
     launches = shard["launches"]["sweep_sparse_exchange"]
     per_launch = SHARD_SWEEPS // S
     t = shard["_times"]
@@ -2329,17 +2369,17 @@ def exchange_kernel_record(checks: dict, shard: dict, calls: dict,
             "launches": launches, "launches_by_path": launches_by_path,
             "max_abs_err": max(checks["max_abs_diff"], worst),
             "ms": cuda_ms(run), "plain_ms": plain_ms,
-            "device_ms": device_kernel_ms(run, "sweep_exchange_kernel", 20),
-            **_bound(_moved(args, kwargs, outs), ops),
+            "device_ms": device_kernel_ms(run, K5_KERNELS, 20),
+            **_bound(moved, ops),
             "library_ms": None,
             "library_what": "none: no single PyTorch call computes it",
-            "mailbox_bytes": mailbox,
+            "body": plan.body, "cluster": plan.cluster,
+            "chains_per_block": plan.chains,
             "session_ms_per_launch": t["k5_call_ms"] / per_launch,
             "emulation_ms_per_launch": t["k1_windows_call_ms"] / per_launch,
-            "fused_shape_ms_per_launch": t["fused_call_ms"] / per_launch,
-            "chains_per_block": [tb for key, tb in
-                                 sweep_fused._EXCHANGE_TILES.items()
-                                 if key[1:4] == (R, Bc, N)],
+            "one_point_ms_per_launch": t["k5_one_point_call_ms"] / per_launch,
+            "k1_per_band_ms_per_launch": (t["k1_per_band_call_ms"]
+                                          / per_launch),
             "shape": {"bands": R, "B": Bc, "N_ext": N, "n_loc": n_loc,
                       "halo": H, "S": S, "D": D,
                       "ex_pts": list(kwargs["ex_pts"]),

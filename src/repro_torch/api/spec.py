@@ -539,9 +539,10 @@ def _resolve_sharded_backend(spec: SamplerSpec) -> str:
 
     ``auto`` picks 'fused_sparse' for a launch-resident, fused-compatible
     policy with counter noise, else 'sparse' — and 'sparse' too when the
-    policy's mid-launch exchanges need K5 and K5's grid (every band's
-    chain tiles, resident at once) does not fit the spec's card
-    (`exchange_resident_feasible`, the card's own limits).  The env
+    policy's mid-launch exchanges need K5 and K5 has no body for the shape
+    on the spec's card (`exchange_resident_feasible`, the card's own
+    limits: the cluster body up to 16 bands at any chain count, else the
+    mailbox body, whose grid must be resident at once).  The env
     default takes part as everywhere else, but a value the partition
     cannot honour raises rather than being silently replaced.
     """
@@ -556,7 +557,7 @@ def _resolve_sharded_backend(spec: SamplerSpec) -> str:
         elif not (fused_ok and sync.launch_resident):
             return "sparse"
         elif sync.kernel_fusible:
-            return "fused_sparse"     # K1 per band: no grid-wide wait
+            return "fused_sparse"     # K5 where it fits, else K1 per band
         else:
             return ("fused_sparse" if _exchange_fits(spec) else "sparse")
     if b == "sparse":
@@ -581,13 +582,13 @@ def _resolve_sharded_backend(spec: SamplerSpec) -> str:
 
 
 def _exchange_fits(spec: SamplerSpec) -> bool:
-    """Can one K5 launch of this sharded spec be resident on its card?"""
+    """Has K5 a body for one launch of this sharded spec on its card?"""
     part = spec.partitioning()
     n_row = int(np.prod([spec.mesh.shape[a] for a in part.rows_axes],
                         dtype=np.int64))
     plan = plan_row_partition(spec.graph, n_row)
     return exchange_resident_feasible(n_row, spec.chains,
-                                      plan.n_loc + 2 * plan.halo,
+                                      plan.n_loc + 2 * plan.halo, plan.halo,
                                       card_limits(spec.device))
 
 

@@ -52,6 +52,10 @@ from repro_torch.kernels.shard_sweep import (
     halo_exchange,
     halo_half_sweep,
 )
+from repro_torch.kernels.sweep_fused import (
+    card_limits,
+    exchange_resident_feasible,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -381,8 +385,8 @@ class ShardedEngine:
 
     The `api.Sync` policy picks one of four loop shapes (see
     `_local_sweeps`); ``resident_exchange`` (None: the spec's device is
-    CUDA) runs the fused-resident-exchange shape through K5 instead of its
-    emulation.
+    CUDA) runs the fused shapes' launches through K5 instead of their
+    emulation (K1 per band).
     """
 
     def __init__(self, graph: ChimeraGraph, mesh, partition, noise: str,
@@ -410,18 +414,22 @@ class ShardedEngine:
             raise ValueError(f"chains={chains} not divisible by the "
                              f"chain-axis size {self.n_chain}")
         self.b_loc = chains // self.n_chain
-        # fused-resident-exchange: with mid-launch exchange points the
-        # kernel owns the halo refresh.  On the card one K5 launch runs
-        # the whole chunk for every band; elsewhere the engine emulates
-        # the same launch bit for bit (half-sweep windows of K1 with an
-        # exchange between windows)
-        self._fused_exchange = self._fused and not sync.kernel_fusible
+        # the fused shapes: on the card one K5 launch runs a whole launch
+        # for every band, the kernel owning the halo refresh (with
+        # ``ex_pts=(0,)`` for a policy without mid-launch exchange, where
+        # K5 has a body for the shape; else K1 per band).  Elsewhere the
+        # engine emulates the same launch bit for bit: half-sweep windows
+        # of K1 per band with an exchange between windows
         if resident_exchange is None:
             resident_exchange = dev.type == "cuda"
-        self._resident = self._fused_exchange and bool(resident_exchange)
+        self._resident = self._fused and bool(resident_exchange)
         self.plan = plan_row_partition(graph, self.n_row,
                                        with_lfsr=(noise == "lfsr"))
         p = self.plan
+        if self._resident and sync.kernel_fusible:
+            self._resident = exchange_resident_feasible(
+                self.n_row, chains, p.n_loc + 2 * p.halo, p.halo,
+                card_limits(dev))
 
         def long(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=dev)
@@ -555,12 +563,13 @@ class ShardedEngine:
         exchange point were sent at the previous one.  Four loop shapes:
 
           * fused — launch-resident counter-noise policies with
-            launch-boundary-only exchange run each launch as one K1 launch
-            per band (`fused_shard_sweeps`; collect/hist use a scan shape).
+            launch-boundary-only exchange: on the card each launch is one
+            K5 launch with ``ex_pts=(0,)`` for every band where K5 has a
+            body for the shape; elsewhere one K1 launch per band
+            (`fused_shard_sweeps`; collect/hist use a scan shape).
           * fused-resident-exchange — fused backends whose policy has
             mid-launch exchange points: the kernel owns the halo refresh.
-            On the card one K5 launch per chunk runs every band
-            (`exchange_launch`, its tables built once a call); on the
+            On the card one K5 launch per chunk runs every band; on the
             CPU, and for the bit-exact barrier's moments, the same launch
             split at the exchange points into half-sweep windows of K1 per
             band with an exchange between windows.
@@ -570,6 +579,11 @@ class ShardedEngine:
           * unrolled launch — odd ``halo_every`` (exchange points inside a
             sweep, e.g. the k=1 barrier's two per sweep): every launch's
             half-sweeps in order, exchanging at the policy's points.
+
+        Both fused shapes' K5 launches share one `ExchangeTables` a call
+        (`exchange_tables`) and run on the extended block ``[local |
+        halo_up | halo_dn]``, kept between launches and sliced once at the
+        end of the call (`exchange_launch`).
         """
         n_loc = self.plan.n_loc
         sync = self.sync
@@ -604,13 +618,14 @@ class ShardedEngine:
             impose = clamped and cv is not None
             exact_stats = accumulate and k1_exact
             tables = None
-            if (shape == "fused-resident-exchange" and self._resident
-                    and not exact_stats):
-                # what every K5 launch of this call shares, built once
+            if (shape in ("fused", "fused-resident-exchange")
+                    and self._resident and not exact_stats):
+                # what every K5 launch of this call shares, prepared once
                 kwc = dict(clamp_mask=cm, clamp_values=cv) if impose else {}
                 tables = exchange_tables(
                     d["nbr32"], w, h, gain, off, rg, co, masks[0], masks[1],
-                    col0, send_up, send_dn, ex_pts=ex_pts, **kwc)
+                    col0, send_up, send_dn, chains=m.shape[1], ex_pts=ex_pts,
+                    mode=sync.mode, **kwc)
 
             S_total = int(betas.shape[0])
             if S_total % L:
@@ -703,45 +718,28 @@ class ShardedEngine:
                     if accumulate:
                         accs = add_kernel_moments(accs, s_k, c_k, B)
                 elif shape == "fused-resident-exchange":
+                    # the emulation of K5's launch: split at the exchange
+                    # points into half-sweep windows of K1
                     if impose:
                         m = torch.where(cm[:, None, :], cv, m)
                     kern_meas = meas_t \
                         if (accumulate and not exact_stats) else None
-                    if tables is not None:
-                        # one K5 launch for every band; async consumes the
-                        # pend buffer at point 0 and the kernel's drained
-                        # final exchange refills it
-                        hu_in, hd_in = pend if async_ else (hu, hd)
-                        res = exchange_launch(m, hu_in, hd_in, tables,
-                                              betas_t, ns, 0, kern_meas,
-                                              mode=sync.mode)
-                        m, ns, hu, hd = res[0], res[1], res[2], res[3]
-                        if async_:
-                            pend = (hu, hd)
+                    s_l = c_l = None
+                    for h0, h1 in halo_exchange_segments(ex_pts, 2 * L):
+                        hu, hd, pend = swap(m, hu, hd, pend)
+                        m, ns, s_w, c_w = band_launch(
+                            m, hu, hd, ns, betas_t, kern_meas, h0, h1 - h0)
                         if kern_meas is not None:
-                            c_k = res[5][torch.arange(R, device=dev)[:, None],
-                                         d["edge_slot"], d["edge_e0"]]
-                            accs = add_kernel_moments(accs, res[4], c_k, B)
-                    else:
-                        # the bit-exact emulation: the launch split at the
-                        # exchange points into half-sweep windows of K1
-                        s_l = c_l = None
-                        for h0, h1 in halo_exchange_segments(ex_pts, 2 * L):
-                            hu, hd, pend = swap(m, hu, hd, pend)
-                            m, ns, s_w, c_w = band_launch(
-                                m, hu, hd, ns, betas_t, kern_meas, h0,
-                                h1 - h0)
-                            if kern_meas is not None:
-                                s_l = s_w if s_l is None else s_l + s_w
-                                c_l = c_w if c_l is None else c_l + c_w
-                            if exact_stats and h1 % 2 == 0:
-                                # post-sweep refresh for boundary edges —
-                                # part of the bit-exact contract
-                                ru, rd = exchange(m)
-                                accs = sweep_stats(
-                                    m, ru, rd, meas_t[h1 // 2 - 1], accs)
-                        if kern_meas is not None:
-                            accs = add_kernel_moments(accs, s_l, c_l, B)
+                            s_l = s_w if s_l is None else s_l + s_w
+                            c_l = c_w if c_l is None else c_l + c_w
+                        if exact_stats and h1 % 2 == 0:
+                            # post-sweep refresh for boundary edges — part
+                            # of the bit-exact contract
+                            ru, rd = exchange(m)
+                            accs = sweep_stats(m, ru, rd,
+                                               meas_t[h1 // 2 - 1], accs)
+                    if kern_meas is not None:
+                        accs = add_kernel_moments(accs, s_l, c_l, B)
                 else:
                     for s in range(L):
                         beta_t = betas_t[s]
@@ -770,6 +768,24 @@ class ShardedEngine:
                             outs.append(m)
                 return (m, ns, hu, hd, pend, accs), outs
 
+            def resident(state, betas_t, meas_t):
+                """One K5 launch for every band on the extended block the
+                call keeps: the kernel installs the halos at its exchange
+                points, and under async its drained last exchange is the
+                next launch's first halo."""
+                m_ext, ns, _, _, _, accs = state
+                if impose:  # the boundary is published post-clamp
+                    m_ext = torch.where(tables.clamp_mask[:, None, :],
+                                        tables.clamp_values, m_ext)
+                res = exchange_launch(m_ext, tables, betas_t, ns, 0,
+                                      meas_t if accumulate else None)
+                if accumulate:
+                    c_k = res[3][torch.arange(R, device=dev)[:, None],
+                                 d["edge_slot"], d["edge_e0"]]
+                    accs = add_kernel_moments(accs, res[2][:, :n_loc], c_k,
+                                              m_ext.shape[1])
+                return (res[0], res[1], None, None, None, accs), []
+
             def segment(state, betas_t, meas_t):
                 """One inter-exchange segment: swap once, then the
                 exchange-free sweeps of the segment."""
@@ -791,7 +807,8 @@ class ShardedEngine:
                         outs.append(m)
                 return (m, ns, hu, hd, pend, accs), outs
 
-            body = segment if shape == "segment scan" else launch
+            body = (segment if shape == "segment scan" else
+                    resident if tables is not None else launch)
             zh = m.new_zeros((R, m.shape[1], self.plan.halo))
             pend = ()
             if async_:
@@ -810,6 +827,14 @@ class ShardedEngine:
                 accs = [torch.zeros((2 ** hist_w,), dtype=torch.float32,
                                     device=dev)]
             state = (m, ns, zh, zh, pend, accs)
+            if tables is not None:
+                # the extended block, kept between the K5 launches, and the
+                # schedule as (S, B) rows once: a launch's slice is a view
+                halos = pend if async_ else (zh, zh)
+                state = (torch.cat([m, *halos], dim=2), ns, None, None, None,
+                         accs)
+                if betas.ndim == 1:
+                    betas = betas[:, None].expand(-1, m.shape[1]).contiguous()
             traj = []
             for t0 in range(0, S_total, chunk):
                 meas_t = None if measured is None \
@@ -817,6 +842,8 @@ class ShardedEngine:
                 state, outs = body(state, betas[t0:t0 + chunk], meas_t)
                 traj += outs
             m, ns, _, _, _, accs = state
+            if tables is not None:
+                m = m[:, :, :n_loc]
             return (m, ns, *accs), (torch.stack(traj) if collect else None)
 
         return run

@@ -21,18 +21,17 @@ lives on the same device, with a leading band axis:
     global (chain, node) coordinates through ``coord_offset``.
   * `fused_shard_exchange_resident` runs every band's launch through K5
     (`sweep_sparse_exchange`), which refreshes the halo columns inside the
-    launch at every exchange point; the engine prepares a call's tables
-    once (`exchange_tables`) and launches through `exchange_launch`.
+    launch at every exchange point; the engine prepares a call's launch
+    once (`exchange_tables`, an `ExchangeTables`) and launches through
+    `exchange_launch` on the extended block it keeps between launches.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
-from repro_torch.core import lfsr as lfsr_mod
 from repro_torch.kernels.ref import field_decision_update, sparse_neuron_input
 from repro_torch.kernels.sweep_fused import (
+    ExchangeTables,
     sweep_sparse,
     sweep_sparse_exchange,
     sweep_sparse_stream,
@@ -185,74 +184,50 @@ def fused_shard_sweeps(
     return m_out, outs[1], outs[2][:n_loc], outs[3]
 
 
-class ExchangeTables(NamedTuple):
-    """What every K5 launch of one sharded call shares, on the extended
-    block (`exchange_tables`): built once per call, not per launch."""
-
-    idx: torch.Tensor                   # (R, D, N_ext) int32
-    w: torch.Tensor                     # (R, D, N_ext)
-    rows: tuple                         # h, gain, off, rg, co: (R, N_ext)
-    masks: tuple                        # (R, N_ext) bool, halo columns out
-    clamp_mask: torch.Tensor | None     # (R, N_ext) bool
-    clamp_values: torch.Tensor | None   # (R, B, N_ext)
-    send_up: torch.Tensor               # (R, H) int32
-    send_dn: torch.Tensor               # (R, H) int32
-    col0: torch.Tensor                  # (R,) int32 uint32 bit patterns
-    ex_pts: tuple
-    ex_pts_device: torch.Tensor         # ex_pts as int32 on the device
-
-
 def exchange_tables(nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off,
                     mask0, mask1, col0, send_up, send_dn, clamp_mask=None,
-                    clamp_values=None, *, ex_pts) -> ExchangeTables:
-    """The fixed operands of a run of K5 launches (arguments as
-    `fused_shard_exchange_resident`'s): the tables extended to the halo
-    columns, the send lists as int32, each band's column 0 and the
-    exchange points on the device."""
-    dev = nbr_w.device
+                    clamp_values=None, *, chains: int, ex_pts,
+                    mode: str = "barrier", stream: bool = False,
+                    block_b: int | None = None) -> ExchangeTables:
+    """The prepared launch every K5 launch of one call shares (arguments as
+    `fused_shard_exchange_resident`'s; ``chains`` per band): the tables
+    extended to the halo columns, the send lists as int32, each band's
+    column 0, the exchange points and mode, and the plan, update lists and
+    node tables of `ExchangeTables`."""
     pad = 2 * send_up.shape[1]
     e = _extended(pad, nbr_idx, nbr_w, (h, gain, off, rand_gain, comp_off),
                   (mask0, mask1), clamp_mask, clamp_values)
-    if not isinstance(col0, torch.Tensor):
-        col0 = lfsr_mod.from_u64(torch.tensor(
-            [int(c) & 0xFFFFFFFF for c in col0], dtype=torch.int64,
-            device=dev))
     return ExchangeTables(
-        e["idx"], e["w"], tuple(e["rows"]), tuple(e["masks"]), e["cm"],
-        e["cv"], send_up.to(torch.int32).contiguous(),
-        send_dn.to(torch.int32).contiguous(), col0, tuple(ex_pts),
-        torch.tensor(ex_pts, dtype=torch.int32, device=dev))
+        e["idx"], e["w"], *e["rows"], *e["masks"],
+        send_up.to(torch.int32).contiguous(),
+        send_dn.to(torch.int32).contiguous(), e["cm"], e["cv"],
+        chains=chains, n_loc=nbr_idx.shape[2], halo=send_up.shape[1],
+        ex_pts=ex_pts, mode=mode, col0=col0, stream=stream, block_b=block_b)
 
 
-def exchange_launch(m_loc, halo_up, halo_dn, tables: ExchangeTables, betas,
-                    noise_state, row0: int, measured=None, next_nbr_w=None,
-                    next_h=None, *, mode: str = "barrier",
-                    block_b: int | None = None):
-    """One K5 launch of every band on prepared tables: what
-    `fused_shard_exchange_resident` returns."""
-    _, B, n_loc = m_loc.shape
-    H = halo_up.shape[2]
-    pad = 2 * H
+def exchange_launch(m_ext, tables: ExchangeTables, betas, noise_state,
+                    row0: int, measured=None, next_nbr_w=None, next_h=None):
+    """One K5 launch of every band on prepared tables: the extended block
+    ``m_ext`` (R, B, N_ext) = ``[local | halo_up | halo_dn]`` in, the
+    kernel's outputs back — ``(m_ext', noise_state')``, then with
+    ``measured`` ``(s_sum[R, N_ext], c_slots[R, D, N_ext])`` or, with a next
+    program (R, D, n_loc) / (R, n_loc), the staged pair on the extended
+    block.  The halo columns of ``m_ext'`` are as the kernel left them:
+    barrier, the last installed exchange; async, the drained last
+    exchange, the next launch's first halo.  A caller that launches many
+    times keeps ``m_ext`` between launches and slices it once."""
     t = tables
-    m_ext = torch.cat([m_loc, halo_up, halo_dn], dim=2)
+    pad = 2 * t.halo
     nw_e = nh_e = None
     if next_nbr_w is not None:
         nw_e = _extend(next_nbr_w.to(torch.float32), pad)
         nh_e = _extend(next_h.to(torch.float32), pad)
-    outs = sweep_sparse_exchange(
-        m_ext, t.idx, t.w, *t.rows, *t.masks, _betas(betas, B, m_loc.device),
-        noise_state, t.send_up, t.send_dn, t.clamp_mask, t.clamp_values,
-        measured, (int(row0), t.col0), nw_e, nh_e, n_loc=n_loc, halo=H,
-        ex_pts=t.ex_pts, ex_pts_device=t.ex_pts_device, mode=mode,
-        block_b=block_b)
-    m_out = outs[0]
-    head = (m_out[:, :, :n_loc], outs[1], m_out[:, :, n_loc:n_loc + H],
-            m_out[:, :, n_loc + H:])
-    if measured is not None:
-        return head + (outs[2][:, :n_loc], outs[3])
-    if next_nbr_w is not None:
-        return head + (outs[2][:, :, :n_loc], outs[3][:, :n_loc])
-    return head
+    return sweep_sparse_exchange(
+        m_ext, t.idx, t.w, *t.rows, *t.masks,
+        _betas(betas, m_ext.shape[1], m_ext.device), noise_state, t.send_up,
+        t.send_dn, t.clamp_mask, t.clamp_values, measured, (int(row0), t.col0),
+        nw_e, nh_e, n_loc=t.n_loc, halo=t.halo, ex_pts=t.ex_pts, mode=t.mode,
+        prepared=t)
 
 
 def fused_shard_exchange_resident(
@@ -293,9 +268,21 @@ def fused_shard_exchange_resident(
     ``measured``, (s_sum[R, n_loc], c_slots[R, D, N_ext]) or, with a next
     program, (staged_w[R, D, n_loc], staged_h[R, n_loc]).
     """
+    R, B, n_loc = m_loc.shape
+    H = halo_up.shape[2]
     tables = exchange_tables(nbr_idx, nbr_w, h, gain, off, rand_gain,
                              comp_off, mask0, mask1, col0, send_up, send_dn,
-                             clamp_mask, clamp_values, ex_pts=ex_pts)
-    return exchange_launch(m_loc, halo_up, halo_dn, tables, betas,
-                           noise_state, row0, measured, next_nbr_w, next_h,
-                           mode=mode, block_b=block_b)
+                             clamp_mask, clamp_values, chains=B,
+                             ex_pts=ex_pts, mode=mode,
+                             stream=next_nbr_w is not None, block_b=block_b)
+    outs = exchange_launch(torch.cat([m_loc, halo_up, halo_dn], dim=2),
+                           tables, betas, noise_state, row0, measured,
+                           next_nbr_w, next_h)
+    m_out = outs[0]
+    head = (m_out[:, :, :n_loc], outs[1], m_out[:, :, n_loc:n_loc + H],
+            m_out[:, :, n_loc + H:])
+    if measured is not None:
+        return head + (outs[2][:, :n_loc], outs[3])
+    if next_nbr_w is not None:
+        return head + (outs[2][:, :, :n_loc], outs[3][:, :n_loc])
+    return head

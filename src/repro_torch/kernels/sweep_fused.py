@@ -25,11 +25,15 @@ launch.
 * `sweep_sparse_exchange` — K1 on every row band of the sharded engine
   in one launch, with the halo exchange inside it (K5): at every exchange
   point each band publishes its boundary spins and reads its neighbours'
-  into its halo columns, through a mailbox in device memory and a grid
-  barrier (a cooperative launch).  Replaces
+  into its halo columns.  Replaces
   ``repro.kernels.sweep_fused.sweep_sparse_exchange_pallas``; CUDA source
-  ``csrc/sweep_exchange.cu``.  Bound as K1, plus one grid barrier per
-  exchange point.
+  ``csrc/sweep_exchange.cu``.  Bound as K1, plus the exchanges.  Two
+  bodies, chosen in `exchange_plan`: up to 16 bands a thread-block
+  cluster holds the bands of one tile of chains and they exchange through
+  distributed shared memory, a lane a node of the half-sweep's colour from
+  tables prepared once a call (`ExchangeTables`); otherwise every block of
+  the grid meets at a grid barrier around a mailbox in device memory (a
+  cooperative launch).
 * `sweep_fused` — the dense (N, N) couplings.  Replaces
   ``repro.kernels.sweep_fused.sweep_fused_pallas`` (``_kernel`` with
   ``sparse=False``); CUDA source ``csrc/sweep_fused.cu``.  Two bodies,
@@ -926,11 +930,10 @@ def sweep_sparse_exchange_ref(
     m, nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off, mask0, mask1,
     betas, noise_state, send_up, send_dn, clamp_mask=None, clamp_values=None,
     measured=None, coord_offset=None, next_nbr_w=None, next_h=None, *,
-    n_loc, halo, ex_pts, ex_pts_device=None, mode="barrier", staged=None,
+    n_loc, halo, ex_pts, mode="barrier", staged=None,
 ):
     """`sweep_sparse_exchange` in plain PyTorch, any device: same
-    arguments (``ex_pts_device`` unused: it reads ``ex_pts``), same
-    return tuple.  Every band at once, one half-sweep at a
+    arguments (nothing to tile or prepare), same return tuple.  Every band at once, one half-sweep at a
     time (the arithmetic of `sweep_sparse_ref` with a band axis), the
     exchanges as index gathers over the band axis."""
     _check_exchange(m, n_loc, halo, mode, measured, next_nbr_w, next_h)
@@ -1012,58 +1015,55 @@ def sweep_sparse_exchange_ref(
     return tuple(outs)
 
 
-_EXCHANGE_ARGTYPES = (
-    [_VP, _VP] + [_I] * 7               # m_in, m_out, R, B, N, D, S, n_loc, H
-    + [_VP] * 10                        # idx, w, h, gain, off, rg, co, masks, betas
-    + [_VP] * 5                         # send_up/dn, clamp mask/values, measured
-    + [_VP, _VP, _U, _VP]               # noise in/out, row0, col0
-    + [_VP, _I, _I]                     # ex_pts, n_ex, async
-    + [_VP] * 4                         # part_s, part_c, out_s, out_c
-    + [_VP] * 4                         # next_w, next_h, staged_w, staged_h
-    + [_VP, _VP, _I, _I, _VP]           # mailbox, barrier, tb, threads, stream
-)
-_MAILBOX_SLOTS = 3
-_EXCHANGE_TILES: dict = {}   # launch shape on a card -> chains per block
+_MAILBOX_SLOTS = 3   # csrc/sweep_exchange.cu kSlots: rotated over the exchanges
 
+# K5's bodies (csrc/sweep_exchange.cu); the launch takes the code
+EXCHANGE_BODIES = {"mailbox": 0, "cluster": 1}
+MAX_EXCHANGE_CLUSTER = 16      # CTAs a cluster may have (9..16 non-portable)
+MAX_EXCHANGE_CHAINS = 32       # eight packed words of four chains a column
+CLUSTER_EXCHANGE_THREADS = 512   # its __launch_bounds__(512, 1)
+# the cluster model's registers a thread: what __launch_bounds__(512, 1)
+# lets ptxas take (it takes them: 128 at 16 and 32 chains, nvcc 12.9), so
+# the model never promises more resident clusters than the card's own
+# count (cudaOccupancyMaxActiveClusters) finds
+CLUSTER_REGS_PER_THREAD = 128
 
-def _exchange_library() -> ctypes.CDLL:
-    lib = build.load("sweep_exchange")
-    if lib.sweep_sparse_exchange_launch.argtypes is None:
-        lib.sweep_sparse_exchange_launch.argtypes = _EXCHANGE_ARGTYPES
-        lib.sweep_sparse_exchange_launch.restype = _I
-        lib.sweep_exchange_max_blocks.argtypes = [
-            _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
-        lib.sweep_exchange_max_blocks.restype = _I
-        lib.sweep_exchange_error_string.argtypes = [_I]
-        lib.sweep_exchange_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-# K5's residency model, for resolving ``auto`` without the card: a block
-# takes the tile's spins plus the runtime's reserved kilobyte of shared
-# memory, and the kernel's __launch_bounds__(1024) lets the compiler use up
-# to 64 registers a thread, which the model assumes it does — so the model
-# never promises more resident blocks than the occupancy API finds.
+# The mailbox body's residency model, for planning without the card: a
+# block takes the tile's spins plus the runtime's reserved kilobyte of
+# shared memory, and the kernel's __launch_bounds__(1024) lets the compiler
+# use up to 64 registers a thread, which the model assumes it does — so the
+# model never promises more resident blocks than the occupancy API finds.
 EXCHANGE_REGS_PER_THREAD = 64
 SMEM_RESERVED_PER_BLOCK = 1024
 MAX_BLOCKS_PER_SM = 32
 
 
+class ExchangePlan(NamedTuple):
+    """How one K5 launch runs: which body, CTAs per cluster, chains per
+    block and the launch geometry the CUDA source expects."""
+
+    body: str           # "cluster" or "mailbox"
+    cluster: int        # CTAs a cluster: R (cluster body) or 1
+    chains: int         # chains per block (tb)
+    threads: int
+    smem_bytes: int
+
+
 def exchange_threads(N: int) -> int:
-    """Threads of one K5 block over ``N`` extended columns."""
+    """Threads of one mailbox-body block over ``N`` extended columns."""
     return min(1024, max(64, 32 * (-(-N // 32))))
 
 
 def exchange_smem_bytes(tb: int, N: int) -> int:
-    """Shared memory of one K5 block: ``tb`` chains of ``N`` int8 spins,
-    padded to 16 bytes (``pbit::tile_spin_bytes``)."""
+    """Shared memory of one mailbox-body block: ``tb`` chains of ``N`` int8
+    spins, padded to 16 bytes (``pbit::tile_spin_bytes``)."""
     return (tb * N + 15) & ~15
 
 
 def exchange_blocks_per_sm(tb: int, N: int,
                            limits: CardLimits = H100) -> int:
-    """The model's resident K5 blocks per SM at ``tb`` chains per block (0
-    when one block's spins exceed a block's shared memory)."""
+    """The model's resident mailbox-body blocks per SM at ``tb`` chains per
+    block (0 when one block's spins exceed a block's shared memory)."""
     smem = exchange_smem_bytes(tb, N)
     if smem > limits.smem_per_block:
         return 0
@@ -1073,51 +1073,364 @@ def exchange_blocks_per_sm(tb: int, N: int,
                limits.smem_per_sm // (smem + SMEM_RESERVED_PER_BLOCK))
 
 
-def exchange_resident_feasible(R: int, B: int, N: int,
-                               limits: CardLimits = H100) -> bool:
-    """Whether some chain tiling lets all ``R·ceil(B/tb)`` blocks of one
-    K5 launch (``R`` bands, ``B`` chains, ``N`` extended columns) be
-    resident at once, by the model above."""
-    for tb in range(1, B + 1):
-        per_sm = exchange_blocks_per_sm(tb, N, limits)
-        if per_sm == 0:       # wider tiles take more shared memory still
-            return False
-        if R * -(-B // tb) <= per_sm * limits.sms:
-            return True
-    return False
+def chain_words(tb: int) -> int:
+    """Packed words of four chains a column of the cluster body holds at
+    ``tb`` chains a CTA (``csrc/sweep_exchange.cu::chain_words``): 1, 2, 4
+    or 8; chains past the tile's are not computed."""
+    return 1 if tb <= 4 else (2 if tb <= 8 else (4 if tb <= 16 else 8))
 
 
-def _exchange_tile_chains(lib, R, B, N, D, stream, threads, limits,
-                         block_b=None) -> int:
-    """Chains per K5 block: the fewest that let all ``R·ceil(B/tb)``
-    blocks be resident at once (the blocks wait for each other at every
-    exchange point), within a block's shared memory.  ``block_b`` is
-    checked instead of chosen.  Raises ValueError when no tiling fits."""
-    def resident(tb):
+def exchange_cluster_smem_bytes(tb: int, N: int, H: int) -> int:
+    """Shared memory of one CTA of the cluster body
+    (``csrc/sweep_exchange.cu::cluster_smem_bytes``): the spins, ``N``
+    columns of ``4·chain_words(tb)`` int8, the outbox of `_MAILBOX_SLOTS`
+    slots of both boundary rows (``H`` columns each), each padded to 16
+    bytes, and the sweep's betas, a float a chain of the padded tile."""
+    row = 4 * chain_words(tb)
+    return (((N * row + 15) & ~15) + ((_MAILBOX_SLOTS * 2 * H * row + 15)
+                                      & ~15) + 4 * row)
+
+
+def exchange_cluster_threads(N: int) -> int:
+    """Threads of one cluster-body CTA: a lane a list entry up to half the
+    extended columns (a 2-coloured band's colour is at most that), rounded
+    to a warp, at least 64 and at most `CLUSTER_EXCHANGE_THREADS`."""
+    return min(CLUSTER_EXCHANGE_THREADS,
+               max(64, 32 * -(-(-(-N // 2)) // 32)))
+
+
+def cluster_blocks_per_sm(tb: int, N: int, H: int,
+                          limits: CardLimits = H100) -> int:
+    """The model's resident cluster-body CTAs per SM at ``tb`` chains (0
+    when one CTA's shared memory exceeds a block's)."""
+    smem = exchange_cluster_smem_bytes(tb, N, H)
+    if smem > limits.smem_per_block:
+        return 0
+    threads = exchange_cluster_threads(N)
+    return min(MAX_BLOCKS_PER_SM, limits.threads_per_sm // threads,
+               limits.regs_per_sm // (CLUSTER_REGS_PER_THREAD * threads),
+               limits.smem_per_sm // (smem + SMEM_RESERVED_PER_BLOCK))
+
+
+def exchange_plan(R: int, B: int, N: int, D: int, stream: bool = False,
+                  limits: CardLimits = H100, *, halo: int,
+                  block_b: int | None = None, resident=None,
+                  mailbox_blocks=None) -> ExchangePlan:
+    """The body and tiling of a K5 launch over ``R`` bands of ``B`` chains
+    and ``N`` extended columns (``halo`` each side), ``D`` slots;
+    ``stream``: with a next program to stage (the card's counts are asked
+    for that kernel; the model does not depend on it).
+
+    The cluster body takes D = `RESIDENT_D` and ``R`` up to
+    `MAX_EXCHANGE_CLUSTER` (a cluster is the R bands of a tile of chains),
+    where the card holds at least one such cluster.  Its chains per CTA,
+    from 4 (a packed word; B where B is smaller) to `MAX_EXCHANGE_CHAINS`:
+    the fewest whose tiles run in the fewest waves of the clusters the card
+    holds at once.  A launch's time is a wave's times the waves, and a
+    wave's grows with its chains: at the sharded path's shape an H100
+    holds 15 clusters of 8, and 256 chains took 0.158 ms at 18 a CTA in one
+    wave, 0.239 at 16 in two, 0.166 at 20 in one
+    (``benchmarks_torch/k5_parts.py``, NVIDIA H100 80GB HBM3, 700 W).
+    ``resident(plan)`` is the number of clusters of ``plan``'s shape the
+    card holds at once (the wrapper asks the card); without it the model
+    ``sms · cluster_blocks_per_sm // R``.
+    Everything else takes the mailbox body, whose blocks all wait for each
+    other: the fewest chains per block that let all ``R·ceil(B/tb)`` blocks
+    be resident at once, ``mailbox_blocks(tb)`` being how many the card
+    holds (without it the model ``exchange_blocks_per_sm · sms``).
+    ``block_b`` asks for the chains per block (the cluster body clips it
+    to 1..32), which the mailbox body checks instead of choosing.  Raises
+    ValueError when no body fits."""
+    limit = limits.smem_per_block
+    if (D == RESIDENT_D and 1 <= R <= MAX_EXCHANGE_CLUSTER
+            and exchange_cluster_smem_bytes(1, N, halo) <= limit):
+        if resident is None:
+            resident = lambda plan: (  # noqa: E731
+                limits.sms * cluster_blocks_per_sm(plan.chains, N, halo,
+                                                   limits) // R)
+        top = min(B, MAX_EXCHANGE_CHAINS)
+        tiles = (range(min(4, top), top + 1) if block_b is None
+                 else (max(1, min(int(block_b), top)),))
+        threads = exchange_cluster_threads(N)
+        best = None
+        for tb in tiles:
+            plan = ExchangePlan("cluster", R, tb, threads,
+                                exchange_cluster_smem_bytes(tb, N, halo))
+            if plan.smem_bytes > limit:
+                break           # more chains take more shared memory still
+            held = resident(plan)
+            if held >= 1:
+                waves = -(-(-(-B // tb)) // held)
+                if best is None or waves < best[0]:
+                    best = (waves, plan)
+        if best is not None:
+            return best[1]
+    if mailbox_blocks is None:
+        mailbox_blocks = lambda tb: (  # noqa: E731
+            exchange_blocks_per_sm(tb, N, limits) * limits.sms)
+    threads = exchange_threads(N)
+    for tb in (range(1, B + 1) if block_b is None else (int(block_b),)):
         smem = exchange_smem_bytes(tb, N)
-        if smem > limits.smem_per_block:
-            return None
-        out = ctypes.c_int(0)
-        rc = lib.sweep_exchange_max_blocks(D, int(stream), threads, smem,
-                                           ctypes.byref(out))
-        if rc != 0:
-            raise RuntimeError(
-                f"occupancy query: CUDA error {rc} "
-                f"({lib.sweep_exchange_error_string(rc).decode()})")
-        return out.value
-
-    candidates = [int(block_b)] if block_b is not None else range(1, B + 1)
-    for tb in candidates:
-        fits = resident(tb)
-        if fits is None:
+        if smem > limit:
             break
-        if R * -(-B // tb) <= fits:
-            return tb
+        if R * -(-B // tb) <= mailbox_blocks(tb):
+            return ExchangePlan("mailbox", 1, tb, threads, smem)
     raise ValueError(
-        f"the halo-exchange kernel needs all its blocks resident at once: "
-        f"{R} bands x {B} chains of {N} columns do not fit the card at any "
-        f"tiling (block_b={block_b}); use fewer bands or chains, or "
-        f"backend='sparse'")
+        f"the halo-exchange kernel has no body for {R} bands x {B} chains "
+        f"of {N} columns (D={D}, block_b={block_b}): the cluster body takes "
+        f"D={RESIDENT_D} and up to {MAX_EXCHANGE_CLUSTER} bands, and the "
+        f"mailbox body needs all its blocks resident at once; use fewer "
+        f"bands or chains, or backend='sparse'")
+
+
+def exchange_resident_feasible(R: int, B: int, N: int, halo: int,
+                               limits: CardLimits = H100,
+                               D: int = RESIDENT_D) -> bool:
+    """Whether `exchange_plan` finds a body for one K5 launch of ``R``
+    bands, ``B`` chains and ``N`` extended columns (``D`` slots) on the
+    model of ``limits``: the cluster body at any chain count up to 16 bands
+    (D = 6), else the mailbox body where its grid can be resident."""
+    try:
+        exchange_plan(R, B, N, D, False, limits, halo=halo)
+    except ValueError:
+        return False
+    return True
+
+
+def exchange_lists(mask0: torch.Tensor, mask1: torch.Tensor):
+    """Each band's ascending update list of each colour: ``(lists, counts)``
+    with lists (R, 2, N) int64 — colour c's columns of band r in
+    ``lists[r, c, :counts[r, c]]``, zeros past the count — and counts
+    (R, 2) on the masks' device (no host sync).  The masks (R, N) leave the
+    halo columns out, so the lists do too."""
+    masks = torch.stack([mask0, mask1], dim=1).to(torch.bool)
+    N = masks.shape[-1]
+    cols = torch.arange(N, device=masks.device)
+    lists = torch.where(masks, cols, cols + N).sort(dim=-1).values
+    return (torch.where(lists < N, lists, torch.zeros_like(lists)),
+            masks.sum(dim=-1))
+
+
+def exchange_node_tables(lists, nbr_idx, nbr_w, rows, col0) -> torch.Tensor:
+    """The cluster body's node tables, in list order, structure of arrays:
+    (R, 2, 2·D + 7, L) int32 — for each entry its node, its D slot indices,
+    its D slot weights, h, gain, off, rand_gain, comp_off (floats as their
+    bits) and the counter hash's column key ``(node + col0[r]) ·
+    0xC2B2AE3D mod 2^32``.  ``col0``: each band's column 0 as int32 uint32
+    bit patterns."""
+    R, _, L = lists.shape
+    D, N = nbr_idx.shape[1:]
+
+    def slots(t):   # (R, D, N) -> (R, 2, D, L)
+        return torch.gather(t[:, None].expand(R, 2, D, N), 3,
+                            lists[:, :, None, :].expand(R, 2, D, L))
+
+    def per_node(t):    # (R, N) -> (R, 2, 1, L)
+        return torch.gather(t[:, None].expand(R, 2, N), 2, lists)[:, :, None]
+
+    key = lfsr_mod.from_u64(lfsr_mod._mul32(
+        (lists + lfsr_mod.to_u64(col0)[:, None, None]) & 0xFFFFFFFF,
+        0xC2B2AE3D))
+    bits = [per_node(x.to(torch.float32).contiguous()).view(torch.int32)
+            for x in rows]
+    return torch.cat([lists[:, :, None].to(torch.int32),
+                      slots(nbr_idx.to(torch.int32)),
+                      slots(nbr_w.to(torch.float32).contiguous()
+                            ).view(torch.int32),
+                      *bits, key[:, :, None]], dim=2).contiguous()
+
+
+
+class _ExStatic(ctypes.Structure):
+    """``csrc/sweep_exchange.cu::ExStatic``, field for field."""
+
+    _fields_ = [(n, _VP) for n in (
+        "nbr_idx", "nbr_w", "h", "gain", "off", "rg", "co", "mask0", "mask1",
+        "send_up", "send_dn", "clamp_mask", "clamp_values", "col0", "ex_pts",
+        "tab", "n_list", "mailbox", "barrier")] + [
+        (n, _I) for n in ("R", "B", "N", "D", "n_loc", "H", "n_ex",
+                          "async_mode", "L", "body", "cluster", "tb",
+                          "threads", "smem")]
+
+
+def _exchange_library() -> ctypes.CDLL:
+    return declare_exchange(build.load("sweep_exchange"))
+
+
+def declare_exchange(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a K5 library's entry points."""
+    if lib.sweep_sparse_exchange_launch.argtypes is None:
+        static = ctypes.POINTER(_ExStatic)
+        lib.sweep_sparse_exchange_launch.argtypes = (
+            [static, _VP, _VP, _VP, _I, _VP, _VP, _U]   # m, betas, S, noise, row0
+            + [_VP] * 9 + [_VP])                 # moments, stream, stream
+        lib.sweep_sparse_exchange_launch.restype = _I
+        lib.sweep_exchange_prepare.argtypes = [static]
+        lib.sweep_exchange_prepare.restype = _I
+        lib.sweep_exchange_smem_bytes.argtypes = [_I, _I, _I, _I]
+        lib.sweep_exchange_smem_bytes.restype = _I
+        lib.sweep_exchange_max_blocks.argtypes = [
+            _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+        lib.sweep_exchange_max_blocks.restype = _I
+        lib.sweep_exchange_max_clusters.argtypes = [
+            _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+        lib.sweep_exchange_max_clusters.restype = _I
+        lib.sweep_exchange_error_string.argtypes = [_I]
+        lib.sweep_exchange_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_exchange(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.sweep_exchange_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+_EXCHANGE_FIT: dict = {}   # (device, query) -> the card's answer
+
+
+def _card_fit(lib, dev, query: tuple) -> int:
+    """``sweep_exchange_max_clusters`` / ``_max_blocks`` on ``dev``, once a
+    shape."""
+    key = (dev.index, *query)
+    if key not in _EXCHANGE_FIT:
+        out = ctypes.c_int(0)
+        fn = (lib.sweep_exchange_max_clusters if query[0] == "clusters"
+              else lib.sweep_exchange_max_blocks)
+        with torch.cuda.device(dev):
+            rc = fn(*query[1:], ctypes.byref(out))
+        _raise_exchange(lib, rc, f"occupancy query {query}")
+        _EXCHANGE_FIT[key] = out.value
+    return _EXCHANGE_FIT[key]
+
+
+class ExchangeTables:
+    """What every K5 launch of one call shares, prepared once: the operands
+    on the extended block (``idx``, ``w``, ``rows``, ``masks``,
+    ``clamp_mask``, ``clamp_values``, ``send_up``, ``send_dn``, each band's
+    column 0 ``col0``, the exchange points and ``mode``), the `plan`, each
+    band's per-colour update lists (`exchange_lists`) with the cluster
+    body's node tables (`exchange_node_tables`) and, on the card, the
+    checked operands, the mailbox body's mailbox and counter, and the
+    kernel's static arguments.  `sweep_sparse_exchange` takes it as
+    ``prepared=`` with these same operands (a call with other ones
+    raises); a launch then passes only the spins, betas, noise state and
+    outputs."""
+
+    def __init__(self, nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off,
+                 mask0, mask1, send_up, send_dn, clamp_mask=None,
+                 clamp_values=None, *, chains: int, n_loc: int, halo: int,
+                 ex_pts, mode: str = "barrier", col0=None,
+                 stream: bool = False, block_b: int | None = None):
+        if mode not in ("barrier", "async"):
+            raise ValueError(f"mode must be 'barrier' or 'async', got "
+                             f"{mode!r}")
+        R, D, N = nbr_idx.shape
+        dev = nbr_w.device
+        self.idx, self.w = nbr_idx, nbr_w
+        self.rows = (h, gain, off, rand_gain, comp_off)
+        self.masks = (mask0, mask1)
+        if clamp_mask is None or clamp_values is None:
+            clamp_mask = clamp_values = None
+        self.clamp_mask, self.clamp_values = clamp_mask, clamp_values
+        self.send_up, self.send_dn = send_up, send_dn
+        if col0 is None:
+            col0 = [0] * R
+        _, self.col0 = _band_coords((0, col0), R, dev)
+        # a launch names the band columns by this tensor or by these ints
+        self.col0_ints = None if isinstance(col0, torch.Tensor) else [
+            int(c) & 0xFFFFFFFF for c in col0]
+        self.ex_pts = tuple(int(x) for x in ex_pts)
+        self.mode, self.stream = mode, bool(stream)
+        self.shape = (R, int(chains), N)
+        self.n_loc, self.halo = int(n_loc), int(halo)
+        self.lists, self.counts = exchange_lists(mask0, mask1)
+        self.tab = exchange_node_tables(self.lists, nbr_idx, nbr_w,
+                                        self.rows, self.col0)
+        self.device = dev
+        self._static = None
+        if dev.type == "cuda":
+            self._bind(block_b)
+        else:
+            self.plan = exchange_plan(R, int(chains), N, D, self.stream,
+                                      H100, halo=self.halo, block_b=block_b)
+
+    def _bind(self, block_b) -> None:
+        R, B, N = self.shape
+        D, H = self.idx.shape[1], self.halo
+        dev = self.device
+        f32, i32, u8 = torch.float32, torch.int32, torch.uint8
+        _want("nbr_idx", self.idx, i32, (R, D, N))
+        _want("nbr_w", self.w, f32, (R, D, N))
+        for name, t in zip(("h", "gain", "off", "rand_gain", "comp_off"),
+                           self.rows):
+            _want(name, t, f32, (R, N))
+        masks = [_want(n, t.to(u8).contiguous(), u8, (R, N))
+                 for n, t in zip(("mask0", "mask1"), self.masks)]
+        _want("send_up", self.send_up, i32, (R, H))
+        _want("send_dn", self.send_dn, i32, (R, H))
+        cm = None
+        if self.clamp_mask is not None:
+            cm = _want("clamp_mask", self.clamp_mask.to(u8).contiguous(),
+                       u8, (R, N))
+            _want("clamp_values", self.clamp_values, f32, (R, B, N))
+        lib = _exchange_library()
+        stream = int(self.stream)
+        self.plan = plan = exchange_plan(
+            R, B, N, D, self.stream, card_limits(dev), halo=H,
+            block_b=block_b,
+            resident=lambda p: _card_fit(
+                lib, dev, ("clusters", 4 * chain_words(p.chains), stream,
+                           p.cluster, p.threads, p.smem_bytes)),
+            mailbox_blocks=lambda tb: _card_fit(
+                lib, dev, ("blocks", D, stream, exchange_threads(N),
+                           exchange_smem_bytes(tb, N))))
+        body = EXCHANGE_BODIES[plan.body]
+        smem = lib.sweep_exchange_smem_bytes(body, plan.chains, N, H)
+        if smem != plan.smem_bytes:
+            raise RuntimeError(
+                f"exchange_plan counts {plan.smem_bytes} bytes of shared "
+                f"memory for {plan}, the kernel {smem}")
+        self.ex_pts_device = torch.tensor(self.ex_pts, dtype=i32, device=dev)
+        self.n_list = self.counts.to(i32).contiguous()
+        self.mailbox = self.barrier = None
+        if plan.body == "mailbox":
+            self.mailbox = torch.empty((_MAILBOX_SLOTS, R, 2, B, H),
+                                       dtype=torch.int8, device=dev)
+            self.barrier = torch.empty((1,), dtype=i32, device=dev)
+        self._keep = (masks, cm)    # the uint8 views the struct points at
+        st = _ExStatic(
+            *(_ptr(t) for t in (self.idx, self.w, *self.rows, *masks,
+                                self.send_up, self.send_dn, cm,
+                                self.clamp_values, self.col0,
+                                self.ex_pts_device, self.tab, self.n_list,
+                                self.mailbox, self.barrier)),
+            R, B, N, D, self.n_loc, H, len(self.ex_pts),
+            int(self.mode == "async"), self.tab.shape[-1], body,
+            plan.cluster, plan.chains, plan.threads, plan.smem_bytes)
+        with torch.cuda.device(dev):
+            _raise_exchange(lib, lib.sweep_exchange_prepare(ctypes.byref(st)),
+                            "sweep_sparse_exchange prepare")
+        self._lib, self._static = lib, st
+
+    def check(self, operands, coord_offset, *, n_loc, halo, ex_pts, mode,
+              stream) -> None:
+        """Raise unless a call names the operands, exchange points, mode,
+        band columns and program stream this was prepared for."""
+        mine = (self.idx, self.w, *self.rows, *self.masks, self.send_up,
+                self.send_dn, self.clamp_mask, self.clamp_values)
+        col0 = None if coord_offset is None else coord_offset[1]
+        same_cols = (col0 is self.col0 if isinstance(col0, torch.Tensor)
+                     else [int(c) & 0xFFFFFFFF for c in
+                           (col0 if col0 is not None
+                            else [0] * self.shape[0])] == self.col0_ints)
+        if (any(a is not b for a, b in zip(operands, mine))
+                or (n_loc, halo) != (self.n_loc, self.halo)
+                or tuple(ex_pts) != self.ex_pts or mode != self.mode
+                or bool(stream) != self.stream or not same_cols):
+            raise ValueError("these ExchangeTables were prepared for other "
+                             "operands, exchange points, mode, band columns "
+                             "or program stream")
 
 
 def sweep_sparse_exchange(
@@ -1145,10 +1458,10 @@ def sweep_sparse_exchange(
     n_loc: int,
     halo: int,
     ex_pts: tuple,                # launch-relative half-sweep indices
-    ex_pts_device: torch.Tensor | None = None,   # ex_pts as int32 on m's card
     mode: str = "barrier",
     staged=None,                  # (staged_w, staged_h) buffers, or None
-    block_b: int | None = None,   # chains per block; None -> fit the card
+    block_b: int | None = None,   # chains per block; None -> the plan's
+    prepared: ExchangeTables | None = None,
 ):
     """S resident sweeps of every row band in one launch, the halos
     refreshed inside it at every exchange point — K5.
@@ -1162,9 +1475,9 @@ def sweep_sparse_exchange(
     installed at the end.  Edge bands read zeros.  Counter noise at
     ``(chain + row0, column + col0[band])``; ``coord_offset`` gives row0 as
     a Python int and col0 as Python ints or as an int32 (R,) tensor of
-    uint32 bit patterns on m's device.  A caller that launches the same
-    shape many times passes col0 and ``ex_pts_device`` as tensors built
-    once, so a launch uploads nothing.
+    uint32 bit patterns on m's device.  ``prepared``: the `ExchangeTables`
+    of these operands (built here when not given, with ``block_b``), so a
+    caller that launches the same shape many times prepares once.
 
     Returns ``(m', noise_state'[, s_sum (R, N), c_slots (R, D, N)])`` or,
     with a next program, ``(m', noise_state', staged_w, staged_h)``;
@@ -1172,10 +1485,18 @@ def sweep_sparse_exchange(
     are integer sums and equal `sweep_sparse_exchange_ref`'s bit for bit.
 
     CPU tensors go to `sweep_sparse_exchange_ref`.  A CUDA tensor launches
-    the kernel (a cooperative launch: the grid must be resident at once,
-    or the wrapper raises) or raises; ``sweep_sparse_exchange.launches``
-    counts the launches.
+    the kernel in the body of `exchange_plan` (a cluster launch the card
+    refuses raises; so does a mailbox grid that cannot be resident) or
+    raises; ``sweep_sparse_exchange.launches`` counts the launches and
+    ``sweep_sparse_exchange.last_plan`` is the `ExchangePlan` of the latest
+    one.
     """
+    stream = next_nbr_w is not None
+    operands = (nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off, mask0,
+                mask1, send_up, send_dn, clamp_mask, clamp_values)
+    if prepared is not None:
+        prepared.check(operands, coord_offset, n_loc=n_loc, halo=halo,
+                       ex_pts=ex_pts, mode=mode, stream=stream)
     if not m.is_cuda:
         return sweep_sparse_exchange_ref(
             m, nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off, mask0,
@@ -1184,35 +1505,31 @@ def sweep_sparse_exchange(
             n_loc=n_loc, halo=halo, ex_pts=ex_pts, mode=mode, staged=staged)
 
     _check_exchange(m, n_loc, halo, mode, measured, next_nbr_w, next_h)
-    R, B, N = m.shape
+    halo_exchange_segments(ex_pts, 2 * betas.shape[0])   # checks the points
+    if prepared is None:
+        prepared = ExchangeTables(
+            *operands, chains=m.shape[1], n_loc=n_loc, halo=halo,
+            ex_pts=ex_pts, mode=mode,
+            col0=None if coord_offset is None else coord_offset[1],
+            stream=stream, block_b=block_b)
+    R, B, N = prepared.shape
     D = nbr_idx.shape[1]
     S = betas.shape[0]
-    H = halo
-    pts = halo_exchange_segments(ex_pts, 2 * S)
-    dev = m.device
-    f32, i32 = torch.float32, torch.int32
+    dev = prepared.device
+    f32 = torch.float32
+    if m.device != dev:
+        raise ValueError(f"m must lie on {dev}, the tables' device")
     _want("m", m, f32, (R, B, N))
-    _want("nbr_idx", nbr_idx, i32, (R, D, N))
-    _want("nbr_w", nbr_w, f32, (R, D, N))
-    rows = [_want(n, t, f32, (R, N)) for n, t in zip(
-        ("h", "gain", "off", "rand_gain", "comp_off"),
-        (h, gain, off, rand_gain, comp_off))]
-    masks = [_want(n, t.to(torch.uint8) if t.dtype == torch.bool else t,
-                   torch.uint8, (R, N))
-             for n, t in (("mask0", mask0), ("mask1", mask1))]
     _want("betas", betas, f32, (S, B))
-    _want("noise_state", noise_state, i32, (2,))
-    _want("send_up", send_up, i32, (R, H))
-    _want("send_dn", send_dn, i32, (R, H))
-    cm = cv = None
-    if clamp_mask is not None and clamp_values is not None:
-        cm = _want("clamp_mask", clamp_mask.to(torch.uint8)
-                   if clamp_mask.dtype == torch.bool else clamp_mask,
-                   torch.uint8, (R, N))
-        cv = _want("clamp_values", clamp_values, f32, (R, B, N))
+    _want("noise_state", noise_state, torch.int32, (2,))
+    part_s = part_c = s_out = c_out = None
     if measured is not None:
         _want("measured", measured, f32, (S,))
-    stream = next_nbr_w is not None
+        blocks = R * -(-B // prepared.plan.chains)
+        part_s = torch.empty((blocks, N), dtype=f32, device=dev)
+        part_c = torch.empty((blocks, D, N), dtype=f32, device=dev)
+        s_out = torch.empty((R, N), dtype=f32, device=dev)
+        c_out = torch.empty((R, D, N), dtype=f32, device=dev)
     if stream:
         _want("next_nbr_w", next_nbr_w, f32, (R, D, N))
         _want("next_h", next_h, f32, (R, N))
@@ -1221,50 +1538,26 @@ def sweep_sparse_exchange(
         _want("staged_w", staged[0], f32, (R, D, N))
         _want("staged_h", staged[1], f32, (R, N))
         _check_stream_buffers(nbr_w, h, next_nbr_w, next_h, staged)
-    row0, col0_t = _band_coords(coord_offset, R, dev)
-    if ex_pts_device is None:
-        ex_pts_device = torch.tensor([p0 for p0, _ in pts], dtype=i32,
-                                     device=dev)
-    _want("ex_pts_device", ex_pts_device, i32, (len(pts),))
-
-    lib = _exchange_library()
-    threads = exchange_threads(N)
-    with torch.cuda.device(dev):
-        key = (dev.index, R, B, N, D, stream, threads, block_b)
-        tb = _EXCHANGE_TILES.get(key)
-        if tb is None:
-            tb = _exchange_tile_chains(lib, R, B, N, D, stream, threads,
-                                      card_limits(dev), block_b)
-            _EXCHANGE_TILES[key] = tb
-        n_blocks = R * -(-B // tb)
-        m_out = torch.empty_like(m)
-        ns_out = torch.empty_like(noise_state)
-        part_s = part_c = s_out = c_out = None
-        if measured is not None:
-            part_s = torch.empty((n_blocks, N), dtype=f32, device=dev)
-            part_c = torch.empty((n_blocks, D, N), dtype=f32, device=dev)
-            s_out = torch.empty((R, N), dtype=f32, device=dev)
-            c_out = torch.empty((R, D, N), dtype=f32, device=dev)
-        mailbox = torch.empty((_MAILBOX_SLOTS, R, 2, B, H), dtype=torch.int8,
-                              device=dev)
-        barrier = torch.empty((1,), dtype=i32, device=dev)
-        rc = lib.sweep_sparse_exchange_launch(
-            _ptr(m), _ptr(m_out), R, B, N, D, S, int(n_loc), H,
-            _ptr(nbr_idx), _ptr(nbr_w), *map(_ptr, rows), _ptr(masks[0]),
-            _ptr(masks[1]), _ptr(betas), _ptr(send_up), _ptr(send_dn),
-            _ptr(cm), _ptr(cv), _ptr(measured), _ptr(noise_state),
-            _ptr(ns_out), row0, _ptr(col0_t), _ptr(ex_pts_device), len(pts),
-            int(mode == "async"), _ptr(part_s), _ptr(part_c), _ptr(s_out),
+    row0 = 0 if coord_offset is None else int(coord_offset[0]) & 0xFFFFFFFF
+    m_out = torch.empty_like(m)
+    ns_out = torch.empty_like(noise_state)
+    lib = prepared._lib
+    args = (ctypes.byref(prepared._static), m.data_ptr(), m_out.data_ptr(),
+            betas.data_ptr(), S, noise_state.data_ptr(), ns_out.data_ptr(),
+            row0, _ptr(measured), _ptr(part_s), _ptr(part_c), _ptr(s_out),
             _ptr(c_out), _ptr(next_nbr_w), _ptr(next_h),
             _ptr(staged[0] if stream else None),
-            _ptr(staged[1] if stream else None), _ptr(mailbox),
-            _ptr(barrier), tb, threads,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        msg = lib.sweep_exchange_error_string(rc).decode()
-        raise RuntimeError(f"sweep_sparse_exchange launch: CUDA error {rc} "
-                           f"({msg})")
+            _ptr(staged[1] if stream else None))
+    if dev.index == torch.cuda.current_device():
+        rc = lib.sweep_sparse_exchange_launch(
+            *args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.sweep_sparse_exchange_launch(
+                *args, torch.cuda.current_stream().cuda_stream)
+    _raise_exchange(lib, rc, "sweep_sparse_exchange launch")
     sweep_sparse_exchange.launches += 1
+    sweep_sparse_exchange.last_plan = prepared.plan
     outs = [m_out, ns_out]
     if measured is not None:
         outs += [s_out, c_out]
@@ -1274,6 +1567,7 @@ def sweep_sparse_exchange(
 
 
 sweep_sparse_exchange.launches = 0
+sweep_sparse_exchange.last_plan = None
 
 
 # ---------------------------------------------------------------------------

@@ -296,43 +296,67 @@ def test_auto_picks_the_exchange_kernel_for_launch_resident_policies():
 
 
 def test_auto_takes_the_scan_when_the_exchange_grid_does_not_fit():
-    """K5's blocks wait for each other, so all of them must be resident.
-    The 64x64-cell lattice on 8 bands has 4608 extended columns a band:
-    1024 threads a block, one block per SM by the model's registers, at
-    most 50 chains a block (shared memory), so 16 tiles a band on 132 SMs
-    hold 800 chains and 801 do not.  ``auto`` then picks the scan; a
-    policy without mid-launch exchange (K1 per band) stays fused."""
+    """K5 has two bodies.  The mailbox body's blocks wait for each other, so
+    all of them must be resident: the 64x64-cell lattice on 8 bands has
+    4608 extended columns a band, 1024 threads a block, one block per SM by
+    the model's registers, at most 50 chains a block (shared memory), so
+    16 tiles a band on 132 SMs hold 800 chains and 801 do not.  The cluster
+    body (up to 16 bands, a cluster the R bands of a chain tile) waits only
+    inside a cluster, so it runs any chain count in waves: 8 and 16 bands
+    take it at 801 chains.  17 bands take the mailbox body (2560 columns,
+    at most 90 chains a block, 7 tiles a band): 630 chains fit and 631 do
+    not, and ``auto`` then picks the scan; a policy without mid-launch
+    exchange stays fused (K5 with one exchange point where it fits, else
+    K1 per band)."""
     from repro_torch.kernels import sweep_fused as port_sf
 
     g = make_chimera(64, 64)
     plan = port_dist.plan_row_partition(g, 8)
-    N = plan.n_loc + 2 * plan.halo
+    N, H = plan.n_loc + 2 * plan.halo, plan.halo
     assert N == 4608
-    # the smallest tiling that fits is the one the card's occupancy API
-    # chose at 256 chains: 16 chains a block, 128 blocks
+    # the mailbox body's model: the smallest tiling that fits is the one
+    # the card's occupancy API chose at 256 chains, 16 chains a block
     per_sm = [port_sf.exchange_blocks_per_sm(tb, N) for tb in (15, 16, 50,
                                                                51)]
     assert per_sm == [1, 1, 1, 0]
     assert 8 * -(-256 // 15) > port_sf.H100.sms >= 8 * -(-256 // 16)
-    assert port_sf.exchange_resident_feasible(8, 800, N)
-    assert not port_sf.exchange_resident_feasible(8, 801, N)
+    # a slot count other than 6 leaves only the mailbox body
+    def mailbox_fits(B, limits=port_sf.H100):
+        return port_sf.exchange_resident_feasible(8, B, N, H, limits, D=5)
+    assert mailbox_fits(800) and not mailbox_fits(801)
     # a card with half the SMs holds half the chains
     half = port_sf.H100._replace(sms=66)
-    assert port_sf.exchange_resident_feasible(8, 400, N, half)
-    assert not port_sf.exchange_resident_feasible(8, 401, N, half)
+    assert mailbox_fits(400, half) and not mailbox_fits(401, half)
+    # the cluster body takes 8 and 16 bands at any chain count, on either
+    # card
+    for R, B, limits in ((8, 801, port_sf.H100), (8, 100_000, half),
+                         (16, 801, port_sf.H100)):
+        p = port_dist.plan_row_partition(g, R)
+        Nr = p.n_loc + 2 * p.halo
+        assert port_sf.exchange_resident_feasible(R, B, Nr, p.halo, limits)
+        assert port_sf.exchange_plan(R, B, Nr, 6, limits=limits,
+                                     halo=p.halo).body == "cluster"
+    p17 = port_dist.plan_row_partition(g, 17)
+    N17 = p17.n_loc + 2 * p17.halo
+    assert (N17, p17.halo) == (2560, 256)
+    assert port_sf.exchange_plan(17, 630, N17, 6, halo=256) \
+        == port_sf.ExchangePlan("mailbox", 1, 90, 1024, 230400)
+    assert port_sf.exchange_resident_feasible(17, 630, N17, 256)
+    assert not port_sf.exchange_resident_feasible(17, 631, N17, 256)
 
     mach = PortMachine.create(g, 0, sparse=True, noise="counter",
                               device="cpu")
-    mesh = port_dist.make_mesh((8,), ("data",))
     k2 = port_api.Sync(halo_every=2, sweeps_per_launch=4)
     inf = port_api.Sync(halo_every=math.inf, sweeps_per_launch=4)
     resolve = port_api.resolve_backend
-    assert resolve(mach.sampler_spec(chains=800, mesh=mesh, sync=k2)) \
-        == "fused_sparse"
-    assert resolve(mach.sampler_spec(chains=801, mesh=mesh, sync=k2)) \
-        == "sparse"
-    assert resolve(mach.sampler_spec(chains=801, mesh=mesh, sync=inf)) \
-        == "fused_sparse"
+    for bands, fits, over in ((8, 800, 801), (17, 630, 631)):
+        mesh = port_dist.make_mesh((bands,), ("data",))
+        assert resolve(mach.sampler_spec(chains=fits, mesh=mesh, sync=k2)) \
+            == "fused_sparse"
+        assert resolve(mach.sampler_spec(chains=over, mesh=mesh, sync=k2)) \
+            == ("fused_sparse" if bands <= 16 else "sparse")
+        assert resolve(mach.sampler_spec(chains=over, mesh=mesh, sync=inf)) \
+            == "fused_sparse"
 
 
 def test_fingerprint_keys_mesh_partition_and_sync():
