@@ -35,7 +35,13 @@ the kernels' launch counts set to 0 just before it and read just after:
   launches a call; the last with one exchange point a launch) and equal
   the same launches emulated as K1 windows per band (K1 per band for the
   launch-boundary policy); the sharded lattice anneal and a CD step on a
-  2x2 rows x chains mesh equal their unsharded runs.
+  2x2 rows x chains mesh equal their unsharded runs;
+* faults: `api.Faults` on the 440-spin chip (stuck spins, dead and
+  saturated couplers) through K1 against the scan, through K3 and K2
+  against ``ref``, a two-program K4 chain, the faulted 8-band lattice
+  through K5, flips on the scan and on 2 bands; crash-safe CD of the full
+  adder through K1, killed and resumed in processes of its own, bit for
+  bit.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -52,6 +58,7 @@ Output: one JSON object per line —
   {"phase": "streaming", ...}      program operand, fleet, fleet CD, K4 chain
   {"phase": "lattice_soa", ...}    K6 half-steps
   {"phase": "sharded", ...}        row bands: policies, K5, lattice, CD
+  {"phase": "faults", ...}         faulted chips on every kernel, resume
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -1997,6 +2004,473 @@ def sharded(seed: int) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase: faults and resilience
+# ---------------------------------------------------------------------------
+FAULT_RATES = dict(stuck_rate=0.02, dead_rate=0.02, saturated_rate=0.01)
+RESILIENT_EPOCHS = 10  # full-adder CD epochs of the crash-safe run
+KILL_AT = 7            # the killed run dies entering this epoch (after 6)
+FAULT_SHARD_SWEEPS = 20  # the faulted 8-band lattice: 5 K5 launches of 4
+
+# one crash-safe training run in a process of its own:
+#   python -c <this> <ckpt_dir> <kill_at or -1> <seed>
+_RESILIENT_RUN = """
+import json, os, sys
+sys.path.insert(0, {src!r})
+from repro_torch import api
+from repro_torch.core import tasks
+from repro_torch.core.cd import CDConfig, PBitMachine, train_cd_resilient
+from repro_torch.core.chimera import make_chip_graph
+from repro_torch.kernels.sweep_fused import sweep_sparse
+
+ckpt_dir, kill_at, seed = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+g = make_chip_graph()
+task = tasks.full_adder_task(g)
+faults = api.sample_faults(seed + 520, g, exclude_nodes=task.visible_idx,
+                           **{rates!r})
+mach = PBitMachine.create(g, seed + 520, noise="counter",
+                          backend="fused_sparse", device="cuda",
+                          faults=faults)
+cfg = CDConfig(lr=6.0, cd_k=10, pos_sweeps=10, burn_in=2, chains={B},
+               epochs={epochs})
+
+def maybe_kill(epoch):
+    if epoch == kill_at:
+        os._exit(3)     # a hard kill: no cleanup, no final save
+
+sweep_sparse.launches = 0
+res = train_cd_resilient(mach, task.visible_idx, task.target_dist, cfg,
+                         seed + 521, ckpt_dir=ckpt_dir, save_every=3,
+                         eval_every=cfg.epochs, on_epoch_start=maybe_kill)
+print(json.dumps({{"J": res.J_edges.tolist(), "h": res.hm.tolist(),
+                   "kl": res.kl_history[-1][1],
+                   "k1_launches": sweep_sparse.launches}}))
+"""
+
+
+def _resilient_children(seed: int, root: Path) -> dict:
+    """The crash-safe run three ways, each a process of its own: to the
+    end; killed with ``os._exit(3)`` entering epoch KILL_AT; resumed from
+    the killed run's checkpoints.  The first two run side by side."""
+    code = _RESILIENT_RUN.format(src=str(ROOT / "src"), rates=FAULT_RATES,
+                                 B=B, epochs=RESILIENT_EPOCHS)
+
+    def start(name, kill_at):
+        return subprocess.Popen(
+            [sys.executable, "-c", code, str(root / name), str(kill_at),
+             str(seed)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, cwd=ROOT)
+
+    def finish(proc):
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        return proc.returncode, out, err
+
+    procs = {"uninterrupted": start("clean", -1),
+             "killed": start("crash", KILL_AT)}
+    done = {name: finish(p) for name, p in procs.items()}
+    from repro_torch.checkpoint import checkpoint as ckpt
+    latest_after_kill = ckpt.latest_step(root / "crash")
+    done["resumed"] = finish(start("crash", -1))
+    runs = {"latest_step_after_kill": latest_after_kill}
+    for name, (rc, out, err) in done.items():
+        want = 3 if name == "killed" else 0
+        if rc != want:
+            raise AssertionError(f"the {name} training process exited {rc}, "
+                                 f"not {want}: {err[-2000:]}")
+        runs[name] = json.loads(out.strip().splitlines()[-1]) if rc == 0 \
+            else None
+    return runs
+
+
+def faults_phase(seed: int) -> dict:
+    """`api.Faults` compiled into every backend on the card, driven once
+    (`drive`), every launch replayed through its plain version:
+
+    (a) the 440-spin chip with `sample_faults` at 2 % stuck spins, 2 % dead
+        and 1 % saturated couplers, counter noise, ``auto`` (->
+        ``fused_sparse``, K1), 256 chains, an S=1000 anneal: the stuck
+        spins hold in every chain, the dead couplers' ``nbr_w`` entries are
+        0 and the saturated ones are the chip programmed at ±127; the spins
+        equal ``sparse`` (the scan) bit for bit; the same with LFSR noise
+        and stuck spins only;
+    (b) the dense chip with the same faults through ``fused`` (K3) and
+        ``pallas`` (K2), S=100, equal to ``ref``; one CD step on ``fused``
+        equal to ``ref``'s, its faulty couplers' velocity 0;
+    (c) crash-safe CD of the full adder on the 440-spin chip through
+        ``fused_sparse``, 256 chains, 10 epochs, checkpoints every 3, the
+        visible nodes kept fault-free: in this process with one injected
+        `TransientError` (retried), and three times in processes of their
+        own (uninterrupted, killed entering epoch 7, resumed from epoch
+        6): all four end with the same master weights and KL, bit for bit,
+        the dead and saturated couplers' weights exactly 0.0; the run's KL
+        evaluation is one K1 histogram launch, stuck spins as the clamp;
+    (d) a two-program chain through K4 on the faulted spec (stuck spins as
+        the clamp) equals `sample_program` program by program;
+    (e) the 64x64-cell lattice on 8 bands with stuck spins and dead
+        couplers under ``Sync(halo_every=2, sweeps_per_launch=4)``
+        (``auto`` -> K5); the 440-spin chip with flips on 2 bands under
+        ``Sync()`` equals the unsharded scan bit for bit;
+    (f) with flips ``auto`` resolves to ``sparse`` and an explicit
+        ``fused_sparse`` raises; flips are equal on ``ref`` and ``sparse``.
+    The launches of (c)'s own processes are counted there, not replayed:
+    the driven run in this process makes the same launches, replayed, and
+    the three runs must end where it does."""
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import energy, tasks
+    from repro_torch.core.cd import (CDConfig, PBitMachine, make_cd_step,
+                                     train_cd_resilient)
+    from repro_torch.core.chimera import make_chimera, make_chip_graph
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.fault_tolerance import TransientError
+
+    t_phase = time.perf_counter()
+    g = make_chip_graph()
+    rng = np.random.default_rng(seed + 500)
+    faults = api.sample_faults(seed + 500, g, **FAULT_RATES)
+    stuck = torch.as_tensor(faults.stuck_nodes, device=DEVICE)
+    stuck_v = torch.as_tensor(faults.stuck_values, dtype=torch.float32,
+                              device=DEVICE)
+
+    def holds(m):
+        return bool((m[..., stuck] == stuck_v).all())
+
+    anneal = api.Anneal(0.05, 3.0, n_sweeps=1000)
+    mach = PBitMachine.create(g, seed + 500, noise="counter", device=DEVICE,
+                              faults=faults)
+    mach_lfsr = PBitMachine.create(
+        g, seed + 502, noise="lfsr", device=DEVICE,
+        faults=api.Faults(stuck_nodes=faults.stuck_nodes,
+                          stuck_values=faults.stuck_values))
+    sessions = {
+        "counter": mach.session(schedule=anneal, chains=B),
+        "counter_scan": dataclasses.replace(mach, backend="sparse").session(
+            schedule=anneal, chains=B),
+        "lfsr": mach_lfsr.session(schedule=anneal, chains=B),
+        "lfsr_scan": dataclasses.replace(
+            mach_lfsr, backend="sparse").session(schedule=anneal, chains=B),
+        "healthy": dataclasses.replace(mach, faults=None).session(
+            schedule=anneal, chains=B)}
+    J_e, h_e = sk_edge_codes(g, rng)
+
+    dense_sched = api.Anneal(0.05, 3.0, n_sweeps=100)
+    J_d, h_d = sk_codes(g, rng)
+    dense = {b: dataclasses.replace(mach, backend=b).session(
+        schedule=dense_sched, chains=B) for b in ("fused", "pallas", "ref")}
+    task = tasks.full_adder_task(g)
+    cfg = CDConfig(lr=6.0, cd_k=10, pos_sweeps=10, burn_in=2, chains=B)
+
+    res_task_faults = api.sample_faults(seed + 520, g,
+                                        exclude_nodes=task.visible_idx,
+                                        **FAULT_RATES)
+    res_mach = PBitMachine.create(g, seed + 520, noise="counter",
+                                  backend="fused_sparse", device=DEVICE,
+                                  faults=res_task_faults)
+    res_cfg = CDConfig(lr=6.0, cd_k=10, pos_sweeps=10, burn_in=2, chains=B,
+                       epochs=RESILIENT_EPOCHS)
+
+    prog_ses = mach.session(schedule=dense_sched, chains=B)
+    prog_codes = [sk_edge_codes(g, rng) for _ in range(2)]
+
+    g64 = make_chimera(64, 64)
+    faults64 = api.sample_faults(seed + 530, g64, stuck_rate=0.02,
+                                 dead_rate=0.02)
+    mach64 = PBitMachine.create(g64, seed + 530, sparse=True,
+                                noise="counter", device=DEVICE,
+                                faults=faults64)
+    shard_sched = api.Anneal(0.05, 3.0, n_sweeps=FAULT_SHARD_SWEEPS)
+    policy = api.Sync(halo_every=2, sweeps_per_launch=4)
+    ses64 = api.Session(mach64.sampler_spec(
+        schedule=shard_sched, chains=B,
+        mesh=dist.make_mesh((SHARD_BANDS,), ("data",)), sync=policy))
+    stuck64 = torch.as_tensor(faults64.stuck_nodes, device=DEVICE)
+    stuck64_v = torch.as_tensor(faults64.stuck_values, dtype=torch.float32,
+                                device=DEVICE)
+
+    flip_faults = api.Faults(stuck_nodes=faults.stuck_nodes,
+                             stuck_values=faults.stuck_values,
+                             dead_edges=faults.dead_edges,
+                             flip_prob=0.05, flip_seed=seed + 540)
+    mach_flip = dataclasses.replace(mach, faults=flip_faults)
+    flip_sched = api.Anneal(0.05, 3.0, n_sweeps=20)
+    flips = {"auto": mach_flip.session(schedule=flip_sched, chains=B),
+             "ref": dataclasses.replace(mach_flip, backend="ref").session(
+                 schedule=flip_sched, chains=B),
+             "two_bands": api.Session(mach_flip.sampler_spec(
+                 schedule=flip_sched, chains=B,
+                 mesh=dist.make_mesh((2,), ("data",)), sync=api.Sync()))}
+
+    def chip_checks(ses, chip):
+        """Dead couplers 0 in both views; saturated ones as programmed at
+        full scale on the healthy chip."""
+        ix = lambda a: torch.as_tensor(a, device=DEVICE)  # noqa: E731
+        _, _, slot_ij, slot_ji = map(ix, mach.neighbor_tables())
+        e = ix(g.edges)
+        dead = ix(np.asarray(faults.dead_edges, np.int64))
+        sat_np = np.asarray(faults.saturated_edges, np.int64)
+        sat = ix(sat_np)
+        full = J_e.copy()
+        full[sat_np] = np.where(J_e[sat_np] < 0, -127, 127)
+        want = sessions["healthy"].program_edges(full, h_e)
+        out = {"dead_nbr_w_zero": bool(
+            (chip.nbr_w[slot_ij[dead], e[dead, 0]] == 0).all()
+            and (chip.nbr_w[slot_ji[dead], e[dead, 1]] == 0).all()),
+            "dead_W_zero": bool((chip.W[e[dead, 0], e[dead, 1]] == 0).all()),
+            "saturated_equal_full_scale": bool(
+                torch.equal(chip.nbr_w[slot_ij[sat], e[sat, 0]],
+                            want.nbr_w[slot_ij[sat], e[sat, 0]])
+                and torch.equal(chip.W[e[sat, 0], e[sat, 1]],
+                                want.W[e[sat, 0], e[sat, 1]]))}
+        return out
+
+    def path():
+        out = {}
+        # (a) the 440-spin chip, K1 against the scan
+        for noise in ("counter", "lfsr"):
+            ses, scan = sessions[noise], sessions[noise + "_scan"]
+            chip = ses.program_edges(J_e, h_e)
+            st = ses.init_state(ses.generator(seed + 501))
+            m, ns, _ = ses.sample(chip, st.m, st.noise_state)
+            m_s, ns_s, _ = scan.sample(scan.program_edges(J_e, h_e), st.m,
+                                       st.noise_state)
+            out[noise] = {"backend": [ses.backend, scan.backend],
+                          "stuck_hold": holds(m),
+                          "equal_to_scan": bool(torch.equal(m, m_s)
+                                                and torch.equal(ns, ns_s)),
+                          "spins_pm1": bool((m.abs() == 1).all())}
+            if noise == "counter":
+                out[noise].update(chip_checks(ses, chip))
+                out["_k1"] = (ses, chip, st)
+        # (b) the dense chip through K3 and K2, against ref
+        st = dense["ref"].init_state(dense["ref"].generator(seed + 511))
+        runs = {b: s.sample(s.program(J_d, h_d), st.m, st.noise_state)
+                for b, s in dense.items()}
+        steps = {}
+        for b in ("fused", "ref"):
+            step = make_cd_step(dataclasses.replace(mach, backend=b), cfg,
+                                task.visible_idx)
+            ses = dense[b]
+            gen = ses.generator(seed + 512)
+            data = torch.as_tensor(energy.all_states(len(task.visible_idx)),
+                                   dtype=torch.float32, device=DEVICE)[
+                torch.multinomial(torch.as_tensor(
+                    task.target_dist, device=DEVICE), B, replacement=True,
+                    generator=gen)]
+            Jm = torch.randn(g.n_edges, generator=gen, device=DEVICE) * 20.0
+            hm = torch.zeros(g.n_nodes, device=DEVICE)
+            vel = (torch.zeros_like(Jm), torch.zeros_like(hm))
+            steps[b] = (step(Jm, hm, data, st.m, st.noise_state, vel), Jm)
+        bad = list(faults.faulty_edges)
+        (cd_f, Jm0), (cd_r, _) = steps["fused"], steps["ref"]
+        out["dense"] = {
+            "backends": {b: s.backend for b, s in dense.items()},
+            "equal_to_ref": {b: bool(torch.equal(runs[b][0], runs["ref"][0])
+                                     and torch.equal(runs[b][1],
+                                                     runs["ref"][1]))
+                             for b in ("fused", "pallas")},
+            "stuck_hold": all(holds(r[0]) for r in runs.values()),
+            "cd_step_fused_equals_ref": all(
+                bool(torch.equal(a, b)) for a, b in zip(
+                    (*cd_f[:4], *cd_f[4]), (*cd_r[:4], *cd_r[4]))),
+            "cd_faulty_couplers_unmoved": bool(
+                torch.equal(cd_f[0][bad], Jm0[bad])
+                and (cd_f[4][0][bad] == 0).all()),
+            "cd_stuck_hold": holds(cd_f[2])}
+        # (c) crash-safe CD, in this process with one retried error
+        left = {"errors": 1}
+
+        def hiccup(epoch):
+            if epoch == 4 and left["errors"]:
+                left["errors"] -= 1
+                raise TransientError("injected")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            res = train_cd_resilient(
+                res_mach, task.visible_idx, task.target_dist, res_cfg,
+                seed + 521, ckpt_dir=tmp, save_every=3,
+                eval_every=res_cfg.epochs, on_epoch_start=hiccup,
+                backoff_s=0.0, sleep=lambda s: None)
+        out["resilient_in_process"] = {"J": res.J_edges.tolist(),
+                                       "h": res.hm.tolist(),
+                                       "kl": res.kl_history[-1][1],
+                                       "transient_errors_left":
+                                           left["errors"]}
+        # (d) a two-program chain through K4 against sample_program
+        st = prog_ses.init_state(prog_ses.generator(seed + 513))
+        progs = [prog_ses.make_program(J, h) for J, h in prog_codes]
+        m_seq, ns_seq = st.m, st.noise_state
+        for prog in progs:
+            m_seq, ns_seq, _ = prog_ses.sample_program(prog, m_seq, ns_seq)
+        chips = [prog_ses.program_edges(J, h) for J, h in prog_codes]
+        cm = torch.zeros(g.n_nodes, dtype=torch.bool, device=DEVICE)
+        cm[stuck] = True
+        m_c = st.m.clone()
+        m_c[:, stuck] = stuck_v
+        ns_c = st.noise_state
+        color = torch.as_tensor(g.color, device=DEVICE)
+        w, h = chips[0].nbr_w, chips[0].h
+        for i, chip in enumerate(chips):
+            nxt = chips[(i + 1) % 2]
+            m_c, ns_c, w, h = ops.stream_sweeps(
+                m_c, dataclasses.replace(chip, nbr_w=w, h=h), color,
+                prog_ses.default_betas, ns_c, prog_ses._noise_step.spec,
+                nxt.nbr_w, nxt.h, clamp_mask=cm)
+        out["programs"] = {"chain_equals_sample_program": bool(
+            torch.equal(m_c, m_seq) and torch.equal(ns_c, ns_seq)),
+            "stuck_hold": holds(m_c)}
+        # (e) sharded: K5 with stuck spins and dead couplers; flips on 2 bands
+        chip64 = ses64.program_edges(*sk_edge_codes(g64, rng))
+        st = ses64.init_state(ses64.generator(seed + 531))
+        m64, _, _ = ses64.sample(chip64, st.m, st.noise_state)
+        st = flips["auto"].init_state(flips["auto"].generator(seed + 541))
+        chip_f = flips["auto"].program_edges(J_e, h_e)
+        one = flips["auto"].sample(chip_f, st.m, st.noise_state)
+        two = flips["two_bands"].sample(chip_f, st.m, st.noise_state)
+        ref = flips["ref"].sample(flips["ref"].program_edges(J_e, h_e), st.m,
+                                  st.noise_state)
+        healthy = dataclasses.replace(   # the same faults without flips
+            mach_flip, faults=dataclasses.replace(flip_faults, flip_prob=0.0),
+            backend="sparse").session(schedule=flip_sched, chains=B)
+        m_h, _, _ = healthy.sample(healthy.program_edges(J_e, h_e), st.m,
+                                   st.noise_state)
+        out["sharded"] = {
+            "backend_and_loop_shape": [ses64.backend,
+                                       ses64._engine.loop_shape],
+            "stuck_hold": bool((m64[:, stuck64] == stuck64_v).all()),
+            "flips_two_bands_equal_unsharded": bool(
+                torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])),
+            "flips_two_bands_backend": flips["two_bands"].backend,
+            "flips_stuck_hold": holds(two[0])}
+        # (f) host hooks
+        try:
+            api.Session(mach_flip.sampler_spec(
+                schedule=flip_sched, chains=B).replace(
+                    backend="fused_sparse"))
+            raised = False
+        except ValueError:
+            raised = True
+        out["host_hooks"] = {
+            "auto_backend": flips["auto"].backend,
+            "explicit_fused_sparse_raises": raised,
+            "flips_ref_equal_sparse": bool(torch.equal(one[0], ref[0])
+                                           and torch.equal(one[1], ref[1])),
+            "flips_act": not bool(torch.equal(one[0], m_h))}
+        return out
+
+    out, counts, calls = drive(path)
+    summary, worst = replay_all(calls)
+    # the crash-safe run's KL evaluation (its only histogram) is a K1
+    # launch with the stuck spins out of both colour masks, replayed above
+    res_stuck = list(res_task_faults.stuck_nodes)
+    hist_calls = [(a, kw) for a, kw, _ in calls["sweep_sparse"]
+                  if kw.get("collect_hist")]
+    eval_k1 = {"hist_launches": len(hist_calls),
+               "stuck_out_of_masks": all(
+                   not bool(a[8][res_stuck].any() or a[9][res_stuck].any())
+                   for a, _ in hist_calls)}
+    k1_ses, k1_chip, k1_st = out.pop("_k1")
+    with tempfile.TemporaryDirectory() as tmp:
+        children = _resilient_children(seed, Path(tmp))
+    inproc = out.pop("resilient_in_process")
+    res_bad = list(res_task_faults.faulty_edges)
+    resilient = {
+        "epochs": RESILIENT_EPOCHS, "save_every": 3, "kill_at": KILL_AT,
+        "latest_step_after_kill": children["latest_step_after_kill"],
+        "resumed_equals_uninterrupted": all(
+            children["resumed"][k] == children["uninterrupted"][k]
+            for k in ("J", "h", "kl")),
+        "in_process_equals_uninterrupted": all(
+            inproc[k] == children["uninterrupted"][k]
+            for k in ("J", "h", "kl")),
+        "transient_error_retried": inproc["transient_errors_left"] == 0,
+        "faulty_couplers_exactly_zero": all(
+            inproc["J"][q] == 0.0 and children["resumed"]["J"][q] == 0.0
+            for q in res_bad),
+        "n_faulty_couplers": len(res_bad),
+        "kl": inproc["kl"],
+        "evaluation_k1": eval_k1,
+        "k1_launches_in_child_processes": {
+            k: children[k]["k1_launches"]
+            for k in ("uninterrupted", "resumed")}}
+
+    # K1's device time on the faulted chip and the healthy one, in turns
+    healthy = sessions["healthy"]
+    h_chip = healthy.program_edges(J_e, h_e)
+    k1_ms = {"faulted": [], "healthy": []}
+    for name in ("healthy", "faulted", "faulted", "healthy"):
+        ses, chip = ((k1_ses, k1_chip) if name == "faulted"
+                     else (healthy, h_chip))
+        k1_ms[name].append(device_kernel_ms(
+            lambda: ses.sample(chip, k1_st.m, k1_st.noise_state),
+            K1_KERNELS, 20))
+    seconds = time.perf_counter() - t_phase
+    result = {"phase": "faults", "graph": "make_chip_graph", "N": g.n_nodes,
+              "B": B, "rates": FAULT_RATES,
+              "faults": {"stuck": len(faults.stuck_nodes),
+                         "dead": len(faults.dead_edges),
+                         "saturated": len(faults.saturated_edges)},
+              "launches": counts, "launches_vs_plain_version": summary,
+              **out, "resilient": resilient,
+              "k1_device_ms": k1_ms, "k1_ab_order":
+                  "healthy, faulted, faulted, healthy (S=1000, counter)",
+              "seconds": seconds}
+    emit(result)
+    flat = [out["counter"]["stuck_hold"], out["counter"]["equal_to_scan"],
+            out["counter"]["spins_pm1"], out["counter"]["dead_nbr_w_zero"],
+            out["counter"]["dead_W_zero"],
+            out["counter"]["saturated_equal_full_scale"],
+            out["lfsr"]["stuck_hold"], out["lfsr"]["equal_to_scan"],
+            *out["dense"]["equal_to_ref"].values(),
+            out["dense"]["stuck_hold"],
+            out["dense"]["cd_step_fused_equals_ref"],
+            out["dense"]["cd_faulty_couplers_unmoved"],
+            out["dense"]["cd_stuck_hold"],
+            *out["programs"].values(),
+            out["sharded"]["stuck_hold"],
+            out["sharded"]["flips_two_bands_equal_unsharded"],
+            out["sharded"]["flips_stuck_hold"],
+            out["host_hooks"]["explicit_fused_sparse_raises"],
+            out["host_hooks"]["flips_ref_equal_sparse"],
+            out["host_hooks"]["flips_act"],
+            resilient["latest_step_after_kill"] == KILL_AT - 1,
+            resilient["resumed_equals_uninterrupted"],
+            resilient["in_process_equals_uninterrupted"],
+            resilient["transient_error_retried"],
+            resilient["faulty_couplers_exactly_zero"],
+            eval_k1["hist_launches"] == 1, eval_k1["stuck_out_of_masks"]]
+    if not all(flat):
+        raise AssertionError(f"a faults check failed: {result}")
+    want = {"counter": ["fused_sparse", "sparse"],
+            "lfsr": ["fused_sparse", "sparse"]}
+    if {k: out[k]["backend"] for k in want} != want:
+        raise AssertionError("the faulted chip did not resolve to K1")
+    if out["dense"]["backends"] != {"fused": "fused", "pallas": "pallas",
+                                    "ref": "ref"}:
+        raise AssertionError(f"dense backends {out['dense']['backends']}")
+    if out["sharded"]["backend_and_loop_shape"] != [
+            "fused_sparse", "fused-resident-exchange"] or \
+            out["sharded"]["flips_two_bands_backend"] != "sparse" or \
+            out["host_hooks"]["auto_backend"] != "sparse":
+        raise AssertionError(f"faulted specs resolved wrongly: {result}")
+    for k in ("sweep_sparse", "pbit_half_sweep", "sweep_fused"):
+        if counts[k] <= 0:
+            raise AssertionError(f"the faults path never launched {k}")
+    if counts["sweep_sparse_stream"] != 2:
+        raise AssertionError("the program chain did not run two K4 launches")
+    if counts["sweep_sparse_exchange"] != FAULT_SHARD_SWEEPS // 4:
+        raise AssertionError(f"K5 launched {counts['sweep_sparse_exchange']}"
+                             f" times, {FAULT_SHARD_SWEEPS // 4} expected")
+    result["_worst"] = worst
+    return result
+
+
+# ---------------------------------------------------------------------------
 # the kernel records
 # ---------------------------------------------------------------------------
 def _bound(moved: int, ops: int, int8_ops: int = 0) -> dict:
@@ -2432,15 +2906,16 @@ def main() -> int:
     stream, stream_calls = streaming(args.seed)
     soa, soa_calls = lattice_soa(args.seed)
     shard, shard_calls = sharded(args.seed)
+    fault = faults_phase(args.seed)
     by_path = {"sample": path["launches"], "training": train["launches"],
                "learning": learn["launches"], "workloads": work["launches"],
                "streaming": stream["launches"], "lattice_soa": soa["launches"],
-               "sharded": shard["launches"]}
+               "sharded": shard["launches"], "faults": fault["launches"]}
     worst = {"training": train.pop("_worst"), "learning": learn.pop("_worst"),
              "workloads": work.pop("_worst"),
              "streaming": stream.pop("_worst"),
              "lattice_soa": soa.pop("_worst"),
-             "sharded": shard.pop("_worst")}
+             "sharded": shard.pop("_worst"), "faults": fault.pop("_worst")}
     per_path = lambda k: {p: c[k] for p, c in by_path.items()}  # noqa: E731
     records = [kernel_record(checks, path, calls, per_path("sweep_sparse"))]
     records += dense_kernel_records(args.seed, dense_checks, train,
@@ -2449,13 +2924,14 @@ def main() -> int:
                                     *worst.values())
     records.append(stream_kernel_record(
         stream_checks, stream, stream_calls, per_path("sweep_sparse_stream"),
-        worst["streaming"]))
+        max(worst["streaming"], worst["faults"])))
     records.append(lattice_kernel_record(
         lattice_checks, soa, soa_calls, per_path("lattice_vertical_update"),
         worst["lattice_soa"]))
     records.append(exchange_kernel_record(
         exchange_checks, shard, shard_calls,
-        per_path("sweep_sparse_exchange"), worst["sharded"]))
+        per_path("sweep_sparse_exchange"),
+        max(worst["sharded"], worst["faults"])))
     emit({"kernels": records})
     emit({"phase": "timing", "run_seconds": time.perf_counter() - t_run})
 

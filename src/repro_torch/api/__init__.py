@@ -14,8 +14,11 @@
 `core.cd.PBitMachine.session(...)` builds specs/sessions from the familiar
 machine object.  A spec with ``mesh=core.distributed.make_mesh((4,),
 ("data",))``, ``partition=api.Partition(rows="data")`` and
-``sync=api.Sync(...)`` runs row-band sharded (`core.distributed`).  Counterpart of ``repro.api``.
+``sync=api.Sync(...)`` runs row-band sharded (`core.distributed`); a spec
+with ``faults=api.sample_faults(seed, g, stuck_rate=..., dead_rate=...)``
+samples a faulty chip on every backend.  Counterpart of ``repro.api``.
 """
+from repro_torch.api.faults import Faults, sample_faults
 from repro_torch.api.program import Program, fleet_member, stack_programs
 from repro_torch.api.spec import (
     BACKENDS,
@@ -46,6 +49,7 @@ __all__ = [
     "SPARSE_BACKENDS",
     "Schedule", "Constant", "Anneal", "Tempered",
     "SamplerSpec", "Session", "SessionState", "Partition", "Sync",
+    "Faults", "sample_faults",
     "program", "program_edges", "program_master",
     "Program", "fleet_member", "program_chip", "stack_programs",
     "resolve_backend",

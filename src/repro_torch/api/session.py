@@ -7,7 +7,11 @@ REPRO_PBIT_BACKEND is read) and ``device`` (a missing GPU raises), builds
 the noise step function, moves the graph's colour / edge / slot tables to
 the device and materializes the spec's `Schedule`.  A spec with a mesh
 builds the row-band `core.distributed.ShardedEngine` here, and every
-sampling entry point delegates to it with the same array contracts.
+sampling entry point delegates to it with the same array contracts.  The
+spec's `api.Faults` are compiled here too: saturated and dead couplers
+into programming, stuck spins into every entry point's clamp arguments,
+stuck LFSR bits into the noise step and transient flips into a hook the
+half-sweep loop runs.
 
 State threading is explicit everywhere: chips, spins and noise state are
 arguments and return values, never hidden attributes.  A problem can also
@@ -19,11 +23,14 @@ compiled closures has nothing to cache and is gone.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.api.faults import (FLIP_FOLD, counter_flip_fn,
+                                    lfsr_stuck_masks)
 from repro_torch.api.program import Program, fleet_member
 from repro_torch.api.spec import SamplerSpec, require_device, resolve_backend
 from repro_torch.core import pbit
@@ -70,18 +77,94 @@ def _long(a, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), device=dev).to(torch.int64)
 
 
+def _full_scale(codes: torch.Tensor) -> torch.Tensor:
+    """±127 with the sign of the requested codes (+ for zero)."""
+    return torch.where(codes < 0, -127, 127).to(codes.dtype)
+
+
+def _saturate_edge_codes(spec: SamplerSpec, codes: torch.Tensor
+                         ) -> torch.Tensor:
+    """Apply stuck-at-full-scale weight DACs to (E,) edge codes.
+
+    A saturated coupler drives ±127 regardless of the programmed code
+    (sign follows the requested code; + when zero).  Idempotent, so the
+    dense programming route may apply it again at the (n, n) level."""
+    f = spec.faults
+    if f is None or not f.saturated_edges:
+        return codes
+    sat = _long(f.saturated_edges, codes.device)
+    codes = codes.clone()
+    codes[sat] = _full_scale(codes[sat])
+    return codes
+
+
+def _apply_code_faults(spec: SamplerSpec, J_codes: torch.Tensor, enable):
+    """Dense-codes view of the saturation fault (+ forced enable)."""
+    f = spec.faults
+    if f is None or not f.saturated_edges:
+        return J_codes, enable
+    e = spec.graph.edges
+    sat = np.asarray(f.saturated_edges, np.int64)
+    i, j = _long(e[sat, 0], J_codes.device), _long(e[sat, 1], J_codes.device)
+    full = _full_scale(J_codes[i, j])
+    J_codes = J_codes.clone()
+    J_codes[i, j] = full
+    J_codes[j, i] = full
+    if enable is not None:
+        # the stuck DAC drives current whether or not the coupler was
+        # meant to be enabled
+        enable = enable.clone()
+        enable[i, j] = True
+        enable[j, i] = True
+    return J_codes, enable
+
+
+def _kill_dead_edges(spec: SamplerSpec, chip: EffectiveChip,
+                     tables) -> EffectiveChip:
+    """Open-circuit the dead couplers: zero coupling in both directions,
+    including the disabled-coupler leakage (a broken bond wire carries no
+    current at all).  Runs after programming and scaling, so it is the
+    last word on those entries."""
+    f = spec.faults
+    if f is None or not f.dead_edges:
+        return chip
+    _, _, slot_ij, slot_ji = tables
+    dev = chip.h.device
+    de = np.asarray(f.dead_edges, np.int64)
+    e = spec.graph.edges
+    i, j = _long(e[de, 0], dev), _long(e[de, 1], dev)
+    upd = {}
+    if chip.W is not None:
+        W = chip.W.clone()
+        W[i, j] = 0.0
+        W[j, i] = 0.0
+        upd["W"] = W
+    if chip.nbr_w is not None:
+        nbr_w = chip.nbr_w.clone()
+        nbr_w[_long(np.asarray(slot_ij)[de], dev), i] = 0.0
+        nbr_w[_long(np.asarray(slot_ji)[de], dev), j] = 0.0
+        upd["nbr_w"] = nbr_w
+    return dataclasses.replace(chip, **upd) if upd else chip
+
+
 def program(spec: SamplerSpec, J_codes, h_codes, enable=None, *,
             tables=None) -> EffectiveChip:
     """Program dense (n, n) symmetric 8-bit codes through the spec's
-    analog model (sparse-native specs gather the codes into slots)."""
-    nbr_idx, nbr_mask, _, _ = _graph_tables(spec, tables)
+    analog model (sparse-native specs gather the codes into slots).
+
+    The spec's `Faults` apply here: saturated couplers override their
+    codes with ±127 before the DAC transfer, dead couplers are
+    open-circuited after programming."""
+    tables = _graph_tables(spec, tables)
+    nbr_idx, nbr_mask, _, _ = tables
     dev = spec.mismatch.device
     J_codes = torch.as_tensor(J_codes, device=dev)
     h_codes = torch.as_tensor(h_codes, device=dev)
+    if enable is not None:
+        enable = torch.as_tensor(enable, device=dev)
+    J_codes, enable = _apply_code_faults(spec, J_codes, enable)
     if enable is None:
         enable = torch.abs(J_codes) > 0
-    else:
-        enable = torch.as_tensor(enable, device=dev)
     if spec.sparse_native:
         rows = torch.arange(spec.graph.n_nodes, device=dev)[None, :]
         idx = _long(nbr_idx, dev)
@@ -93,7 +176,7 @@ def program(spec: SamplerSpec, J_codes, h_codes, enable=None, *,
         neighbors = _long(nbr_idx, dev) if spec.attach_sparse else None
         chip = program_weights(J_codes, h_codes, enable, spec.mismatch,
                                spec.hw, adjacency=adj, neighbors=neighbors)
-    return _scale_chip(spec, chip)
+    return _kill_dead_edges(spec, _scale_chip(spec, chip), tables)
 
 
 def program_edges(spec: SamplerSpec, J_edge_codes, h_codes, *,
@@ -103,7 +186,8 @@ def program_edges(spec: SamplerSpec, J_edge_codes, h_codes, *,
     nbr_idx, nbr_mask, slot_ij, slot_ji = tables
     dev = spec.mismatch.device
     e = _long(spec.graph.edges, dev)
-    codes = torch.as_tensor(J_edge_codes, device=dev)
+    codes = _saturate_edge_codes(spec,
+                                 torch.as_tensor(J_edge_codes, device=dev))
     if spec.sparse_native:
         J_slots = scatter_edge_slots(
             codes, e, _long(slot_ij, dev), _long(slot_ji, dev),
@@ -112,7 +196,7 @@ def program_edges(spec: SamplerSpec, J_edge_codes, h_codes, *,
             J_slots, torch.as_tensor(h_codes, device=dev),
             torch.abs(J_slots) > 0, spec.mismatch, spec.hw,
             _long(nbr_idx, dev), torch.as_tensor(nbr_mask, device=dev))
-        return _scale_chip(spec, chip)
+        return _kill_dead_edges(spec, _scale_chip(spec, chip), tables)
     n = spec.graph.n_nodes
     J = torch.zeros((n, n), dtype=codes.dtype, device=dev)
     J[e[:, 0], e[:, 1]] = codes
@@ -165,16 +249,22 @@ class Session:
         nbr_idx, nbr_mask = g.neighbor_table()
         slot_ij, slot_ji = g.edge_slots(nbr_idx)
         self._nbr = (nbr_idx, nbr_mask, slot_ij, slot_ji)
+        self._fault_cm, self._fault_cv, self._alive_edges = \
+            self._compile_faults()
         self._noise_init, self._noise_step = self._make_noise()
+        self._flip_fn = self._make_flip_fn()
         self._engine = None
         if spec.mesh is not None:
             # row-band sharded execution: the plan, the sync policy's loop
-            # and the per-band kernels live in core/distributed.py
+            # and the per-band kernels live in core/distributed.py.  Stuck
+            # spins reach it as clamp arguments; flips and stuck LFSR bits
+            # it regenerates per band from global coordinates
             from repro_torch.core.distributed import ShardedEngine
             self._engine = ShardedEngine(
                 g, spec.mesh, spec.partitioning(), spec.noise,
                 spec.decimation, spec.chains, sync=spec.sync_policy(),
-                backend=self.backend, device=self.device)
+                backend=self.backend, device=self.device,
+                faults=spec.faults)
         self.default_betas = (
             None if spec.schedule is None
             else torch.as_tensor(spec.schedule.betas(spec.chains),
@@ -187,17 +277,105 @@ class Session:
         (`core.distributed.halo_bytes_per_sweep`)."""
         return None if self._engine is None else self._engine.plan
 
+    def _compile_faults(self):
+        """The spec's fault draw -> tensors on the Session's device.
+
+        Stuck-at-spin faults become a (N,) clamp mask + values merged into
+        every entry point's clamp arguments (the path the CD positive phase
+        and every kernel already take, which keeps the injection bit-exact
+        across backends).  Dead and saturated couplers become the (E,)
+        alive mask that gates the CD gradient: their DACs cannot take an
+        update.
+        """
+        f = self.spec.faults
+        n, n_edges = self.graph.n_nodes, self.graph.n_edges
+        cm = cv = alive = None
+        if f is not None and f.stuck_nodes:
+            cm_np = np.zeros((n,), bool)
+            cv_np = np.zeros((n,), np.float32)
+            cm_np[list(f.stuck_nodes)] = True
+            cv_np[list(f.stuck_nodes)] = np.asarray(f.stuck_values,
+                                                    np.float32)
+            cm = torch.as_tensor(cm_np, device=self.device)
+            cv = torch.as_tensor(cv_np, device=self.device)
+        if f is not None and f.faulty_edges:
+            alive_np = np.ones((n_edges,), np.float32)
+            alive_np[list(f.faulty_edges)] = 0.0
+            alive = torch.as_tensor(alive_np, device=self.device)
+        return cm, cv, alive
+
+    def _merge_faults(self, m, cm, cv):
+        """Fold the stuck-spin fault clamp into a caller's clamp args.
+
+        The stuck values are written into ``m`` up front, so a mask-only
+        (freeze-in-place) caller clamp stays mask-only; explicit caller
+        values are overridden at fault positions — a latched p-bit reads
+        its latched value even when driven by data.
+        """
+        fm, fv = self._fault_cm, self._fault_cv
+        if fm is None:
+            return m, cm, cv
+        m = torch.where(fm, fv, m.to(torch.float32)).to(m.dtype)
+        if cm is None:
+            return m, fm, None
+        cm2 = torch.as_tensor(cm, device=self.device).to(torch.bool) | fm
+        if cv is None:
+            return m, cm2, None
+        cv = torch.as_tensor(cv, dtype=torch.float32, device=self.device)
+        return m, cm2, torch.where(fm, fv, cv)
+
     def _make_noise(self) -> tuple[Callable, pbit.NoiseFn]:
         spec, dev = self.spec, self.device
         if spec.noise == "lfsr":
+            f = spec.faults
+            stuck = (lfsr_stuck_masks(f, self.graph.n_nodes // 8)
+                     if f is not None and f.lfsr_stuck else None)
             return pbit.make_lfsr_noise(spec.graph, spec.chains,
-                                        spec.decimation, device=dev)
+                                        spec.decimation, device=dev,
+                                        stuck=stuck)
         if spec.noise == "counter":
             return pbit.make_counter_noise(spec.chains, spec.graph.n_nodes,
                                            device=dev)
         step = pbit.make_philox_noise(spec.chains, spec.graph.n_nodes,
                                       device=dev)
         return (lambda gen: gen), step
+
+    def _make_flip_fn(self):
+        """Seeded transient-flip hook (`api.Faults.flip_prob`):
+        flip(noise_state) -> (B, N) bool, called with the noise state
+        *before* the half-sweep's draw.
+
+        Counter noise: a salted counter hash (seed ^ FLIP_SALT) addressed
+        by the pre-half-sweep (seed, counter) and the global (chain, node),
+        bit-exact against the reference and across shards.  Philox noise:
+        a generator seeded from a digest of the sampling generator's
+        pre-half-sweep state and ``FLIP_FOLD ^ flip_seed``; it never
+        advances the sampling generator, is the same on every loop backend
+        and replays on a resumed run, and agrees with the reference's
+        flips by rate only.
+        """
+        f = self.spec.faults
+        if f is None or f.flip_prob <= 0.0:
+            return None
+        p = float(f.flip_prob)
+        dev = self.device
+        B, n = self.spec.chains, self.graph.n_nodes
+        if self.spec.noise == "counter":
+            return counter_flip_fn(f, torch.arange(B, device=dev)[:, None],
+                                   torch.arange(n, device=dev)[None, :])
+        if self.spec.noise == "philox":
+            fold = ((FLIP_FOLD ^ int(f.flip_seed)) & 0xFFFFFFFF).to_bytes(
+                4, "little")
+
+            def flip(gen0):
+                state = gen0.get_state().numpy().tobytes()
+                seed = int.from_bytes(hashlib.blake2b(
+                    fold + state, digest_size=8).digest(), "little")
+                g = torch.Generator(device=dev).manual_seed(seed)
+                return torch.rand((B, n), generator=g, device=dev) < p
+
+            return flip
+        return None  # lfsr noise + flips: rejected by spec validation
 
     def _betas(self, betas) -> torch.Tensor:
         if betas is None:
@@ -342,15 +520,14 @@ class Session:
         ``collect=True`` returns the (S, B, N) per-sweep trajectory and
         forces the half-sweep loop (the fused engine cannot emit it).
         """
+        m, cm, cv = self._merge_faults(m, clamp_mask, clamp_values)
         if self._engine is not None:
             return self._engine.sample(chip, m, noise_state,
-                                       self._betas(betas), clamp_mask,
-                                       clamp_values, collect)
+                                       self._betas(betas), cm, cv, collect)
         return pbit.gibbs_sample(
             chip, self._color, m, self._betas(betas), noise_state,
-            self._noise_step, clamp_mask=clamp_mask,
-            clamp_values=clamp_values, collect=collect,
-            backend=self.backend)
+            self._noise_step, clamp_mask=cm, clamp_values=cv,
+            collect=collect, backend=self.backend, flip_fn=self._flip_fn)
 
     def stats(self, chip: EffectiveChip, m, noise_state, n_sweeps: int,
               burn_in: int, *, clamp_mask=None, clamp_values=None,
@@ -358,24 +535,29 @@ class Session:
         """On-line first/second moments at the spec's base beta:
         (mean_spin[N], mean_edge_corr[E], m', noise_state')."""
         beta = self.spec.beta if beta is None else float(beta)
+        m, cm, cv = self._merge_faults(m, clamp_mask, clamp_values)
         if self._engine is not None:
             return self._engine.stats(chip, m, noise_state, beta, n_sweeps,
-                                      burn_in, clamp_mask, clamp_values)
+                                      burn_in, cm, cv)
         return pbit.gibbs_stats(
             chip, self._color, m, beta, n_sweeps, burn_in, noise_state,
-            self._noise_step, self._edges, clamp_mask=clamp_mask,
-            clamp_values=clamp_values, backend=self.backend)
+            self._noise_step, self._edges, clamp_mask=cm, clamp_values=cv,
+            backend=self.backend, flip_fn=self._flip_fn)
 
     def visible_hist(self, chip: EffectiveChip, m, noise_state,
                      visible_idx: np.ndarray, burn_in: int, betas=None):
-        """Streaming visible-pattern histogram: (counts[2^nv], m', state')."""
+        """Streaming visible-pattern histogram: (counts[2^nv], m', state').
+        Stuck spins arrive as a mask-only clamp (their values written into
+        ``m``), which the fused kernels' histogram takes."""
+        m, cm, cv = self._merge_faults(m, None, None)
         if self._engine is not None:
             return self._engine.visible_hist(chip, m, noise_state,
                                              self._betas(betas), burn_in,
-                                             np.asarray(visible_idx))
+                                             np.asarray(visible_idx), cm, cv)
         return pbit.gibbs_visible_hist(
             chip, self._color, m, self._betas(betas), burn_in, noise_state,
-            self._noise_step, np.asarray(visible_idx), backend=self.backend)
+            self._noise_step, np.asarray(visible_idx), backend=self.backend,
+            clamp_mask=cm, clamp_values=cv, flip_fn=self._flip_fn)
 
     # ------------------------------------------------------------------
     # contrastive divergence (the in-situ learning step)
@@ -471,7 +653,8 @@ class Session:
             return pbit.gibbs_stats(
                 chip, self._color, m0, beta, n_sweeps, cfg.burn_in, ns,
                 self._noise_step, self._edges, clamp_mask=cm,
-                clamp_values=cv, backend=self.backend, sums=True)
+                clamp_values=cv, backend=self.backend, sums=True,
+                flip_fn=self._flip_fn)
 
         def difference(pos, neg):
             """pos_acc·pos_inv - neg_acc·neg_inv as the reference's
@@ -487,18 +670,27 @@ class Session:
             clamp_values[:, vis] = torch.as_tensor(
                 data_vis, dtype=torch.float32, device=dev)
 
-            # positive phase: visibles pinned to data
+            # positive phase: visibles pinned to data (stuck p-bits win
+            # over the data drive — the latch reads its latched value)
+            m, pos_cm, pos_cv = self._merge_faults(m, clamp_mask,
+                                                   clamp_values)
             pos_s, pos_c, pos_inv, m_pos, noise_state = phase(
-                chip, m, cfg.pos_sweeps, noise_state, clamp_mask,
-                clamp_values)
+                chip, m, cfg.pos_sweeps, noise_state, pos_cm, pos_cv)
             # negative phase: CD-k from the positive-phase state, or from
             # the persistent chains (PCD)
             neg_init = m if cfg.persistent else m_pos
             neg_s, neg_c, neg_inv, m_neg, noise_state = phase(
-                chip, neg_init, cfg.cd_k, noise_state)
+                chip, neg_init, cfg.cd_k, noise_state, self._fault_cm)
 
-            gJ = difference((pos_c, pos_inv), (neg_c, neg_inv))
+            d_corr = difference((pos_c, pos_inv), (neg_c, neg_inv))
             gh = difference((pos_s, pos_inv), (neg_s, neg_inv))
+            gJ = d_corr
+            if self._alive_edges is not None:
+                # dead/saturated couplers carry no reprogrammable DAC: their
+                # gradient is noise and would only corrupt momentum.  A
+                # multiply, as the reference does: a NaN there still trips
+                # the guard below
+                gJ = gJ * self._alive_edges
             # skip-and-log guard: a non-finite gradient (bad data batch,
             # device fault) must never reach the master weights
             ok = torch.isfinite(gJ).all() & torch.isfinite(gh).all()
@@ -521,7 +713,7 @@ class Session:
             inv_e = pbit._recip(gJ.shape[0]).to(dev)
             inv_n = pbit._recip(gh.shape[0]).to(dev)
             metrics = {
-                "corr_err": torch.abs(gJ).sum() * inv_e,
+                "corr_err": torch.abs(d_corr).sum() * inv_e,
                 "mean_err": torch.abs(gh).sum() * inv_n,
                 "update_skipped": 1.0 - ok.to(torch.float32),
             }

@@ -25,6 +25,11 @@ Counterpart of ``repro.api.spec``, single device:
     spins move between neighbouring bands) and/or the axis the chains
     shard over; a `Sync` says how often the bands exchange halos.  On one
     card every band lives on ``device``.
+  * ``faults`` — an `api.Faults` realization (stuck spins, dead and
+    saturated couplers, stuck LFSR bits, transient flips) that `Session`
+    compiles into every backend.  Flips and stuck LFSR bits run between
+    half-sweeps on the host side of the loop, so ``auto`` takes the
+    half-sweep loop under them and an explicit fused backend raises.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.api.faults import Faults
 from repro_torch.core.chimera import ChimeraGraph
 from repro_torch.core.hardware import HardwareConfig, Mismatch, SparseMismatch
 from repro_torch.core.distributed import plan_row_partition
@@ -310,6 +316,7 @@ class SamplerSpec:
     mesh: Any = None            # core.distributed.Mesh; None -> unsharded
     partition: Partition | None = None  # how to cut over mesh
     sync: Sync | None = None    # halo exchange policy; None -> Sync()
+    faults: Faults | None = None  # discrete fault injection; None -> healthy
 
     @property
     def sparse_native(self) -> bool:
@@ -350,8 +357,9 @@ class SamplerSpec:
         draws are runtime operands (`Session.sample_program`, the CD step's
         ``with_mismatch``), so two chip instances of one SKU share a key.
         The analog `HardwareConfig` scalars are not keyed: a cache mixing
-        them must key on ``hw`` separately.  ``REPRO_PBIT_BACKEND`` is read
-        as `Session` construction reads it.
+        them must key on ``hw`` separately.  A `Faults` realization is
+        keyed by its ``repr``: it changes programming and the update masks.
+        ``REPRO_PBIT_BACKEND`` is read as `Session` construction reads it.
         """
         g = self.graph
         graph_sig = ("chimera", int(g.rows), int(g.cols), int(g.k),
@@ -383,7 +391,8 @@ class SamplerSpec:
                 torch.device(self.device).type, int(self.chains),
                 float(self.beta), float(self.w_scale), int(self.decimation),
                 bool(self.attach_sparse), mesh_sig, part_sig, sync_sig,
-                sched_sig)
+                sched_sig,
+                None if self.faults is None else repr(self.faults))
 
     def validate(self) -> "SamplerSpec":
         """Static sanity checks; raises ValueError naming the fix."""
@@ -414,6 +423,7 @@ class SamplerSpec:
         if self.schedule is not None:
             self.schedule.betas(self.chains)  # raises on ladder mismatch
         self._validate_partition()
+        self._validate_faults()
         return self
 
     def _validate_partition(self) -> None:
@@ -493,6 +503,24 @@ class SamplerSpec:
                 f"size {n_chain}")
 
 
+    def _validate_faults(self) -> None:
+        f = self.faults
+        if f is None:
+            return
+        if not isinstance(f, Faults):
+            raise ValueError(
+                f"faults= must be an api.Faults instance, got "
+                f"{type(f).__name__}")
+        f.validate_for(self.graph, self.noise)
+        if f.needs_host_hooks and self.backend in FUSED_BACKENDS:
+            raise ValueError(
+                f"backend {self.backend!r} runs whole sweeps inside one "
+                f"kernel and cannot apply per-half-sweep fault hooks "
+                f"(transient flips, stuck LFSR bits); use a half-sweep "
+                f"loop backend ('ref'/'pallas'/'sparse') or backend='auto' "
+                f"(which takes the loop under these faults)")
+
+
 def require_device(device) -> torch.device:
     """The spec's device, or an error when it names a GPU that is absent."""
     dev = torch.device(device)
@@ -527,6 +555,11 @@ def resolve_backend(spec: SamplerSpec) -> str:
         raise ValueError(
             f"backend {b!r} needs in-kernel noise ('counter' or 'lfsr'), "
             f"got {spec.noise!r}")
+    if b in FUSED_BACKENDS and _fault_hooks(spec):
+        raise ValueError(
+            f"backend {b!r} cannot apply per-half-sweep fault hooks "
+            f"(transient flips / stuck LFSR bits); unset "
+            f"REPRO_PBIT_BACKEND or pick a half-sweep loop backend")
     if b in ("ref", "pallas", "fused") and spec.sparse_native:
         raise ValueError(
             f"REPRO_PBIT_BACKEND={b!r} cannot run a sparse-native spec "
@@ -542,12 +575,15 @@ def _resolve_sharded_backend(spec: SamplerSpec) -> str:
     policy's mid-launch exchanges need K5 and K5 has no body for the shape
     on the spec's card (`exchange_resident_feasible`, the card's own
     limits: the cluster body up to 16 bands at any chain count, else the
-    mailbox body, whose grid must be resident at once).  The env
-    default takes part as everywhere else, but a value the partition
-    cannot honour raises rather than being silently replaced.
+    mailbox body, whose grid must be resident at once).  Fault hooks
+    (flips, stuck LFSR bits) run between half-sweeps, so they keep the
+    sharded spec on 'sparse'.  The env default takes part as everywhere
+    else, but a value the partition cannot honour raises rather than being
+    silently replaced.
     """
     sync = spec.sync_policy()
-    fused_ok = spec.noise == "counter" and sync.fused_compatible
+    fused_ok = (spec.noise == "counter" and sync.fused_compatible
+                and not _fault_hooks(spec))
     b = spec.backend
     src = f"backend={b!r}"
     if b in (None, "auto"):
@@ -567,10 +603,11 @@ def _resolve_sharded_backend(spec: SamplerSpec) -> str:
             S = sync.sweeps_per_launch
             raise ValueError(
                 f"{src} names the fused per-band kernels, but this sharded "
-                f"spec cannot run them (needs noise='counter' and a sync "
+                f"spec cannot run them (needs noise='counter', a sync "
                 f"policy with halo_every <= sweeps_per_launch or no "
-                f"mid-launch exchange; got noise={spec.noise!r}, "
-                f"sync={sync}); nearest legal Sync: lower halo_every to "
+                f"mid-launch exchange, and no fault hooks; got noise="
+                f"{spec.noise!r}, sync={sync}, faults={spec.faults}); "
+                f"nearest legal Sync: lower halo_every to "
                 f"{S}, raise it to >= {2 * S} or math.inf, or use "
                 f"backend='sparse'")
         return b
@@ -592,14 +629,22 @@ def _exchange_fits(spec: SamplerSpec) -> bool:
                                       card_limits(spec.device))
 
 
+def _fault_hooks(spec: SamplerSpec) -> bool:
+    """Does the fault model need host-side per-half-sweep hooks?"""
+    return spec.faults is not None and spec.faults.needs_host_hooks
+
+
 def _auto_backend(spec: SamplerSpec) -> str:
     """Prefer the slot layout: the sweep-resident kernel when the noise can
     be generated in it, else the half-sweep loop.  A dense-only spec takes
     the dense resident engine when it fits Hopper's limits
     (`dense_resident_feasible`: a chain of the tile in shared memory, and
     W's rows in a cluster's shared memory or W in L2, on the spec's card:
-    `card_limits`) and the noise is in-kernel, else "ref"."""
-    in_kernel = spec.noise in IN_KERNEL_NOISE
+    `card_limits`) and the noise is in-kernel, else "ref".  Fault hooks
+    (transient flips, stuck LFSR bits) run between half-sweeps on the host
+    side of the loop, so they take the loop backends as the reference
+    does; stuck spins alone stay in the kernels (the clamp path)."""
+    in_kernel = spec.noise in IN_KERNEL_NOISE and not _fault_hooks(spec)
     if spec.has_slot_layout:
         return "fused_sparse" if in_kernel else "sparse"
     if in_kernel and dense_resident_feasible(

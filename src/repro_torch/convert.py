@@ -6,8 +6,9 @@ noise array, or the leaves of an `EffectiveChip` / `Mismatch` /
 `SparseMismatch` / `LatticeChip` in field order (what
 ``jax.tree_util.tree_leaves`` gives, with absent ``None`` fields dropped)
 or a ``{field: array}`` dict; a `Program` crosses as a ``{field: array}``
-dict.  The
-tests use only these functions to move state between the packages.
+dict, an `api.Faults` as the reference's ``dataclasses.asdict`` of it and a
+CD training state as the reference's ``CDTrainState.tree`` (numpy leaves).
+The tests use only these functions to move state between the packages.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.api.faults import Faults
 from repro_torch.api.program import Program
 from repro_torch.core import lfsr as lfsr_mod
 from repro_torch.core.distributed import LatticeChip
@@ -123,3 +125,34 @@ def noise_state_to_numpy(state: torch.Tensor) -> np.ndarray:
 def spins_from_numpy(m, device="cuda") -> torch.Tensor:
     """(B, N) ±1 spins -> float32 tensor."""
     return _f32(m, device)
+
+
+def _plain(x):
+    """A numpy scalar (or nested tuple of them) as Python numbers."""
+    if isinstance(x, (tuple, list, np.ndarray)):
+        return tuple(_plain(v) for v in x)
+    return x.item() if isinstance(x, np.generic) else x
+
+
+def faults_from_reference_fields(fields: dict) -> Faults:
+    """`api.Faults` from the reference's ``dataclasses.asdict(faults)``:
+    the same field values, so the two compare equal field for field."""
+    names = {f.name for f in dataclasses.fields(Faults)}
+    extra = set(fields) - names
+    if extra:
+        raise ValueError(f"not fields of Faults: {sorted(extra)}")
+    return Faults(**{k: _plain(v) for k, v in fields.items()})
+
+
+def cd_state_from_numpy(tree: dict, epoch: int = 0, device="cuda"):
+    """`core.cd.CDTrainState` from the reference's ``CDTrainState.tree``
+    (numpy leaves ``Jm, hm, m, noise_state, vel_J, vel_h``; its
+    ``base_key`` is the reference's own and is not carried).  The noise
+    state must be the counter pair or LFSR registers (uint32)."""
+    from repro_torch.core.cd import CDTrainState
+    return CDTrainState(
+        Jm=_f32(tree["Jm"], device), hm=_f32(tree["hm"], device),
+        m=_f32(tree["m"], device),
+        noise_state=noise_state_from_numpy(tree["noise_state"], device),
+        vel_J=_f32(tree["vel_J"], device), vel_h=_f32(tree["vel_h"], device),
+        epoch=int(epoch))

@@ -13,15 +13,17 @@ Master couplings live on the edge list (one float per physical coupler)
 and are quantized to 8-bit DAC codes on every re-program.
 
 `PBitMachine` owns the chip description (graph + mismatch + noise/backend
-choices) and hands out `api.Session`s; all sampling and programming goes
-through them.  Counterpart of ``repro.core.cd`` (crash-safe training
-comes with the faults slice).
+choices, and the `api.Faults` of a faulty chip) and hands out
+`api.Session`s; all sampling and programming goes through them.
+`train_cd_resilient` is the crash-safe loop: checkpointed, resumable bit
+for bit, retrying transient errors.  Counterpart of ``repro.core.cd``.
 Random draws come from `torch.Generator`s and agree with the reference's
 in distribution only.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -29,6 +31,8 @@ import torch
 from repro_torch import api
 from repro_torch.api.program import stack_fleet
 from repro_torch.core import energy as energy_mod
+from repro_torch.core import lfsr as lfsr_mod
+from repro_torch.runtime import fault_tolerance
 from repro_torch.core.chimera import ChimeraGraph
 from repro_torch.core.hardware import (
     EffectiveChip,
@@ -66,6 +70,7 @@ class PBitMachine:
     mesh: object = None     # core.distributed.Mesh -> row-band sharded sessions
     partition: object = None  # api.Partition; None -> rows over "data"
     sync: object = None     # api.Sync; None -> bit-exact barrier policy
+    faults: object = None   # api.Faults; None -> healthy chip
 
     @staticmethod
     def create(graph: ChimeraGraph, gen: torch.Generator | int,
@@ -119,12 +124,13 @@ class PBitMachine:
     def sampler_spec(self, schedule: api.Schedule | None = None,
                      chains: int = 256, **kw) -> api.SamplerSpec:
         """The declarative `api.SamplerSpec` for this chip instance
-        (the machine's mesh / partition / sync unless ``kw`` names
+        (the machine's mesh / partition / sync / faults unless ``kw`` names
         them)."""
         kw.setdefault("device", self.device)
         kw.setdefault("mesh", self.mesh)
         kw.setdefault("partition", self.partition)
         kw.setdefault("sync", self.sync)
+        kw.setdefault("faults", self.faults)
         return api.SamplerSpec(
             graph=self.graph, hw=self.hw, mismatch=self.mismatch,
             noise=self.noise, backend=self.backend, schedule=schedule,
@@ -325,3 +331,217 @@ def train_cd(
                       f"corr_err={met_hist[-1]['corr_err']:.4f}")
     return CDResult(Jm.cpu().numpy(), hm.cpu().numpy(), kl_hist, met_hist,
                     edges=np.asarray(g.edges), n_nodes=n)
+
+
+# -- crash-safe training ---------------------------------------------------
+
+@dataclasses.dataclass
+class CDTrainState:
+    """Everything CD training needs to resume bit-exactly after a crash:
+    master weights, chain spins, the noise state, optimizer velocity and
+    the epoch counter.  Per-epoch randomness is *derived* from the run's
+    seed (`epoch_seed`), never threaded, so restoring this state replays
+    the uninterrupted trajectory."""
+
+    Jm: torch.Tensor
+    hm: torch.Tensor
+    m: torch.Tensor
+    noise_state: object    # int32 bit patterns, or a philox generator
+    vel_J: torch.Tensor
+    vel_h: torch.Tensor
+    epoch: int = 0
+
+    def tree(self, seed: int) -> dict:
+        """Checkpointable tree (the epoch rides as the checkpoint step).  A
+        philox generator is stored as its ``get_state()`` bytes."""
+        ns = self.noise_state
+        if isinstance(ns, torch.Generator):
+            ns = ns.get_state()
+        return {"Jm": self.Jm, "hm": self.hm, "m": self.m,
+                "noise_state": ns, "vel_J": self.vel_J,
+                "vel_h": self.vel_h,
+                "seed": torch.tensor(int(seed), dtype=torch.int64)}
+
+    @staticmethod
+    def from_tree(tree: dict, epoch: int, like: "CDTrainState"
+                  ) -> "CDTrainState":
+        """The state a `tree` holds, on the devices of ``like``'s tensors;
+        a philox noise state becomes a generator on ``like``'s generator's
+        device with the saved state."""
+        ns = tree["noise_state"]
+        if isinstance(like.noise_state, torch.Generator):
+            gen = torch.Generator(device=like.noise_state.device)
+            gen.set_state(torch.as_tensor(ns, dtype=torch.uint8).cpu())
+            ns = gen
+        else:
+            ns = torch.as_tensor(ns).to(like.noise_state.device)
+
+        def to(name):
+            ref = getattr(like, name)
+            return torch.as_tensor(tree[name]).to(device=ref.device,
+                                                  dtype=ref.dtype)
+
+        return CDTrainState(Jm=to("Jm"), hm=to("hm"), m=to("m"),
+                            noise_state=ns, vel_J=to("vel_J"),
+                            vel_h=to("vel_h"), epoch=int(epoch))
+
+
+# the streams of `train_cd_resilient`'s derived randomness
+INIT_STREAM, DATA_STREAM, EVAL_STREAM = 0, 1, 2
+
+
+def epoch_seed(seed: int, stream: int, epoch: int) -> int:
+    """The 32-bit seed of one stream's generator at one epoch: the counter
+    hash (`core.lfsr.counter_bits`) of (seed, epoch, stream, seed's high
+    word), a fixed integer mix, so any epoch's draws are made without
+    replaying the epochs before it."""
+    seed = int(seed)
+    row = torch.tensor(int(stream), dtype=torch.int64)
+    col = torch.tensor((seed >> 32) & 0xFFFFFFFF, dtype=torch.int64)
+    return int(lfsr_mod.counter_bits(seed & 0xFFFFFFFF, int(epoch), row,
+                                     col))
+
+
+def _spec_fingerprint(machine: PBitMachine, cfg: CDConfig) -> dict:
+    """What must match for a resumed run to continue the same trajectory."""
+    return {"noise": machine.noise, "backend": machine.backend,
+            "chains": int(cfg.chains), "n_nodes": int(machine.graph.n_nodes),
+            "faults": repr(machine.faults)}
+
+
+def train_cd_resilient(
+    machine: PBitMachine,
+    visible_idx: np.ndarray,
+    target_dist: np.ndarray,
+    cfg: CDConfig,
+    seed: int,
+    *,
+    ckpt_dir=None,
+    save_every: int = 10,
+    resume: bool = True,
+    eval_every: int = 10,
+    max_retries: int = 3,
+    backoff_s: float = 0.05,
+    watchdog=None,
+    on_epoch_start=None,
+    sleep=time.sleep,
+    verbose: bool = False,
+) -> CDResult:
+    """`train_cd` hardened for long unattended runs on faulty virtual chips.
+
+    Differences from the plain loop:
+      * all randomness is derived from the integer ``seed``: the initial
+        spins and noise state come from a generator seeded with
+        ``epoch_seed(seed, INIT_STREAM, 0)``, epoch e's data rows from one
+        seeded with ``epoch_seed(seed, DATA_STREAM, e)`` and its
+        evaluation's sampler state from ``epoch_seed(seed, EVAL_STREAM,
+        e)``.  No generator is threaded from epoch to epoch, so a run
+        resumed from a checkpoint is bit-identical to one that never
+        crashed;
+      * every ``save_every`` epochs (and after the last) the full
+        `CDTrainState` is committed atomically through
+        `repro_torch.checkpoint` — with ``resume=True`` the loop picks up
+        from the latest complete checkpoint in ``ckpt_dir`` after checking
+        it came from the same run (noise / backend / chains / nodes /
+        faults, and the seed);
+      * each epoch runs under `retry_step` (`TransientError` -> capped,
+        jittered backoff) and feeds a `StragglerWatchdog` if one is passed;
+      * the step's non-finite guard reports through the ``update_skipped``
+        metric — skipped epochs leave the master weights untouched but
+        still advance the noise stream, keeping resume deterministic.
+
+    ``on_epoch_start(epoch)`` is called inside the retried region — tests
+    use it to raise `TransientError` or to kill the process at a chosen
+    epoch.
+    """
+    g = machine.graph
+    n, nv = g.n_nodes, len(visible_idx)
+    session = machine.session(chains=cfg.chains)
+    step = session.make_cd_step(cfg, visible_idx)
+    dev = session.device
+
+    gen0 = session.generator(epoch_seed(seed, INIT_STREAM, 0))
+    state = CDTrainState(
+        Jm=torch.zeros((g.n_edges,), dtype=torch.float32, device=dev),
+        hm=torch.zeros((n,), dtype=torch.float32, device=dev),
+        m=session.random_spins(gen0),
+        noise_state=session.noise_state(gen0),
+        vel_J=torch.zeros((g.n_edges,), dtype=torch.float32, device=dev),
+        vel_h=torch.zeros((n,), dtype=torch.float32, device=dev))
+    kl_hist, met_hist = [], []
+
+    ckpt_mod = None
+    if ckpt_dir is not None:
+        from repro_torch.checkpoint import checkpoint as ckpt_mod
+        if resume and ckpt_mod.latest_step(ckpt_dir) is not None:
+            step_no, tree, extra = ckpt_mod.load(ckpt_dir,
+                                                 target=state.tree(seed))
+            fp, saved = _spec_fingerprint(machine, cfg), extra.get("spec", {})
+            for k_, v in fp.items():
+                if k_ in saved and saved[k_] != v:
+                    raise ValueError(
+                        f"checkpoint {ckpt_dir} was written by a different "
+                        f"run: {k_}={saved[k_]!r} != {v!r}")
+            if int(tree["seed"]) != int(seed):
+                raise ValueError(
+                    f"checkpoint {ckpt_dir} was written under a different "
+                    f"seed ({int(tree['seed'])} != {int(seed)}); resuming "
+                    f"would fork the trajectory")
+            state = CDTrainState.from_tree(tree, step_no, like=state)
+            kl_hist = [tuple(x) for x in extra.get("kl_history", [])]
+            met_hist = list(extra.get("metric_history", []))
+            if verbose:
+                print(f"resumed from epoch {step_no}")
+
+    codes = torch.as_tensor(energy_mod.all_states(nv), dtype=torch.float32,
+                            device=dev)
+    target = torch.as_tensor(np.asarray(target_dist), dtype=torch.float64,
+                             device=dev)
+
+    def _save(epoch_done: int) -> None:
+        ckpt_mod.save(ckpt_dir, epoch_done, state.tree(seed),
+                      extra={"kl_history": [list(x) for x in kl_hist],
+                             "metric_history": met_hist,
+                             "spec": _spec_fingerprint(machine, cfg)})
+
+    for epoch in range(state.epoch, cfg.epochs):
+        t0 = time.perf_counter()
+        ns0 = state.noise_state
+        # a philox generator advances in place: a retried epoch restarts it
+        gen_state = (ns0.get_state() if isinstance(ns0, torch.Generator)
+                     else None)
+
+        def one_epoch():
+            if gen_state is not None:
+                ns0.set_state(gen_state)
+            if on_epoch_start is not None:
+                on_epoch_start(epoch)
+            gen = session.generator(epoch_seed(seed, DATA_STREAM, epoch))
+            idx = torch.multinomial(target, cfg.chains, replacement=True,
+                                    generator=gen)
+            return step(state.Jm, state.hm, codes[idx], state.m,
+                        state.noise_state, (state.vel_J, state.vel_h))
+
+        Jm, hm, m, noise_state, vel, metrics = fault_tolerance.retry_step(
+            one_epoch, max_retries=max_retries, backoff_s=backoff_s,
+            sleep=sleep)
+        state = CDTrainState(Jm, hm, m, noise_state, vel[0], vel[1],
+                             epoch + 1)
+        met_hist.append({k_: float(v) for k_, v in metrics.items()})
+        if met_hist[-1].get("update_skipped", 0.0) and verbose:
+            print(f"epoch {epoch+1:4d}  non-finite gradient: update skipped")
+        if watchdog is not None:
+            watchdog.observe(epoch, time.perf_counter() - t0)
+        if (epoch + 1) % eval_every == 0 or epoch == cfg.epochs - 1:
+            emp = sample_visible_dist(machine, state.Jm, state.hm,
+                                      visible_idx,
+                                      epoch_seed(seed, EVAL_STREAM, epoch))
+            kl = energy_mod.kl_divergence(np.asarray(target_dist), emp)
+            kl_hist.append((epoch + 1, kl))
+            if verbose:
+                print(f"epoch {epoch+1:4d}  KL={kl:.4f}")
+        if ckpt_mod is not None and (
+                (epoch + 1) % save_every == 0 or epoch == cfg.epochs - 1):
+            _save(epoch + 1)
+    return CDResult(state.Jm.cpu().numpy(), state.hm.cpu().numpy(), kl_hist,
+                    met_hist, edges=np.asarray(g.edges), n_nodes=n)

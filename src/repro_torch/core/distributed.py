@@ -387,12 +387,21 @@ class ShardedEngine:
     `_local_sweeps`); ``resident_exchange`` (None: the spec's device is
     CUDA) runs the fused shapes' launches through K5 instead of their
     emulation (K1 per band).
+
+    ``faults`` (an `api.Faults`): stuck spins arrive as clamp arguments
+    from the Session, as every backend takes them; what the engine owns
+    are the per-half-sweep hooks, regenerated per band from *global*
+    coordinates so the sharded trajectory reproduces the single-device
+    fault draw bit for bit under the barrier policy: transient flips (a
+    salted counter hash of the global (chain, node)) and stuck LFSR
+    register bits (per-cell masks gathered into each band's cells).  Both
+    run on the scan shapes only.
     """
 
     def __init__(self, graph: ChimeraGraph, mesh, partition, noise: str,
                  decimation: int, chains: int, *, sync=None,
                  backend: str = "sparse", device="cuda",
-                 resident_exchange: bool | None = None):
+                 resident_exchange: bool | None = None, faults=None):
         if sync is None:
             from repro_torch.api.spec import Sync
             sync = Sync()
@@ -403,7 +412,13 @@ class ShardedEngine:
         self.chains = chains
         self.sync = sync
         self.device = dev = torch.device(device)
+        self.faults = faults
         self._fused = backend == "fused_sparse"
+        if self._fused and faults is not None and faults.needs_host_hooks:
+            raise ValueError(
+                "the fused per-band kernels cannot apply per-half-sweep "
+                "fault hooks (transient flips, stuck LFSR bits); use "
+                "backend='sparse'")
         self.rows_axes = partition.rows_axes
         self.chain_axes = partition.chain_axes
         self.n_row = int(np.prod([mesh.shape[a] for a in self.rows_axes],
@@ -452,6 +467,12 @@ class ShardedEngine:
             self._dev["lfsr_perm"] = long(p.lfsr_perm)
             self._cell_ids = long(p.cell_ids)
             self._cell_inv = long(p.cell_inv)
+            if faults is not None and faults.lfsr_stuck:
+                from repro_torch.api.faults import lfsr_stuck_masks
+                s0, s1 = lfsr_stuck_masks(faults, graph.n_nodes // 8)
+                # (n_row, 1, c_loc): broadcast over each band's chains
+                self._dev["lfsr_stuck"] = (long(s0[p.cell_ids])[:, None, :],
+                                           long(s1[p.cell_ids])[:, None, :])
         if self._fused:
             # per-edge slot row into the kernels' (D, N_ext) correlation
             # table: edge q of band b lives at c_slots[edge_slot[b, q],
@@ -530,14 +551,32 @@ class ShardedEngine:
             return step
 
         perm = self._dev["lfsr_perm"]
+        stuck = self._dev.get("lfsr_stuck")
 
         def step(st):
-            s = lfsr_mod.lfsr_step_n(lfsr_mod.to_u64(st), self.decimation)
+            # stuck register bits (api.Faults.lfsr_stuck) forced after the
+            # decimated clock, before the read, as `core.pbit`'s noise does
+            s = lfsr_mod.force_stuck_bits(
+                lfsr_mod.lfsr_step_n(lfsr_mod.to_u64(st), self.decimation),
+                stuck)
             flat = lfsr_mod.flat_cell_uniforms(s)
             u = flat.gather(2, perm[:, None, :].expand(
                 -1, flat.shape[1], -1))
             return lfsr_mod.from_u64(s), u
         return step
+
+    def _flip_step(self):
+        """Transient-flip draw for every band: Bernoulli(flip_prob) per
+        (chain, node) per half-sweep from the salted counter stream over
+        global coordinates, read from the pre-half-sweep noise state (None
+        when the fault model has no flips)."""
+        f = self.faults
+        if f is None or f.flip_prob <= 0.0:
+            return None
+        from repro_torch.api.faults import counter_flip_fn
+        rows = torch.cat([off + torch.arange(self.b_loc, device=self.device)
+                          for off in self._chain_offsets()])[:, None]
+        return counter_flip_fn(f, rows, self._dev["cols"][:, None, :])
 
     def _loop_shape(self, collect: bool, hist: bool) -> str:
         """Which of the four loop shapes a call takes (see
@@ -609,6 +648,7 @@ class ShardedEngine:
         def run(chip, m, ns, betas, measured=None, cm=None, cv=None,
                 vis_idx=None, vis_w=None):
             nstep = self._noise_step()
+            fstep = self._flip_step()
             w, h = chip["w"], chip["h"]
             gain, off = chip["gain"], chip["off"]
             rg, co = chip["rg"], chip["co"]
@@ -642,6 +682,17 @@ class ShardedEngine:
                 if async_:
                     return pend[0], pend[1], fresh
                 return fresh[0], fresh[1], pend
+
+            def half_sweep(m, hu, hd, ns, c, beta_t):
+                """Colour ``c`` of every band against the halos (hu, hd),
+                then the transient flips drawn from the pre-draw state."""
+                flips = None if fstep is None else fstep(ns)
+                ns, u = nstep(ns)
+                m = halo_half_sweep(m, hu, hd, nbr, w, h, gain, off, rg, co,
+                                    masks[c], beta_t, u)
+                if flips is not None:
+                    m = torch.where(masks[c][:, None, :] & flips, -m, m)
+                return m, ns
 
             def sweep_stats(m, ru, rd, w_t, accs):
                 """Per-sweep moment / histogram accumulation against the
@@ -748,10 +799,7 @@ class ShardedEngine:
                         for c in (0, 1):
                             if 2 * s + c in ex_pts:
                                 hu, hd, pend = swap(m, hu, hd, pend)
-                            ns, u = nstep(ns)
-                            m = halo_half_sweep(m, hu, hd, nbr, w, h, gain,
-                                                off, rg, co, masks[c],
-                                                beta_t, u)
+                            m, ns = half_sweep(m, hu, hd, ns, c, beta_t)
                         if accumulate:
                             if k1_exact:
                                 # post-sweep refresh for boundary edges —
@@ -798,9 +846,7 @@ class ShardedEngine:
                     if impose:
                         m = torch.where(cm[:, None, :], cv, m)
                     for c in (0, 1):
-                        ns, u = nstep(ns)
-                        m = halo_half_sweep(m, hu, hd, nbr, w, h, gain, off,
-                                            rg, co, masks[c], betas_t[s], u)
+                        m, ns = half_sweep(m, hu, hd, ns, c, betas_t[s])
                     if accumulate or hist_w is not None:
                         accs = sweep_stats(m, hu, hd, meas_t[s], accs)
                     elif collect:

@@ -138,15 +138,30 @@ def node_gather_perm(vert_scatter, horiz_scatter, n_nodes: int) -> np.ndarray:
     return perm
 
 
+def force_stuck_bits(state: torch.Tensor, stuck) -> torch.Tensor:
+    """Force the register bits a degraded LFSR has stuck at 0 and at 1.
+
+    state: int64 in [0, 2**32); stuck: None (returns ``state``) or a pair
+    (stuck0, stuck1) of int64 bit masks that broadcast against it
+    (`api.faults.lfsr_stuck_masks`).
+    """
+    if stuck is None:
+        return state
+    s0, s1 = stuck
+    return (state & ~s0) | s1
+
+
 def lfsr_uniform_for_graph(state: torch.Tensor, gather_perm: torch.Tensor,
-                           decimation: int = 8
+                           decimation: int = 8, stuck=None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Advance the per-cell registers and emit per-node uniforms.
 
     state: public int32[..., n_cells]; gather_perm: int64[n_nodes] from
-    `node_gather_perm`.  Returns (new_state int32, u float32[..., n_nodes]).
+    `node_gather_perm`; ``stuck`` (see `force_stuck_bits`) is forced after
+    the decimated clock, before the read.  Returns (new_state int32,
+    u float32[..., n_nodes]).
     """
-    st = lfsr_step_n(to_u64(state), decimation)
+    st = force_stuck_bits(lfsr_step_n(to_u64(state), decimation), stuck)
     u = flat_cell_uniforms(st).index_select(-1, gather_perm)
     return from_u64(st), u
 

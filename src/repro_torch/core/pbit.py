@@ -122,12 +122,16 @@ def make_counter_noise(batch: int, n_nodes: int, device="cuda"
 
 
 def make_lfsr_noise(graph: ChimeraGraph, batch: int, decimation: int = 8,
-                    device="cuda") -> tuple[Callable, NoiseFn]:
+                    device="cuda", stuck=None) -> tuple[Callable, NoiseFn]:
     """Chip-faithful noise: one 32-bit LFSR per unit cell.
 
     Returns (init_fn(generator) -> state, step_fn(state) -> (state,
     u[batch, N])).  Vertical nodes read the register bytes; horizontal
     nodes read the bit-reversed bytes (paper's sharing trick).
+
+    ``stuck`` (the degraded-RNG fault, `api.faults.lfsr_stuck_masks`): a
+    pair (stuck0, stuck1) of int64 (n_cells,) masks of register bits
+    forced to 0 and to 1 at seeding and after every decimated clock.
     """
     cells = sorted(
         {(int(r), int(c)) for r, c in zip(graph.node_r, graph.node_c)}
@@ -137,12 +141,20 @@ def make_lfsr_noise(graph: ChimeraGraph, batch: int, decimation: int = 8,
     perm = lfsr_mod.node_gather_perm(vert, horiz, graph.n_nodes)
     perm_t = torch.as_tensor(perm.astype(np.int64), device=device)
     n_cells = len(cells)
+    if stuck is not None:
+        stuck = tuple(torch.as_tensor(np.asarray(s, np.int64), device=device)
+                      for s in stuck)
 
     def init(gen: torch.Generator) -> torch.Tensor:
-        return lfsr_mod.seed_states(gen, (batch, n_cells), device=device)
+        st = lfsr_mod.seed_states(gen, (batch, n_cells), device=device)
+        if stuck is None:
+            return st
+        return lfsr_mod.from_u64(
+            lfsr_mod.force_stuck_bits(lfsr_mod.to_u64(st), stuck))
 
     def step(state: torch.Tensor):
-        return lfsr_mod.lfsr_uniform_for_graph(state, perm_t, decimation)
+        return lfsr_mod.lfsr_uniform_for_graph(state, perm_t, decimation,
+                                               stuck)
 
     step.spec = NoiseSpec(kind="lfsr", decimation=decimation,
                           gather_perm=tuple(int(x) for x in perm))
@@ -182,6 +194,7 @@ def make_sweep_fn(
     clamp_mask: torch.Tensor | None = None,
     clamp_values: torch.Tensor | None = None,
     kernel: Callable | None = None,
+    flip_fn: Callable | None = None,
 ):
     """Build one full Gibbs sweep (two chromatic half-sweeps).
 
@@ -189,6 +202,14 @@ def make_sweep_fn(
     phase).  ``kernel`` is the half-sweep implementation
     ``(m, chip, update_mask, beta, u) -> m``; default: the plain dense
     `half_sweep`.  Returns sweep(m, noise_state, beta) -> (m, noise_state).
+
+    flip_fn(noise_state) -> (B, N) bool is the transient-fault hook
+    (`api.Faults.flip_prob`): just-updated spins where it reads True are
+    inverted after their half-sweep.  It reads the noise state *before*
+    the half-sweep's draw (a philox generator is advanced in place by the
+    draw, so it is read first), addressing the flip stream by the sampling
+    stream's coordinates without consuming it; clamped and stuck nodes
+    never flip (the update mask gates it).
     """
     hs = kernel if kernel is not None else half_sweep
     masks = [(color == c) for c in (0, 1)]
@@ -199,8 +220,11 @@ def make_sweep_fn(
         if clamp_values is not None:
             m = torch.where(clamp_mask, clamp_values, m)
         for mk in masks:
+            flips = None if flip_fn is None else flip_fn(ns)
             ns, u = noise_fn(ns)
             m = hs(m, chip, mk, beta, u)
+            if flips is not None:
+                m = torch.where(mk & flips, -m, m)
         return m, ns
 
     return sweep
@@ -220,8 +244,11 @@ def _resolve_kernel(backend: str, kernel: Callable | None
     return None  # "ref" (and "fused"'s loop) use the plain dense half_sweep
 
 
-def _use_fused(backend: str, kernel) -> bool:
-    return backend in FUSED_BACKENDS and kernel is None
+def _use_fused(backend: str, kernel, flip_fn=None) -> bool:
+    """The sweep-resident engines run whole sweeps in one launch: an
+    explicit ``kernel=`` or a flip hook (which runs between half-sweeps)
+    takes the half-sweep loop."""
+    return backend in FUSED_BACKENDS and kernel is None and flip_fn is None
 
 
 def _recip(x) -> torch.Tensor:
@@ -270,6 +297,7 @@ def gibbs_sample(
     collect: bool = False,
     kernel: Callable | None = None,
     backend: str | None = None,
+    flip_fn: Callable | None = None,
 ):
     """Run n_sweeps sweeps.  Returns (final_m, noise_state, traj|None).
 
@@ -278,10 +306,11 @@ def gibbs_sample(
     traj (if collect): (n_sweeps, B, N) spin states after every sweep.
     The fused engine runs every sweep inside one kernel launch; it cannot
     emit per-sweep trajectories, so ``collect`` (and an explicit
-    ``kernel=``) falls back to the half-sweep loop.
+    ``kernel=``, or a ``flip_fn`` fault hook) falls back to the half-sweep
+    loop.
     """
     backend = resolve_backend(backend)
-    if _use_fused(backend, kernel) and not collect:
+    if _use_fused(backend, kernel, flip_fn) and not collect:
         from repro_torch.kernels import ops as kernel_ops
         m, ns = kernel_ops.fused_sweeps(
             init_m, chip, color, betas, noise_state,
@@ -291,7 +320,7 @@ def gibbs_sample(
         return m, ns, None
 
     sweep = make_sweep_fn(chip, color, noise_fn, clamp_mask, clamp_values,
-                          _resolve_kernel(backend, kernel))
+                          _resolve_kernel(backend, kernel), flip_fn)
     m, ns = init_m, noise_state
     traj = []
     for beta in betas:
@@ -320,6 +349,7 @@ def gibbs_stats(
     backend: str | None = None,
     *,
     sums: bool = False,
+    flip_fn: Callable | None = None,
 ):
     """Accumulate first/second moments on-line (no trajectory storage).
 
@@ -344,7 +374,7 @@ def gibbs_stats(
     measured = (torch.arange(n_sweeps, device=dev) >= burn_in).to(
         torch.float32)
 
-    if _use_fused(backend, kernel):
+    if _use_fused(backend, kernel, flip_fn):
         from repro_torch.kernels import ops as kernel_ops
         sparse = backend == "fused_sparse"
         m, ns, s_sum, c_sum = kernel_ops.fused_sweeps(
@@ -365,7 +395,7 @@ def gibbs_stats(
         return s_sum * inv, c_edge * inv, m, ns
 
     sweep = make_sweep_fn(chip, color, noise_fn, clamp_mask, clamp_values,
-                          _resolve_kernel(backend, kernel))
+                          _resolve_kernel(backend, kernel), flip_fn)
     inv_b = _recip(init_m.shape[0]).to(dev)
     m, ns = init_m, noise_state
     s_sum = torch.zeros((init_m.shape[1],), dtype=torch.float32, device=dev)
@@ -394,14 +424,17 @@ def gibbs_visible_hist(
     backend: str | None = None,
     clamp_mask: torch.Tensor | None = None,
     clamp_values: torch.Tensor | None = None,
+    flip_fn: Callable | None = None,
 ):
     """Free-run and histogram the visible bit patterns, streaming.
 
     Returns (counts[2^nv], final_m, noise_state): counts[c] is the number
     of (chain, post-burn-in sweep) samples whose visible spins encode c
     (`energy.empirical_visible_dist` code order).  The fused backend
-    accumulates the histogram inside the kernel; a clamped call, philox
-    noise or a visible set wider than the kernel's histogram use the
+    accumulates the histogram inside the kernel, a mask-only clamp (the
+    stuck spins, written into ``init_m`` by the Session) included: the
+    clamped nodes leave both colour masks.  Clamp values, a flip hook,
+    philox noise or a visible set wider than the kernel's histogram use the
     half-sweep loop.
     """
     from repro_torch.kernels.sweep_fused import MAX_HIST_VISIBLE
@@ -413,18 +446,19 @@ def gibbs_visible_hist(
     measured = (torch.arange(n_sweeps, device=dev) >= burn_in).to(
         torch.float32)
 
-    if backend in FUSED_BACKENDS and clamp_mask is None:
+    if _use_fused(backend, None, flip_fn) and clamp_values is None:
         spec = getattr(noise_fn, "spec", None)
         if (spec is not None and spec.kind in ("counter", "lfsr")
                 and nv <= MAX_HIST_VISIBLE):
             from repro_torch.kernels import ops as kernel_ops
             m, ns, hist = kernel_ops.fused_visible_hist(
                 init_m, chip, color, betas, noise_state, spec, visible_idx,
-                measured, sparse=(backend == "fused_sparse"))
+                measured, clamp_mask=clamp_mask,
+                sparse=(backend == "fused_sparse"))
             return hist, m, ns
 
     sweep = make_sweep_fn(chip, color, noise_fn, clamp_mask, clamp_values,
-                          _resolve_kernel(backend, None))
+                          _resolve_kernel(backend, None), flip_fn)
     vis = torch.as_tensor(visible_idx, device=dev).to(torch.int64)
     pow2 = 2 ** torch.arange(nv, device=dev)
     m, ns = init_m, noise_state

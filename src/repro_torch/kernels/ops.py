@@ -166,6 +166,7 @@ def fused_visible_hist(
     noise_spec,
     visible_idx,
     measured: torch.Tensor,            # (S,) histogram weights (burn-in mask)
+    clamp_mask: torch.Tensor | None = None,
     *,
     sparse: bool = False,
 ):
@@ -173,10 +174,11 @@ def fused_visible_hist(
 
     Returns (m', noise_state', hist[2^nv]) — hist counts each measured
     sweep's visible bit pattern per chain; the (S, B, N) trajectory never
-    exists anywhere.
+    exists anywhere.  ``clamp_mask`` (N,) freezes its nodes at their value
+    in ``m`` (they leave both colour masks).
     """
     betas, mask0, mask1 = _fused_common(
-        chip, color, betas, m.shape[0], noise_spec, None, sparse)
+        chip, color, betas, m.shape[0], noise_spec, clamp_mask, sparse)
     kw = dict(measured=measured, visible_idx=visible_idx,
               noise_mode=noise_spec.kind, decimation=noise_spec.decimation,
               gather_perm=noise_spec.gather_perm, collect_hist=True,
