@@ -41,7 +41,12 @@ the kernels' launch counts set to 0 just before it and read just after:
   against ``ref``, a two-program K4 chain, the faulted 8-band lattice
   through K5, flips on the scan and on 2 bands; crash-safe CD of the full
   adder through K1, killed and resumed in processes of its own, bit for
-  bit.
+  bit;
+* psl: the PSL compiler on the 440-spin chip graph through K1's clamp path
+  (`psl.compile_circuit` -> `CompiledCircuit.run_*`, one clamped K1 launch
+  a run): AND forward and inverse, the 2-bit ripple adder forward and
+  inverse, `tasks.full_adder_inference`, and factorization with the 2-bit
+  multiplier at 128 chains and 800 sweeps.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -59,6 +64,7 @@ Output: one JSON object per line —
   {"phase": "lattice_soa", ...}    K6 half-steps
   {"phase": "sharded", ...}        row bands: policies, K5, lattice, CD
   {"phase": "faults", ...}         faulted chips on every kernel, resume
+  {"phase": "psl", ...}            compiled circuits: rows, factors, ms
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -2471,6 +2477,160 @@ def faults_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: the PSL compiler through K1's clamp path
+# ---------------------------------------------------------------------------
+FACTOR_CHAINS, FACTOR_SWEEPS = 128, 800   # examples/factorize.py, full mode
+FACTOR_PRODUCTS = (2, 3, 4, 6, 9)
+ADDER_PAIRS = {(0, 2), (1, 1), (2, 0)}    # the preimage of sum = 2
+
+
+def _factor_pairs(r) -> dict:
+    """Clause-valid (a, b) samples of a multiplier's inverse run."""
+    valid = r.valid_mask()
+    pairs: dict = {}
+    for a, b in zip(r.port_values("a")[valid].tolist(),
+                    r.port_values("b")[valid].tolist()):
+        pairs[(a, b)] = pairs.get((a, b), 0) + 1
+    return pairs
+
+
+def _k1_plan(calls, chains: int) -> dict:
+    """The `sparse_plan` of the recorded K1 launches at ``chains``."""
+    args, kwargs, _ = next(c for c in calls if c[0][0].shape[0] == chains)
+    plan = sparse_plan_of(args, kwargs)
+    return {"body": plan.body, "chains_per_block": plan.chains,
+            "threads": plan.threads,
+            "blocks": -(-chains // plan.chains), "S": args[10].shape[0]}
+
+
+def psl_phase(seed: int) -> dict:
+    """The PSL compiler on the 440-spin chip graph, through
+    `psl.compile_circuit` and `CompiledCircuit.run_*` (``auto`` + counter
+    noise -> ``fused_sparse``: every run is one clamped K1 launch), driven
+    once (`drive`), every launch replayed through the plain version:
+
+    (a) AND at `compile_circuit`'s defaults (64 chains, 300 sweeps): the 4
+        forward rows give y = a & b; inverse y = 1 gives (1, 1); inverse
+        y = 0 has clause-valid samples, all with a & b = 0;
+    (b) the 2-bit ripple adder: 16 forward rows give sum + 4 cout = a + b;
+        inverse sum = 2, cout = 0 gives valid pairs within {(0,2), (1,1),
+        (2,0)};
+    (c) `tasks.full_adder_inference` on the chip graph: >= 7 of 8 rows,
+        broken chains < 0.2;
+    (d) factorization with the 2-bit multiplier at `examples/factorize.py`'s
+        full-mode sizes (128 chains, 800 sweeps, products 2, 3, 4, 6, 9):
+        every clause-valid sample a true factorization, each product one.
+    Then ms per `run` (CUDA events, median of 3 after a warm-up) and K1's
+    device ms at 64 and 128 chains."""
+    from repro_torch import psl
+    from repro_torch.core import tasks
+    from repro_torch.core.chimera import make_chip_graph
+
+    t_phase = time.perf_counter()
+    g = make_chip_graph()
+
+    def path():
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        gate = psl.compile_circuit(psl.and_circuit(), g, device=DEVICE)
+        forward = {(a, b): gate.run_forward(gen, {"a": a, "b": b}).infer("y")
+                   for a in (0, 1) for b in (0, 1)}
+        inv1 = gate.run_inverse(gen, {"y": 1})
+        inv0 = gate.run_inverse(gen, {"y": 0})
+        valid0 = inv0.valid_mask()
+        and_out = {
+            "forward_rows_correct": sum(y == (a & b)
+                                        for (a, b), y in forward.items()),
+            "inverse_y1": [inv1.infer("a"), inv1.infer("b")],
+            "inverse_y0_valid": int(valid0.sum()),
+            "inverse_y0_and_zero": bool(np.all(
+                (inv0.port_values("a")[valid0]
+                 & inv0.port_values("b")[valid0]) == 0))}
+
+        adder = psl.compile_circuit(psl.ripple_adder_circuit(2), g,
+                                    device=DEVICE)
+        rows = 0
+        for a in range(4):
+            for b in range(4):
+                r = adder.run_forward(gen, {"a": a, "b": b})
+                rows += r.infer("sum") + (r.infer("cout") << 2) == a + b
+        inv = adder.run_inverse(gen, {"sum": 2, "cout": 0})
+        adder_out = {"forward_rows_correct": rows,
+                     "inverse_pairs": sorted(_factor_pairs(inv)),
+                     "broken_chain_fraction": inv.broken_chain_fraction}
+
+        fa = tasks.full_adder_inference(
+            g, gen=torch.Generator(device=DEVICE).manual_seed(seed + 3),
+            device=DEVICE)
+
+        mult = psl.compile_circuit(psl.multiplier_circuit(2), g,
+                                   chains=FACTOR_CHAINS,
+                                   n_sweeps=FACTOR_SWEEPS, device=DEVICE)
+        factors = {}
+        for product in FACTOR_PRODUCTS:
+            r = mult.run_inverse(gen, {"prod": product})
+            pairs = _factor_pairs(r)
+            factors[product] = {
+                "pairs": {f"{a}x{b}": c
+                          for (a, b), c in sorted(pairs.items())},
+                "wrong": [f"{a}x{b}" for a, b in pairs if a * b != product],
+                "valid_fraction": float(r.valid_mask().mean()),
+                "broken_chain_fraction": r.broken_chain_fraction}
+        backends = {c.session().backend for c in (gate, adder, mult)}
+        return (gate, mult, and_out, adder_out, fa, factors, backends,
+                mult.embedding.stats())
+
+    (gate, mult, and_out, adder_out, fa, factors, backends, mult_stats), \
+        counts, calls = drive(path)
+    summary, worst = replay_all(calls)
+    plans = {str(b): _k1_plan(calls["sweep_sparse"], b)
+             for b in (gate.spec.chains, FACTOR_CHAINS)}
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
+    runs = {str(gate.spec.chains): lambda: gate.run_forward(
+                gen, {"a": 1, "b": 1}),
+            str(FACTOR_CHAINS): lambda: mult.run_inverse(gen, {"prod": 6})}
+    run_ms = {b: cuda_ms(fn) for b, fn in runs.items()}
+    k1_ms = {b: device_kernel_ms(fn, K1_KERNELS, 5) for b, fn in runs.items()}
+    out = {"phase": "psl", "graph": "make_chip_graph", "N": g.n_nodes,
+           "backends": sorted(backends), "launches": counts,
+           "launches_vs_plain_version": summary,
+           "and_gate": and_out, "ripple_adder_2bit": adder_out,
+           "full_adder_inference": {
+               "rows_correct": fa["rows_correct"],
+               "broken_chain_fraction": fa["broken_chain_fraction"],
+               "rows": {f"{a}{b}{c}": list(v)
+                        for (a, b, c), v in sorted(fa["rows"].items())}},
+           "factorize": {"multiplier": mult_stats, "chains": FACTOR_CHAINS,
+                         "sweeps": FACTOR_SWEEPS,
+                         "products": {str(k): v for k, v in factors.items()}},
+           "k1_plans": plans, "run_ms": run_ms, "k1_device_ms": k1_ms,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    expected = 6 + 17 + 8 + len(FACTOR_PRODUCTS)
+    checks = {
+        "backends": backends == {"fused_sparse"},
+        "k1_launches": counts["sweep_sparse"] == expected,
+        "other_kernels_idle": all(counts[k] == 0 for k in KERNELS
+                                  if k != "sweep_sparse"),
+        "and_forward": and_out["forward_rows_correct"] == 4,
+        "and_inverse_y1": and_out["inverse_y1"] == [1, 1],
+        "and_inverse_y0": (and_out["inverse_y0_valid"] > 0
+                           and and_out["inverse_y0_and_zero"]),
+        "adder_forward": adder_out["forward_rows_correct"] == 16,
+        "adder_inverse": (bool(adder_out["inverse_pairs"]) and set(
+            map(tuple, adder_out["inverse_pairs"])) <= ADDER_PAIRS),
+        "full_adder_rows": fa["rows_correct"] >= 7,
+        "full_adder_broken": fa["broken_chain_fraction"] < 0.2,
+        "factorize": all(v["pairs"] and not v["wrong"]
+                         for v in factors.values())}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"a psl check failed: {failed}")
+    out["_worst"] = worst
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the kernel records
 # ---------------------------------------------------------------------------
 def _bound(moved: int, ops: int, int8_ops: int = 0) -> dict:
@@ -2907,15 +3067,18 @@ def main() -> int:
     soa, soa_calls = lattice_soa(args.seed)
     shard, shard_calls = sharded(args.seed)
     fault = faults_phase(args.seed)
+    logic = psl_phase(args.seed)
     by_path = {"sample": path["launches"], "training": train["launches"],
                "learning": learn["launches"], "workloads": work["launches"],
                "streaming": stream["launches"], "lattice_soa": soa["launches"],
-               "sharded": shard["launches"], "faults": fault["launches"]}
+               "sharded": shard["launches"], "faults": fault["launches"],
+               "psl": logic["launches"]}
     worst = {"training": train.pop("_worst"), "learning": learn.pop("_worst"),
              "workloads": work.pop("_worst"),
              "streaming": stream.pop("_worst"),
              "lattice_soa": soa.pop("_worst"),
-             "sharded": shard.pop("_worst"), "faults": fault.pop("_worst")}
+             "sharded": shard.pop("_worst"), "faults": fault.pop("_worst"),
+             "psl": logic.pop("_worst")}
     per_path = lambda k: {p: c[k] for p, c in by_path.items()}  # noqa: E731
     records = [kernel_record(checks, path, calls, per_path("sweep_sparse"))]
     records += dense_kernel_records(args.seed, dense_checks, train,

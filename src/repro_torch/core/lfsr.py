@@ -30,6 +30,8 @@ import torch
 
 GALOIS_MASK_32 = 0x80200003  # x^32 + x^22 + x^2 + x + 1
 _M32 = 0xFFFFFFFF
+_BYTE_REV = np.array(
+    [int(f"{b:08b}"[::-1], 2) for b in range(256)], dtype=np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +97,21 @@ def lfsr_step_n(state: torch.Tensor, n: int) -> torch.Tensor:
     return state
 
 
+def cell_bytes(state: torch.Tensor) -> torch.Tensor:
+    """The 4 bytes of each 32-bit state, low byte first.
+    int64[...] in [0, 2**32) -> int64[..., 4]."""
+    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int64,
+                          device=state.device)
+    return (state[..., None] >> shifts) & 0xFF
+
+
+def reverse_bytes_bits(b: torch.Tensor) -> torch.Tensor:
+    """Bit-reverse each byte (integer values in [0, 256)) through the
+    256-entry table; int64 out."""
+    table = torch.from_numpy(_BYTE_REV).to(b.device)
+    return table[b.to(torch.int64)]
+
+
 def byte_to_uniform(b: torch.Tensor) -> torch.Tensor:
     """Map a byte to a mid-tread uniform in (-1, 1), as the 8-bit RNG DAC
     does: ``(b - 127.5) / 128`` in float32 (both steps are exact)."""
@@ -107,6 +124,27 @@ def reverse_byte_bits_swar(b: torch.Tensor) -> torch.Tensor:
     b = ((b & 0xCC) >> 2) | ((b & 0x33) << 2)
     b = ((b & 0xAA) >> 1) | ((b & 0x55) << 1)
     return b
+
+
+def cell_uniforms(state: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-cell uniforms for (vertical[..., 4], horizontal[..., 4]) nodes.
+    state: int64[...] in [0, 2**32)."""
+    by = cell_bytes(state)
+    return byte_to_uniform(by), byte_to_uniform(reverse_bytes_bits(by))
+
+
+def next_uniforms(state: torch.Tensor, decimation: int = 8
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Advance states ``decimation`` clocks and emit fresh cell uniforms.
+
+    state: int64[...] in [0, 2**32).  Returns (new_state int64,
+    vert_u[..., 4], horiz_u[..., 4]); decimation=8 refreshes one
+    byte-worth of entropy per sample, as the chip's decimated clock does.
+    """
+    state = lfsr_step_n(state, decimation)
+    v, h = cell_uniforms(state)
+    return state, v, h
 
 
 def flat_cell_uniforms(state: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,9 @@ represented by the uniform distribution over its valid truth-table rows
 two Chimera cells (a 4:4 RBM per cell, per the paper), hiddens on the other.
 
 Tasks are pure data; ``BoltzmannTask.train`` / ``.sample_dist`` are the
-workload entry points and go through `core.cd` (and so `api.Session`).
-Counterpart of ``repro.core.tasks`` (the PSL full-adder inference comes
-with the PSL slice).
+workload entry points and go through `core.cd` (and so `api.Session`);
+`full_adder_inference` goes through the PSL compiler (`repro_torch.psl`).
+Counterpart of ``repro.core.tasks``.
 """
 from __future__ import annotations
 
@@ -99,6 +99,53 @@ def full_adder_task(graph: ChimeraGraph,
     vis = np.concatenate([v0[:3], v1[:2]])
     return BoltzmannTask(
         "full_adder", vis, _dist_from_rows(5, full_adder_rows()))
+
+
+def full_adder_inference(graph: ChimeraGraph | None = None, *,
+                         gen=None, chains: int = 64,
+                         **compile_kw) -> dict:
+    """Full-adder truth-table inference through the PSL compiler.
+
+    This is the *fixed* inference path for the chip's Fig-8b demo: the
+    exact gate Hamiltonian (psl/gates.py) chain-embedded onto ``graph``
+    (default: the smallest Chimera that fits, 2x2), inputs clamped per
+    row, outputs read by clause-filtered chain-majority vote
+    (psl/readout.py).  The learned-machine route (`full_adder_task` +
+    CD + raw clamped sampling) recovers only ~3/8 rows; this one
+    recovers 8/8.
+
+    ``gen`` is a `torch.Generator` on the compiled spec's device (seeded
+    0 there when omitted); the 8 rows draw from it in turn.  Every row is
+    one clamped `Session.sample` call (one K1 launch under the default
+    ``fused_sparse`` resolution).  ``compile_kw`` goes to
+    `psl.compile_circuit` (``device="cpu"`` runs the plain versions).
+
+    Returns ``{"rows_correct", "rows", "broken_chain_fraction"}`` where
+    ``rows`` maps (a, b, cin) -> (s, cout, ok).
+    """
+    import torch
+
+    from repro_torch import psl
+
+    if graph is None:
+        from repro_torch.core.chimera import make_chimera
+        graph = make_chimera(2, 2)
+    cc = psl.compile_circuit(psl.full_adder_circuit(), graph,
+                             chains=chains, **compile_kw)
+    if gen is None:
+        gen = torch.Generator(device=cc.session().device).manual_seed(0)
+    rows: dict[tuple[int, int, int], tuple[int, int, bool]] = {}
+    correct, broken = 0, []
+    for a, b, cin, s, cout in (
+            tuple((v + 1) // 2 for v in row) for row in full_adder_rows()):
+        r = cc.run_forward(gen, {"a": a, "b": b, "cin": cin})
+        got_s, got_c = r.infer("s"), r.infer("cout")
+        ok = (got_s == s and got_c == cout)
+        correct += ok
+        broken.append(r.broken_chain_fraction)
+        rows[(a, b, cin)] = (got_s, got_c, ok)
+    return {"rows_correct": correct, "rows": rows,
+            "broken_chain_fraction": float(np.mean(broken))}
 
 
 def xor_gate_task(graph: ChimeraGraph, cell: tuple[int, int] = (0, 0)

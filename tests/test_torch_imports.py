@@ -1,5 +1,6 @@
 """The port stands alone: no module under ``src/repro_torch``, no script
-under ``benchmarks_torch`` and not ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``; every
+under ``benchmarks_torch`` or ``examples_torch`` and not ``chip_smoke.py``
+imports ``jax`` or the JAX package ``repro``; every
 module imports without a GPU, ``nvcc`` or ``triton``; and the default
 device without CUDA raises instead of carrying on on the CPU."""
 import ast
@@ -16,6 +17,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = (sorted(PORT.rglob("*.py"))
            + sorted((ROOT / "benchmarks_torch").glob("*.py"))
+           + sorted((ROOT / "examples_torch").glob("*.py"))
            + [ROOT / "chip_smoke.py"])
 FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
 
@@ -63,12 +65,33 @@ def test_port_imports_without_pulling_in_jax():
         " repro_torch.core.tempering, repro_torch.core.maxcut,"
         " repro_torch.api.program, repro_torch.kernels.lattice_update,"
         " repro_torch.core.distributed, repro_torch.kernels.shard_sweep,"
-        " chip_smoke;"
+        " repro_torch.psl, repro_torch.core, chip_smoke;"
+        "from repro_torch.core import *;"
         "bad = [m for m in ('jax', 'jaxlib', 'repro') if m in sys.modules];"
         "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("first", [
+    "repro_torch.api", "repro_torch.core", "repro_torch.psl",
+    "repro_torch.kernels.sweep_fused", "repro_torch.core.lfsr"])
+def test_import_order_closes_no_cycle(first):
+    """`core/__init__` exports `core.cd`'s names, `core.cd` imports `api`,
+    whose spec imports the kernels, which import `core.lfsr`: whichever
+    module a fresh interpreter imports first, the rest follow."""
+    code = (
+        "import sys; sys.path.insert(0, 'src');"
+        f"import {first};"
+        "import repro_torch.api, repro_torch.core, repro_torch.psl;"
+        "from repro_torch.core import PBitMachine, parallel_tempering;"
+        "from repro_torch.psl import compile_circuit;"
+        "print(len(repro_torch.core.__all__), len(repro_torch.psl.__all__))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split() == ["23", "31"]
 
 
 def test_kernel_sources_ship_with_the_package():

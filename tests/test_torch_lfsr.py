@@ -183,3 +183,78 @@ def test_entry_points_default_to_the_card_or_the_generator():
     w = _words(2, (4,))
     t = port_lfsr.state_from_numpy(w, device="cpu")
     np.testing.assert_array_equal(port_lfsr.state_to_numpy(t), w)
+
+
+# -- the per-cell helpers, and twins of tests/test_lfsr.py on the port ------
+
+def test_cell_bytes_and_byte_reversal_table_bit_exact():
+    w = _words(12, (7, 11))
+    np.testing.assert_array_equal(
+        np.asarray(ref_lfsr.cell_bytes(jnp.asarray(w))),
+        _as_u32(port_lfsr.cell_bytes(_u64(w))))
+    b = np.arange(256, dtype=np.uint32)
+    rev = port_lfsr.reverse_bytes_bits(_u64(b))
+    assert rev.dtype == torch.int64
+    np.testing.assert_array_equal(
+        np.asarray(ref_lfsr.reverse_bytes_bits(jnp.asarray(b))),
+        _as_u32(rev))
+    # the table and the shift/mask form agree on every byte
+    assert torch.equal(rev, port_lfsr.reverse_byte_bits_swar(_u64(b)))
+
+
+@pytest.mark.parametrize("decimation", [1, 8, 13])
+def test_cell_and_next_uniforms_bit_exact(decimation):
+    w = _words(20 + decimation, (6, 9))
+    w[w == 0] = 1
+    rv, rh = ref_lfsr.cell_uniforms(jnp.asarray(w))
+    pv, ph = port_lfsr.cell_uniforms(_u64(w))
+    assert pv.dtype == ph.dtype == torch.float32
+    np.testing.assert_array_equal(np.asarray(rv), pv.numpy())
+    np.testing.assert_array_equal(np.asarray(rh), ph.numpy())
+    r_st, r_v, r_h = ref_lfsr.next_uniforms(jnp.asarray(w), decimation)
+    p_st, p_v, p_h = port_lfsr.next_uniforms(_u64(w), decimation)
+    np.testing.assert_array_equal(np.asarray(r_st), _as_u32(p_st))
+    np.testing.assert_array_equal(np.asarray(r_v), p_v.numpy())
+    np.testing.assert_array_equal(np.asarray(r_h), p_h.numpy())
+    # the default is the chip's decimation of 8
+    d_st, _, _ = port_lfsr.next_uniforms(_u64(w))
+    assert torch.equal(d_st, port_lfsr.lfsr_step_n(_u64(w), 8))
+
+
+def test_byte_reversal_table():
+    b = torch.arange(256, dtype=torch.int64)
+    r = port_lfsr.reverse_bytes_bits(b)
+    assert torch.equal(port_lfsr.reverse_bytes_bits(r), b)
+    assert int(r[0b00000001]) == 0b10000000
+
+
+def _seeded(seed, shape):
+    return port_lfsr.to_u64(
+        port_lfsr.seed_states(torch.Generator().manual_seed(seed), shape))
+
+
+def test_uniformity_chi2():
+    """Bytes from the decimated LFSR should be ~uniform (chip's RNG DAC)."""
+    s = _seeded(1, (128,))
+    counts = np.zeros(256)
+    for _ in range(200):
+        s, v, h = port_lfsr.next_uniforms(s, decimation=8)
+        by = (v * 128.0 + 127.5).numpy().astype(np.int64).reshape(-1)
+        np.add.at(counts, by, 1)
+    expected = counts.sum() / 256
+    chi2 = ((counts - expected) ** 2 / expected).sum()
+    # dof=255; mean 255, sd ~22.6 — allow 6 sigma
+    assert chi2 < 255 + 6 * 22.6, chi2
+
+
+def test_reversed_sequence_correlation_benign():
+    """Horizontal nodes reuse bit-reversed bytes: the two streams are only
+    weakly correlated."""
+    s = _seeded(2, (256,))
+    vs, hs = [], []
+    for _ in range(100):
+        s, v, h = port_lfsr.next_uniforms(s)
+        vs.append(v.numpy().reshape(-1))
+        hs.append(h.numpy().reshape(-1))
+    corr = np.corrcoef(np.concatenate(vs), np.concatenate(hs))[0, 1]
+    assert abs(corr) < 0.05, corr
