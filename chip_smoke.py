@@ -46,7 +46,16 @@ the kernels' launch counts set to 0 just before it and read just after:
   (`psl.compile_circuit` -> `CompiledCircuit.run_*`, one clamped K1 launch
   a run): AND forward and inverse, the 2-bit ripple adder forward and
   inverse, `tasks.full_adder_inference`, and factorization with the 2-bit
-  multiplier at 128 chains and 800 sweeps.
+  multiplier at 128 chains and 800 sweeps;
+* serve: the multi-tenant sampling service (`repro_torch.serve`) at 256
+  chains: 32 tenants' clamped requests on the 440-spin chip graph,
+  embedded into the 7x8 bucket (one K1 launch a program), a program swap,
+  an unclamped program and small-bucket requests; each tenant's spins
+  equal a Session rebuilt from its result; the same traffic on a 4-band
+  logical mesh under a fault plan (a link flap, two shards killed, a
+  straggler) through K5 equals the clean run bit for bit; then the split
+  of a served launch (model load, S=1, steady state, cache hit / program
+  swap / recompile, K1's device time, ms on 4, 3 and 2 bands).
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -65,6 +74,7 @@ Output: one JSON object per line —
   {"phase": "sharded", ...}        row bands: policies, K5, lattice, CD
   {"phase": "faults", ...}         faulted chips on every kernel, resume
   {"phase": "psl", ...}            compiled circuits: rows, factors, ms
+  {"phase": "serve", ...}          the service: checks, health, the split
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -2631,6 +2641,333 @@ def psl_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: the sampling service (K1; K5 on the meshed rungs)
+# ---------------------------------------------------------------------------
+SERVE_CHAINS = 256      # capacity_chains: 32 tenants x 8 chains, one launch
+SERVE_TENANTS = 32
+SERVE_SWEEPS = 100
+SERVE_BANDS = 4         # the logical row-band mesh of the faulted run
+SERVE_STEADY = 10       # warm launches of the steady-state timing
+SERVE_STRAGGLER_S = 2.0  # the injected straggler's delay
+
+
+def _serve_traffic(seed: int) -> list:
+    """The phase's requests in submission order: 32 tenants x 8 chains
+    clamped on one SK program of the 440-spin chip (one mask, each tenant
+    its own values), the same tenants on fresh codes (a program swap in
+    the warm 7x8 bucket), a third program unclamped, then the traffic of
+    ``python -m repro_torch.serve`` on 1x1 and 2x2 graphs.  Every launch
+    of the chip graph anneals over the same explicit betas."""
+    from repro_torch.core.chimera import make_chip_graph
+    from repro_torch.serve import SampleRequest
+    from repro_torch.serve.__main__ import build_requests
+
+    g = make_chip_graph()
+    rng = np.random.default_rng(seed)
+    betas = np.linspace(0.1, 2.0, SERVE_SWEEPS, dtype=np.float32)
+    mask = rng.random(g.n_nodes) < 0.25
+    per = SERVE_CHAINS // SERVE_TENANTS
+    reqs = []
+    for clamped in (True, True, False):
+        J, _ = sk_edge_codes(g, rng)
+        h = rng.integers(-10, 11, size=g.n_nodes, dtype=np.int32)
+        for t in range(SERVE_TENANTS):
+            kw = {}
+            if clamped:
+                kw = dict(clamp_mask=mask, clamp_values=np.where(
+                    rng.random((per, g.n_nodes)) < 0.5, -1.0,
+                    1.0).astype(np.float32))
+            reqs.append(SampleRequest(
+                tenant=f"tenant-{t}", graph=g, J_codes=J, h_codes=h,
+                chains=per, betas=betas, timeout_s=600.0, **kw))
+    return reqs + build_requests(4, 3, 2, 8, rng)
+
+
+def _serve_service(seed: int, **kw):
+    from repro_torch.core.hardware import HardwareConfig
+    from repro_torch.serve import SamplerService
+    return SamplerService(hw=HardwareConfig(), seed=seed, mismatch_seed=seed,
+                          capacity_chains=SERVE_CHAINS, noise="counter",
+                          backoff_s=0.01, max_backoff_s=0.1,
+                          default_timeout_s=600.0, max_queue=128,
+                          device=DEVICE, **kw)
+
+
+def _serve(svc, reqs) -> list:
+    tickets = [svc.submit(r) for r in reqs]
+    svc.drain()
+    return [t.result() for t in tickets]
+
+
+def _launch_operands(svc, reqs, results):
+    """One launch rebuilt from its results' metadata (`bucket_spec`, the
+    launch seed, the chain offsets): (Session, program, m0, noise state,
+    betas) on a Session of its own."""
+    from repro_torch import api
+    from repro_torch.serve import embed_graph, embed_program
+
+    head, r0 = reqs[0], results[0]
+    sess = api.Session(svc.bucket_spec(head.graph))
+    bn = sess.graph.n_nodes
+    emb = embed_graph(head.graph, sess.graph)
+    Jb, hb = embed_program(emb, head.J_codes, head.h_codes)
+    cm = cv = None
+    if head.clamp_mask is not None:
+        cm = np.zeros(bn, bool)
+        cm[emb.node_map] = head.clamp_mask
+        cv = np.zeros((SERVE_CHAINS, bn), np.float32)
+        for req, res in zip(reqs, results):
+            cv[res.chain_offset:res.chain_offset + req.chains,
+               emb.node_map] = req.clamp_values
+    gen = sess.generator(r0.launch_key)
+    m0, ns = sess.random_spins(gen), sess.noise_state(gen)
+    prog = sess.make_program(Jb, hb, clamp_mask=cm, clamp_values=cv)
+    betas = (head.betas if head.betas is not None
+             else np.full(head.n_sweeps, head.beta, np.float32))
+    return sess, prog, m0, ns, betas, emb
+
+
+def _median_exec_ms(svc, reqs, repeats: int) -> float:
+    return float(np.median([_serve(svc, reqs)[0].exec_s * 1e3
+                            for _ in range(repeats)]))
+
+
+def _launch_split(svc, reqs) -> dict:
+    """Host-clock ms (median of 5 after a warm-up, each ending in a
+    synchronise) of the stages of one warm served launch of ``reqs`` on
+    ``svc``'s cached bucket Session, in the order `SamplerService` runs
+    them: admission (every request's embedding and digest), the batch's
+    clamp arrays (numpy), the launch draws, the program's codes and clamps
+    copied to the card, the chip programmed from the codes, the `sample`
+    call (its eager host work and the one K1 launch), and the spins'
+    copy back with every tenant's slice."""
+    from repro_torch import api
+
+    def admit():
+        tickets = [svc.submit(r) for r in reqs]
+        svc._queue.clear()
+        return tickets
+
+    batch = admit()
+    head = batch[0]
+    fp, entry = svc._entry_for(head.bshape)
+    sess = entry.session
+    key = 12345
+    cm, cv = svc._assemble_clamps(batch, entry.embeddable)
+    m0, ns = svc._launch_state(sess, key)
+    prog = sess.make_program(head.Jb, head.hb, clamp_mask=cm,
+                             clamp_values=cv)
+    chip = api.program_chip(sess.spec, prog, tables=sess._nbr)
+    m = sess.sample(chip, m0, ns, head.betas, clamp_mask=prog.clamp_mask,
+                    clamp_values=prog.clamp_values)[0]
+
+    def copy_back():
+        host = m.cpu().numpy()
+        return [host[i * t.req.chains:(i + 1) * t.req.chains][
+            :, t.emb.node_map] for i, t in enumerate(batch)]
+
+    stages = {
+        "admission": admit,
+        "clamp_arrays": lambda: svc._assemble_clamps(batch,
+                                                     entry.embeddable),
+        "draws": lambda: svc._launch_state(sess, key),
+        "program_operand": lambda: sess.make_program(
+            head.Jb, head.hb, clamp_mask=cm, clamp_values=cv),
+        "program_chip": lambda: api.program_chip(sess.spec, prog,
+                                                 tables=sess._nbr),
+        "sample_call": lambda: sess.sample(
+            chip, m0, ns, head.betas, clamp_mask=prog.clamp_mask,
+            clamp_values=prog.clamp_values),
+        "copy_back": copy_back}
+    return {k: _host_ms(fn) for k, fn in stages.items()}
+
+
+def serve_phase(seed: int) -> dict:
+    """The multi-tenant sampling service (`repro_torch.serve`) on the
+    paper's chip bucket, driven once (`drive`), every launch replayed
+    through the plain version:
+
+    (a) the clean run: `_serve_traffic` through a `SamplerService` at
+        256 chains, counter noise, the default `HardwareConfig()`: the
+        three 440-spin programs embed into the 7x8 bucket (448 spins), one
+        K1 launch of 256 chains each, and four 1x1 / 2x2 requests land in
+        the small buckets, one K1 launch each; every tenant's spins equal
+        a direct `Session.sample_program` of `bucket_spec` rebuilt from
+        its `RequestResult` (launch seed, chain offset), bit for bit;
+    (b) the same traffic on a logical 4-band mesh under a `FaultPlan`: a
+        2-flap link flap on launch 0, band 1 killed on launch 1 and band 3
+        on launch 2 (both 7x8 launches, replayed on 3 and 2 bands), a
+        straggler on the last launch: zero drops, every result equal to
+        the clean run's bit for bit, `healthz()` degraded with dead shards
+        [1, 3], 2 replays, 2 transient retries, the straggler flagged.
+    Then (outside the drive) the split of a served launch: model load,
+    a warm launch at S=1, the steady state at S=100, the Session cache's
+    hit / program swap / recompile, K1's device ms and plan, and ms per
+    launch on 4, 3 and 2 bands against unsharded."""
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.kernels.sweep_fused import (sweep_sparse,
+                                                 sweep_sparse_exchange)
+    from repro_torch.serve import (FaultEvent, FaultInjector, FaultPlan,
+                                   ShardHealthMonitor)
+
+    t_phase = time.perf_counter()
+    reqs = _serve_traffic(seed)
+    plan = FaultPlan.make([
+        FaultEvent(step=0, kind="link_flap", flaps=2),
+        FaultEvent(step=1, kind="kill_shard", shard=1),
+        FaultEvent(step=2, kind="kill_shard", shard=3),
+        FaultEvent(step=6, kind="straggler", delay_s=SERVE_STRAGGLER_S)])
+
+    def path():
+        clean = _serve_service(seed)
+        res_clean = _serve(clean, reqs)
+        faulted = _serve_service(
+            seed, mesh=make_mesh((SERVE_BANDS,), ("rows",)),
+            monitor=ShardHealthMonitor(), injector=FaultInjector(plan))
+        meshed_backend = faulted.bucket_spec(reqs[0].graph).backend
+        return clean, res_clean, faulted, _serve(faulted, reqs), \
+            meshed_backend
+
+    (clean, res_clean, faulted, res_faulted, meshed_backend), counts, \
+        calls = drive(path)
+    t_replay = time.perf_counter()
+    summary, worst = replay_all(calls)
+    replay_s = time.perf_counter() - t_replay
+
+    # each launch rebuilt from its results' metadata, outside the drive
+    groups: dict = {}
+    for req, res in zip(reqs, res_clean):
+        groups.setdefault(res.launch_seq, []).append((req, res))
+    rebuilt_equal = []
+    for seq, members in sorted(groups.items()):
+        g_reqs, g_res = zip(*members)
+        sess, prog, m0, ns, betas, emb = _launch_operands(clean, g_reqs,
+                                                          g_res)
+        m = sess.sample_program(prog, m0, ns, betas)[0].cpu().numpy()
+        rebuilt_equal.append(all(
+            np.array_equal(res.spins, m[res.chain_offset:res.chain_offset
+                                        + req.chains][:, emb.node_map])
+            for req, res in members))
+    k1_recorded = [sparse_plan_of(a, k) for a, k, _ in calls["sweep_sparse"]
+                   if tuple(a[0].shape) == (SERVE_CHAINS, 448)]
+    first = res_clean[0]
+    clean_launches = clean.metrics["launches"]
+    cache_after_drive = clean.cache.stats()
+    build_ms = clean.cache.get(first.bucket_fingerprint).build_s * 1e3
+    hz = faulted.healthz()
+
+    # the split of a served launch (host clock, each launch ending in
+    # the spins' copy to the host)
+    p1, p2 = reqs[:SERVE_TENANTS], reqs[SERVE_TENANTS:2 * SERVE_TENANTS]
+    s1 = [dataclasses.replace(r, betas=r.betas[:1]) for r in p1]
+    invocation_ms = _median_exec_ms(clean, s1, 5)
+    _serve(clean, p1)
+    t0 = time.perf_counter()
+    for _ in range(SERVE_STEADY):
+        _serve(clean, p1)
+    steady_s = time.perf_counter() - t0
+    hit_ms = _median_exec_ms(clean, p1, 5)
+    swap = []
+    for _ in range(3):
+        swap.append(_serve(clean, p2)[0].exec_s * 1e3)
+        swap.append(_serve(clean, p1)[0].exec_s * 1e3)
+    recompile = []
+    for _ in range(3):
+        clean.cache.invalidate(lambda fp, e: True)
+        recompile.append(_serve(clean, p1)[0].exec_s * 1e3)
+    sess, prog, m0, ns, betas, _ = _launch_operands(
+        clean, p1, res_clean[:SERVE_TENANTS])
+    k1_device_ms = device_kernel_ms(
+        lambda: sess.sample_program(prog, m0, ns, betas), K1_KERNELS, 5)
+    k1_plan = sweep_sparse.last_plan
+    split = _launch_split(clean, p1)
+    bands_ms, k5_plans = {}, {}
+    for bands in (None, 4, 3, 2):
+        svc = _serve_service(seed, mesh=None if bands is None else
+                             make_mesh((bands,), ("rows",)))
+        _serve(svc, p1)
+        name = "unsharded" if bands is None else f"{bands}_bands"
+        bands_ms[name] = _median_exec_ms(svc, p1, 3)
+        if bands is not None:
+            plan5 = sweep_sparse_exchange.last_plan
+            k5_plans[name] = {"body": plan5.body, "cluster": plan5.cluster,
+                              "chains_per_block": plan5.chains}
+    ms_per_launch = steady_s / SERVE_STEADY * 1e3
+    seconds = time.perf_counter() - t_phase
+    out = {"phase": "serve", "bucket": [7, 8], "N": 448,
+           "chains": SERVE_CHAINS, "tenants": SERVE_TENANTS,
+           "sweeps": SERVE_SWEEPS, "requests": len(reqs),
+           "backends": {"unsharded":
+                        clean.bucket_spec(reqs[0].graph).backend,
+                        "meshed": meshed_backend},
+           "launches": counts, "launches_vs_plain_version": summary,
+           "clean": {"launches": clean_launches,
+                     "rebuilt_equal": rebuilt_equal},
+           "faulted": {"healthz": hz,
+                       "equal_to_clean": sum(
+                           np.array_equal(a.spins, b.spins)
+                           and a.launch_seq == b.launch_seq
+                           and a.chain_offset == b.chain_offset
+                           for a, b in zip(res_faulted, res_clean))},
+           "model_load_ms": first.exec_s * 1e3,
+           "model_load_build_ms": build_ms,
+           "invocation_ms": invocation_ms,
+           "steady": {"ms_per_launch": ms_per_launch,
+                      "requests_per_s": SERVE_TENANTS * SERVE_STEADY
+                      / steady_s,
+                      "chain_sweeps_per_s": SERVE_CHAINS * SERVE_SWEEPS
+                      * SERVE_STEADY / steady_s},
+           "compile_cache": {"hit_ms": hit_ms,
+                             "program_swap_ms": float(np.median(swap)),
+                             "recompile_ms": float(np.median(recompile)),
+                             "counters_after_drive": cache_after_drive,
+                             "counters": clean.cache.stats()},
+           "k1_device_ms": k1_device_ms,
+           "launch_split_ms": split,
+           "k5_plans": k5_plans,
+           "k1_plan": {"body": k1_plan.body,
+                       "chains_per_block": k1_plan.chains,
+                       "threads": k1_plan.threads,
+                       "blocks": -(-SERVE_CHAINS // k1_plan.chains)},
+           "ms_per_launch_by_mesh": bands_ms,
+           "replay_seconds": replay_s, "seconds": seconds,
+           "replay_share": replay_s / seconds}
+    emit(out)
+    ok = [r.status == "ok" and not r.deadline_missed
+          for r in res_clean + res_faulted]
+    m = hz["metrics"]
+    others = [k for k in KERNELS
+              if k not in ("sweep_sparse", "sweep_sparse_exchange")]
+    checks = {
+        "all_ok": all(ok),
+        "no_failures": "failed" not in m and "failed" not in clean.metrics,
+        "backends": (out["backends"] == {"unsharded": "fused_sparse",
+                                         "meshed": "fused_sparse"}),
+        "rebuilt_equal": all(rebuilt_equal) and len(rebuilt_equal) == 7,
+        "k1_plan": set(k1_recorded) == {k1_plan},
+        "faulted_equal": out["faulted"]["equal_to_clean"] == len(reqs),
+        "zero_drops": m["admitted"] == m["completed"] == len(reqs),
+        "degraded": (hz["state"] == "degraded"
+                     and hz["dead_shards"] == [1, 3]
+                     and hz["mesh_devices"] == [0, 2]),
+        "replays": m.get("replays", 0) >= 2,
+        "transient_retries": m.get("transient_retries", 0) == 2,
+        "straggler_flagged": m.get("stragglers_flagged", 0) >= 1,
+        # the clean run's 7 launches are K1; the faulted run's meshed
+        # rungs run K5, or K1 per band where K5 has no body
+        "k1_launches": counts["sweep_sparse"] >= clean_launches,
+        "meshed_launches": (counts["sweep_sparse"]
+                            + counts["sweep_sparse_exchange"]
+                            > 2 * clean_launches),
+        "other_kernels_idle": all(counts[k] == 0 for k in others)}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"a serve check failed: {failed}")
+    out["_worst"] = worst
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the kernel records
 # ---------------------------------------------------------------------------
 def _bound(moved: int, ops: int, int8_ops: int = 0) -> dict:
@@ -3068,17 +3405,18 @@ def main() -> int:
     shard, shard_calls = sharded(args.seed)
     fault = faults_phase(args.seed)
     logic = psl_phase(args.seed)
+    served = serve_phase(args.seed)
     by_path = {"sample": path["launches"], "training": train["launches"],
                "learning": learn["launches"], "workloads": work["launches"],
                "streaming": stream["launches"], "lattice_soa": soa["launches"],
                "sharded": shard["launches"], "faults": fault["launches"],
-               "psl": logic["launches"]}
+               "psl": logic["launches"], "serve": served["launches"]}
     worst = {"training": train.pop("_worst"), "learning": learn.pop("_worst"),
              "workloads": work.pop("_worst"),
              "streaming": stream.pop("_worst"),
              "lattice_soa": soa.pop("_worst"),
              "sharded": shard.pop("_worst"), "faults": fault.pop("_worst"),
-             "psl": logic.pop("_worst")}
+             "psl": logic.pop("_worst"), "serve": served.pop("_worst")}
     per_path = lambda k: {p: c[k] for p, c in by_path.items()}  # noqa: E731
     records = [kernel_record(checks, path, calls, per_path("sweep_sparse"))]
     records += dense_kernel_records(args.seed, dense_checks, train,
@@ -3094,7 +3432,7 @@ def main() -> int:
     records.append(exchange_kernel_record(
         exchange_checks, shard, shard_calls,
         per_path("sweep_sparse_exchange"),
-        max(worst["sharded"], worst["faults"])))
+        max(worst["sharded"], worst["faults"], worst["serve"])))
     emit({"kernels": records})
     emit({"phase": "timing", "run_seconds": time.perf_counter() - t_run})
 

@@ -34,6 +34,7 @@ from repro_torch.api.spec import (
     Sync,
     Tempered,
     resolve_backend,
+    spec_fingerprint,
 )
 from repro_torch.api.session import (
     Session,
@@ -52,5 +53,5 @@ __all__ = [
     "Faults", "sample_faults",
     "program", "program_edges", "program_master",
     "Program", "fleet_member", "program_chip", "stack_programs",
-    "resolve_backend",
+    "resolve_backend", "spec_fingerprint",
 ]

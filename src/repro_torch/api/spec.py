@@ -34,6 +34,7 @@ Counterpart of ``repro.api.spec``, single device:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import os
 from typing import Any
@@ -519,6 +520,13 @@ class SamplerSpec:
                 f"(transient flips, stuck LFSR bits); use a half-sweep "
                 f"loop backend ('ref'/'pallas'/'sparse') or backend='auto' "
                 f"(which takes the loop under these faults)")
+
+
+def spec_fingerprint(spec: SamplerSpec) -> str:
+    """Compact hex digest of `SamplerSpec.fingerprint()`: the string form
+    the serving layer keys its Session cache on and prints in its health
+    and metrics output."""
+    return hashlib.sha1(repr(spec.fingerprint()).encode()).hexdigest()[:16]
 
 
 def require_device(device) -> torch.device:

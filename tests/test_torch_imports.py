@@ -65,7 +65,8 @@ def test_port_imports_without_pulling_in_jax():
         " repro_torch.core.tempering, repro_torch.core.maxcut,"
         " repro_torch.api.program, repro_torch.kernels.lattice_update,"
         " repro_torch.core.distributed, repro_torch.kernels.shard_sweep,"
-        " repro_torch.psl, repro_torch.core, chip_smoke;"
+        " repro_torch.psl, repro_torch.core, repro_torch.serve,"
+        " repro_torch.serve.__main__, chip_smoke;"
         "from repro_torch.core import *;"
         "bad = [m for m in ('jax', 'jaxlib', 'repro') if m in sys.modules];"
         "print(bad); sys.exit(1 if bad else 0)")
@@ -76,7 +77,8 @@ def test_port_imports_without_pulling_in_jax():
 
 @pytest.mark.parametrize("first", [
     "repro_torch.api", "repro_torch.core", "repro_torch.psl",
-    "repro_torch.kernels.sweep_fused", "repro_torch.core.lfsr"])
+    "repro_torch.kernels.sweep_fused", "repro_torch.core.lfsr",
+    "repro_torch.serve"])
 def test_import_order_closes_no_cycle(first):
     """`core/__init__` exports `core.cd`'s names, `core.cd` imports `api`,
     whose spec imports the kernels, which import `core.lfsr`: whichever
