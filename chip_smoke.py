@@ -55,7 +55,13 @@ the kernels' launch counts set to 0 just before it and read just after:
   logical mesh under a fault plan (a link flap, two shards killed, a
   straggler) through K5 equals the clean run bit for bit; then the split
   of a served launch (model load, S=1, steady state, cache hit / program
-  swap / recompile, K1's device time, ms on 4, 3 and 2 bands).
+  swap / recompile, K1's device time, ms on 4, 3 and 2 bands);
+* lm_serve: the language-model serving path (`repro_torch.launch.serve`)
+  at gemma2-2b's full width in bf16, weights drawn on the card: prefill,
+  the graft into the decode cache and sampled decode steps, held against
+  the model's own forward; flash against direct attention at 8192 tokens;
+  an 8192-token prompt; the reduced float32 model on the CPU and on the
+  card.  It launches none of the six kernels.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -75,6 +81,7 @@ Output: one JSON object per line —
   {"phase": "faults", ...}         faulted chips on every kernel, resume
   {"phase": "psl", ...}            compiled circuits: rows, factors, ms
   {"phase": "serve", ...}          the service: checks, health, the split
+  {"phase": "lm_serve", ...}       the LM path: checks, ms, memory, bounds
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -99,6 +106,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT8_TC_OPS_PER_S = 1979e12   # int8 on the tensor cores, dense
+BF16_TC_OPS_PER_S = 989e12    # bf16 on the tensor cores, dense
 
 DEVICE = "cuda"    # the script has no CPU mode: main() refuses without a GPU
 B = 256            # chains everywhere on the main path
@@ -2968,6 +2976,321 @@ def serve_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: the language-model serving path (no kernel of K1-K6)
+# ---------------------------------------------------------------------------
+LM_ARCH = "gemma2-2b"   # launch.serve's default, at full width in bf16
+LM_BATCH, LM_PROMPT, LM_GEN, LM_MAX_SEQ = 4, 32, 32, 128
+LM_LONG = 8192          # the long prompt and the flash check's length
+
+
+def _named_leaves(tree):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v)
+        else:
+            yield k, v
+
+
+def _tree_nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in _named_leaves(tree))
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _device_busy(fn, repeats: int = 5) -> dict:
+    """Device operations a call of ``fn`` and their summed device time
+    (`torch.profiler`, ``repeats`` calls after a warm-up): how busy the
+    card is during a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"device_ops_per_call": len(ops) / repeats,
+            "device_busy_ms": sum(ops) / repeats / 1e3}
+
+
+def _lm_f32_cross_check(seed: int) -> dict:
+    """The seeded reduced gemma2-2b (float32) drawn on the CPU, its
+    parameters copied to the card: forward logits and a prefill + graft +
+    decode step on the card agree with the CPU's to 1e-4, with TF32 off
+    (asserted: the card's float32 matmuls are float32)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+
+    tf32 = {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    if tf32 != {"matmul_allow_tf32": False,
+                "float32_matmul_precision": "highest"}:
+        raise AssertionError(f"TF32 is on for float32 matmuls: {tf32}")
+    cfg = get_reduced_config(LM_ARCH)
+    cpu, card = (build_model(cfg, device=d) for d in ("cpu", DEVICE))
+    params = cpu.init(seed)
+    pcard = _tree_to(params, DEVICE)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(seed))
+    errs = {}
+    with torch.inference_mode():
+        for name, m, p, t in (("cpu", cpu, params, toks),
+                              ("card", card, pcard, toks.to(DEVICE))):
+            fwd, _ = transformer.forward(p, cfg, t)
+            _, pre = transformer.prefill(p, cfg, t[:, :48])
+            cache = lm_serve.graft(m.init_cache(2, 64), pre)
+            dec, _ = m.decode_step(p, t[:, 48:49], 48, cache)
+            errs[name] = (fwd.cpu(), dec.cpu())
+    e_fwd = (errs["cpu"][0] - errs["card"][0]).abs().max().item()
+    e_dec = (errs["cpu"][1] - errs["card"][1]).abs().max().item()
+    return {"tf32": tf32, "forward_max_abs_err": e_fwd,
+            "decode_max_abs_err": e_dec, "tolerance": 1e-4,
+            "ok": max(e_fwd, e_dec) <= 1e-4}
+
+
+def _lm_flash_vs_direct(seed: int, cfg) -> dict:
+    """`flash_attention` against `_attend_direct` at gemma2-2b's head shape
+    (8 heads over 4 KV heads, head_dim 256, softcap 50), B = 1, S = 8192,
+    with the local layers' window 4096 and with none (the triangular
+    schedule's skip), in float32 (TF32 off; |flash - direct| <= 1e-4) and
+    in bf16 (the direct path rounds its QK product to bf16 first, flash
+    keeps it in float32: |flash - direct| <= 2^-7 |direct| plus 0.25 of
+    the direct output's RMS, about 0.05 here, where most outputs average
+    thousands of values).  ``worst`` is the largest gap over its limit."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import flash as flash_mod
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 23)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd()
+    shape = lambda n: (1, LM_LONG, n, hd)  # noqa: E731
+    q32, k32, v32 = (torch.randn(shape(n), generator=gen, device=DEVICE)
+                     for n in (H, KV, KV))
+    scale = 1.0 / math.sqrt(hd)
+    pos = torch.arange(LM_LONG, device=DEVICE)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+        for window in (cfg.window, None):
+            def flash():
+                return flash_mod.flash_attention(
+                    q, k, v, num_kv_heads=KV, scale=scale,
+                    softcap=cfg.attn_softcap, causal=True, window=window)
+
+            def direct():
+                return attn_mod._attend_direct(q, k, v, cfg, scale, pos,
+                                               pos, True, window)
+            torch.cuda.reset_peak_memory_stats()
+            got, want = flash(), direct()
+            gap = (got.float() - want.float()).abs()
+            rms = want.float().square().mean().sqrt().item()
+            if dtype == torch.float32:
+                rule, limit = "1e-4", torch.full_like(gap, 1e-4)
+            else:
+                rule = "2^-7 |direct| + 0.25 rms(direct)"
+                limit = 2 ** -7 * want.float().abs() + 0.25 * rms
+            worst = (gap / limit).max().item()
+            rows.append({
+                "dtype": str(dtype).split(".")[-1], "window": window,
+                "max_abs_err": gap.max().item(), "tolerance": rule,
+                "worst": worst, "ok": worst <= 1.0, "rms_out": rms,
+                "max_abs_out": want.float().abs().max().item(),
+                "finite": bool(torch.isfinite(got).all()),
+                "flash_ms": cuda_ms(flash), "direct_ms": cuda_ms(direct),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            del got, want, gap, limit
+    return rows
+
+
+def lm_serve_phase(seed: int) -> dict:
+    """The language-model serving path (`repro_torch.launch.serve`, the
+    port of ``python -m repro.launch.serve``) at gemma2-2b's full width in
+    bf16, weights drawn on the card from ``seed``, driven once (`drive`):
+    `build_model` -> `init` -> `launch.serve.generate` (prefill of 4
+    prompts of 32 tokens, the graft into a 128-token cache, 31 sampled
+    decode steps).  It launches none of K1-K6 (asserted: every count 0).
+    Checks: the parameter count against `cfg.param_count()`; prefill's
+    last logits against forward's (2e-3 absolute plus one bf16 ulp, 2^-7
+    relative: the two unembed products have other shapes); decode after
+    the graft against the teacher-forced forward at position 32 (0.25 of
+    the forward logits' RMS, about 0.083 here: the reference's 3e-2 rule
+    was set at its reduced width's logits of about 0.5 and would pass a
+    wrong decode at this width); flash against direct attention at S = 8192, with
+    and without the window; one 8192-token prompt through the whole model;
+    the float32 reduced model on the CPU and on the card (1e-4, TF32 off).
+    Then the served loop timed again (prefill ms, graft ms, decode ms a
+    token, tokens/s) and the decode step beside its byte bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+
+    def path():
+        t0 = time.perf_counter()
+        params = model.init(seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                                generator=gen, device=DEVICE)
+        out = lm_serve.generate(model, params, prompts, LM_GEN, LM_MAX_SEQ,
+                                1.0, gen)
+        return params, prompts, out, init_s
+
+    (params, prompts, first, init_s), counts, _ = drive(path)
+    tokens = first["tokens"]
+    n_params = sum(t.numel() for _, t in _named_leaves(params))
+    uncounted = sum(v.numel() for k, v in _named_leaves(params)
+                    if "norm" in k or k in ("bq", "bk", "bv"))
+    param_bytes = _tree_nbytes(params)
+    peak_serve = torch.cuda.max_memory_allocated() - mem0
+
+    with torch.inference_mode():
+        fwd, _ = transformer.forward(params, cfg, prompts)
+        pre, pcache = transformer.prefill(params, cfg, prompts)
+        diff = (pre[:, 0] - fwd[:, -1]).abs()
+        ref = fwd[:, -1].abs()
+        prefill_fwd = {
+            "max_abs_err": diff.max().item(),
+            "logits_differing": int((diff > 0).sum()),
+            "ok": bool((diff <= 2e-3 + 2 ** -7 * ref).all())}
+        ext = torch.cat([prompts, prompts[:, :1]], dim=1)
+        fwd_ext, _ = transformer.forward(params, cfg, ext)
+        cache = lm_serve.graft(model.init_cache(LM_BATCH, LM_MAX_SEQ), pcache)
+        dec, cache = model.decode_step(params, prompts[:, :1], LM_PROMPT,
+                                       cache)
+        diff = (dec[:, 0] - fwd_ext[:, LM_PROMPT]).abs()
+        rms = fwd_ext[:, LM_PROMPT].square().mean().sqrt().item()
+        decode_fwd = {
+            "max_abs_err": diff.max().item(), "rms_logits": rms,
+            "tolerance": 0.25 * rms,
+            "ok": diff.max().item() <= 0.25 * rms,
+            "finite": bool(torch.isfinite(dec).all())}
+        del fwd, fwd_ext, pre, pcache, cache
+
+        # one long prompt through the whole model: flash in every layer
+        long = torch.randint(0, cfg.vocab_size, (1, LM_LONG), generator=gen,
+                             device=DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        mem1 = torch.cuda.memory_allocated()
+        (long_logits, long_cache), long_ms = timed_once(
+            lambda: transformer.prefill(params, cfg, long))
+        long_ms_warm = cuda_ms(lambda: transformer.prefill(params, cfg, long))
+        long_peak = torch.cuda.max_memory_allocated() - mem1
+        long_busy = _device_busy(
+            lambda: transformer.prefill(params, cfg, long), repeats=1)
+        # its operations at the bf16 tensor-core peak: the projections and
+        # MLPs (2 per weight a token), the last token's unembed, and the
+        # attention's QK and PV over the keys each query's mask keeps
+        kept = 0
+        for p in transformer.period_plan(cfg):
+            w = p.window or LM_LONG
+            kept += sum(min(i + 1, w) for i in range(LM_LONG))
+        kept *= transformer.n_groups(cfg)
+        layer_w = n_params - uncounted - cfg.vocab_size * cfg.d_model
+        long_ops = (2 * layer_w * LM_LONG + 2 * cfg.vocab_size * cfg.d_model
+                    + 4 * kept * cfg.num_heads * cfg.hd())
+        long_prefill = {
+            "tokens": LM_LONG, "ms_first": long_ms, "ms": long_ms_warm,
+            "tokens_per_s": LM_LONG / long_ms_warm * 1e3,
+            "bound_ms": long_ops / BF16_TC_OPS_PER_S * 1e3,
+            "bound_by": "operations", "ops": long_ops,
+            "peak_gb": long_peak / 1e9, **long_busy,
+            "finite": bool(torch.isfinite(long_logits).all()),
+            "cache_shape": list(long_cache["blocks"]["layer_0"]["k"].shape)}
+        del long_logits, long_cache
+
+    flash_rows = _lm_flash_vs_direct(seed, cfg)
+    cross = _lm_f32_cross_check(seed)
+
+    # the served loop again, warm: the numbers users see
+    out = lm_serve.generate(model, params, prompts, LM_GEN, LM_MAX_SEQ, 1.0,
+                            gen)
+    steps = out["decode_step_s"]
+    with torch.inference_mode():
+        # the prefill and one decode step alone: device time and launches
+        # against their time; the step beside its byte bound, every weight
+        # read once (the tied table by the unembed) and the whole K/V cache
+        prefill_busy = _device_busy(
+            lambda: transformer.prefill(params, cfg, prompts))
+        _, pcache = transformer.prefill(params, cfg, prompts)
+        cache = lm_serve.graft(model.init_cache(LM_BATCH, LM_MAX_SEQ), pcache)
+        tok = tokens[:, -1:]
+
+        def step():
+            return model.decode_step(params, tok, LM_PROMPT, cache)
+        decode_ms = cuda_ms(step, repeats=10)
+        decode_busy = _device_busy(step)
+        cache_bytes = _tree_nbytes(cache)
+        moved = param_bytes + cache_bytes
+        decode_bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        del pcache, cache
+    seconds = time.perf_counter() - t_phase
+    res = {
+        "phase": "lm_serve", "arch": LM_ARCH, "dtype": cfg.dtype,
+        "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
+        "max_seq": LM_MAX_SEQ,
+        "kernel_launches": {k: counts[k] for k in KERNELS},
+        "params": {"elements": n_params, "param_count": cfg.param_count(),
+                   "norms_and_biases": uncounted,
+                   "bytes_on_card": param_bytes, "init_s": init_s},
+        "peak_gb": {"serve": peak_serve / 1e9,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()
+                    / 1e9},
+        "prefill_vs_forward": prefill_fwd, "decode_vs_forward": decode_fwd,
+        "flash_vs_direct": flash_rows, "long_prefill": long_prefill,
+        "f32_cpu_vs_card": cross,
+        "served": {
+            "first_prefill_ms": first["prefill_s"] * 1e3,
+            "prefill_ms": out["prefill_s"] * 1e3,
+            "prefill_device": prefill_busy,
+            "graft_ms": out["graft_s"] * 1e3,
+            "decode_ms_per_token": float(np.median(steps)) * 1e3,
+            "decode_ms_min": min(steps) * 1e3,
+            "tokens_per_s": LM_BATCH * len(steps) / sum(steps),
+            "tokens_in_vocab": bool(((tokens >= 0)
+                                     & (tokens < cfg.vocab_size)).all()),
+            "sample_tokens": tokens[0, :8].tolist()},
+        "decode_step": {"ms": decode_ms, "bound_ms": decode_bound_ms,
+                        "bound_by": "bytes", "bytes": moved,
+                        "cache_bytes": cache_bytes,
+                        "gap": decode_ms / decode_bound_ms, **decode_busy,
+                        "device_idle_share":
+                        1.0 - decode_busy["device_busy_ms"] / decode_ms},
+        "seconds": seconds}
+    emit(res)
+    checks = {
+        "no_kernel_launched": all(c == 0 for c in counts.values()),
+        "param_count": n_params - uncounted == cfg.param_count(),
+        "prefill_vs_forward": prefill_fwd["ok"],
+        "decode_vs_forward": decode_fwd["ok"] and decode_fwd["finite"],
+        "flash_vs_direct": all(r["ok"] and r["finite"] for r in flash_rows),
+        "long_prefill": long_prefill["finite"],
+        "f32_cpu_vs_card": cross["ok"],
+        "tokens": res["served"]["tokens_in_vocab"]
+        and tuple(tokens.shape) == (LM_BATCH, LM_GEN)}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"an lm_serve check failed: {failed}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the kernel records
 # ---------------------------------------------------------------------------
 def _bound(moved: int, ops: int, int8_ops: int = 0) -> dict:
@@ -3406,6 +3729,7 @@ def main() -> int:
     fault = faults_phase(args.seed)
     logic = psl_phase(args.seed)
     served = serve_phase(args.seed)
+    lm_serve_phase(args.seed)
     by_path = {"sample": path["launches"], "training": train["launches"],
                "learning": learn["launches"], "workloads": work["launches"],
                "streaming": stream["launches"], "lattice_soa": soa["launches"],

@@ -6,8 +6,10 @@ noise array, or the leaves of an `EffectiveChip` / `Mismatch` /
 `SparseMismatch` / `LatticeChip` in field order (what
 ``jax.tree_util.tree_leaves`` gives, with absent ``None`` fields dropped)
 or a ``{field: array}`` dict; a `Program` crosses as a ``{field: array}``
-dict, an `api.Faults` as the reference's ``dataclasses.asdict`` of it and a
-CD training state as the reference's ``CDTrainState.tree`` (numpy leaves).
+dict, an `api.Faults` as the reference's ``dataclasses.asdict`` of it, a
+CD training state as the reference's ``CDTrainState.tree`` (numpy leaves)
+and a language model's parameters or decode cache as the reference's
+tree with numpy leaves (``jax.tree.map(np.asarray, tree)``).
 The tests use only these functions to move state between the packages.
 """
 from __future__ import annotations
@@ -156,3 +158,28 @@ def cd_state_from_numpy(tree: dict, epoch: int = 0, device="cuda"):
         noise_state=noise_state_from_numpy(tree["noise_state"], device),
         vel_J=_f32(tree["vel_J"], device), vel_h=_f32(tree["vel_h"], device),
         epoch=int(epoch))
+
+
+def _tree_from_numpy(tree, device):
+    """A tree of dicts / lists of numpy arrays -> the same tree of tensors.
+    A bf16 leaf (``ml_dtypes.bfloat16``, which ``torch.as_tensor``
+    refuses) goes through float32, which holds every bf16 value exactly;
+    the dtype is told by its name, so nothing here imports ``ml_dtypes``."""
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_numpy(v, device) for v in tree]
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    return torch.as_tensor(a.copy(), device=device)
+
+
+def lm_tree_from_numpy(tree, device="cuda") -> dict:
+    """A language model's parameters or decode cache from the reference's
+    tree (its ``jax.tree.map(np.asarray, ...)``), leaf for leaf: the
+    stacked layout (each period slot's leaves, and its cache's K and V of
+    (G, B, S, KV, hd), with a leading group axis) is the same in both
+    packages."""
+    return _tree_from_numpy(tree, device)

@@ -1,0 +1,129 @@
+"""Memory-efficient attention (flash-style), forward, in plain PyTorch.
+
+The port of `repro.models.flash`'s forward: the query axis is split into
+chunks of `Q_CHUNK` in a Python loop (a static triangular schedule), and
+each q-chunk visits only the KV range its causal / sliding-window mask
+allows, aligned to `KV_CHUNK`; inside it a running softmax (max, denom,
+acc) goes over KV chunks, so memory is O(S·d), not O(S²), and causal
+attention costs ~S²/2 multiply-adds.
+
+Scores accumulate in float32 from the inputs (the reference's
+``preferred_element_type``: bf16 products are exact in float32, so the
+inputs are widened before the product); the probabilities are cast to
+the value dtype before the PV product, which accumulates in float32.  A
+masked score is the finite `NEG_INF`, never ``-inf``: a q-row whose every
+key in a chunk is masked then carries a uniform row that the next chunk's
+correction ``exp(m_prev - m_new)`` clears, as in the reference, where
+``-inf`` would give NaN.
+
+The backward (the reference's custom VJP, ``_mea_bwd``) belongs to the
+training slice and ``seq_shard`` to the multi-card slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -2.0e38
+Q_CHUNK = 1024
+KV_CHUNK = 512
+
+
+def _pick_chunk(size: int, target: int) -> int:
+    """Largest divisor of `size` that is <= target (handles Sk=1500 cross
+    attention and other non-power-of-two sequence lengths)."""
+    c = min(target, size)
+    while size % c:
+        c -= 1
+    return c
+
+
+def _mask(q_lo: int, cq: int, k_lo: int, ck: int, causal: bool,
+          window: Optional[int], device) -> torch.Tensor:
+    """(cq, ck) keep-mask from the chunks' offsets."""
+    qp = q_lo + torch.arange(cq, device=device)
+    kp = k_lo + torch.arange(ck, device=device)
+    d = qp[:, None] - kp[None, :]
+    ok = torch.ones((cq, ck), dtype=torch.bool, device=device)
+    if causal:
+        ok &= d >= 0
+    if window is not None:
+        ok &= d < window
+    return ok
+
+
+def _scores(q, k, scale, softcap):
+    """q: float32 (B,cq,KV,G,hd) k: (B,ck,KV,hd) -> f32 (B,KV,G,cq,ck)."""
+    s = torch.einsum("bqkgh,bskh->bkgqs", q, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    return s
+
+
+def _mea_fwd(q, k, v, scale, softcap, causal, window, q_lo, k_lo):
+    """One q-chunk (B,cq,KV,G,hd) over its KV range (B,Sk,KV,hd): the
+    running softmax over KV chunks; returns o (B,cq,KV,G,hd)."""
+    B, cq, KV, G, hd = q.shape
+    dtype, q = q.dtype, q.float()
+    Sk = k.shape[1]
+    ck = _pick_chunk(Sk, KV_CHUNK)
+    m = torch.full((B, KV, G, cq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, cq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, cq, hd), dtype=torch.float32,
+                      device=q.device)
+    for i in range(Sk // ck):
+        k_c = k[:, i * ck:(i + 1) * ck]
+        v_c = v[:, i * ck:(i + 1) * ck]
+        s = _scores(q, k_c, scale, softcap)
+        keep = _mask(q_lo, cq, k_lo + i * ck, ck, causal, window, q.device)
+        s = torch.where(keep, s, NEG_INF)
+        m_n = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_n)
+        p = torch.exp(s - m_n[..., None])
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v_c.dtype).float(),
+                          v_c.float())
+        acc = acc * corr[..., None] + pv
+        m = m_n
+    o = acc / torch.clamp(l, min=1e-37)[..., None]
+    return o.movedim(-2, 1).to(dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,              # (B, Sq, H, hd)
+    k: torch.Tensor,              # (B, Sk, KV, hd)
+    v: torch.Tensor,
+    *,
+    num_kv_heads: int,
+    scale: float,
+    softcap: Optional[float] = None,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Static triangular q-chunk schedule over the running-softmax body."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    KV = num_kv_heads
+    G = H // KV
+    cq = _pick_chunk(Sq, Q_CHUNK)
+    qg = q.reshape(B, Sq, KV, G, hd)
+    ckv = _pick_chunk(Sk, KV_CHUNK)
+    outs = []
+    for i in range(Sq // cq):
+        q_lo, q_hi = i * cq, (i + 1) * cq
+        # the KV range this chunk can see, aligned to the KV chunk
+        lo, hi = 0, Sk
+        if causal:
+            hi = min(hi, q_hi)
+        if window is not None:
+            lo = max(lo, q_lo - window + 1)
+        lo = (lo // ckv) * ckv
+        hi = min(-(-hi // ckv) * ckv, Sk)
+        hi = max(hi, lo + ckv) if Sk >= ckv else Sk
+        o = _mea_fwd(qg[:, i * cq:(i + 1) * cq], k[:, lo:hi], v[:, lo:hi],
+                     scale, softcap, causal, window, q_lo, lo)
+        outs.append(o)
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out.reshape(B, Sq, H, hd)

@@ -1,0 +1,58 @@
+"""Model facade: build_model(cfg) -> uniform init / cache / decode.
+
+The port of `repro.models.model` for decoder-only configs whose layers
+are attention + a dense MLP.  An encoder-decoder config, or a family whose
+layers the port does not have yet (mixture-of-experts, Mamba, RWKV),
+raises `NotImplementedError` naming ROADMAP Queue 1 item 12c.  The loss
+comes with training (item 12b); ``input_specs`` and ``make_dummy_batch``
+with the dry run (item 12d).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.api.spec import require_device
+from repro_torch.configs.base import ModelCfg
+from repro_torch.core.hwaware import HwAwareConfig, apply_hardware
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelCfg
+    device: torch.device
+    init: Callable[[int], Any]                 # seed -> params on device
+    init_cache: Callable[[int, int], Any]      # (batch, max_seq) -> cache
+    decode_step: Callable[[Any, torch.Tensor, int, Any], tuple]
+
+
+def build_model(cfg: ModelCfg,
+                hw_aware: Optional[HwAwareConfig] = None,
+                chip_key: Optional[int] = None,
+                device="cuda") -> Model:
+    """hw_aware: the paper's generalized in-situ learning — decode sees
+    params through the 8-bit DAC + mismatch model (core/hwaware.py) of
+    the chip seeded ``chip_key`` (default 0).  Parameters are drawn on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    dev = require_device(device)
+    transformer.dense_plans(cfg)      # refuse a family the port lacks now
+
+    def maybe_hw(params):
+        if hw_aware is None:
+            return params
+        return apply_hardware(params, hw_aware,
+                              0 if chip_key is None else chip_key)
+
+    return Model(
+        cfg=cfg,
+        device=dev,
+        init=lambda seed: transformer.init_lm(
+            torch.Generator(device=dev).manual_seed(seed), cfg),
+        init_cache=lambda b, s: transformer.init_cache(cfg, b, s,
+                                                       device=dev),
+        decode_step=lambda p, t, pos, c: transformer.decode_step(
+            maybe_hw(p), cfg, t, pos, c),
+    )

@@ -66,7 +66,9 @@ def test_port_imports_without_pulling_in_jax():
         " repro_torch.api.program, repro_torch.kernels.lattice_update,"
         " repro_torch.core.distributed, repro_torch.kernels.shard_sweep,"
         " repro_torch.psl, repro_torch.core, repro_torch.serve,"
-        " repro_torch.serve.__main__, chip_smoke;"
+        " repro_torch.serve.__main__, repro_torch.configs,"
+        " repro_torch.models.model, repro_torch.launch.serve,"
+        " repro_torch.core.hwaware, chip_smoke;"
         "from repro_torch.core import *;"
         "bad = [m for m in ('jax', 'jaxlib', 'repro') if m in sys.modules];"
         "print(bad); sys.exit(1 if bad else 0)")
@@ -183,6 +185,21 @@ def test_default_device_without_cuda_raises():
     for backend in ("ref", "pallas", "fused"):
         with pytest.raises(RuntimeError, match="cuda"):
             PBitMachine.create(g, 0, noise="counter", backend=backend)
+
+
+def test_lm_serve_default_device_without_cuda_raises():
+    """``python -m repro_torch.launch.serve`` without ``--device`` wants
+    the card, and raises here instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a GPU")
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(get_reduced_config("gemma2-2b"))
 
 
 def test_smoke_script_refuses_to_run_without_a_gpu():
