@@ -61,7 +61,15 @@ the kernels' launch counts set to 0 just before it and read just after:
   the graft into the decode cache and sampled decode steps, held against
   the model's own forward; flash against direct attention at 8192 tokens;
   an 8192-token prompt; the reduced float32 model on the CPU and on the
-  card.  It launches none of the six kernels.
+  card.  It launches none of the six kernels;
+* lm_train: language-model training (`repro_torch.launch.train`) at
+  gemma2-2b's full width in bf16, hardware-aware: the entry point's 12
+  steps, the step measured (ms, tokens/s, peak memory, device profile,
+  operation bound), a fixed batch's falling loss, B=1 S=4096 with remat
+  on and off, 8-bit moments; the reduced float32 model's steps on the CPU
+  and on the card, a bit-equal resume on the card, and the flash backward
+  against autograd through direct attention at 8192 tokens.  It launches
+  none of the six kernels.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -82,6 +90,7 @@ Output: one JSON object per line —
   {"phase": "psl", ...}            compiled circuits: rows, factors, ms
   {"phase": "serve", ...}          the service: checks, health, the split
   {"phase": "lm_serve", ...}       the LM path: checks, ms, memory, bounds
+  {"phase": "lm_train", ...}       LM training: checks, ms, memory, bound
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -92,6 +101,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2996,8 +3006,9 @@ def _tree_nbytes(tree) -> int:
 
 
 def _tree_to(tree, device):
-    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    """A copy of ``tree`` on ``device`` (a copy on the same device too)."""
+    return {k: _tree_to(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in tree.items()}
 
 
 def _device_busy(fn, repeats: int = 5) -> dict:
@@ -3018,6 +3029,17 @@ def _device_busy(fn, repeats: int = 5) -> dict:
             "device_busy_ms": sum(ops) / repeats / 1e3}
 
 
+def _tf32_off() -> dict:
+    """The float32 matmul settings, asserted off TF32 (the card's float32
+    matmuls are then float32)."""
+    tf32 = {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    if tf32 != {"matmul_allow_tf32": False,
+                "float32_matmul_precision": "highest"}:
+        raise AssertionError(f"TF32 is on for float32 matmuls: {tf32}")
+    return tf32
+
+
 def _lm_f32_cross_check(seed: int) -> dict:
     """The seeded reduced gemma2-2b (float32) drawn on the CPU, its
     parameters copied to the card: forward logits and a prefill + graft +
@@ -3028,11 +3050,7 @@ def _lm_f32_cross_check(seed: int) -> dict:
     from repro_torch.models import transformer
     from repro_torch.models.model import build_model
 
-    tf32 = {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-            "float32_matmul_precision": torch.get_float32_matmul_precision()}
-    if tf32 != {"matmul_allow_tf32": False,
-                "float32_matmul_precision": "highest"}:
-        raise AssertionError(f"TF32 is on for float32 matmuls: {tf32}")
+    tf32 = _tf32_off()
     cfg = get_reduced_config(LM_ARCH)
     cpu, card = (build_model(cfg, device=d) for d in ("cpu", DEVICE))
     params = cpu.init(seed)
@@ -3287,6 +3305,562 @@ def lm_serve_phase(seed: int) -> dict:
         raise AssertionError(f"an lm_serve check failed: {failed}")
     del params
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase: language-model training (no kernel of K1-K6)
+# ---------------------------------------------------------------------------
+LM_TRAIN_B, LM_TRAIN_S = 8, 256   # launch.train's defaults
+LM_TRAIN_STEPS = 12               # the entry point's run
+LM_TRAIN_TIMED = 5                # timed steps, after 2 warm ones
+LM_TRAIN_LONG = 4096              # one step that reaches flash and CE chunks
+
+
+def _loss_and_grads(model, params, batch):
+    """The loss and its gradient leaves (in `adamw.tree_leaves` order)."""
+    from repro_torch.optim import adamw
+
+    live = [p.detach().requires_grad_() for p in adamw.tree_leaves(params)]
+    loss = model.loss(adamw.tree_unflatten(params, live), batch)
+    return loss.detach(), torch.autograd.grad(loss, live)
+
+
+def _quiet(fn, *args):
+    """(result, printed lines) of ``fn(*args)`` with its stdout captured:
+    the script's own stdout carries JSON lines only."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def _opt_to(opt, device):
+    """A copy of an `OptState` on ``device`` (8-bit moments kept)."""
+    from repro_torch.optim import adamw
+
+    def one(m):
+        if isinstance(m, adamw.QTensor):
+            return adamw.QTensor(m.q.to(device, copy=True),
+                                 m.scale.to(device, copy=True), m.shape)
+        return m.to(device, copy=True)
+    return adamw.OptState(opt.step.to(device, copy=True),
+                          adamw.tree_map(one, opt.mu),
+                          adamw.tree_map(one, opt.nu))
+
+
+def _apply_gap(got, want) -> dict:
+    """Largest gap between two (params, OptState) pairs: parameters and
+    float32 moments and scales over each leaf's max |x|, and the 8-bit
+    payload entries that differ."""
+    from repro_torch.optim import adamw
+
+    def flat(pair):
+        out = []
+        for t in adamw.tree_leaves((pair[0], pair[1].mu, pair[1].nu)):
+            out += [t.q, t.scale] if isinstance(t, adamw.QTensor) else [t]
+        return out
+    rel, q_diff = 0.0, 0
+    for a, b in zip(flat(got), flat(want)):
+        a, b = a.cpu(), b.cpu()
+        if b.dtype == torch.int8:
+            q_diff += int((a != b).sum())
+        else:
+            den = max(b.abs().max().item(), 1e-30)
+            rel = max(rel, (a.float() - b.float()).abs().max().item() / den)
+    return {"max_err_over_leaf_max": rel, "q_entries_differing": q_diff}
+
+
+def _lm_train_cpu_vs_card(seed: int) -> dict:
+    """Reduced gemma2-2b in float32, hardware-aware (8 bits, gain sigma 0:
+    the CPU's and the card's generators draw other gains), the same
+    parameters and batches on the CPU and on the card, TF32 off
+    (asserted): three steps of `make_train_step` with float32 and with
+    8-bit moments.  Step-1 loss and grad norm to 1e-4 relative, step-1
+    gradients leaf by leaf to 1e-4 of the leaf's max |g|, and the
+    optimizer on the same gradients: at each step of the CPU's run its
+    parameters, state and gradients carried to the card and
+    `adamw.apply` run on both (parameters, moments and scales within
+    1e-6 of the leaf max, at most 10 8-bit entries differing).  The
+    three-step losses to 1e-4 with float32 moments only: 8-bit moments
+    quantize ν to 0 where μ is not (ν's block scale comes from the
+    block's largest g²), the update there is μ / eps, and a gradient
+    that differs in its 7th digit flips which entries (ROADMAP Queue 3
+    item 19); their losses are reported."""
+    from repro_torch.configs import ShapeCfg, get_reduced_config
+    from repro_torch.core.hwaware import HwAwareConfig
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+
+    tf32 = _tf32_off()
+    cfg = get_reduced_config(LM_ARCH)
+    hw = HwAwareConfig(bits=8, sigma_gain=0.0, min_size=256)
+    src = make_source(DataConfig(seed=seed, vocab_size=cfg.vocab_size))
+    init = build_model(cfg, device="cpu").init(seed)
+    rows = []
+    for bits in (32, 8):
+        ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=3,
+                                 state_bits=bits)
+        runs, applies = {}, []
+        for dev in ("cpu", DEVICE):
+            step = make_train_step(cfg, ShapeCfg("cross", 64, 2, "train"),
+                                   ocfg, hw_aware=hw, device=dev)
+            params = _tree_to(init, dev)
+            opt = adamw.init(params, bits)
+            grads = None
+            metrics = []
+            for s in range(3):
+                batch = src.batch(s, 2, 64, device=dev)
+                if dev == "cpu":
+                    _, g = _loss_and_grads(step.model, params, batch)
+                    g = adamw.tree_unflatten(params, g)
+                    grads = grads or g
+                    card = adamw.apply(ocfg, _tree_to(g, DEVICE),
+                                       _opt_to(opt, DEVICE),
+                                       _tree_to(params, DEVICE))
+                    want = adamw.apply(ocfg, g, _opt_to(opt, "cpu"),
+                                       _tree_to(params, "cpu"))
+                    applies.append(_apply_gap(card[:2], want[:2]))
+                elif grads is None:
+                    _, grads = _loss_and_grads(step.model, params, batch)
+                    grads = adamw.tree_unflatten(params, grads)
+                params, opt, m = step.fn(params, opt, batch)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[dev] = (np.array(metrics),
+                         [g.cpu() for g in adamw.tree_leaves(grads)])
+        (mc, gc), (md, gd) = runs["cpu"], runs[DEVICE]
+        rel = np.abs(mc - md) / np.abs(mc)
+        grad_err = max(((a - b).abs().max() / a.abs().max()).item()
+                       for a, b in zip(gc, gd))
+        gated = rel if bits == 32 else rel[:1]
+        apply_ok = all(a["max_err_over_leaf_max"] <= 1e-6
+                       and a["q_entries_differing"] <= 10 for a in applies)
+        rows.append({"state_bits": bits, "losses_cpu": mc[:, 0].tolist(),
+                     "losses_card": md[:, 0].tolist(),
+                     "loss_gnorm_rel_err_by_step": rel.max(1).tolist(),
+                     "steps_gated": len(gated),
+                     "grad_max_err_over_leaf_max": grad_err,
+                     "apply_same_grads": applies,
+                     "ok": float(gated.max()) <= 1e-4 and grad_err <= 1e-4
+                     and apply_ok})
+    return {"tf32": tf32, "tolerance": 1e-4, "runs": rows,
+            "ok": all(r["ok"] for r in rows)}
+
+
+def _lm_train_resume(seed: int) -> dict:
+    """`launch.train.main` on the card (reduced gemma2-2b, hardware-aware):
+    6 steps with a checkpoint every 2; with steps 4 and 6 deleted, the
+    same command resumes from step 2 and must end bit-equal to the first
+    run's step 6 (parameters, moments, step).  Under
+    ``torch.use_deterministic_algorithms(True)`` for this check alone:
+    the embedding's and the gold logit's backward add with atomics
+    otherwise (``CUBLAS_WORKSPACE_CONFIG`` is set by `main` before the
+    first cuBLAS call)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch import train as lm_train
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            argv = ["--reduced", "--steps", "6", "--batch", "2", "--seq",
+                    "64", "--ckpt-every", "2", "--log-every", "1",
+                    "--hardware-aware", "--seed", str(seed), "--ckpt-dir", d]
+            _quiet(lm_train.main, argv)
+            _, first, _ = ckpt.load(d, 6)
+            for s in (6, 4):
+                shutil.rmtree(Path(d) / f"step_{s:09d}")
+            _, log = _quiet(lm_train.main, argv)
+            _, second, _ = ckpt.load(d, 6)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    differing = [k for k in first
+                 if not torch.equal(torch.as_tensor(first[k]),
+                                    torch.as_tensor(second[k]))]
+    resumed = "resumed from step 2" in log
+    return {"leaves": len(first), "differing": differing,
+            "resumed_from_step_2": resumed,
+            "ok": resumed and not differing and len(first) > 0}
+
+
+def _lm_flash_backward(seed: int, cfg) -> list:
+    """dq, dk, dv of `flash_attention` (its custom backward) against
+    autograd through `_attend_direct`, at gemma2-2b's head shape (8 heads
+    over 4 KV heads, head_dim 256, softcap 50), B = 1, S = 8192, window
+    4096 and none, with a random cotangent.  float32 (TF32 off): each
+    gradient within 1e-4 of its max |g|.  bf16: within 2^-7 |direct| +
+    0.25 rms(direct), the forward's rule (``worst`` is the largest gap
+    over its limit).  fwd+bwd ms and peak GB of each path."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import flash as flash_mod
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 29)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd()
+    shape = lambda n: (1, LM_LONG, n, hd)  # noqa: E731
+    base = [torch.randn(shape(n), generator=gen, device=DEVICE)
+            for n in (H, KV, KV, H)]
+    scale = 1.0 / math.sqrt(hd)
+    pos = torch.arange(LM_LONG, device=DEVICE)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (t.detach().to(dtype) for t in base)
+        qkv = [t.requires_grad_() for t in (q, k, v)]
+        for window in (cfg.window, None):
+            def flash():
+                out = flash_mod.flash_attention(
+                    *qkv, num_kv_heads=KV, scale=scale,
+                    softcap=cfg.attn_softcap, causal=True, window=window)
+                return torch.autograd.grad(out, qkv, do)
+
+            def direct():
+                out = attn_mod._attend_direct(*qkv, cfg, scale, pos, pos,
+                                              True, window)
+                return torch.autograd.grad(out, qkv, do)
+            peaks = {}
+            for name, fn in (("flash", flash), ("direct", direct)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                m0 = torch.cuda.memory_allocated()
+                out = fn()
+                torch.cuda.synchronize()
+                peaks[name] = (torch.cuda.max_memory_allocated() - m0) / 1e9
+                if name == "flash":
+                    got = out
+                else:
+                    want = out
+            grads = []
+            for n, a, w in zip("qkv", got, want):
+                gap = (a.float() - w.float()).abs()
+                w32 = w.float()
+                rms = w32.square().mean().sqrt().item()
+                if dtype == torch.float32:
+                    worst = gap.max().item() / (1e-4 * w32.abs().max().item())
+                else:
+                    worst = (gap / (2 ** -7 * w32.abs() + 0.25 * rms)
+                             ).max().item()
+                grads.append({"grad": "d" + n, "max_abs_err": gap.max().item(),
+                              "rms_direct": rms, "worst": worst,
+                              "finite": bool(torch.isfinite(a).all())})
+            del got, want
+            rows.append({
+                "dtype": str(dtype).split(".")[-1], "window": window,
+                "tolerance": ("1e-4 max|g|" if dtype == torch.float32
+                              else "2^-7 |direct| + 0.25 rms(direct)"),
+                "grads": grads,
+                "ok": all(g["worst"] <= 1.0 and g["finite"] for g in grads),
+                "flash_fwd_bwd_ms": cuda_ms(flash),
+                "direct_fwd_bwd_ms": cuda_ms(direct),
+                "flash_peak_gb": peaks["flash"],
+                "direct_peak_gb": peaks["direct"]})
+    return rows
+
+
+def _train_flops(cfg, batch: int, seq: int) -> dict:
+    """The step's model operations from the shapes: 6 per counted
+    parameter a token (forward 2, backward 4) plus causal attention's QK
+    and PV over the keys each query's mask keeps (x3 for the backward);
+    the remat recompute (the layers' forward and the CE chunks' unembed
+    forward again) beside it."""
+    from repro_torch.models import transformer
+
+    kept = 0
+    for p in transformer.period_plan(cfg):
+        w = p.window or seq
+        kept += sum(min(i + 1, w) for i in range(seq))
+    kept *= transformer.n_groups(cfg) * batch
+    attn_fwd = 4 * kept * cfg.num_heads * cfg.hd()
+    tokens = batch * seq
+    n = cfg.param_count()
+    embed = cfg.vocab_size * cfg.d_model
+    model = 6 * n * tokens + 3 * attn_fwd
+    remat = 2 * (n - embed) * tokens + attn_fwd + 2 * embed * tokens
+    return {"model_flops": model, "remat_recompute_flops": remat,
+            "bound_ms": model / BF16_TC_OPS_PER_S * 1e3,
+            "bound_by": "operations",
+            "bound_with_remat_ms": (model + remat) / BF16_TC_OPS_PER_S * 1e3}
+
+
+def _device_profile(fn, top: int = 8) -> dict:
+    """One call of ``fn`` under `torch.profiler` (after a warm-up): its
+    device operations, their summed device time and the ``top`` device
+    operations by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    n_ops = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"device_ops": n_ops, "device_busy_ms": busy,
+            "profiled_wall_ms": wall,
+            "top_device_ops": [{"name": k[:80], "ms": v} for k, v in ranked]}
+
+
+def _fwd_bwd(model, params, batch, repeats: int = 3) -> dict:
+    """Median ms (CUDA events, after a warm-up) and peak memory above the
+    resident state of the loss and its gradients."""
+    _loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = [timed_once(lambda: _loss_and_grads(model, params, batch))[1]
+          for _ in range(repeats)]
+    return {"ms": float(np.median(ms)), "ms_all": ms,
+            "peak_gb_above_state":
+            (torch.cuda.max_memory_allocated() - base) / 1e9}
+
+
+def _full_width_step(seed: int, cfg, src) -> dict:
+    """The full-width step measured (B = 8, S = 256, hardware-aware, bf16,
+    float32 moments): median ms a step over `LM_TRAIN_TIMED` steps after
+    2 warm ones (CUDA events), tokens/s, peak memory, the device profile
+    of one step, the host ms of `SyntheticLM.batch`, the operation bound;
+    then the loss and its gradients alone (`_fwd_bwd`) with the groups
+    taken by `unbind_groups` and by per-group indexing (`group_slice`).
+    """
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.core.hwaware import HwAwareConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+
+    B, S = LM_TRAIN_B, LM_TRAIN_S
+    host_ms = []
+    batches = []
+    for i in range(2 + LM_TRAIN_TIMED):
+        t0 = time.perf_counter()
+        batches.append(src.batch(i, B, S, device=DEVICE))
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    step = make_train_step(cfg, ShapeCfg("train_cli", S, B, "train"),
+                           adamw.AdamWConfig(total_steps=100,
+                                             warmup_steps=10),
+                           hw_aware=HwAwareConfig())
+    params = step.model.init(seed)
+    opt = adamw.init(params)
+    state_gb = (_tree_nbytes(params) + sum(
+        t.numel() * t.element_size()
+        for t in adamw.tree_leaves((opt.mu, opt.nu)))) / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i, b in enumerate(batches):
+        (params, opt, m), t = timed_once(lambda: step.fn(params, opt, b))
+        losses.append(float(m["loss"]))
+        if i >= 2:
+            ms.append(t)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _device_profile(lambda: step.fn(params, opt, batches[0]))
+    step_ms = float(np.median(ms))
+
+    backward = {"unbind_groups": _fwd_bwd(step.model, params, batches[0])}
+    unbind = transformer.unbind_groups
+    transformer.unbind_groups = lambda tree, G: [
+        transformer.group_slice(tree, g) for g in range(G)]
+    try:
+        backward["group_slice"] = _fwd_bwd(step.model, params, batches[0])
+    finally:
+        transformer.unbind_groups = unbind
+    flops = _train_flops(cfg, B, S)
+    return {
+        "batch": B, "seq": S, "tokens": B * S, "ms_per_step": step_ms,
+        "ms_steps": ms, "tokens_per_s": B * S / step_ms * 1e3,
+        "losses": losses, "peak_gb": peak, "state_gb": state_gb,
+        **flops, "gap_to_bound": step_ms / flops["bound_ms"],
+        "device_profile": prof,
+        "device_busy_share": prof["device_busy_ms"] / step_ms,
+        "synthetic_batch_host_ms": float(np.median(host_ms)),
+        "loss_and_grads": backward,
+        "finite": bool(np.isfinite(losses).all())}
+
+
+def _fixed_batch(seed: int, cfg, src) -> dict:
+    """8 steps on one batch at lr 1e-3, warmup 0, hardware-aware: the
+    loss falls by more than 0.1 (the reference's own test's rule)."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.core.hwaware import HwAwareConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    step = make_train_step(cfg, ShapeCfg("fixed", LM_TRAIN_S, LM_TRAIN_B,
+                                         "train"),
+                           adamw.AdamWConfig(lr=1e-3, warmup_steps=0,
+                                             total_steps=8),
+                           hw_aware=HwAwareConfig())
+    params = step.model.init(seed)
+    opt = adamw.init(params)
+    batch = src.batch(0, LM_TRAIN_B, LM_TRAIN_S, device=DEVICE)
+    losses = []
+    for _ in range(8):
+        params, opt, m = step.fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "fall": losses[0] - losses[-1],
+            "ok": bool(np.isfinite(losses).all())
+            and losses[-1] < losses[0] - 0.1}
+
+
+def _long_step(seed: int, cfg, src) -> dict:
+    """Steps at B = 1, S = 4096 (flash in every layer, 8 CE chunks), with
+    remat on and off from the same state and batch: the step-1 loss must
+    be bit-equal and the grad norms equal to 1e-3 relative; the second
+    step's ms and each run's peak beside."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.core.hwaware import HwAwareConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    batch = src.batch(0, 1, LM_TRAIN_LONG, device=DEVICE)
+    out = {}
+    for remat in (True, False):
+        step = make_train_step(
+            dataclasses.replace(cfg, remat=remat),
+            ShapeCfg("long", LM_TRAIN_LONG, 1, "train"),
+            adamw.AdamWConfig(total_steps=100, warmup_steps=10),
+            hw_aware=HwAwareConfig())
+        params = step.model.init(seed)
+        opt = adamw.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (params, opt, m), first_ms = timed_once(
+            lambda: step.fn(params, opt, batch))
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        _, ms = timed_once(lambda: step.fn(params, opt, batch))
+        out["remat" if remat else "no_remat"] = {
+            "loss": loss, "grad_norm": gnorm, "first_ms": first_ms,
+            "ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del params, opt, step
+        torch.cuda.empty_cache()
+    on, off = out["remat"], out["no_remat"]
+    gn_rel = abs(on["grad_norm"] - off["grad_norm"]) / off["grad_norm"]
+    return {**out, "batch": 1, "seq": LM_TRAIN_LONG,
+            "loss_bit_equal": on["loss"] == off["loss"],
+            "grad_norm_rel_diff": gn_rel,
+            "ok": on["loss"] == off["loss"] and gn_rel <= 1e-3
+            and math.isfinite(on["loss"])}
+
+
+def _eight_bit_moments(seed: int, cfg, src) -> dict:
+    """3 full-width steps with 8-bit moments (B = 8, S = 256,
+    hardware-aware): finite losses, and the peak memory and the state's
+    bytes."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.core.hwaware import HwAwareConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    step = make_train_step(cfg, ShapeCfg("q8", LM_TRAIN_S, LM_TRAIN_B,
+                                         "train"),
+                           adamw.AdamWConfig(total_steps=100, warmup_steps=10,
+                                             state_bits=8),
+                           hw_aware=HwAwareConfig())
+    params = step.model.init(seed)
+    opt = adamw.init(params, 8)
+    state_gb = (_tree_nbytes(params) + sum(
+        x.numel() * x.element_size()
+        for t in adamw.tree_leaves((opt.mu, opt.nu)) for x in (t.q, t.scale)
+    )) / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(3):
+        b = src.batch(i, LM_TRAIN_B, LM_TRAIN_S, device=DEVICE)
+        (params, opt, m), t = timed_once(lambda: step.fn(params, opt, b))
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    return {"losses": losses, "ms_steps": ms, "state_gb": state_gb,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "ok": bool(np.isfinite(losses).all())}
+
+
+def lm_train_phase(seed: int) -> dict:
+    """Language-model training (`repro_torch.launch.train`, the port of
+    ``python -m repro.launch.train``) at gemma2-2b's full width in bf16,
+    hardware-aware, weights drawn on the card from ``seed``: the entry
+    point driven once (`drive`) for `LM_TRAIN_STEPS` steps of B = 8,
+    S = 256 (every logged loss and grad norm finite; the first loss beside
+    ln(vocab)).  It launches none of K1-K6 (asserted: every count 0).
+    Then: the reduced float32 model on the CPU and on the card (losses,
+    grad norms, step-1 gradients; 32- and 8-bit moments); resume on the
+    card, bit-equal; the flash backward at S = 8192; the full-width step
+    measured; a fixed batch's falling loss; B = 1, S = 4096 with remat on
+    and off; 8-bit moments at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch import train as lm_train
+
+    t_phase = time.perf_counter()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(LM_ARCH)
+    argv = ["--arch", LM_ARCH, "--steps", str(LM_TRAIN_STEPS), "--batch",
+            str(LM_TRAIN_B), "--seq", str(LM_TRAIN_S), "--hardware-aware",
+            "--log-every", "1", "--seed", str(seed)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (rows, log), counts, _ = drive(lambda: _quiet(lm_train.main, argv))
+    entry = {"argv": argv, "seconds": time.perf_counter() - t0,
+             "log_first": log[:2], "log_last": log[-1:],
+             "losses": [r["loss"] for r in rows],
+             "grad_norms": [r["grad_norm"] for r in rows],
+             "first_loss": rows[0]["loss"],
+             "ln_vocab": math.log(cfg.vocab_size),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    entry["finite"] = bool(np.isfinite(entry["losses"]).all()
+                           and np.isfinite(entry["grad_norms"]).all()
+                           and len(rows) == LM_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+
+    cross = _lm_train_cpu_vs_card(seed)
+    resume = _lm_train_resume(seed)
+    flash_rows = _lm_flash_backward(seed, cfg)
+    torch.cuda.empty_cache()
+    src = make_source(DataConfig(seed=seed, vocab_size=cfg.vocab_size))
+    measured = _full_width_step(seed, cfg, src)
+    torch.cuda.empty_cache()
+    fixed = _fixed_batch(seed, cfg, src)
+    torch.cuda.empty_cache()
+    long = _long_step(seed, cfg, src)
+    eight = _eight_bit_moments(seed, cfg, src)
+    eight["peak_gb_float32_moments"] = measured["peak_gb"]
+    torch.cuda.empty_cache()
+    res = {"phase": "lm_train", "arch": LM_ARCH, "dtype": cfg.dtype,
+           "kernel_launches": {k: counts[k] for k in KERNELS},
+           "resident_gb_at_start": resident_gb,
+           "entry_point": entry, "f32_cpu_vs_card": cross,
+           "resume_on_card": resume, "flash_backward": flash_rows,
+           "step": measured, "fixed_batch": fixed, "long_step": long,
+           "eight_bit_moments": eight,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    checks = {
+        "no_kernel_launched": all(c == 0 for c in counts.values()),
+        "entry_point_finite": entry["finite"],
+        "f32_cpu_vs_card": cross["ok"], "resume_bit_equal": resume["ok"],
+        "flash_backward": all(r["ok"] for r in flash_rows),
+        "step_finite": measured["finite"], "fixed_batch_falls": fixed["ok"],
+        "remat_on_off": long["ok"], "eight_bit_moments": eight["ok"]}
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"an lm_train check failed: {failed}")
     return res
 
 
@@ -3689,6 +4263,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on the GPU only", file=sys.stderr)
         return 1
+    # before the first cuBLAS call: the lm_train phase's bit-equal resume
+    # runs under deterministic algorithms, which need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.sweep_fused import H100, card_limits
@@ -3729,7 +4306,6 @@ def main() -> int:
     fault = faults_phase(args.seed)
     logic = psl_phase(args.seed)
     served = serve_phase(args.seed)
-    lm_serve_phase(args.seed)
     by_path = {"sample": path["launches"], "training": train["launches"],
                "learning": learn["launches"], "workloads": work["launches"],
                "streaming": stream["launches"], "lattice_soa": soa["launches"],
@@ -3757,6 +4333,12 @@ def main() -> int:
         exchange_checks, shard, shard_calls,
         per_path("sweep_sparse_exchange"),
         max(worst["sharded"], worst["faults"], worst["serve"])))
+    # the recorded launches hold their operands on the card: free them
+    # before the language-model phases, whose full-width steps need it
+    del calls, train_calls, work_calls, stream_calls, soa_calls, shard_calls
+    torch.cuda.empty_cache()
+    lm_serve_phase(args.seed)
+    lm_train_phase(args.seed)
     emit({"kernels": records})
     emit({"phase": "timing", "run_seconds": time.perf_counter() - t_run})
 

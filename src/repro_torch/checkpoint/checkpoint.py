@@ -10,14 +10,18 @@ Writes go to ``<dir>.tmp`` then `os.replace` -> atomic; readers only trust
 directories with the commit marker, so a killed writer never corrupts the
 latest checkpoint.
 
-A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
-arrays or Python scalars (``None`` is an empty subtree).  Its flat keys are
-the reference's (``['Jm']``, ``['nested']['v']``, ``[0]``), so a directory
-written by either package loads in the other.  Tensors are saved from the
-host and restored to the device and dtype of the caller's ``target``.
-numpy cannot store bfloat16: such a leaf is stored as its uint16 bits
-under the key ``__bf16__<key>``, and meta.json's ``logical_dtypes`` records
-it.
+A tree is nested dicts, lists, tuples, named tuples and registered nodes
+(objects with the reference's ``tree_flatten`` / ``tree_unflatten``
+protocol, such as the optimizer's `QTensor`) whose leaves are tensors,
+numpy arrays or Python scalars (``None`` is an empty subtree).  Its flat
+keys are the reference's ``jax.tree_util.keystr`` (``['Jm']``,
+``['nested']['v']``, ``[0]``, a named tuple's field as ``.step``, a
+registered node's children as ``[<flat index 0>]``), so a directory
+written by either package loads in the other, training state included.
+Tensors are saved from the host and restored to the device and dtype of
+the caller's ``target``.  numpy cannot store bfloat16: such a leaf is
+stored as its uint16 bits under the key ``__bf16__<key>``, and
+meta.json's ``logical_dtypes`` records it.
 
 `AsyncCheckpointer` overlaps serialization with the next train step
 (one-deep queue).  Counterpart of ``repro.checkpoint.checkpoint``.
@@ -38,18 +42,54 @@ _MARKER = ".complete"
 _BF16 = "__bf16__"
 
 
+def _children(tree: Any):
+    """``(key suffix, child)`` pairs of an inner node, in the reference's
+    key format and order, or None for a leaf."""
+    if isinstance(tree, dict):
+        return [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{f}", v) for f, v in zip(tree._fields, tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(f"[{i}]", v) for i, v in enumerate(tree)]
+    if hasattr(tree, "tree_flatten"):
+        return [(f"[<flat index {i}>]", v)
+                for i, v in enumerate(tree.tree_flatten()[0])]
+    return None
+
+
+def _rebuilt(tree: Any, children: list) -> Any:
+    """``tree``'s kind of node over new ``children`` (in `_children`
+    order)."""
+    if isinstance(tree, dict):
+        return dict(zip(sorted(tree), children))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*children)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(children)
+    return type(tree).tree_unflatten(tree.tree_flatten()[1], children)
+
+
 def _leaves(tree: Any, prefix: str = ""):
     """(key, leaf) pairs of ``tree`` in the reference's key format."""
     if tree is None:
         return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], f"{prefix}[{k!r}]")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, f"{prefix}[{i}]")
-    else:
+    kids = _children(tree)
+    if kids is None:
         yield prefix, tree
+        return
+    for key, child in kids:
+        yield from _leaves(child, prefix + key)
+
+
+def _map_keyed(fn, tree: Any, prefix: str = "") -> Any:
+    """``fn(key, leaf)`` over the leaves, the structure kept."""
+    if tree is None:
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return fn(prefix, tree)
+    return _rebuilt(tree, [_map_keyed(fn, child, prefix + key)
+                           for key, child in kids])
 
 
 def _host(leaf) -> np.ndarray | torch.Tensor:
@@ -136,19 +176,12 @@ def _restore(val, leaf):
     return type(leaf)(np.asarray(val).item())
 
 
-def _rebuild(target: Any, arrays: dict, prefix: str = ""):
-    if target is None:
-        return None
-    if isinstance(target, dict):
-        return {k: _rebuild(v, arrays, f"{prefix}[{k!r}]")
-                for k, v in target.items()}
-    if isinstance(target, (list, tuple)):
-        out = [_rebuild(v, arrays, f"{prefix}[{i}]")
-               for i, v in enumerate(target)]
-        return type(target)(out)
-    if prefix not in arrays:
-        raise KeyError(f"checkpoint missing {prefix}")
-    return _restore(arrays[prefix], target)
+def _rebuild(target: Any, arrays: dict):
+    def leaf(key, value):
+        if key not in arrays:
+            raise KeyError(f"checkpoint missing {key}")
+        return _restore(arrays[key], value)
+    return _map_keyed(leaf, target)
 
 
 def load(directory: str | Path, step: Optional[int] = None,
@@ -184,11 +217,7 @@ def gc_old(directory: str | Path, keep: int = 3) -> None:
 
 
 def _to_host(tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_host(v) for v in tree)
-    return None if tree is None else _host(tree)
+    return _map_keyed(lambda _, leaf: _host(leaf), tree)
 
 
 class AsyncCheckpointer:

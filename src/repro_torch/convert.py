@@ -8,8 +8,10 @@ noise array, or the leaves of an `EffectiveChip` / `Mismatch` /
 or a ``{field: array}`` dict; a `Program` crosses as a ``{field: array}``
 dict, an `api.Faults` as the reference's ``dataclasses.asdict`` of it, a
 CD training state as the reference's ``CDTrainState.tree`` (numpy leaves)
-and a language model's parameters or decode cache as the reference's
-tree with numpy leaves (``jax.tree.map(np.asarray, tree)``).
+a language model's parameters or decode cache as the reference's
+tree with numpy leaves (``jax.tree.map(np.asarray, tree)``), and an
+optimizer state as the reference's ``OptState`` with numpy leaves (its
+8-bit moments' ``QTensor`` nodes kept).
 The tests use only these functions to move state between the packages.
 """
 from __future__ import annotations
@@ -183,3 +185,28 @@ def lm_tree_from_numpy(tree, device="cuda") -> dict:
     (G, B, S, KV, hd), with a leading group axis) is the same in both
     packages."""
     return _tree_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """`optim.adamw.OptState` from the reference's ``OptState`` with numpy
+    leaves (``jax.tree.map(np.asarray, opt_state)``): the int32 step, and
+    float32 moments or 8-bit ``QTensor`` nodes (any object with ``q``,
+    ``scale`` and ``shape``) in the parameters' tree."""
+    from repro_torch.optim import adamw
+
+    def moments(tree):
+        if isinstance(tree, dict):
+            return {k: moments(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [moments(v) for v in tree]
+        if hasattr(tree, "q") and hasattr(tree, "scale"):
+            return adamw.QTensor(
+                torch.as_tensor(np.asarray(tree.q, np.int8).copy(),
+                                device=device),
+                _f32(tree.scale, device), tuple(tree.shape))
+        return _f32(tree, device)
+
+    step, mu, nu = state
+    return adamw.OptState(
+        torch.as_tensor(np.asarray(step, np.int32).copy(), device=device),
+        moments(mu), moments(nu))

@@ -1,11 +1,12 @@
-"""Memory-efficient attention (flash-style), forward, in plain PyTorch.
+"""Memory-efficient attention (flash-style) in plain PyTorch, with the
+reference's custom backward.
 
-The port of `repro.models.flash`'s forward: the query axis is split into
-chunks of `Q_CHUNK` in a Python loop (a static triangular schedule), and
-each q-chunk visits only the KV range its causal / sliding-window mask
-allows, aligned to `KV_CHUNK`; inside it a running softmax (max, denom,
-acc) goes over KV chunks, so memory is O(S·d), not O(S²), and causal
-attention costs ~S²/2 multiply-adds.
+The port of `repro.models.flash`: the query axis is split into chunks of
+`Q_CHUNK` in a Python loop (a static triangular schedule), and each
+q-chunk visits only the KV range its causal / sliding-window mask allows,
+aligned to `KV_CHUNK`; inside it a running softmax (max, denom, acc) goes
+over KV chunks, so memory is O(S·d), not O(S²), and causal attention
+costs ~S²/2 multiply-adds.
 
 Scores accumulate in float32 from the inputs (the reference's
 ``preferred_element_type``: bf16 products are exact in float32, so the
@@ -16,8 +17,15 @@ key in a chunk is masked then carries a uniform row that the next chunk's
 correction ``exp(m_prev - m_new)`` clears, as in the reference, where
 ``-inf`` would give NaN.
 
-The backward (the reference's custom VJP, ``_mea_bwd``) belongs to the
-training slice and ``seq_shard`` to the multi-card slice.
+Backward (`_MeaChunk`, the reference's ``custom_vjp`` ``_mea_bwd``): a
+q-chunk saves only (q, k, v, o, m, l) and recomputes each KV chunk's
+scores (the flash-2 schedule).  ``D = sum(do * o)`` uses the saved output
+in q's dtype, widened; ``dv = pᵀ do`` uses float32 ``p`` (not the value
+dtype the forward cast it to); dk and dv are cast to k's and v's dtype per
+KV chunk, dq accumulates in float32 and is cast once.  Each q-chunk's K/V
+range is an ordinary slice of k and v, so autograd adds the dk/dv of
+overlapping q-chunks as the reference's slice VJPs do.  ``seq_shard``
+belongs to the multi-card slice.
 """
 from __future__ import annotations
 
@@ -61,9 +69,19 @@ def _scores(q, k, scale, softcap):
     return s
 
 
+def _dscores(q, k, scale, softcap, ds_capped):
+    """Backprop through scale (+softcap) given d(capped scores)."""
+    if softcap is None:
+        return ds_capped * scale
+    raw = torch.einsum("bqkgh,bskh->bkgqs", q, k.float()) * scale
+    t = torch.tanh(raw / softcap)
+    return ds_capped * (1.0 - t * t) * scale
+
+
 def _mea_fwd(q, k, v, scale, softcap, causal, window, q_lo, k_lo):
     """One q-chunk (B,cq,KV,G,hd) over its KV range (B,Sk,KV,hd): the
-    running softmax over KV chunks; returns o (B,cq,KV,G,hd)."""
+    running softmax over KV chunks; returns o (B,cq,KV,G,hd) in q's dtype
+    and the float32 row max m and denominator l (B,KV,G,cq)."""
     B, cq, KV, G, hd = q.shape
     dtype, q = q.dtype, q.float()
     Sk = k.shape[1]
@@ -88,7 +106,53 @@ def _mea_fwd(q, k, v, scale, softcap, causal, window, q_lo, k_lo):
         acc = acc * corr[..., None] + pv
         m = m_n
     o = acc / torch.clamp(l, min=1e-37)[..., None]
-    return o.movedim(-2, 1).to(dtype)
+    return o.movedim(-2, 1).to(dtype), m, l
+
+
+def _mea_bwd(q, k, v, o, m, l, do, scale, softcap, causal, window, q_lo,
+             k_lo):
+    """dq, dk, dv of one q-chunk from its saved (q, k, v, o, m, l)."""
+    B, cq, KV, G, hd = q.shape
+    Sk = k.shape[1]
+    ck = _pick_chunk(Sk, KV_CHUNK)
+    q32 = q.float()
+    do_t = do.float().movedim(1, -2)                     # (B,KV,G,cq,hd)
+    D = torch.sum(do_t * o.float().movedim(1, -2), dim=-1)  # (B,KV,G,cq)
+    linv = 1.0 / torch.clamp(l, min=1e-37)
+    dq = torch.zeros((B, cq, KV, G, hd), dtype=torch.float32,
+                     device=q.device)
+    dks, dvs = [], []
+    for i in range(Sk // ck):
+        k_c = k[:, i * ck:(i + 1) * ck]
+        v_c = v[:, i * ck:(i + 1) * ck]
+        s = _scores(q32, k_c, scale, softcap)
+        keep = _mask(q_lo, cq, k_lo + i * ck, ck, causal, window, q.device)
+        s = torch.where(keep, s, NEG_INF)
+        p = torch.exp(s - m[..., None]) * linv[..., None]  # (B,KV,G,cq,ck)
+        dp = torch.einsum("bkgqh,bskh->bkgqs", do_t, v_c.float())
+        ds = _dscores(q32, k_c, scale, softcap, p * (dp - D[..., None]))
+        dq = dq + torch.einsum("bkgqs,bskh->bqkgh", ds, k_c.float())
+        dks.append(torch.einsum("bkgqs,bqkgh->bskh", ds, q32).to(k.dtype))
+        dvs.append(torch.einsum("bkgqs,bkgqh->bskh", p, do_t).to(v.dtype))
+    return dq.to(q.dtype), torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+
+
+class _MeaChunk(torch.autograd.Function):
+    """One q-chunk attended over its (statically sliced) KV range: the
+    running-softmax forward, and a backward that recomputes the scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, softcap, causal, window, q_lo, k_lo):
+        o, m, l = _mea_fwd(q, k, v, scale, softcap, causal, window, q_lo,
+                           k_lo)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.static = (scale, softcap, causal, window, q_lo, k_lo)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _mea_bwd(*ctx.saved_tensors, do, *ctx.static)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -102,7 +166,7 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Static triangular q-chunk schedule over the running-softmax body."""
+    """Static triangular q-chunk schedule over `_MeaChunk`."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     KV = num_kv_heads
@@ -122,8 +186,9 @@ def flash_attention(
         lo = (lo // ckv) * ckv
         hi = min(-(-hi // ckv) * ckv, Sk)
         hi = max(hi, lo + ckv) if Sk >= ckv else Sk
-        o = _mea_fwd(qg[:, i * cq:(i + 1) * cq], k[:, lo:hi], v[:, lo:hi],
-                     scale, softcap, causal, window, q_lo, lo)
+        o = _MeaChunk.apply(qg[:, i * cq:(i + 1) * cq], k[:, lo:hi],
+                            v[:, lo:hi], scale, softcap, causal, window,
+                            q_lo, lo)
         outs.append(o)
     out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     return out.reshape(B, Sq, H, hd)

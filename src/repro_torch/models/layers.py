@@ -1,4 +1,5 @@
-"""Shared building blocks: init helpers, norms, rotary embeddings, MLPs.
+"""Shared building blocks: init helpers, norms, rotary embeddings, MLPs,
+the cross-entropy.
 
 The port of `repro.models.layers`.  Each function computes what its
 counterpart does, in the same dtypes at each step (norms and RoPE in
@@ -140,3 +141,17 @@ def unembed(cfg: ModelCfg, params: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         logits = x @ params["lm_head"]
     return softcap(logits.float(), cfg.final_softcap)
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logsumexp - gold logit at each position: logits (..., V) f32,
+    labels (...) of any integer dtype (widened to int64 for the gather
+    only)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
+    return logz - gold
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over all positions. logits (B, S, V) f32, labels (B, S)."""
+    return torch.mean(token_nll(logits, labels))

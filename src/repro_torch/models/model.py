@@ -1,11 +1,10 @@
-"""Model facade: build_model(cfg) -> uniform init / cache / decode.
+"""Model facade: build_model(cfg) -> uniform init / loss / cache / decode.
 
 The port of `repro.models.model` for decoder-only configs whose layers
 are attention + a dense MLP.  An encoder-decoder config, or a family whose
 layers the port does not have yet (mixture-of-experts, Mamba, RWKV),
-raises `NotImplementedError` naming ROADMAP Queue 1 item 12c.  The loss
-comes with training (item 12b); ``input_specs`` and ``make_dummy_batch``
-with the dry run (item 12d).
+raises `NotImplementedError` naming ROADMAP Queue 1 item 12c.
+``input_specs`` and ``make_dummy_batch`` come with the dry run (item 12d).
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ class Model:
     cfg: ModelCfg
     device: torch.device
     init: Callable[[int], Any]                 # seed -> params on device
+    loss: Callable[[Any, dict], torch.Tensor]  # (params, batch) -> loss
     init_cache: Callable[[int, int], Any]      # (batch, max_seq) -> cache
     decode_step: Callable[[Any, torch.Tensor, int, Any], tuple]
 
@@ -33,10 +33,12 @@ def build_model(cfg: ModelCfg,
                 hw_aware: Optional[HwAwareConfig] = None,
                 chip_key: Optional[int] = None,
                 device="cuda") -> Model:
-    """hw_aware: the paper's generalized in-situ learning — decode sees
-    params through the 8-bit DAC + mismatch model (core/hwaware.py) of
-    the chip seeded ``chip_key`` (default 0).  Parameters are drawn on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    """hw_aware: the paper's generalized in-situ learning — the loss and
+    decode see params through the 8-bit DAC + mismatch model
+    (core/hwaware.py) of the chip seeded ``chip_key`` (default 0); the
+    loss's gradient passes the quantizer straight through.  Parameters
+    are drawn on ``device`` (the card unless the caller asks for the
+    CPU)."""
     dev = require_device(device)
     transformer.dense_plans(cfg)      # refuse a family the port lacks now
 
@@ -51,6 +53,7 @@ def build_model(cfg: ModelCfg,
         device=dev,
         init=lambda seed: transformer.init_lm(
             torch.Generator(device=dev).manual_seed(seed), cfg),
+        loss=lambda p, b: transformer.lm_loss(maybe_hw(p), cfg, b),
         init_cache=lambda b, s: transformer.init_cache(cfg, b, s,
                                                        device=dev),
         decode_step=lambda p, t, pos, c: transformer.decode_step(

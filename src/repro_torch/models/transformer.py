@@ -1,17 +1,24 @@
 """Decoder-only LM assembly: the attention + gated-MLP (dense) family.
 
-The port of `repro.models.transformer` for prefill, forward and decode.
-Layers are grouped into *periods* (1 for uniform stacks, 2 for gemma2's
-local/global alternation) and each period slot's parameters and cache
-carry a leading G = L/P dim, the reference's stacked layout: the port
-loops over G in Python where the reference has ``lax.scan``, so a
+The port of `repro.models.transformer` for training, prefill, forward and
+decode.  Layers are grouped into *periods* (1 for uniform stacks, 2 for
+gemma2's local/global alternation) and each period slot's parameters and
+cache carry a leading G = L/P dim, the reference's stacked layout: the
+port loops over G in Python where the reference has ``lax.scan``, so a
 reference parameter or cache tree converts leaf for leaf
 (`repro_torch.convert`).  Decode writes each layer's K/V into its slice
 of the stacked cache in place and returns the same cache.
 
+The full-sequence forward takes each stacked leaf's groups with one
+``unbind(0)`` (`unbind_groups`): its backward stacks the G group
+gradients once, where G indexings ``v[g]`` would each build and add a
+zero gradient of the whole stacked leaf.  With ``cfg.remat`` each group's
+body runs under `torch.utils.checkpoint` (only the group's input is kept,
+the reference's ``save_only_these_names()`` policy), and `chunked_ce`
+recomputes each sequence chunk's logits in backward.
+
 Mixture-of-experts, Mamba and RWKV layers (and Whisper's encoder-decoder)
-raise `NotImplementedError`: they are ROADMAP Queue 1 item 12c.  The loss
-(``chunked_ce``, ``lm_loss``) and remat come with training (item 12b).
+raise `NotImplementedError`: they are ROADMAP Queue 1 item 12c.
 """
 from __future__ import annotations
 
@@ -20,12 +27,14 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (dense_init, dtype_of, embed_tokens,
-                                       gelu_tanh, init_mlp, init_norm, mlp,
-                                       rms_norm, unembed)
+from repro_torch.models.layers import (cross_entropy, dense_init, dtype_of,
+                                       embed_tokens, gelu_tanh, init_mlp,
+                                       init_norm, mlp, rms_norm, token_nll,
+                                       unembed)
 
 LATER_FAMILIES = "ROADMAP Queue 1 item 12c"
 
@@ -125,10 +134,21 @@ def init_lm(gen: torch.Generator, cfg: ModelCfg) -> dict:
     return params
 
 
+def _map_leaves(fn, tree: dict) -> dict:
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def group_slice(tree: dict, g: int) -> dict:
     """Group ``g``'s parameters or cache of a stacked slot: views."""
-    return {k: group_slice(v, g) if isinstance(v, dict) else v[g]
-            for k, v in tree.items()}
+    return _map_leaves(lambda v: v[g], tree)
+
+
+def unbind_groups(tree: dict, G: int) -> list[dict]:
+    """The G groups' parameters of a stacked slot, by one ``unbind(0)`` a
+    leaf: the views `group_slice` gives, with one stack as backward."""
+    per_leaf = _map_leaves(lambda t: t.unbind(0), tree)
+    return [_map_leaves(lambda u: u[g], per_leaf) for g in range(G)]
 
 
 # ---------------------------------------------------------------------------
@@ -203,11 +223,18 @@ def forward_hidden(
     """Returns (final hidden (B, S, D), aux_loss) — no unembed."""
     plans = dense_plans(cfg)
     x, positions = _embed(params, cfg, tokens, positions, frontend_embeds)
-    for g in range(n_groups(cfg)):
+
+    def group_body(x, gparams):
         for i, plan in enumerate(plans):
-            x, _ = apply_layer(
-                group_slice(params["blocks"][f"layer_{i}"], g), cfg, plan,
-                x, positions)
+            x, _ = apply_layer(gparams[f"layer_{i}"], cfg, plan, x,
+                               positions)
+        return x
+
+    for gparams in unbind_groups(params["blocks"], n_groups(cfg)):
+        if cfg.remat:
+            x = checkpoint(group_body, x, gparams, use_reentrant=False)
+        else:
+            x = group_body(x, gparams)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     # no mixture-of-experts layer in this family: the auxiliary loss is 0
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -220,6 +247,43 @@ def forward(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
     """Returns (logits (B, S, V) f32, aux_loss)."""
     x, aux = forward_hidden(params, cfg, tokens, positions, frontend_embeds)
     return unembed(cfg, params, x), aux
+
+
+CE_CHUNK = 512
+
+
+def _ce_sum(cfg: ModelCfg, params: dict, x: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Summed CE of one sequence chunk: unembed -> logsumexp - gold."""
+    return torch.sum(token_nll(unembed(cfg, params, x), labels))
+
+
+def chunked_ce(params: dict, cfg: ModelCfg, x: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy without materializing (B, S, V) logits.
+
+    Loops over sequence chunks of `CE_CHUNK`, each recomputed in backward
+    (`torch.utils.checkpoint`, the reference's ``jax.checkpoint``): the
+    peak logits buffer is (B, CE_CHUNK, V).  A length the chunk does not
+    divide takes the full `cross_entropy`, as the reference does.
+    """
+    B, S, _ = x.shape
+    c = min(CE_CHUNK, S)
+    if S % c != 0:
+        return cross_entropy(unembed(cfg, params, x), labels)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // c):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(_ce_sum, cfg, params, x[:, sl],
+                                   labels[:, sl], use_reentrant=False)
+    return total / (B * S)
+
+
+def lm_loss(params: dict, cfg: ModelCfg, batch: dict) -> torch.Tensor:
+    x, aux = forward_hidden(
+        params, cfg, batch["tokens"], batch.get("positions"),
+        batch.get("frontend_embeds"))
+    return chunked_ce(params, cfg, x, batch["labels"]) + 0.01 * aux
 
 
 def prefill(params: dict, cfg: ModelCfg, tokens: torch.Tensor,

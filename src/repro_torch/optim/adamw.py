@@ -1,0 +1,180 @@
+"""AdamW + gradient clipping + LR schedules, in plain PyTorch.
+
+The port of `repro.optim.adamw`.  Optimizer state mirrors the parameter
+tree (nested dicts, leaves in sorted-key order as the reference's
+``jax.tree.leaves``): float32 moments, or blockwise int8 moments with a
+float32 scale per block of `QBLOCK` (`QTensor`).
+
+`apply` updates **in place**, leaf by leaf under ``torch.no_grad()``: the
+parameters, the moments and the step counter are written into the
+tensors the caller passed, which it returns.  That is the reference's
+donation contract (its train step donates the state): at gemma2-2b's
+width a functional update would hold two copies of a 31 GB training
+state.  The caller may not reuse the old trees.
+
+Arithmetic follows the reference op for op in float32; the bias
+corrections' ``b ** step`` are taken in float64 and rounded once (XLA's
+float32 ``pow`` is close to correctly rounded; ROADMAP Queue 3).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    state_bits: int = 32     # 8 => blockwise-quantized moments
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor       # int32 scalar
+    mu: Any
+    nu: Any
+
+
+QBLOCK = 256
+
+
+@dataclasses.dataclass
+class QTensor:
+    """Blockwise int8 quantized moment (bitsandbytes-style, deterministic):
+    ``q`` (nblocks, QBLOCK) int8 over the padded flat moment, ``scale``
+    (nblocks,) float32, ``shape`` the logical shape.  ``tree_flatten`` /
+    ``tree_unflatten`` name its children as the reference's registered
+    pytree class does, so checkpoints key them alike."""
+    q: torch.Tensor
+    scale: torch.Tensor
+    shape: tuple
+
+    def tree_flatten(self):
+        return (self.q, self.scale), self.shape
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(children[0], children[1], aux)
+
+
+def _quantize(x: torch.Tensor) -> QTensor:
+    shape = tuple(x.shape)
+    flat = x.float().reshape(-1)
+    flat = F.pad(flat, (0, (-flat.numel()) % QBLOCK))
+    blocks = flat.reshape(-1, QBLOCK)
+    scale = torch.clamp(blocks.abs().amax(dim=1, keepdim=True) / 127.0,
+                        min=1e-20)
+    # torch.round rounds half to even, as jnp.round
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return QTensor(q, scale[:, 0], shape)
+
+
+def _dequantize(t: QTensor) -> torch.Tensor:
+    flat = (t.q.float() * t.scale[:, None]).reshape(-1)
+    return flat[:math.prod(t.shape)].reshape(t.shape)
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup + cosine decay to min_lr_frac (float32)."""
+    step = step.float()
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    frac = torch.clamp((step - cfg.warmup_steps) /
+                       max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * frac))
+    decay = cfg.min_lr_frac + (1.0 - cfg.min_lr_frac) * cos
+    return cfg.lr * warm * decay
+
+
+def tree_leaves(tree: Any) -> list:
+    """Leaves in the reference's order: dict keys sorted, then list order;
+    a `QTensor` is one leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` over the leaves, visited in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """``leaves`` (in `tree_leaves` order) in the structure of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def init(params: Any, state_bits: int = 32) -> OptState:
+    """Zero moments (float32, or 8-bit `QTensor`s) and step 0, on the
+    parameters' device."""
+    device = tree_leaves(params)[0].device
+    step = torch.zeros((), dtype=torch.int32, device=device)
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    moment = (lambda p: _quantize(zeros(p))) if state_bits == 8 else zeros
+    return OptState(step, tree_map(moment, params), tree_map(moment, params))
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(tree)))
+
+
+def _pow32(base: float, step: torch.Tensor) -> torch.Tensor:
+    """float32(base) ** step, taken in float64 and rounded once."""
+    b = float(torch.tensor(base, dtype=torch.float32))
+    return torch.pow(b, step.double()).float()
+
+
+@torch.no_grad()
+def apply(cfg: AdamWConfig, grads: Any, state: OptState, params: Any
+          ) -> tuple[Any, OptState, dict]:
+    """One AdamW step, in place: returns ``params`` and ``state`` (the
+    same objects, updated) and ``{"grad_norm", "lr"}`` (grad_norm before
+    clipping).  Gradients may be in the leaf's dtype or float32."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    state.step.add_(1)
+    lr = schedule(cfg, state.step)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1.0 - _pow32(b1, state.step)
+    bc2 = 1.0 - _pow32(b2, state.step)
+    quantized = cfg.state_bits == 8
+
+    for p, g, mu_t, nu_t in zip(*map(tree_leaves, (params, grads, state.mu,
+                                                   state.nu))):
+        g = g.float() * scale
+        mu = _dequantize(mu_t) if quantized else mu_t
+        nu = _dequantize(nu_t) if quantized else nu_t
+        mu.mul_(b1).add_((1 - b1) * g)
+        nu.mul_(b2).add_((1 - b2) * g * g)
+        u = (mu / bc1).div_(torch.sqrt(nu / bc2).add_(cfg.eps))
+        p32 = p.float()
+        if p.ndim >= 2:        # stacked (G, d) norm scales are decayed too
+            u.add_(cfg.weight_decay * p32)
+        p.copy_(p32 - u.mul_(lr))
+        if quantized:
+            for t, new in ((mu_t, _quantize(mu)), (nu_t, _quantize(nu))):
+                t.q.copy_(new.q)
+                t.scale.copy_(new.scale)
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -10,12 +10,17 @@ from __future__ import annotations
 
 import json
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.checkpoint import checkpoint as ref_ckpt
+from repro.optim import adamw as ref_adamw
+from repro_torch import convert
 from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.optim import adamw
 
 
 def _tree(seed=0):
@@ -170,3 +175,52 @@ def test_checkpoints_cross_between_the_packages(tmp_path, writer):
     _, ref_got, _ = ref_ckpt.load(tmp_path, target=_tree(0))
     for k in ("w", "step_key"):
         np.testing.assert_array_equal(np.asarray(ref_got[k]), tree[k])
+
+
+def _train_state(bits):
+    """The reference's (params, opt_state) one AdamW step in: a stacked
+    bf16 slot, a float32 norm and a leaf of 300 entries (padded to two
+    8-bit blocks)."""
+    rng = np.random.default_rng(bits)
+    params = {"blocks": {"w": jnp.asarray(rng.normal(size=(2, 8, 40)),
+                                          jnp.bfloat16)},
+              "final_norm": jnp.asarray(rng.normal(size=(8,)), jnp.float32),
+              "tok": jnp.asarray(rng.normal(size=(300,)), jnp.float32)}
+    grads = jax.tree.map(lambda p: jnp.ones_like(p) * 0.5, params)
+    cfg = ref_adamw.AdamWConfig(state_bits=bits)
+    return ref_adamw.apply(cfg, grads, ref_adamw.init(params, bits),
+                           params)[:2]
+
+
+@pytest.mark.parametrize("bits", [32, 8])
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_training_state_crosses_between_the_packages(tmp_path, writer, bits):
+    """``(params, opt_state)`` keys alike in both packages (the named
+    tuple's fields as ``.step``, an 8-bit moment's children as
+    ``[<flat index 0>]``), so a training checkpoint written by either
+    loads in the other with equal leaves."""
+    state = _train_state(bits)
+    np_state = jax.tree.map(np.asarray, state)
+    port = (convert.lm_tree_from_numpy(np_state[0], "cpu"),
+            convert.opt_state_from_numpy(np_state[1], "cpu"))
+    keys = [k for k, _ in ckpt._leaves(port)]
+    assert keys == [jax.tree_util.keystr(p) for p, _ in
+                    jax.tree_util.tree_flatten_with_path(state)[0]]
+    assert "[1].step" in keys
+    if bits == 8:
+        assert "[1].mu['blocks']['w'][<flat index 0>]" in keys
+    if writer == "reference":
+        ref_ckpt.save(tmp_path, 1, state)
+    else:
+        ckpt.save(tmp_path, 1, port)
+    target = (convert.lm_tree_from_numpy(
+        jax.tree.map(np.zeros_like, np_state[0]), "cpu"),
+        adamw.init(convert.lm_tree_from_numpy(np_state[0], "cpu"), bits))
+    _, got, _ = ckpt.load(tmp_path, target=target)
+    assert isinstance(got[1], adamw.OptState)
+    for a, b in zip(ckpt._leaves(got), ckpt._leaves(port)):
+        assert a[0] == b[0] and a[1].dtype == b[1].dtype
+        assert torch.equal(a[1], b[1]), a[0]
+    _, ref_got, _ = ref_ckpt.load(tmp_path, target=state)
+    for a, b in zip(jax.tree.leaves(ref_got), jax.tree.leaves(state)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

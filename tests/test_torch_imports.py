@@ -68,7 +68,9 @@ def test_port_imports_without_pulling_in_jax():
         " repro_torch.psl, repro_torch.core, repro_torch.serve,"
         " repro_torch.serve.__main__, repro_torch.configs,"
         " repro_torch.models.model, repro_torch.launch.serve,"
-        " repro_torch.core.hwaware, chip_smoke;"
+        " repro_torch.core.hwaware, repro_torch.launch.train,"
+        " repro_torch.launch.steps, repro_torch.optim.adamw,"
+        " repro_torch.data.pipeline, chip_smoke;"
         "from repro_torch.core import *;"
         "bad = [m for m in ('jax', 'jaxlib', 'repro') if m in sys.modules];"
         "print(bad); sys.exit(1 if bad else 0)")
@@ -200,6 +202,25 @@ def test_lm_serve_default_device_without_cuda_raises():
         serve.main(["--reduced"])
     with pytest.raises(RuntimeError, match="cuda"):
         build_model(get_reduced_config("gemma2-2b"))
+
+
+def test_lm_train_default_device_without_cuda_raises():
+    """``python -m repro_torch.launch.train`` without ``--device``, the
+    train step and the data pipeline want the card, and raise here."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a GPU")
+    from repro_torch.configs import ShapeCfg, get_reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_train_step(get_reduced_config("gemma2-2b"),
+                        ShapeCfg("t", 8, 2, "train"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        SyntheticLM(DataConfig(vocab_size=50)).batch(0, 2, 8)
 
 
 def test_smoke_script_refuses_to_run_without_a_gpu():
