@@ -69,7 +69,16 @@ the kernels' launch counts set to 0 just before it and read just after:
   on and off, 8-bit moments; the reduced float32 model's steps on the CPU
   and on the card, a bit-equal resume on the card, and the flash backward
   against autograd through direct attention at 8192 tokens.  It launches
-  none of the six kernels.
+  none of the six kernels;
+* lm_families: the other language-model families at full width —
+  granite-moe-1b-a400m, rwkv6-3b and whisper-tiny at full depth, jamba
+  cut to one period (8 layers) and kimi-k2 to its dense prefix and one
+  MoE layer — each served (prefill == forward, decode continues prefill,
+  a 1024-token prompt; whisper's decode against its teacher-forced
+  forward) and the first three trained hardware-aware; the reduced
+  float32 models on the CPU and on the card, Mamba's custom scan backward
+  against autograd at jamba's width, granite's MoE layer chunked against
+  one shot.  It launches none of the six kernels.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -91,6 +100,8 @@ Output: one JSON object per line —
   {"phase": "serve", ...}          the service: checks, health, the split
   {"phase": "lm_serve", ...}       the LM path: checks, ms, memory, bounds
   {"phase": "lm_train", ...}       LM training: checks, ms, memory, bound
+  {"phase": "lm_families", ...}    MoE, Mamba hybrid, RWKV, Whisper: checks,
+                                   ms, memory, bounds, splits
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -2994,9 +3005,14 @@ LM_LONG = 8192          # the long prompt and the flash check's length
 
 
 def _named_leaves(tree):
+    """(key, tensor) over a tree of dicts and lists (a list's entries
+    under its own key)."""
     for k, v in tree.items():
         if isinstance(v, dict):
             yield from _named_leaves(v)
+        elif isinstance(v, (list, tuple)):
+            for item in v:
+                yield from _named_leaves({k: item})
         else:
             yield k, v
 
@@ -3006,9 +3022,13 @@ def _tree_nbytes(tree) -> int:
 
 
 def _tree_to(tree, device):
-    """A copy of ``tree`` on ``device`` (a copy on the same device too)."""
-    return {k: _tree_to(v, device) if isinstance(v, dict)
-            else v.to(device, copy=True) for k, v in tree.items()}
+    """A copy of ``tree`` (dicts and lists of tensors) on ``device`` (a
+    copy on the same device too)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device, copy=True)
 
 
 def _device_busy(fn, repeats: int = 5) -> dict:
@@ -3865,6 +3885,637 @@ def lm_train_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: the other language-model families (no kernel of K1-K6)
+# ---------------------------------------------------------------------------
+LMF_MODELS = (     # arch, depth (None: the config's), trained here
+    ("granite-moe-1b-a400m", None, True),
+    ("rwkv6-3b", None, True),
+    ("whisper-tiny", None, True),
+    ("jamba-v0.1-52b", 8, False),    # one period: 7 Mamba, 1 attention, 4 MoE
+    ("kimi-k2-1t-a32b", 2, False),   # the dense prefix + one MoE layer
+)
+LMF_LONG = 1024        # one prompt past TOK_CHUNK, SEQ_CHUNK, 16 WKV chunks
+LMF_WHISPER_S = 448    # whisper's decoder context: the teacher-forced pass
+LMF_TRAIN_STEPS = 8    # steps on one fixed batch (B = 8, S = 256)
+LMF_WHISPER_TOL = 1e-3  # decode vs forward logits, float32, TF32 off
+
+
+def _lmf_config(arch: str, depth):
+    """The full-width config, its depth cut to ``depth`` layers where
+    given (the card cannot hold jamba's 32 or kimi's 61)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if depth is None else dataclasses.replace(cfg,
+                                                         num_layers=depth)
+
+
+def _ample(cfg):
+    """``cfg`` with a capacity factor E / k: every expert's capacity holds
+    every token, so a teacher-forced pass drops none (decode never
+    does)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def _last_logits_rule(pre, fwd) -> dict:
+    """Prefill's last logits against the forward's: 2e-3 absolute plus one
+    bf16 ulp (2^-7) of |forward| (`lm_serve`'s rule)."""
+    diff = (pre.float() - fwd.float()).abs()
+    return {"max_abs_err": diff.max().item(),
+            "ok": bool((diff <= 2e-3 + 2 ** -7 * fwd.float().abs()).all())
+            and bool(torch.isfinite(pre).all())}
+
+
+def _rms_rule(got, want) -> dict:
+    """Decode against the teacher-forced forward: within 0.25 of the
+    forward logits' RMS (`lm_serve`'s bf16 rule)."""
+    gap = (got.float() - want.float()).abs().max().item()
+    rms = want.float().square().mean().sqrt().item()
+    return {"max_abs_err": gap, "rms_logits": rms, "tolerance": 0.25 * rms,
+            "ok": gap <= 0.25 * rms and bool(torch.isfinite(got).all())}
+
+
+def _moe_split(p: dict, m, x) -> dict:
+    """One MoE layer's call on ``x`` in one shot, timed whole and by part
+    (CUDA events, median of 5): the router (logits, top-k, ranks and the
+    one-hot dispatch mask, `moe._route`), the dispatch einsum, the expert
+    GEMMs (`moe._experts`, every expert on its C slots) and the combine
+    (weights and einsum)."""
+    from repro_torch.models import moe as moe_mod
+
+    C = moe_mod._capacity(x.shape[1], m)
+    disp, gate_e, _, _ = moe_mod._route(p, m, x, C)
+    buf = torch.einsum("btec,btd->becd", disp, x)
+    out = moe_mod._experts(p, buf)
+
+    def combine():
+        comb = disp * gate_e[..., None].to(x.dtype)
+        return torch.einsum("btec,becd->btd", comb, out)
+    parts = {
+        "router_ms": cuda_ms(lambda: moe_mod._route(p, m, x, C), 5),
+        "dispatch_einsum_ms": cuda_ms(
+            lambda: torch.einsum("btec,btd->becd", disp, x), 5),
+        "expert_gemms_ms": cuda_ms(lambda: moe_mod._experts(p, buf), 5),
+        "combine_ms": cuda_ms(combine, 5)}
+    whole = cuda_ms(lambda: moe_mod.moe_layer(p, m, x), 5)
+    return {"shape": list(x.shape), "capacity": C, **parts,
+            "layer_ms": whole,
+            "expert_share": parts["expert_gemms_ms"] / whole,
+            "one_hot_share": (parts["dispatch_einsum_ms"]
+                              + parts["combine_ms"]) / whole}
+
+
+def _recurrence_share(cfg, calls: dict) -> dict:
+    """The WKV / selective-scan share of each call in ``calls`` (name ->
+    fn): its time (CUDA events, median of 5) with the recurrence, and
+    with the recurrence swapped for a stand-in that returns its inputs
+    (`rwkv._wkv_chunked` -> zeros and S0; `mamba._selective_scan` -> bx
+    and h0); share = 1 - without / with.  Both times of a call are taken
+    back to back under the same host load."""
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import rwkv as rwkv_mod
+
+    if cfg.rwkv is not None:
+        mod, name = rwkv_mod, "_wkv_chunked"
+        stand_in = lambda r, k, v, w, u, S0: (torch.zeros_like(r), S0)  # noqa: E731
+    else:
+        mod, name = mamba_mod, "_selective_scan"
+        stand_in = lambda a, bx, h0: (bx, h0)  # noqa: E731
+    out = {"recurrence": name}
+    real = getattr(mod, name)
+    for call, fn in calls.items():
+        with_ms = cuda_ms(fn, 5)
+        setattr(mod, name, stand_in)
+        try:
+            without_ms = cuda_ms(fn, 5)
+        finally:
+            setattr(mod, name, real)
+        out[call] = {"ms": with_ms, "without_ms": without_ms,
+                     "share": 1.0 - without_ms / with_ms}
+    return out
+
+
+def _lmf_step_flops(cfg, params, batch: int, seq: int) -> dict:
+    """A train step's model operations from the shapes: 6 per matrix
+    entry a token meets (forward 2, backward 4; a MoE layer's experts at
+    k / E, the tied unembed's table once; gathers, norms and elementwise
+    leaves not counted), plus attention's QK and PV over the keys each
+    query's mask keeps and RWKV's intra-chunk products (x3 for the
+    backward); the bound at the dtype's peak (bf16 tensor cores, or
+    float32 outside them)."""
+    from repro_torch.models import transformer
+
+    elementwise = ("A_log", "conv_w", "mu", "u_bonus")
+
+    def entries(tree, path=""):
+        if isinstance(tree, dict):
+            return sum(entries(v, f"{path}/{k}") for k, v in tree.items())
+        if isinstance(tree, (list, tuple)):
+            return sum(entries(v, path) for v in tree)
+        name = path.rsplit("/", 1)[-1]
+        if tree.ndim < 2 or "embed" in name or name in elementwise:
+            return 0
+        n = tree.numel()
+        if name.startswith("we_"):
+            n = n * cfg.moe.top_k // cfg.moe.num_experts
+        return n
+
+    hd, H = cfg.hd(), cfg.num_heads
+    tied = cfg.vocab_size * cfg.d_model if cfg.tie_embeddings else 0
+    if cfg.enc_dec is not None:
+        E = cfg.enc_dec.enc_seq
+        enc = entries(params["encoder"])
+        dec_kv = sum(p["xattn"][w].numel() for p in params["decoder"]
+                     for w in ("wk", "wv"))
+        dec = entries(params["decoder"]) - dec_kv
+        mat = (enc + dec_kv) * batch * E + (dec + tied) * batch * seq
+        attn = batch * H * hd * 4 * (
+            cfg.enc_dec.enc_layers * E * E + cfg.num_layers * (
+                seq * (seq + 1) // 2 + seq * E))
+    else:
+        mat = (entries(params) + tied) * batch * seq
+        attn = 0
+        for p in transformer.period_plan(cfg):
+            if p.kind == "attn":
+                attn += 4 * H * hd * batch * seq * (seq + 1) // 2
+            elif p.kind == "rwkv":
+                c = min(64, seq)
+                attn += batch * seq * cfg.d_model * (4 * c + 4 * hd)
+        attn *= transformer.n_groups(cfg)
+    flops = 6 * mat + 3 * attn
+    peak = FP32_OPS_PER_S if cfg.dtype == "float32" else BF16_TC_OPS_PER_S
+    return {"model_flops": flops, "bound_ms": flops / peak * 1e3,
+            "bound_by": "operations",
+            "peak": "float32" if cfg.dtype == "float32" else "bf16"}
+
+
+def _lmf_train(seed: int, cfg) -> dict:
+    """`make_train_step` (hardware-aware, `HwAwareConfig()`; remat as the
+    config has it; float32 moments) for `LMF_TRAIN_STEPS` steps on one
+    fixed `SyntheticLM` batch (B = 8, S = 256; whisper also 8 x 1500
+    frames) at lr 1e-3, warmup 0: every loss and grad norm finite, the
+    loss falls by more than 0.1 (`lm_train`'s fixed-batch rule); ms a
+    step (median of the last 6), tokens/s, peak memory, one step's
+    device profile and its operation bound."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.core.hwaware import HwAwareConfig
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    B, S = LM_TRAIN_B, LM_TRAIN_S
+    step = make_train_step(cfg, ShapeCfg("lmf", S, B, "train"),
+                           adamw.AdamWConfig(lr=1e-3, warmup_steps=0,
+                                             total_steps=LMF_TRAIN_STEPS),
+                           hw_aware=HwAwareConfig(), device=DEVICE)
+    params = step.model.init(seed)
+    opt = adamw.init(params)
+    src = make_source(DataConfig(seed=seed, vocab_size=cfg.vocab_size))
+    batch = src.batch(0, B, S, device=DEVICE)
+    if cfg.enc_dec is not None:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 41)
+        batch["frontend_embeds"] = 0.02 * torch.randn(
+            (B, cfg.enc_dec.enc_seq, cfg.d_model), generator=gen,
+            device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, ms = [], [], []
+    for _ in range(LMF_TRAIN_STEPS):
+        (params, opt, m), t = timed_once(lambda: step.fn(params, opt, batch))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        ms.append(t)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _device_profile(lambda: step.fn(params, opt, batch), top=6)
+    step_ms = float(np.median(ms[2:]))
+    flops = _lmf_step_flops(cfg, params, B, S)
+    out = {"batch": B, "seq": S, "hw_aware": True, "remat": cfg.remat,
+           "losses": losses, "grad_norms": gnorms,
+           "fall": losses[0] - losses[-1], "ms_steps": ms,
+           "ms_per_step": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
+           "peak_gb": peak, **flops, "gap_to_bound": step_ms
+           / flops["bound_ms"], "device_profile": prof,
+           "device_busy_share": prof["device_busy_ms"] / step_ms}
+    out["ok"] = bool(np.isfinite(losses).all() and np.isfinite(gnorms).all()
+                     and losses[-1] < losses[0] - 0.1)
+    del params, opt, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lmf_decoder(seed: int, arch: str, depth, trained: bool) -> dict:
+    """One decoder-only family at full width: parameters drawn on the card
+    from ``seed``, `launch.serve.generate` driven once (`drive`: prefill
+    of B=4 x P=32, the graft into a 128-token cache, 31 sampled decode
+    steps) and again warm for its times; prefill == forward's last
+    logits; decode continues prefill (with every expert's capacity
+    ample, `_ample`; the config's own capacity reported beside); a
+    1024-token prompt (not kimi); a decode step's device profile and
+    byte bound (every parameter, the one-hot MoE reading every expert,
+    and the cache); the MoE split or the recurrence share; training
+    where ``trained``."""
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    cfg = _lmf_config(arch, depth)
+    model = build_model(cfg, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def path():
+        t1 = time.perf_counter()
+        params = model.init(seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                                generator=gen, device=DEVICE)
+        out = lm_serve.generate(model, params, prompts, LM_GEN, LM_MAX_SEQ,
+                                1.0, gen)
+        return params, prompts, out, init_s
+
+    (params, prompts, first, init_s), counts, _ = drive(path)
+    peak_serve = torch.cuda.max_memory_allocated() / 1e9
+    tokens = first["tokens"]
+    n_params = sum(t.numel() for _, t in _named_leaves(params))
+    param_bytes = _tree_nbytes(params)
+    res = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.num_layers,
+           "reduced": None if depth is None else
+           f"depth {depth} of {_lmf_config(arch, None).num_layers} layers",
+           "plans": [f"{p.kind}+{p.mlp}" for p in
+                     transformer.prefix_plans(cfg)
+                     + transformer.period_plan(cfg)],
+           "kernel_launches": {k: counts[k] for k in KERNELS},
+           "params": {"elements": n_params, "bytes_on_card": param_bytes,
+                      "init_s": init_s}}
+    with torch.inference_mode():
+        fwd, aux = transformer.forward(params, cfg, prompts)
+        pre, _ = transformer.prefill(params, cfg, prompts)
+        res["prefill_vs_forward"] = _last_logits_rule(pre[:, 0], fwd[:, -1])
+        res["aux_loss"] = float(aux)
+        del fwd, pre
+        ext = torch.cat([prompts, prompts[:, :1]], dim=1)
+        for name, c in (("decode_vs_forward", _ample(cfg)),
+                        ("decode_vs_forward_own_capacity", cfg)):
+            if name.endswith("own_capacity") and cfg.moe is None:
+                continue
+            fwd_ext, _ = transformer.forward(params, c, ext)
+            _, pc = transformer.prefill(params, c, prompts)
+            cache = lm_serve.graft(transformer.init_cache(
+                c, LM_BATCH, LM_MAX_SEQ, DEVICE), pc)
+            dec, _ = transformer.decode_step(params, c, prompts[:, :1],
+                                             LM_PROMPT, cache)
+            res[name] = _rms_rule(dec[:, 0], fwd_ext[:, LM_PROMPT])
+            del fwd_ext, pc, cache, dec
+        if cfg.moe is not None:
+            res["decode_vs_forward"]["capacity_factor"] = \
+                _ample(cfg).moe.capacity_factor
+
+        served = lm_serve.generate(model, params, prompts, LM_GEN,
+                                   LM_MAX_SEQ, 1.0, gen)
+        steps = served["decode_step_s"]
+        _, pcache = transformer.prefill(params, cfg, prompts)
+        cache = lm_serve.graft(model.init_cache(LM_BATCH, LM_MAX_SEQ), pcache)
+        del pcache
+        tok = tokens[:, -1:]
+
+        def step():
+            return model.decode_step(params, tok, LM_PROMPT, cache)
+        decode_ms = cuda_ms(step, repeats=10)
+        busy = _device_busy(step)
+        cache_bytes = _tree_nbytes(cache)
+        moved = param_bytes + cache_bytes
+        res["served"] = {
+            "first_prefill_ms": first["prefill_s"] * 1e3,
+            "prefill_ms": served["prefill_s"] * 1e3,
+            "graft_ms": served["graft_s"] * 1e3,
+            "decode_ms_per_token": float(np.median(steps)) * 1e3,
+            "tokens_per_s": LM_BATCH * len(steps) / sum(steps),
+            "tokens_in_vocab": bool(((tokens >= 0)
+                                     & (tokens < cfg.vocab_size)).all())
+            and tuple(tokens.shape) == (LM_BATCH, LM_GEN),
+            "peak_gb": peak_serve}
+        res["decode_step"] = {
+            "ms": decode_ms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": moved, "cache_bytes": cache_bytes,
+            "gap": decode_ms / (moved / HBM_BYTES_PER_S * 1e3), **busy,
+            "device_idle_share": 1.0 - busy["device_busy_ms"] / decode_ms}
+        calls = {"prefill": lambda: transformer.prefill(params, cfg,
+                                                        prompts),
+                 "decode": step}
+        if arch != "kimi-k2-1t-a32b":
+            long = torch.randint(0, cfg.vocab_size, (1, LMF_LONG),
+                                 generator=gen, device=DEVICE)
+            torch.cuda.reset_peak_memory_stats()
+            (ll, _), first_ms = timed_once(
+                lambda: transformer.prefill(params, cfg, long))
+            long_ms = cuda_ms(lambda: transformer.prefill(params, cfg, long),
+                              repeats=1)
+            lf, _ = transformer.forward(params, cfg, long)
+            res["long_prefill"] = {
+                "tokens": LMF_LONG, "ms_first": first_ms, "ms": long_ms,
+                "tokens_per_s": LMF_LONG / long_ms * 1e3,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "vs_forward": _last_logits_rule(ll[:, 0], lf[:, -1])}
+            calls["long_prefill"] = lambda: transformer.prefill(
+                params, cfg, long)
+            del ll, lf
+        if cfg.moe is not None:
+            slot = next(f"layer_{i}" for i, p in
+                        enumerate(transformer.period_plan(cfg))
+                        if p.mlp == "moe")
+            lp = transformer.group_slice(params["blocks"][slot]["moe"], 0)
+            dt = getattr(torch, cfg.dtype)
+            res["moe_split"] = [
+                _moe_split(lp, cfg.moe, torch.randn(
+                    (b, s, cfg.d_model), generator=gen, device=DEVICE
+                ).to(dt)) for b, s in ((LM_BATCH, 1), (LM_BATCH, LM_PROMPT))
+                + (((LM_TRAIN_B, LM_TRAIN_S),) if trained else ())]
+            del lp     # views of the stacked experts: free them with params
+        if cfg.rwkv is not None or cfg.hybrid is not None:
+            res["recurrence_share"] = _recurrence_share(cfg, calls)
+        del calls, cache
+    del params
+    torch.cuda.empty_cache()
+    if trained:
+        res["train"] = _lmf_train(seed, cfg)
+    res["seconds"] = time.perf_counter() - t0
+    res["checks"] = {
+        "no_kernel_launched": all(c == 0 for c in counts.values()),
+        "param_count": n_params > 0,
+        "prefill_vs_forward": res["prefill_vs_forward"]["ok"],
+        "decode_vs_forward": res["decode_vs_forward"]["ok"],
+        "tokens": res["served"]["tokens_in_vocab"],
+        "long_prefill": res.get("long_prefill", {"vs_forward": {"ok": True}}
+                                )["vs_forward"]["ok"],
+        "train": res["train"]["ok"] if trained else True}
+    torch.cuda.empty_cache()
+    return res
+
+
+def _lmf_whisper(seed: int) -> dict:
+    """whisper-tiny at full width and depth (float32, TF32 off): drawn on
+    the card, driven once (`drive`): `encode` of 4 x 1500 frames, each
+    decoder layer's cross cache filled by `cross_kv`, then 448 decode
+    steps teacher-forced on the tokens; the teacher-forced `forward` at
+    S = 448 beside them, position by position within
+    `LMF_WHISPER_TOL`; encode / forward / decode times, a decode step's
+    device profile and byte bound (every parameter and the self and
+    cross caches); training."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import whisper
+    from repro_torch.models.model import build_model
+
+    t0 = time.perf_counter()
+    tf32 = _tf32_off()
+    cfg = _lmf_config("whisper-tiny", None)
+    model = build_model(cfg, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    B, S = LM_BATCH, LMF_WHISPER_S
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def fill(params, cache, enc):
+        for p, cx in zip(params["decoder"], cache["cross"]):
+            k, v = attn_mod.cross_kv(p["xattn"], cfg, enc)
+            cx["k"].copy_(k)
+            cx["v"].copy_(v)
+        return cache
+
+    def path():
+        params = model.init(seed)
+        frames = 0.02 * torch.randn((B, cfg.enc_dec.enc_seq, cfg.d_model),
+                                    generator=gen, device=DEVICE)
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device=DEVICE)
+        with torch.inference_mode():
+            cache = fill(params, model.init_cache(B, S),
+                         whisper.encode(params, cfg, frames))
+            logits, step_s = [], []
+            for pos in range(S):
+                ts = time.perf_counter()
+                lg, cache = model.decode_step(params, toks[:, pos:pos + 1],
+                                              pos, cache)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - ts)
+                logits.append(lg)
+        return params, frames, toks, cache, torch.cat(logits, 1), step_s
+
+    (params, frames, toks, cache, dec, step_s), counts, _ = drive(path)
+    with torch.inference_mode():
+        fwd, _ = whisper.forward(params, cfg, toks, frames)
+        gap = (dec - fwd).abs()
+        per_pos = gap.amax(dim=(0, 2))
+        enc_ms = cuda_ms(lambda: whisper.encode(params, cfg, frames))
+        fwd_ms = cuda_ms(lambda: whisper.forward(params, cfg, toks, frames))
+
+        def step():
+            return model.decode_step(params, toks[:, :1], S - 1, cache)
+        decode_ms = cuda_ms(step, repeats=10)
+        busy = _device_busy(step)
+    param_bytes = _tree_nbytes(params)
+    moved = param_bytes + _tree_nbytes(cache)
+    res = {"arch": "whisper-tiny", "dtype": cfg.dtype, "tf32": tf32,
+           "layers": {"encoder": cfg.enc_dec.enc_layers,
+                      "decoder": cfg.num_layers},
+           "reduced": None, "enc_seq": cfg.enc_dec.enc_seq, "batch": B,
+           "decoder_seq": S,
+           "kernel_launches": {k: counts[k] for k in KERNELS},
+           "params": {"elements": sum(t.numel()
+                                      for _, t in _named_leaves(params)),
+                      "bytes_on_card": param_bytes},
+           "decode_vs_forward": {
+               "positions": S, "max_abs_err": gap.max().item(),
+               "worst_position": int(per_pos.argmax()),
+               "rms_logits": fwd.square().mean().sqrt().item(),
+               "tolerance": LMF_WHISPER_TOL,
+               "ok": gap.max().item() <= LMF_WHISPER_TOL
+               and bool(torch.isfinite(dec).all())},
+           "encode_ms": enc_ms, "forward_ms": fwd_ms,
+           "served": {"decode_ms_per_token": float(np.median(step_s)) * 1e3,
+                      "tokens_per_s": B * len(step_s) / sum(step_s),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9},
+           "decode_step": {
+               "ms": decode_ms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "bytes": moved,
+               "gap": decode_ms / (moved / HBM_BYTES_PER_S * 1e3), **busy,
+               "device_idle_share": 1.0 - busy["device_busy_ms"]
+               / decode_ms}}
+    del params, cache, dec, fwd, gap
+    torch.cuda.empty_cache()
+    res["train"] = _lmf_train(seed, cfg)
+    res["seconds"] = time.perf_counter() - t0
+    res["checks"] = {
+        "no_kernel_launched": all(c == 0 for c in counts.values()),
+        "decode_vs_forward": res["decode_vs_forward"]["ok"],
+        "train": res["train"]["ok"]}
+    return res
+
+
+def _lmf_cpu_vs_card(seed: int) -> dict:
+    """Each family's reduced float32 model drawn on the CPU and copied to
+    the card (TF32 off, asserted): `Model.loss`, the forward logits and,
+    for the decoder-only ones, a prefill + graft + decode step's logits
+    agree to 1e-4."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import transformer, whisper
+    from repro_torch.models.model import build_model
+
+    _tf32_off()
+    rows = {}
+    for arch, _, _ in LMF_MODELS:
+        cfg = get_reduced_config(arch)
+        cpu, card = (build_model(cfg, device=d) for d in ("cpu", DEVICE))
+        params = cpu.init(seed)
+        g = torch.Generator().manual_seed(seed)
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+        batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+        if cfg.enc_dec is not None:
+            batch["frontend_embeds"] = 0.02 * torch.randn(
+                (2, cfg.enc_dec.enc_seq, cfg.d_model), generator=g)
+        out = {}
+        with torch.inference_mode():
+            for name, m, p, b in (("cpu", cpu, params, batch),
+                                  ("card", card, _tree_to(params, DEVICE),
+                                   {k: v.to(DEVICE)
+                                    for k, v in batch.items()})):
+                loss = m.loss(p, b)
+                if cfg.enc_dec is not None:
+                    fwd, _ = whisper.forward(p, cfg, b["tokens"],
+                                             b["frontend_embeds"])
+                    dec = fwd[:, :1]
+                else:
+                    fwd, _ = transformer.forward(p, cfg, b["tokens"])
+                    _, pre = transformer.prefill(p, cfg, b["tokens"][:, :48])
+                    cache = lm_serve.graft(m.init_cache(2, 64), pre)
+                    dec, _ = m.decode_step(p, b["tokens"][:, 48:49], 48,
+                                           cache)
+                out[name] = (loss.cpu(), fwd.cpu(), dec.cpu())
+        errs = [(a - b).abs().max().item()
+                for a, b in zip(out["cpu"], out["card"])]
+        rows[arch] = {"loss_err": errs[0], "forward_max_abs_err": errs[1],
+                      "decode_max_abs_err": errs[2],
+                      "ok": max(errs) <= 1e-4}
+    return {"tolerance": 1e-4, "rows": rows,
+            "ok": all(r["ok"] for r in rows.values())}
+
+
+def _lmf_scan_backward(seed: int) -> dict:
+    """Mamba's closed-form scan backward (`mamba._SelectiveScan`) against
+    autograd through the chunked scan (`mamba._scan_impl`), at jamba's
+    width: B = 1, S = 1024, d_inner 8192, N 16, float32, the decay
+    a = exp(dt·A) with dt in [1e-3, 1e-1] and A = -1..-16; gradients of
+    sum(h · w) in a, bx and h0 within 1e-5 of each one's max; each way's
+    ms (forward + backward) and peak memory."""
+    from repro_torch.models import mamba as mamba_mod
+
+    hc = _lmf_config("jamba-v0.1-52b", 8).hybrid
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 31)
+    B, S = 1, LMF_LONG
+    d, N = hc.expand * _lmf_config("jamba-v0.1-52b", 8).d_model, hc.d_state
+    dt = 1e-3 + (0.1 - 1e-3) * torch.rand((B, S, d, 1), generator=gen,
+                                          device=DEVICE)
+    A = torch.arange(1, N + 1, device=DEVICE, dtype=torch.float32)
+    a = torch.exp(-dt * A)
+    del dt
+    bx = 0.1 * torch.randn((B, S, d, N), generator=gen, device=DEVICE)
+    h0 = torch.randn((B, d, N), generator=gen, device=DEVICE)
+    w = torch.randn((B, S, d, N), generator=gen, device=DEVICE)
+    rows, grads = {}, {}
+    for name, fn in (("custom", mamba_mod._selective_scan),
+                     ("autograd", mamba_mod._scan_impl)):
+        def run():
+            ts = [t.detach().requires_grad_() for t in (a, bx, h0)]
+            h_all, _ = fn(*ts)
+            return torch.autograd.grad((h_all * w).sum(), ts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        grads[name], ms = timed_once(run)
+        rows[name] = {"ms_first": ms, "ms": cuda_ms(run, repeats=1),
+                      "peak_gb_above_inputs":
+                      (torch.cuda.max_memory_allocated() - base) / 1e9}
+    rel = [(g1 - g2).abs().max().item() / g2.abs().max().item()
+           for g1, g2 in zip(grads["custom"], grads["autograd"])]
+    del grads, a, bx, h0, w
+    torch.cuda.empty_cache()
+    return {"shape": [B, S, d, N], **rows,
+            "max_err_over_max": dict(zip(("a", "bx", "h0"), rel)),
+            "tolerance": 1e-5, "ok": max(rel) <= 1e-5}
+
+
+def _lmf_moe_chunked(seed: int) -> dict:
+    """granite's MoE layer (32 experts, top 8, d_model 1024) in float32
+    (TF32 off) on 2 x 1024 tokens with every capacity ample (factor
+    E / k = 4): in two chunks of `TOK_CHUNK` and in one shot, outputs
+    within 1e-5 of their max, the aux losses within 1e-6."""
+    from repro_torch.models import moe as moe_mod
+
+    _tf32_off()
+    cfg = _ample(_lmf_config("granite-moe-1b-a400m", None))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 37)
+    p = moe_mod.init_moe(gen, cfg.d_model, cfg.moe, torch.float32)
+    x = torch.randn((2, LMF_LONG, cfg.d_model), generator=gen, device=DEVICE)
+    chunked, aux_c = moe_mod.moe_layer(p, cfg.moe, x)
+    keep = moe_mod.TOK_CHUNK
+    moe_mod.TOK_CHUNK = 4 * LMF_LONG
+    try:
+        shot, aux_s = moe_mod.moe_layer(p, cfg.moe, x)
+    finally:
+        moe_mod.TOK_CHUNK = keep
+    err = (chunked - shot).abs().max().item() / shot.abs().max().item()
+    aux_err = abs(aux_c.item() - aux_s.item())
+    return {"shape": list(x.shape), "chunks": LMF_LONG // keep,
+            "max_err_over_max": err, "aux_chunked": aux_c.item(),
+            "aux_one_shot": aux_s.item(), "aux_err": aux_err,
+            "ok": err <= 1e-5 and aux_err <= 1e-6}
+
+
+def lm_families_phase(seed: int) -> dict:
+    """The other language-model families at full width on the card (the
+    ports of `repro.models.moe`, `mamba`, `rwkv` and `whisper`; no kernel
+    of K1-K6, asserted: every count 0): granite-moe-1b-a400m, rwkv6-3b
+    and whisper-tiny at full depth, jamba-v0.1-52b cut to one period (8
+    layers) and kimi-k2 to its dense prefix and one MoE layer, each
+    served (`_lmf_decoder`, `_lmf_whisper`) and, the first three,
+    trained; each model freed before the next, kimi last.  Then the
+    reduced float32 models on the CPU and the card, Mamba's custom
+    backward against autograd at jamba's width, granite's MoE layer
+    chunked against one shot."""
+    t_phase = time.perf_counter()
+    models = []
+    for arch, depth, trained in LMF_MODELS:
+        if arch == "whisper-tiny":
+            models.append(_lmf_whisper(seed))
+        else:
+            models.append(_lmf_decoder(seed, arch, depth, trained))
+        torch.cuda.empty_cache()
+    cross = _lmf_cpu_vs_card(seed)
+    scan = _lmf_scan_backward(seed)
+    chunked = _lmf_moe_chunked(seed)
+    res = {"phase": "lm_families", "models": models,
+           "f32_cpu_vs_card": cross, "mamba_scan_backward": scan,
+           "moe_chunked_vs_one_shot": chunked,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    failed = [f"{m['arch']}:{k}" for m in models
+              for k, v in m["checks"].items() if not v]
+    failed += [k for k, v in (("f32_cpu_vs_card", cross["ok"]),
+                              ("mamba_scan_backward", scan["ok"]),
+                              ("moe_chunked_vs_one_shot", chunked["ok"]))
+               if not v]
+    if failed:
+        raise AssertionError(f"an lm_families check failed: {failed}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the kernel records
 # ---------------------------------------------------------------------------
 def _bound(moved: int, ops: int, int8_ops: int = 0) -> dict:
@@ -4339,6 +4990,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_serve_phase(args.seed)
     lm_train_phase(args.seed)
+    lm_families_phase(args.seed)
     emit({"kernels": records})
     emit({"phase": "timing", "run_seconds": time.perf_counter() - t_run})
 

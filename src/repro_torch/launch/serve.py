@@ -3,7 +3,8 @@ decoder-only transformer archs.
 
 This is NOT the p-bit sampling service, which runs as ``python -m
 repro_torch.serve``.  This module is the LM-workload demo that exercises
-the transformer stack: it builds a model from the registry with seeded
+the transformer stack (every decoder-only family; an encoder-decoder
+config is refused, as the reference asserts): it builds a model from the registry with seeded
 random weights (drawn on the device), runs a batched prefill of random
 prompts, grafts the prefill cache into a ``max_seq`` decode cache and
 decodes token by token under ``torch.inference_mode()``.  The port of
@@ -31,12 +32,21 @@ def _sync(device: torch.device) -> None:
 
 
 def graft(cache: dict, pcache: dict) -> dict:
-    """Copy the prefill cache into the (zero) decode cache along the
-    sequence axis — the reference's pad of each (G, B, S, KV, hd) leaf to
-    ``max_seq`` — and return the decode cache."""
-    for name, slot in pcache["blocks"].items():
-        for kv, src in slot.items():
-            cache["blocks"][name][kv][:, :, :src.shape[2]].copy_(src)
+    """Copy every leaf of the prefill cache into the (zero) decode cache —
+    the reference's zero pad of each leaf to the decode leaf's shape: the
+    K/V's sequence axis grows to ``max_seq``; the prefix layers' caches
+    and the Mamba / RWKV state leaves, whose shapes already match, are
+    copied whole — and return the decode cache."""
+    def walk(dst, src):
+        if isinstance(src, dict):
+            for k, v in src.items():
+                walk(dst[k], v)
+        elif isinstance(src, (list, tuple)):
+            for d, v in zip(dst, src):
+                walk(d, v)
+        else:
+            dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
+    walk(cache, pcache)
     return cache
 
 
@@ -99,6 +109,9 @@ def main(argv=None) -> None:
 
     cfg = get_reduced_config(args.arch) if args.reduced \
         else get_config(args.arch)
+    if cfg.enc_dec is not None:
+        ap.error(f"{cfg.name} is an encoder-decoder; this demo drives "
+                 "decoder-only archs")
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
     gen = torch.Generator(device=model.device).manual_seed(args.seed + 1)

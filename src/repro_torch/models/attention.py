@@ -13,8 +13,11 @@ attends one query against the whole cache, O(S·d) a token.
 Dtypes follow the reference step for step: the direct and decode scores
 are the QK product in the parameter dtype (rounded to it), then scaled in
 float32 and softcapped; the probabilities are cast to the value dtype
-before the PV product.  Cross-attention (``cross_kv``, Whisper) and the
-reference's scan baseline (``_attend_chunked``) come with later slices.
+before the PV product.  Cross-attention (Whisper): `cross_kv` projects
+the encoder's K/V once; ``attention(kv=...)`` projects the queries only,
+never causal, and ``decode_attention(cross=True)`` attends one query
+against the whole cached encoder K/V, writing nothing.  The reference's
+scan baseline (``_attend_chunked``) is not ported.
 """
 from __future__ import annotations
 
@@ -121,16 +124,24 @@ def attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     return_kv: bool = False,
 ):
-    """Full-sequence attention (prefill / forward).
+    """Full-sequence attention (prefill / forward / encoder / cross).
 
-    Returns ``(out, (k, v))`` when return_kv (prefill cache fill), else
-    ``(out, None)``.
+    ``kv``: cross-attention against precomputed K/V (`cross_kv`): the
+    queries only are projected (no rotary embedding), and the mask is not
+    causal.  Returns ``(out, (k, v))`` when return_kv (prefill cache
+    fill), else ``(out, None)``.
     """
     S = x.shape[1]
     scale = 1.0 / math.sqrt(cfg.hd())
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    if kv is not None:
+        q = _q_only(params, cfg, x)
+        k, v = kv
+        causal = False
+    else:
+        q, k, v = _project_qkv(params, cfg, x, positions)
     if max(S, k.shape[1]) <= DIRECT_MAX_SEQ:
         q_pos = torch.arange(S, device=x.device)
         k_pos = torch.arange(k.shape[1], device=x.device)
@@ -144,6 +155,20 @@ def attention(
     return out, ((k, v) if return_kv else None)
 
 
+def cross_kv(params: dict, cfg: ModelCfg, enc_out: torch.Tensor):
+    """The encoder's K/V for cross-attention (cached once a request)."""
+    k = _proj(enc_out, params["wk"])
+    v = _proj(enc_out, params["wv"])
+    if cfg.qkv_bias:
+        k, v = k + params["bk"], v + params["bv"]
+    return k, v
+
+
+def _q_only(params, cfg: ModelCfg, x):
+    q = _proj(x, params["wq"])
+    return q + params["bq"] if cfg.qkv_bias else q
+
+
 def decode_attention(
     params: dict,
     cfg: ModelCfg,
@@ -153,30 +178,37 @@ def decode_attention(
     pos: int,                     # write/attend position
     *,
     window: Optional[int] = None,
+    cross: bool = False,
 ):
     """One-token decode against a KV cache.
 
     Writes the token's K/V at ``pos`` into ``cache_k`` / ``cache_v`` (in
-    place) and returns (out (B, 1, D), cache_k, cache_v)."""
+    place) and returns (out (B, 1, D), cache_k, cache_v).  With
+    ``cross=True`` the cache is the (static) encoder K/V: the query alone
+    is projected, nothing is written and every key is attended."""
     B = x.shape[0]
     hd = cfg.hd()
     KV = cfg.num_kv_heads
     scale = 1.0 / math.sqrt(hd)
 
-    lead = (3, B, 1) if cfg.rope_kind == "mrope" else (B, 1)
-    posn = torch.full(lead, pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(params, cfg, x, posn)
-    cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+    if cross:
+        q = _q_only(params, cfg, x)
+    else:
+        lead = (3, B, 1) if cfg.rope_kind == "mrope" else (B, 1)
+        posn = torch.full(lead, pos, dtype=torch.int32, device=x.device)
+        q, k_new, v_new = _project_qkv(params, cfg, x, posn)
+        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
 
     S = cache_k.shape[1]
     qg = q.reshape(B, 1, KV, cfg.num_heads // KV, hd)
     s = _scores(qg, cache_k, cfg, scale)[:, :, :, 0, :]   # (B, KV, G, S)
-    k_pos = torch.arange(S, device=x.device)
-    ok = k_pos <= pos
-    if window is not None:
-        ok &= (pos - k_pos) < window
-    s = torch.where(ok, s, NEG_INF)
+    if not cross:
+        k_pos = torch.arange(S, device=x.device)
+        ok = k_pos <= pos
+        if window is not None:
+            ok &= (pos - k_pos) < window
+        s = torch.where(ok, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p.to(cache_v.dtype), cache_v)
     out = _out(o.reshape(B, 1, cfg.num_heads, hd), params["wo"])

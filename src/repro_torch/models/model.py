@@ -1,9 +1,8 @@
 """Model facade: build_model(cfg) -> uniform init / loss / cache / decode.
 
-The port of `repro.models.model` for decoder-only configs whose layers
-are attention + a dense MLP.  An encoder-decoder config, or a family whose
-layers the port does not have yet (mixture-of-experts, Mamba, RWKV),
-raises `NotImplementedError` naming ROADMAP Queue 1 item 12c.
+The port of `repro.models.model` for all ten architectures: the
+decoder-only families (`models.transformer`: dense, mixture-of-experts,
+the Mamba hybrid, RWKV) and Whisper's encoder-decoder (`models.whisper`).
 ``input_specs`` and ``make_dummy_batch`` come with the dry run (item 12d).
 """
 from __future__ import annotations
@@ -16,7 +15,7 @@ import torch
 from repro_torch.api.spec import require_device
 from repro_torch.configs.base import ModelCfg
 from repro_torch.core.hwaware import HwAwareConfig, apply_hardware
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +39,6 @@ def build_model(cfg: ModelCfg,
     are drawn on ``device`` (the card unless the caller asks for the
     CPU)."""
     dev = require_device(device)
-    transformer.dense_plans(cfg)      # refuse a family the port lacks now
 
     def maybe_hw(params):
         if hw_aware is None:
@@ -48,6 +46,18 @@ def build_model(cfg: ModelCfg,
         return apply_hardware(params, hw_aware,
                               0 if chip_key is None else chip_key)
 
+    if cfg.enc_dec is not None:
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda seed: whisper.init_encdec(
+                torch.Generator(device=dev).manual_seed(seed), cfg),
+            loss=lambda p, b: whisper.encdec_loss(maybe_hw(p), cfg, b),
+            init_cache=lambda b, s: whisper.init_cache(cfg, b, s,
+                                                       device=dev),
+            decode_step=lambda p, t, pos, c: whisper.decode_step(
+                maybe_hw(p), cfg, t, pos, c),
+        )
     return Model(
         cfg=cfg,
         device=dev,

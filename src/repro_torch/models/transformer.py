@@ -1,13 +1,20 @@
-"""Decoder-only LM assembly: the attention + gated-MLP (dense) family.
+"""Decoder-only LM assembly: dense / MoE / hybrid (Mamba) / RWKV families.
 
 The port of `repro.models.transformer` for training, prefill, forward and
 decode.  Layers are grouped into *periods* (1 for uniform stacks, 2 for
-gemma2's local/global alternation) and each period slot's parameters and
-cache carry a leading G = L/P dim, the reference's stacked layout: the
-port loops over G in Python where the reference has ``lax.scan``, so a
-reference parameter or cache tree converts leaf for leaf
-(`repro_torch.convert`).  Decode writes each layer's K/V into its slice
-of the stacked cache in place and returns the same cache.
+gemma2's local/global alternation, 8 for jamba's mamba:attn = 7:1) and
+each period slot's parameters and cache carry a leading G = L/P dim, the
+reference's stacked layout: the port loops over G in Python where the
+reference has ``lax.scan``, so a reference parameter or cache tree
+converts leaf for leaf (`repro_torch.convert`).  A `first_dense` prefix
+(kimi-k2's dense layer 0) is kept unstacked, a list of per-layer dicts,
+and runs before the groups, outside remat, as in the reference.
+
+Each layer returns ``(x, aux, new_cache)``: aux is the mixture-of-experts
+load-balance term (0 elsewhere), summed over all layers and added to the
+loss as ``0.01 * aux``.  Decode writes each layer's new K/V, Mamba
+(conv, ssm) or RWKV (shift_t, wkv, shift_c) state into its slice of the
+cache in place and returns the same cache; state leaves are float32.
 
 The full-sequence forward takes each stacked leaf's groups with one
 ``unbind(0)`` (`unbind_groups`): its backward stacks the G group
@@ -15,10 +22,8 @@ gradients once, where G indexings ``v[g]`` would each build and add a
 zero gradient of the whole stacked leaf.  With ``cfg.remat`` each group's
 body runs under `torch.utils.checkpoint` (only the group's input is kept,
 the reference's ``save_only_these_names()`` policy), and `chunked_ce`
-recomputes each sequence chunk's logits in backward.
-
-Mixture-of-experts, Mamba and RWKV layers (and Whisper's encoder-decoder)
-raise `NotImplementedError`: they are ROADMAP Queue 1 item 12c.
+recomputes each sequence chunk's logits in backward.  Whisper's
+encoder-decoder is `models.whisper`.
 """
 from __future__ import annotations
 
@@ -31,12 +36,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (cross_entropy, dense_init, dtype_of,
                                        embed_tokens, gelu_tanh, init_mlp,
                                        init_norm, mlp, rms_norm, token_nll,
                                        unembed)
-
-LATER_FAMILIES = "ROADMAP Queue 1 item 12c"
 
 
 # ---------------------------------------------------------------------------
@@ -83,47 +89,39 @@ def n_groups(cfg: ModelCfg) -> int:
     return (cfg.num_layers - pre) // P
 
 
-def dense_plans(cfg: ModelCfg) -> list[LayerPlan]:
-    """`period_plan`, for a config whose every layer is attention + a
-    dense MLP; anything else raises, naming the ROADMAP item."""
-    if cfg.enc_dec is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (Whisper, cross-attention) is "
-            f"not ported yet: {LATER_FAMILIES}")
-    plans = period_plan(cfg) + prefix_plans(cfg)
-    for plan in plans:
-        if plan.kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: {plan.kind} layers are not ported yet: "
-                f"{LATER_FAMILIES}")
-        if plan.mlp != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: {plan.mlp} (mixture-of-experts) layers are "
-                f"not ported yet: {LATER_FAMILIES}")
-    return period_plan(cfg)
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def _init_layer(gen: torch.Generator, cfg: ModelCfg, lead=()) -> dict:
+def _init_layer(gen: torch.Generator, cfg: ModelCfg, plan: LayerPlan,
+                lead=()) -> dict:
     dtype = dtype_of(cfg)
     norms = ["norm1", "norm2"] + (["norm1_post", "norm2_post"]
                                   if cfg.post_norms else [])
     p: dict = {n: init_norm(cfg.d_model, lead, gen.device) for n in norms}
-    p["attn"] = attn_mod.init_attention(gen, cfg, dtype, lead)
-    p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead)
+    if plan.kind == "attn":
+        p["attn"] = attn_mod.init_attention(gen, cfg, dtype, lead)
+    elif plan.kind == "mamba":
+        p["mamba"] = mamba_mod.init_mamba(gen, cfg.d_model, cfg.hybrid,
+                                          dtype, lead)
+    elif plan.kind == "rwkv":
+        p["tmix"] = rwkv_mod.init_rwkv_tmix(gen, cfg, dtype, lead)
+    if plan.mlp == "dense":
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, lead)
+    elif plan.mlp == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg.d_model, cfg.moe, dtype, lead)
+    elif plan.mlp == "cmix":
+        p["cmix"] = rwkv_mod.init_rwkv_cmix(gen, cfg, dtype, lead)
     return p
 
 
 def init_lm(gen: torch.Generator, cfg: ModelCfg) -> dict:
     """Parameters drawn on ``gen``'s device, in the reference's tree."""
     dtype = dtype_of(cfg)
-    plans = dense_plans(cfg)
+    plans = period_plan(cfg)
     G = n_groups(cfg)
     params: dict = {
-        "blocks": {f"layer_{p}": _init_layer(gen, cfg, (G,))
-                   for p in range(len(plans))},
+        "blocks": {f"layer_{p}": _init_layer(gen, cfg, plan, (G,))
+                   for p, plan in enumerate(plans)},
         "tok_embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), 0,
                                 dtype),
         "final_norm": init_norm(cfg.d_model, device=gen.device),
@@ -131,6 +129,9 @@ def init_lm(gen: torch.Generator, cfg: ModelCfg) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), 0,
                                        dtype)
+    pre = prefix_plans(cfg)
+    if pre:
+        params["prefix"] = [_init_layer(gen, cfg, plan) for plan in pre]
     return params
 
 
@@ -169,33 +170,56 @@ def apply_layer(
     cache: Optional[dict] = None,
     pos: Optional[int] = None,
     collect_kv: bool = False,
-) -> tuple[torch.Tensor, Optional[dict]]:
-    """Returns (x, new_cache).  The reference also returns an auxiliary
-    loss, which only its mixture-of-experts layers make.
+) -> tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
+    """Returns (x, aux_loss, new_cache).
 
-    cache!=None => one-token decode (the cache is written in place);
-    collect_kv => full-sequence prefill that also returns the layer's
-    decode cache.
+    cache!=None => one-token decode (attention writes the cache in place;
+    a state layer returns its new state); collect_kv => full-sequence
+    prefill that also returns the layer's decode cache.
     """
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Optional[dict] = None
+    want_state = (cache is not None) or collect_kv
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if cache is None:
-        out, kv = attn_mod.attention(p["attn"], cfg, h, positions,
-                                     causal=True, window=plan.window,
-                                     return_kv=collect_kv)
-        if collect_kv:
-            new_cache = {"k": kv[0], "v": kv[1]}
-    else:
-        out, ck, cv = attn_mod.decode_attention(
-            p["attn"], cfg, h, cache["k"], cache["v"], pos,
-            window=plan.window)
-        new_cache = {"k": ck, "v": cv}
+    if plan.kind == "attn":
+        if cache is None:
+            out, kv = attn_mod.attention(p["attn"], cfg, h, positions,
+                                         causal=True, window=plan.window,
+                                         return_kv=collect_kv)
+            if collect_kv:
+                new_cache = {"k": kv[0], "v": kv[1]}
+        else:
+            out, ck, cv = attn_mod.decode_attention(
+                p["attn"], cfg, h, cache["k"], cache["v"], pos,
+                window=plan.window)
+            new_cache = {"k": ck, "v": cv}
+    elif plan.kind == "mamba":
+        out, new_cache = mamba_mod.mamba_forward(
+            p["mamba"], cfg.hybrid, h, state=cache, return_state=want_state)
+    else:  # rwkv
+        st_in = None
+        if cache is not None:
+            st_in = {"shift": cache["shift_t"], "wkv": cache["wkv"]}
+        out, st = rwkv_mod.rwkv_time_mix(
+            p["tmix"], cfg, h, state=st_in, return_state=want_state)
+        if st is not None:
+            new_cache = {"shift_t": st["shift"], "wkv": st["wkv"]}
     x = _residual(p, cfg, x, out, "norm1_post")
 
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    out = mlp(p["mlp"], h, act=gelu_tanh if cfg.scale_embed else F.silu)
+    if plan.mlp == "dense":
+        out = mlp(p["mlp"], h, act=gelu_tanh if cfg.scale_embed else F.silu)
+    elif plan.mlp == "moe":
+        out, aux = moe_mod.moe_layer(p["moe"], cfg.moe, h)
+    else:  # cmix
+        out, shift_c = rwkv_mod.rwkv_channel_mix(
+            p["cmix"], cfg, h,
+            state=None if cache is None else cache["shift_c"],
+            return_state=want_state)
+        if new_cache is not None and shift_c is not None:
+            new_cache["shift_c"] = shift_c
     x = _residual(p, cfg, x, out, "norm2_post")
-    return x, new_cache
+    return x, aux, new_cache
 
 
 def _embed(params, cfg, tokens, positions, frontend_embeds):
@@ -220,24 +244,30 @@ def forward_hidden(
     positions: Optional[torch.Tensor] = None,   # (B, S) or (3, B, S)
     frontend_embeds: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden (B, S, D), aux_loss) — no unembed."""
-    plans = dense_plans(cfg)
+    """Returns (final hidden (B, S, D), aux_loss summed over the layers)
+    — no unembed."""
+    plans = period_plan(cfg)
     x, positions = _embed(params, cfg, tokens, positions, frontend_embeds)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, plan in zip(params.get("prefix", []), prefix_plans(cfg)):
+        x, aux, _ = apply_layer(p, cfg, plan, x, positions)
+        aux_total = aux_total + aux
 
-    def group_body(x, gparams):
+    def group_body(x, aux_acc, gparams):
         for i, plan in enumerate(plans):
-            x, _ = apply_layer(gparams[f"layer_{i}"], cfg, plan, x,
-                               positions)
-        return x
+            x, aux, _ = apply_layer(gparams[f"layer_{i}"], cfg, plan, x,
+                                    positions)
+            aux_acc = aux_acc + aux
+        return x, aux_acc
 
     for gparams in unbind_groups(params["blocks"], n_groups(cfg)):
         if cfg.remat:
-            x = checkpoint(group_body, x, gparams, use_reentrant=False)
+            x, aux_total = checkpoint(group_body, x, aux_total, gparams,
+                                      use_reentrant=False)
         else:
-            x = group_body(x, gparams)
+            x, aux_total = group_body(x, aux_total, gparams)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    # no mixture-of-experts layer in this family: the auxiliary loss is 0
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 def forward(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
@@ -291,38 +321,80 @@ def prefill(params: dict, cfg: ModelCfg, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, dict]:
     """Inference prefill: last-token logits (B, 1, V) + the filled decode
-    cache (each slot's K/V stacked over the groups: (G, B, S, KV, hd))."""
-    plans = dense_plans(cfg)
+    cache: per period slot each leaf stacked over the groups (K/V of
+    (G, B, S, KV, hd), or a state leaf's (G, ...)), and the prefix
+    layers' caches unstacked under ``prefix``."""
+    plans = period_plan(cfg)
     x, positions = _embed(params, cfg, tokens, positions, frontend_embeds)
-    kvs: dict = {f"layer_{i}": {"k": [], "v": []} for i in range(len(plans))}
+    prefix_cache = []
+    for p, plan in zip(params.get("prefix", []), prefix_plans(cfg)):
+        x, _, kv = apply_layer(p, cfg, plan, x, positions, collect_kv=True)
+        prefix_cache.append(kv)
+    slots: dict = {f"layer_{i}": [] for i in range(len(plans))}
     for g in range(n_groups(cfg)):
         for i, plan in enumerate(plans):
-            x, kv = apply_layer(
+            x, _, kv = apply_layer(
                 group_slice(params["blocks"][f"layer_{i}"], g), cfg, plan,
                 x, positions, collect_kv=True)
-            kvs[f"layer_{i}"]["k"].append(kv["k"])
-            kvs[f"layer_{i}"]["v"].append(kv["v"])
+            slots[f"layer_{i}"].append(kv)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(cfg, params, x[:, -1:])
-    cache = {"blocks": {name: {k: torch.stack(v) for k, v in slot.items()}
-                        for name, slot in kvs.items()}}
+    cache: dict = {"blocks": {
+        name: {k: torch.stack([c[k] for c in per_group])
+               for k in per_group[0]}
+        for name, per_group in slots.items()}}
+    if prefix_cache:
+        cache["prefix"] = prefix_cache
     return logits, cache
 
 
 # ---------------------------------------------------------------------------
 # Decode (one token against a cache)
 # ---------------------------------------------------------------------------
+def _layer_cache(cfg: ModelCfg, plan: LayerPlan, batch: int, max_seq: int,
+                 lead: tuple, device) -> dict:
+    """A zero cache for one layer: K/V in the parameter dtype, Mamba and
+    RWKV states in float32."""
+    if plan.kind == "attn":
+        shp = lead + (batch, max_seq, cfg.num_kv_heads, cfg.hd())
+        c = {"k": torch.zeros(shp, dtype=dtype_of(cfg), device=device),
+             "v": torch.zeros(shp, dtype=dtype_of(cfg), device=device)}
+    else:
+        shapes = (mamba_mod.mamba_state_shape(cfg.hybrid, cfg.d_model, batch)
+                  if plan.kind == "mamba"
+                  else rwkv_mod.rwkv_state_shapes(cfg, batch))
+        c = {k: torch.zeros(lead + s, dtype=torch.float32, device=device)
+             for k, s in shapes.items()}
+    if plan.mlp == "cmix":
+        c["shift_c"] = torch.zeros(lead + (batch, cfg.d_model),
+                                   dtype=torch.float32, device=device)
+    return c
+
+
 def init_cache(cfg: ModelCfg, batch: int, max_seq: int,
                device="cuda") -> dict:
-    """Zero cache tree: per period slot, K and V of (G, B, S, KV, hd), in
-    the parameter dtype."""
-    dtype = dtype_of(cfg)
-    plans = dense_plans(cfg)
-    shp = (n_groups(cfg), batch, max_seq, cfg.num_kv_heads, cfg.hd())
-    return {"blocks": {
-        f"layer_{i}": {"k": torch.zeros(shp, dtype=dtype, device=device),
-                       "v": torch.zeros(shp, dtype=dtype, device=device)}
-        for i in range(len(plans))}}
+    """Zero cache tree: per period slot each leaf with a leading G (K and
+    V of (G, B, S, KV, hd) in the parameter dtype; Mamba's conv and ssm,
+    RWKV's shift_t, wkv and shift_c in float32), and the prefix layers'
+    caches unstacked under ``prefix``."""
+    plans = period_plan(cfg)
+    lead = (n_groups(cfg),)
+    cache: dict = {"blocks": {
+        f"layer_{i}": _layer_cache(cfg, plan, batch, max_seq, lead, device)
+        for i, plan in enumerate(plans)}}
+    pre = prefix_plans(cfg)
+    if pre:
+        cache["prefix"] = [_layer_cache(cfg, plan, batch, max_seq, (),
+                                        device) for plan in pre]
+    return cache
+
+
+def _write_back(dst: dict, src: dict) -> None:
+    """The layer's new cache into its slice of the decode cache, in place
+    (attention's K/V are already there)."""
+    for k, v in src.items():
+        if v is not dst[k]:
+            dst[k].copy_(v)
 
 
 def decode_step(
@@ -333,18 +405,23 @@ def decode_step(
     cache: dict,
 ) -> tuple[torch.Tensor, dict]:
     """One serve step: logits (B, 1, V) for the next token; the token's
-    K/V are written into ``cache`` at ``pos`` in place, and the same
-    cache is returned."""
-    plans = dense_plans(cfg)
+    K/V and the new states are written into ``cache`` in place, and the
+    same cache is returned."""
+    plans = period_plan(cfg)
     x = embed_tokens(cfg, params["tok_embed"], tokens)
     positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
                            device=tokens.device)
+    for p, plan, c in zip(params.get("prefix", []), prefix_plans(cfg),
+                          cache.get("prefix", [])):
+        x, _, nc = apply_layer(p, cfg, plan, x, positions, cache=c, pos=pos)
+        _write_back(c, nc)
     for g in range(n_groups(cfg)):
         for i, plan in enumerate(plans):
             name = f"layer_{i}"
-            x, _ = apply_layer(
+            c = group_slice(cache["blocks"][name], g)
+            x, _, nc = apply_layer(
                 group_slice(params["blocks"][name], g), cfg, plan, x,
-                positions, cache=group_slice(cache["blocks"][name], g),
-                pos=pos)
+                positions, cache=c, pos=pos)
+            _write_back(c, nc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(cfg, params, x), cache

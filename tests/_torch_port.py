@@ -91,3 +91,138 @@ def run_forced_reference(script: str, n_dev: int, out_dir,
                                                      int(k.rsplit("/", 1)[1]))):
             got.setdefault(key.rsplit("/", 1)[0], []).append(data[key])
     return got
+
+
+# ---------------------------------------------------------------------------
+# language models: the reference's reduced models carried to the port
+# ---------------------------------------------------------------------------
+def lm_state(arch: str, batch: int = 2, seq: int = 64):
+    """The reference's reduced ``arch`` (float32): (port cfg, ref cfg, ref
+    model, ref params, port params, ref batch, port batch), the
+    parameters drawn from ``PRNGKey(0)`` and carried across by
+    `convert.lm_tree_from_numpy`, the batch `make_dummy_batch`'s from
+    ``PRNGKey(1)``."""
+    import torch
+    from repro.configs.base import ShapeCfg
+    from repro.configs.registry import get_reduced_config as ref_reduced
+    from repro.models.model import build_model as ref_build
+    from repro.models.model import make_dummy_batch
+    from repro_torch.configs.registry import get_reduced_config
+
+    rcfg = ref_reduced(arch)
+    rmodel = ref_build(rcfg)
+    rparams = rmodel.init(jax.random.PRNGKey(0))
+    rbatch = make_dummy_batch(rcfg, ShapeCfg("smoke", seq, batch, "train"),
+                              jax.random.PRNGKey(1))
+    pparams = convert.lm_tree_from_numpy(jax.tree.map(np.asarray, rparams),
+                                         "cpu")
+    pbatch = {k: torch.as_tensor(np.array(v)) for k, v in rbatch.items()}
+    pbatch["tokens"] = pbatch["tokens"].long()
+    return (get_reduced_config(arch), rcfg, rmodel, rparams, pparams, rbatch,
+            pbatch)
+
+
+def flat_tree(tree, path=""):
+    """{path: leaf} over dicts and lists, the paths in the reference's
+    ``jax.tree_util.keystr`` form (``['prefix'][0]['attn']['wq']``)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_tree(v, f"{path}[{k!r}]"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(flat_tree(v, f"{path}[{i}]"))
+        return out
+    return {path: tree}
+
+
+def ref_flat_tree(tree):
+    """`flat_tree` of a reference pytree."""
+    return {jax.tree_util.keystr(p): leaf
+            for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def assert_lm_tree_close(port, ref, rtol=1e-5, atol=1e-5):
+    """A port tree against a reference pytree leaf for leaf: the same
+    paths, shapes and dtypes, and values to ``rtol`` plus ``atol`` times
+    the leaf's max |x| where that exceeds 1 (RWKV's wkv state reaches
+    ~12, and summation order moves its entries by up to 4.6e-5, 3.8e-6 of
+    the max)."""
+    got, want = flat_tree(port), ref_flat_tree(ref)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        w = np.asarray(w)
+        assert tuple(got[k].shape) == w.shape, k
+        assert str(got[k].dtype).split(".")[-1] == str(w.dtype), k
+        scale = max(1.0, float(np.abs(w).max())) if w.size else 1.0
+        np.testing.assert_allclose(got[k].float().numpy(), w, rtol=rtol,
+                                   atol=atol * scale, err_msg=k)
+
+
+# the hardware-aware transform of the loss tests: 8 bits, no gain mismatch
+# (the packages draw other chips at sigma > 0, ROADMAP Queue 3 item 18),
+# every matrix of 256 entries or more (the reduced models' are small)
+LM_HW = dict(bits=8, sigma_gain=0.0, min_size=256)
+
+
+def assert_loss_and_grads_match(state, hw: bool):
+    """`Model.loss` against the reference's on the same parameters and
+    batch, to 1e-5 relative.  Plainly (``hw`` False) also its gradients
+    (``torch.autograd.grad`` over every leaf against
+    ``jax.value_and_grad``), each leaf to 1e-4 of its max |g| (as
+    `test_torch_train.py`); hardware-aware (`LM_HW`) the loss alone."""
+    import pytest
+    import torch
+    from repro.core.hwaware import HwAwareConfig as RHw
+    from repro.models.model import build_model as ref_build
+    from repro_torch.core.hwaware import HwAwareConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+
+    cfg, rcfg, _, rparams, pparams, rbatch, pbatch = state
+    rmodel = ref_build(rcfg, hw_aware=RHw(**LM_HW) if hw else None)
+    model = build_model(cfg, hw_aware=HwAwareConfig(**LM_HW) if hw else None,
+                        device="cpu")
+    if hw:
+        want = float(rmodel.loss(rparams, rbatch))
+        assert float(model.loss(pparams, pbatch)) == pytest.approx(
+            want, rel=1e-5)
+        return
+    want_loss, want_g = jax.value_and_grad(rmodel.loss)(rparams, rbatch)
+    live = [p.detach().requires_grad_() for p in adamw.tree_leaves(pparams)]
+    loss = model.loss(adamw.tree_unflatten(pparams, live), pbatch)
+    grads = torch.autograd.grad(loss, live)
+    assert float(loss.detach()) == pytest.approx(float(want_loss), rel=1e-5)
+    want = jax.tree.leaves(want_g)
+    assert len(grads) == len(want)
+    for g, w in zip(grads, want):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-4 * np.abs(w).max()
+
+
+def assert_hw_transform_matches(state):
+    """`core.hwaware.apply_hardware` under `LM_HW` on the same tree: each
+    package's `_should_quantize` selects the same leaves (none of them an
+    embedding), some of them change, and every leaf equals the
+    reference's transform bit for bit.  Returns the selected paths."""
+    from repro.core import hwaware as RH
+    from repro_torch.core import hwaware as PH
+
+    rparams, pparams = state[3], state[4]
+    rcfg, pcfg = RH.HwAwareConfig(**LM_HW), PH.HwAwareConfig(**LM_HW)
+    src, port_src = ref_flat_tree(rparams), flat_tree(pparams)
+    chosen = {k for k, w in src.items() if RH._should_quantize(k, w, rcfg)}
+    assert chosen == {k for k, w in port_src.items()
+                      if PH._should_quantize(k, w, pcfg)}
+    assert chosen and not any("embed" in k for k in chosen)
+    want = ref_flat_tree(RH.apply_hardware(rparams, rcfg,
+                                           jax.random.PRNGKey(0)))
+    got = flat_tree(PH.apply_hardware(pparams, pcfg, 0))
+    assert any(not np.array_equal(np.asarray(want[k]), np.asarray(src[k]))
+               for k in chosen)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(w),
+                                      err_msg=k)
+    return chosen

@@ -70,7 +70,9 @@ def test_port_imports_without_pulling_in_jax():
         " repro_torch.models.model, repro_torch.launch.serve,"
         " repro_torch.core.hwaware, repro_torch.launch.train,"
         " repro_torch.launch.steps, repro_torch.optim.adamw,"
-        " repro_torch.data.pipeline, chip_smoke;"
+        " repro_torch.data.pipeline, repro_torch.models.moe,"
+        " repro_torch.models.mamba, repro_torch.models.rwkv,"
+        " repro_torch.models.whisper, chip_smoke;"
         "from repro_torch.core import *;"
         "bad = [m for m in ('jax', 'jaxlib', 'repro') if m in sys.modules];"
         "print(bad); sys.exit(1 if bad else 0)")

@@ -53,8 +53,6 @@ from repro_torch.models.model import build_model
 ROOT = Path(__file__).resolve().parent.parent
 DENSE = ["gemma2-2b", "gemma2-9b", "deepseek-67b", "qwen1.5-110b",
          "qwen2-vl-72b"]
-LATER = ["granite-moe-1b-a400m", "kimi-k2-1t-a32b", "jamba-v0.1-52b",
-         "rwkv6-3b", "whisper-tiny"]
 SHAPE = ShapeCfg("smoke", 64, 2, "train")
 LOGITS = dict(rtol=1e-4, atol=1e-4)
 CACHE = dict(rtol=1e-5, atol=1e-5)
@@ -304,17 +302,6 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield k, v
-
-
-@pytest.mark.parametrize("arch", LATER)
-def test_later_families_raise_naming_their_roadmap_item(arch):
-    cfg = get_reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        PT.init_lm(torch.Generator(), cfg)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        PT.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_serve_entry_point_runs_on_the_cpu():
