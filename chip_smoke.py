@@ -78,7 +78,19 @@ the kernels' launch counts set to 0 just before it and read just after:
   forward) and the first three trained hardware-aware; the reduced
   float32 models on the CPU and on the card, Mamba's custom scan backward
   against autograd at jamba's width, granite's MoE layer chunked against
-  one shot.  It launches none of the six kernels.
+  one shot.  It launches none of the six kernels;
+* mesh: many devices as logical devices of the card, and the dry run —
+  gemma2-2b at full width: a hardware-aware train step under a 2 x 4
+  mesh equal to the unmeshed step bit for bit, the dry run's argument
+  bytes on a 1 x 1 mesh equal to the real state's, the prefill and serve
+  steps under the production mesh equal to `launch.serve.generate`'s
+  logits, ``REPRO_REMAT=dots`` against the default at S = 4096 (bit-equal
+  gradients; ms and peak memory), int8 gradient compression of the
+  whole gradient tree, `launch.train --mesh host --data-model 2 4`; the
+  dry run of three gemma2-2b cells on the pod mesh, traced on the host's
+  CPU beside the card's work; `examples_torch/pbit_lattice_pod.py` at
+  full size under three sync policies on 4 logical bands (barrier equal
+  to one band), through K1 and K5.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -102,6 +114,8 @@ Output: one JSON object per line —
   {"phase": "lm_train", ...}       LM training: checks, ms, memory, bound
   {"phase": "lm_families", ...}    MoE, Mamba hybrid, RWKV, Whisper: checks,
                                    ms, memory, bounds, splits
+  {"phase": "mesh", ...}           meshed steps, remat, compression, dry
+                                   run, the lattice twin: checks, ms, GB
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -3429,7 +3443,7 @@ def _lm_train_cpu_vs_card(seed: int) -> dict:
         runs, applies = {}, []
         for dev in ("cpu", DEVICE):
             step = make_train_step(cfg, ShapeCfg("cross", 64, 2, "train"),
-                                   ocfg, hw_aware=hw, device=dev)
+                                   None, ocfg, hw_aware=hw, device=dev)
             params = _tree_to(init, dev)
             opt = adamw.init(params, bits)
             grads = None
@@ -3671,7 +3685,7 @@ def _full_width_step(seed: int, cfg, src) -> dict:
         batches.append(src.batch(i, B, S, device=DEVICE))
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
-    step = make_train_step(cfg, ShapeCfg("train_cli", S, B, "train"),
+    step = make_train_step(cfg, ShapeCfg("train_cli", S, B, "train"), None,
                            adamw.AdamWConfig(total_steps=100,
                                              warmup_steps=10),
                            hw_aware=HwAwareConfig())
@@ -3722,7 +3736,7 @@ def _fixed_batch(seed: int, cfg, src) -> dict:
     from repro_torch.optim import adamw
 
     step = make_train_step(cfg, ShapeCfg("fixed", LM_TRAIN_S, LM_TRAIN_B,
-                                         "train"),
+                                         "train"), None,
                            adamw.AdamWConfig(lr=1e-3, warmup_steps=0,
                                              total_steps=8),
                            hw_aware=HwAwareConfig())
@@ -3753,7 +3767,7 @@ def _long_step(seed: int, cfg, src) -> dict:
     for remat in (True, False):
         step = make_train_step(
             dataclasses.replace(cfg, remat=remat),
-            ShapeCfg("long", LM_TRAIN_LONG, 1, "train"),
+            ShapeCfg("long", LM_TRAIN_LONG, 1, "train"), None,
             adamw.AdamWConfig(total_steps=100, warmup_steps=10),
             hw_aware=HwAwareConfig())
         params = step.model.init(seed)
@@ -3763,7 +3777,10 @@ def _long_step(seed: int, cfg, src) -> dict:
         (params, opt, m), first_ms = timed_once(
             lambda: step.fn(params, opt, batch))
         loss, gnorm = m["loss"].item(), m["grad_norm"].item()
-        _, ms = timed_once(lambda: step.fn(params, opt, batch))
+        # the step's outputs are its state: bound to the names deleted
+        # below, or the next run would measure this one's state too
+        (params, opt, m), ms = timed_once(
+            lambda: step.fn(params, opt, batch))
         out["remat" if remat else "no_remat"] = {
             "loss": loss, "grad_norm": gnorm, "first_ms": first_ms,
             "ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -3788,7 +3805,7 @@ def _eight_bit_moments(seed: int, cfg, src) -> dict:
     from repro_torch.optim import adamw
 
     step = make_train_step(cfg, ShapeCfg("q8", LM_TRAIN_S, LM_TRAIN_B,
-                                         "train"),
+                                         "train"), None,
                            adamw.AdamWConfig(total_steps=100, warmup_steps=10,
                                              state_bits=8),
                            hw_aware=HwAwareConfig())
@@ -4067,7 +4084,7 @@ def _lmf_train(seed: int, cfg) -> dict:
     from repro_torch.optim import adamw
 
     B, S = LM_TRAIN_B, LM_TRAIN_S
-    step = make_train_step(cfg, ShapeCfg("lmf", S, B, "train"),
+    step = make_train_step(cfg, ShapeCfg("lmf", S, B, "train"), None,
                            adamw.AdamWConfig(lr=1e-3, warmup_steps=0,
                                              total_steps=LMF_TRAIN_STEPS),
                            hw_aware=HwAwareConfig(), device=DEVICE)
@@ -4513,6 +4530,443 @@ def lm_families_phase(seed: int) -> dict:
     if failed:
         raise AssertionError(f"an lm_families check failed: {failed}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase: many devices and the dry run (K1 and K5 through the lattice twin)
+# ---------------------------------------------------------------------------
+MESH_DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+MESH_DRYRUN_TIMEOUT_S = 600   # the three cells trace in parallel, CPU only
+MESH_REMAT_S = 4096           # REPRO_REMAT=dots against the default, B = 1
+
+
+def _start_dry_runs(out_dir: Path) -> dict:
+    """`python -m repro_torch.launch.dryrun` for gemma2-2b at each of
+    `MESH_DRYRUN_SHAPES` on the pod mesh, one process each, started
+    together and with every GPU hidden: the dry run traces on fake and
+    meta tensors and must not touch the card.  They run while the phase
+    drives the card."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    return {shape: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         LM_ARCH, "--shape", shape, "--mesh", "pod", "--force", "--out",
+         str(out_dir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for shape in MESH_DRYRUN_SHAPES}
+
+
+def _finish_dry_runs(procs: dict, out_dir: Path) -> dict:
+    """Each dry-run cell's record: status, the seconds it took to build
+    the step and to trace it, argument bytes a device, global FLOPs; a
+    process that outlives `MESH_DRYRUN_TIMEOUT_S` is killed and its cell
+    fails."""
+    out = {}
+    for shape, (t0, proc) in procs.items():
+        try:
+            _, err = proc.communicate(timeout=max(
+                1.0, MESH_DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            out[shape] = {"status": "timeout", "ok": False}
+            continue
+        path = out_dir / f"{LM_ARCH}__{shape}__pod.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        out[shape] = {
+            "status": rec.get("status"), "returncode": proc.returncode,
+            "trace_s": rec.get("trace_s"),
+            "build_s": rec.get("build_s"),
+            "argument_bytes_per_device": rec.get("memory", {}).get(
+                "argument_bytes"),
+            "output_bytes_per_device": rec.get("memory", {}).get(
+                "output_bytes"),
+            "flops_global": rec.get("flops_global"),
+            "dot_flops": rec.get("dot_flops"),
+            "fits_hbm": rec.get("fits_hbm"),
+            "ok": proc.returncode == 0 and rec.get("status") == "ok",
+            "stderr_tail": err[-400:] if proc.returncode else ""}
+    return out
+
+
+def _free() -> float:
+    """Collect the garbage (an autograd graph under checkpointing holds
+    its state in reference cycles), empty the allocator's cache, and
+    return the GB still allocated on the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def _host_copy(tree) -> dict:
+    """Every leaf of a tree on the host, keyed as the checkpoint keys."""
+    from repro_torch.models.sharding import leaves_with_path
+    return {k: t.detach().to("cpu", copy=True)
+            for k, t in leaves_with_path(tree)}
+
+
+def _leaves_equal(tree, host: dict) -> list:
+    """Keys of the leaves of ``tree`` (on the card) that differ from
+    their host copies in ``host``, bit for bit (leaf by leaf: no second
+    state on the card)."""
+    from repro_torch.models.sharding import leaves_with_path
+    got = dict(leaves_with_path(tree))
+    if set(got) != set(host):
+        return sorted(set(got) ^ set(host))
+    return [k for k, t in got.items()
+            if not torch.equal(t.detach(), host[k].to(t.device))]
+
+
+def _mesh_train(seed: int, cfg, src) -> dict:
+    """Hardware-aware train steps at B = 8, S = 256 under
+    `make_host_mesh(2, 4)` and with ``mesh=None``, from the same state and
+    batches, under deterministic algorithms: the losses, grad norms and
+    every updated leaf after 2 steps equal bit for bit (the first run's
+    state copied to the host: two states do not fit on the card at
+    once).  And the dry run's reckoning on a 1 x 1 mesh: its argument
+    bytes equal the bytes the real state and batch occupy on the card."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.core.hwaware import HwAwareConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.sharding import leaves_with_path
+    from repro_torch.optim import adamw
+
+    shape = ShapeCfg("mesh", LM_TRAIN_S, LM_TRAIN_B, "train")
+    ocfg = adamw.AdamWConfig(total_steps=100, warmup_steps=10)
+    batches = [src.batch(i, LM_TRAIN_B, LM_TRAIN_S, device=DEVICE)
+               for i in range(2)]
+    runs, host = {}, None
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for tag, mesh in (("mesh_2x4", make_host_mesh(2, 4)),
+                          ("no_mesh", None)):
+            step = make_train_step(cfg, shape, mesh, ocfg,
+                                   hw_aware=HwAwareConfig())
+            params = step.model.init(seed)
+            opt = adamw.init(params)
+            metrics, ms = [], []
+            for b in batches:
+                (params, opt, m), t = timed_once(
+                    lambda: step.fn(params, opt, b))
+                metrics.append({"loss": m["loss"].item(),
+                                "grad_norm": m["grad_norm"].item()})
+                ms.append(t)
+            runs[tag] = {"metrics": metrics, "ms_steps": ms}
+            if mesh is not None:
+                runs[tag]["argument_bytes_per_device"] = sum(
+                    dryrun.device_bytes(a, s, mesh)
+                    for a, s in zip(step.abstract_args, step.in_specs))
+                host = _host_copy((params, opt))
+            else:
+                differing = _leaves_equal((params, opt), host)
+                one = make_host_mesh(1, 1)
+                step11 = make_train_step(cfg, shape, one, ocfg,
+                                         hw_aware=HwAwareConfig())
+                reckoned = sum(
+                    dryrun.device_bytes(a, s, one)
+                    for a, s in zip(step11.abstract_args, step11.in_specs))
+                real = sum(t.numel() * t.element_size() for _, t in
+                           leaves_with_path((params, opt, batches[0])))
+            del params, opt, step
+            runs[tag]["gb_left_after"] = _free()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    del host
+    equal_metrics = runs["mesh_2x4"]["metrics"] == runs["no_mesh"]["metrics"]
+    return {**runs, "batch": LM_TRAIN_B, "seq": LM_TRAIN_S,
+            "leaves_differing": differing, "metrics_equal": equal_metrics,
+            "argument_bytes_1x1_reckoned": reckoned,
+            "argument_bytes_1x1_on_card": real,
+            "ok": equal_metrics and not differing and reckoned == real
+            and all(math.isfinite(m["loss"])
+                    for m in runs["no_mesh"]["metrics"])}
+
+
+def _mesh_serve(seed: int, cfg) -> dict:
+    """`make_prefill_step` and `make_serve_step` under the production mesh
+    against `launch.serve.generate` (B = 4 x P = 32, 31 greedy decode
+    steps, the same parameters): the prefill logits and every decode
+    step's logits bit for bit, fed the tokens generate chose."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg, device=DEVICE)
+    params = model.init(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=DEVICE)
+    seen = {"prefill": None, "decode": []}
+    prefill = transformer.prefill
+
+    def prefill_seen(*a, **k):
+        out = prefill(*a, **k)
+        seen["prefill"] = out[0].clone()
+        return out
+
+    def decode_seen(p, tok, pos, cache):
+        logits, cache = model.decode_step(p, tok, pos, cache)
+        seen["decode"].append((tok.clone(), pos, logits.clone()))
+        return logits, cache
+
+    transformer.prefill = prefill_seen
+    try:
+        lm_serve.generate(dataclasses.replace(model, decode_step=decode_seen),
+                          params, prompts, LM_GEN, LM_MAX_SEQ, 0.0)
+    finally:
+        transformer.prefill = prefill
+    mesh = make_production_mesh()
+    pstep = make_prefill_step(
+        cfg, ShapeCfg("mesh_prefill", LM_PROMPT, LM_BATCH, "prefill"), mesh)
+    sstep = make_serve_step(
+        cfg, ShapeCfg("mesh_decode", LM_MAX_SEQ, LM_BATCH, "decode"), mesh)
+    with torch.inference_mode():
+        logits, pcache = pstep.fn(params, {"tokens": prompts})
+        prefill_equal = torch.equal(logits, seen["prefill"])
+        cache = lm_serve.graft(sstep.model.init_cache(LM_BATCH, LM_MAX_SEQ),
+                               pcache)
+        del pcache
+        decode_equal = []
+        for tok, pos, want in seen["decode"]:
+            got, cache = sstep.fn(params, tok, pos, cache)
+            decode_equal.append(bool(torch.equal(got, want)))
+    return {"batch": LM_BATCH, "prompt": LM_PROMPT,
+            "decode_steps": len(decode_equal), "mesh": dict(mesh.shape),
+            "prefill_equal": bool(prefill_equal),
+            "decode_steps_equal": sum(decode_equal),
+            "ok": bool(prefill_equal) and len(decode_equal) == LM_GEN - 1
+            and all(decode_equal)}
+
+
+def _mesh_remat_dots(seed: int, cfg, src) -> dict:
+    """Remat's two policies at B = 1, S = 4096, hardware-aware, from the
+    same parameters and batch: the loss and every gradient leaf under
+    ``REPRO_REMAT=dots`` equal the default's bit for bit (deterministic
+    algorithms; the default's gradients copied to the host), and each
+    policy's second train step timed with its peak memory."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.core.hwaware import HwAwareConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    batch = src.batch(0, 1, MESH_REMAT_S, device=DEVICE)
+    out, host = {}, None
+    saved = os.environ.get("REPRO_REMAT")
+    try:
+        for policy in ("default", "dots"):
+            if policy == "dots":
+                os.environ["REPRO_REMAT"] = "dots"
+            else:
+                os.environ.pop("REPRO_REMAT", None)
+            step = make_train_step(
+                dataclasses.replace(cfg, remat=True),
+                ShapeCfg("remat", MESH_REMAT_S, 1, "train"), None,
+                adamw.AdamWConfig(total_steps=100, warmup_steps=10),
+                hw_aware=HwAwareConfig())
+            params = step.model.init(seed)
+            prev = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True)
+            try:
+                loss, grads = _loss_and_grads(step.model, params, batch)
+            finally:
+                torch.use_deterministic_algorithms(prev)
+            if host is None:
+                host = _host_copy({"loss": loss, "grads": list(grads)})
+                differing = None
+            else:
+                differing = _leaves_equal({"loss": loss,
+                                           "grads": list(grads)}, host)
+            del grads
+            held = _free()
+            opt = adamw.init(params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            (params, opt, m), first_ms = timed_once(
+                lambda: step.fn(params, opt, batch))
+            (params, opt, m), ms = timed_once(
+                lambda: step.fn(params, opt, batch))
+            out[policy] = {"loss": loss.item(), "first_ms": first_ms,
+                           "ms": ms, "grad_norm": m["grad_norm"].item(),
+                           "gb_held_before": held,
+                           "peak_gb": torch.cuda.max_memory_allocated()
+                           / 1e9}
+            del params, opt, step, m
+            _free()
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_REMAT", None)
+        else:
+            os.environ["REPRO_REMAT"] = saved
+    return {**out, "batch": 1, "seq": MESH_REMAT_S,
+            "grad_leaves_differing": differing,
+            "extra_peak_gb": out["dots"]["peak_gb"] - out["default"]["peak_gb"],
+            "ok": differing == [] and math.isfinite(out["dots"]["loss"])}
+
+
+def _mesh_lattice(seed: int) -> tuple:
+    """`examples_torch/pbit_lattice_pod.py` at full size (32 x 32 cells,
+    8192 p-bits, 16 chains, 400 sweeps), in process, driven once
+    (`drive`): ``barrier``, ``halo4`` and ``async`` on 4 logical bands and
+    ``barrier`` on one; every K1 and K5 launch replayed through its plain
+    version.  ``barrier`` on 4 bands equals one band bit for bit (spins
+    and energy trace); sweeps/s, the energy-trace gaps and the napkin
+    figure under the H100's constants."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "pbit_lattice_pod", ROOT / "examples_torch" / "pbit_lattice_pod.py")
+    pod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pod)
+    size = pod.sizes(False)
+
+    def path():
+        runs = {name: pod.anneal(name, 4, DEVICE, **size)
+                for name in ("barrier", "halo4", "async")}
+        runs["one_band"] = pod.anneal("barrier", 1, DEVICE, **size)
+        return runs
+
+    runs, counts, calls = drive(path)
+    summary, worst = replay_all(calls)
+    base, one = runs["barrier"], runs["one_band"]
+    barrier_equal = bool(torch.equal(base["m"], one["m"])) and \
+        np.array_equal(base["trace"], one["trace"])
+    res = {"size": size, "bands": 4, "launches": counts, "replay": summary,
+           "barrier_equals_one_band": barrier_equal, "_worst": worst}
+    for name, r in runs.items():
+        res[name] = {
+            "backend": r["backend"], "sweeps_per_s": r["sweeps_per_s"],
+            "seconds": r["seconds"],
+            "energy_best": float(r["energy"].min()) / r["n_nodes"],
+            "energy_mean": float(r["energy"].mean()) / r["n_nodes"],
+            **({"halo_bytes_per_sweep": r["halo_bytes_per_sweep"],
+                "napkin": r["napkin"]} if "napkin" in r else {})}
+        if name in ("halo4", "async"):
+            gap = np.abs(r["trace"] - base["trace"])
+            res[name].update(trace_gap_mean=float(gap.mean()),
+                             trace_gap_max=float(gap.max()))
+    res["ok"] = barrier_equal and counts["sweep_sparse_exchange"] > 0 \
+        and all(math.isfinite(runs[n]["sweeps_per_s"]) for n in runs)
+    return res, calls
+
+
+def _mesh_compression(seed: int, cfg, src) -> dict:
+    """`runtime.compression.ef_compress_tree` over gemma2-2b's whole
+    gradient tree (B = 8, S = 256, carried in float32) with a zero error:
+    decompress + error == the gradient exactly, leaf for leaf; ms of the
+    call (first and warm) and the payload's bytes against the bf16
+    gradient's."""
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import compression as comp
+
+    model = build_model(cfg, device=DEVICE)
+    params = model.init(seed)
+    batch = src.batch(0, LM_TRAIN_B, LM_TRAIN_S, device=DEVICE)
+    _, grads = _loss_and_grads(model, params, batch)
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    tree = adamw.tree_unflatten(params, [g.float() for g in grads])
+    del grads, params
+    _free()
+    err = comp.init_error(tree)
+    (packed, new_err), first_ms = timed_once(
+        lambda: comp.ef_compress_tree(tree, err))
+    del packed, new_err
+    (packed, new_err), ms = timed_once(
+        lambda: comp.ef_compress_tree(tree, err))
+    leaves = []       # the `Compressed` leaves, in `tree_leaves` order
+    comp._map_compressed(leaves.append, packed)
+    exact = all(bool(torch.equal(comp.decompress(c) + e, g)) for c, e, g in
+                zip(leaves, adamw.tree_leaves(new_err),
+                    adamw.tree_leaves(tree)))
+    payload = sum(c.q.numel() + 4 * c.scale.numel() for c in leaves)
+    n = sum(g.numel() for g in adamw.tree_leaves(tree))
+    del tree, err, packed, new_err, leaves
+    _free()
+    return {"elements": n, "first_ms": first_ms, "ms": ms,
+            "payload_bytes": payload, "bf16_grad_bytes": grad_bytes,
+            "payload_over_bf16": payload / grad_bytes,
+            "decompress_plus_error_equals_grad": exact, "ok": exact}
+
+
+def mesh_phase(seed: int) -> tuple:
+    """Many devices and the dry run (the ports of `repro.launch.mesh`,
+    `models.sharding`, the step functions under a mesh, `launch.dryrun`,
+    `runtime.compression`, ``REPRO_REMAT=dots`` and the lattice pod
+    example).  The mesh is logical devices of this card: a step under any
+    mesh must equal the ``mesh=None`` step bit for bit.  gemma2-2b at full
+    width in bf16: a train step under `make_host_mesh(2, 4)` (and the 1 x
+    1 reckoning of the argument bytes against the card), the prefill and
+    serve steps under the production mesh against `launch.serve.generate`,
+    remat's ``dots`` policy against the default at S = 4096, int8
+    gradient compression of the whole gradient tree; the dry run's three
+    cells, traced on the host's CPU while the card works; then the
+    lattice twin through K1 and K5, every launch replayed.  Returns (the
+    phase's line, the lattice's recorded launches)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch import train as lm_train
+
+    t_phase = time.perf_counter()
+    gb_at_start = _free()
+    cfg = get_config(LM_ARCH)
+    src = make_source(DataConfig(seed=seed, vocab_size=cfg.vocab_size))
+    with tempfile.TemporaryDirectory() as d:
+        procs = _start_dry_runs(Path(d))
+        try:
+            t = time.perf_counter()
+            train = _mesh_train(seed, cfg, src)
+            train["seconds"] = time.perf_counter() - t
+            t = time.perf_counter()
+            serve = _mesh_serve(seed, cfg)
+            serve["seconds"] = time.perf_counter() - t
+            serve["gb_left_after"] = _free()
+            t = time.perf_counter()
+            remat = _mesh_remat_dots(seed, cfg, src)
+            remat["seconds"] = time.perf_counter() - t
+            t = time.perf_counter()
+            packed = _mesh_compression(seed, cfg, src)
+            packed["seconds"] = time.perf_counter() - t
+            rows, log = _quiet(lm_train.main, [
+                "--reduced", "--steps", "2", "--log-every", "1", "--batch",
+                "8", "--seq", "64", "--mesh", "host", "--data-model", "2",
+                "4"])
+            cli = {"start_line": next(ln for ln in log if "mesh=" in ln),
+                   "losses": [r["loss"] for r in rows]}
+            cli["ok"] = "(logical, cuda" in cli["start_line"]
+            t = time.perf_counter()
+            lattice, calls = _mesh_lattice(seed)
+            lattice["seconds"] = time.perf_counter() - t
+            dry = _finish_dry_runs(procs, Path(d))
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    res = {"phase": "mesh", "arch": LM_ARCH, "gb_at_start": gb_at_start,
+           "train": train, "serve": serve,
+           "remat_dots": remat, "compression": packed, "train_cli": cli,
+           "dry_run": dry, "lattice_pod": lattice,
+           "seconds": time.perf_counter() - t_phase}
+    emit({k: v for k, v in res.items() if k != "lattice_pod"}
+         | {"lattice_pod": {k: v for k, v in lattice.items()
+                            if k != "_worst"}})
+    failed = [k for k, v in (("train", train), ("serve", serve),
+                             ("remat_dots", remat), ("compression", packed),
+                             ("train_cli", cli), ("lattice_pod", lattice))
+              if not v["ok"]]
+    failed += [f"dry_run:{s}" for s, v in dry.items() if not v["ok"]]
+    if failed:
+        raise AssertionError(f"a mesh check failed: {failed}")
+    return res, calls
 
 
 # ---------------------------------------------------------------------------
@@ -4991,6 +5445,14 @@ def main() -> int:
     lm_serve_phase(args.seed)
     lm_train_phase(args.seed)
     lm_families_phase(args.seed)
+    mesh, mesh_calls = mesh_phase(args.seed)
+    del mesh_calls
+    # the mesh phase's lattice twin launches K1 and K5 (replayed there)
+    lattice = mesh["lattice_pod"]
+    for rec in records:
+        rec["launches_by_path"]["mesh"] = lattice["launches"][rec["name"]]
+        if lattice["launches"][rec["name"]]:
+            rec["max_abs_err"] = max(rec["max_abs_err"], lattice["_worst"])
     emit({"kernels": records})
     emit({"phase": "timing", "run_seconds": time.perf_counter() - t_run})
 

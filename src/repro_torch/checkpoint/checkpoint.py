@@ -81,14 +81,16 @@ def _leaves(tree: Any, prefix: str = ""):
         yield from _leaves(child, prefix + key)
 
 
-def _map_keyed(fn, tree: Any, prefix: str = "") -> Any:
-    """``fn(key, leaf)`` over the leaves, the structure kept."""
+def _map_keyed(fn, tree: Any, prefix: str = "", is_leaf=None) -> Any:
+    """``fn(key, leaf)`` over the leaves, the structure kept; a node for
+    which ``is_leaf`` holds is a leaf too."""
     if tree is None:
         return None
-    kids = _children(tree)
+    kids = None if is_leaf is not None and is_leaf(tree) \
+        else _children(tree)
     if kids is None:
         return fn(prefix, tree)
-    return _rebuilt(tree, [_map_keyed(fn, child, prefix + key)
+    return _rebuilt(tree, [_map_keyed(fn, child, prefix + key, is_leaf)
                            for key, child in kids])
 
 

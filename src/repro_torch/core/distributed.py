@@ -1174,3 +1174,11 @@ def make_lattice_anneal(
         return m, torch.stack(energies)
 
     return run
+
+
+def lattice_input_sharding(mesh: Mesh, row_axes=("data",),
+                           col_axes=("model",)):
+    """The lattice's (rows, cols) input split over ``row_axes`` and
+    ``col_axes`` of the mesh (a `models.sharding.NamedSharding`)."""
+    from repro_torch.models.sharding import NamedSharding, P
+    return NamedSharding(mesh, P(row_axes, col_axes))

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 WMIN, WMAX = -128, 127  # 8-bit signed DAC codes
@@ -324,3 +325,17 @@ def ideal_chip(J: torch.Tensor, h: torch.Tensor,
     if neighbors is not None:
         chip = attach_sparse(chip, neighbors)
     return chip
+
+
+def measure_node_transfer(chip_sampler, bias_codes, **kw) -> np.ndarray:
+    """Paper Fig. 8a: sweep the bias DAC and record <m> per node.
+
+    `chip_sampler(bias_code) -> mean_spin[N]` is provided by callers (a
+    tensor on any device, or an array); kept here for discoverability.
+    Returns the (len(bias_codes), N) host array."""
+    rows = []
+    for b in bias_codes:
+        m = chip_sampler(b, **kw)
+        rows.append(m.detach().cpu().numpy() if isinstance(m, torch.Tensor)
+                    else np.asarray(m))
+    return np.stack(rows)

@@ -1,11 +1,26 @@
-"""The language model's train step: fwd + bwd + AdamW.
+"""Step functions + sharding wiring shared by dryrun.py / train.py / serve.
 
-The port of `repro.launch.steps.make_train_step` on one device: the
-loss's gradients come from ``torch.autograd.grad`` with respect to
+`make_train_step(cfg, shape, mesh)` returns a `LoweredStep` for a full
+train step: fwd + bwd + AdamW update, remat'd groups, the state updated
+in place.  `make_serve_step` is the one-token decode, `make_prefill_step`
+fills a cache, and `make_step` picks one by the shape's kind.
+
+The port of ``repro.launch.steps``.  Every spec is derived from the
+logical sharding rules in `models.sharding`, as the reference derives
+them; nothing here is per-arch special-cased.  The mesh is logical
+devices of one card (`launch.mesh`): the step runs under
+``use_mesh(mesh)``, its values are those of the same step with
+``mesh=None`` bit for bit, and its specs say what each device would hold
+(`models.sharding.NamedSharding.shard_shape`).  ``abstract_args`` are the
+step's arguments as fake tensors (``torch._subclasses.fake_tensor``) or
+`models.model.ShapeDtype` records: no memory is allocated for them, and
+`launch.dryrun` traces the step on their ``meta`` twins without touching
+the card.
+
+The loss's gradients come from ``torch.autograd.grad`` with respect to
 detached views of the parameter leaves, and `optim.adamw.apply` writes
 the new parameters and moments into the caller's tensors in place (the
-reference donates the state).  Its mesh, sharding specs and the serve /
-prefill steps belong to the multi-card slice (ROADMAP item 12d).
+reference donates the state).
 """
 from __future__ import annotations
 
@@ -13,17 +28,112 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ModelCfg, ShapeCfg
 from repro_torch.core.hwaware import HwAwareConfig
-from repro_torch.models.model import Model, build_model
+from repro_torch.models import sharding as shd
+from repro_torch.models import transformer, whisper
+from repro_torch.models.model import (
+    Model,
+    build_model,
+    decode_input_specs,
+    train_input_specs,
+)
+from repro_torch.models.sharding import P
 from repro_torch.optim import adamw
 
 
+# ---------------------------------------------------------------------------
+# Batch / cache sharding rules
+# ---------------------------------------------------------------------------
+def batch_specs(batch_tree: Any, mesh) -> Any:
+    def one(key, leaf):
+        nd = len(leaf.shape)
+        if "positions" in key and nd == 3:
+            names = (None, "batch", None)
+        elif "frontend_embeds" in key:
+            names = ("batch", None, None)
+        elif nd == 2:
+            names = ("batch", None)
+        else:
+            names = ("batch",) + (None,) * (nd - 1)
+        return shd.spec(leaf.shape, names, mesh)
+
+    return shd.map_with_path(one, batch_tree)
+
+
+def _base_ndim(key: str) -> int:
+    if key.endswith("'k']") or key.endswith("'v']"):
+        return 4
+    if "ssm" in key or "conv" in key:
+        return 3
+    if "wkv" in key:
+        return 4
+    if "shift" in key:
+        return 2
+    return 0
+
+
+def cache_specs(cache_tree: Any, mesh) -> Any:
+    def one(key, leaf):
+        nd = len(leaf.shape)
+        lead = (None,) * (nd - _base_ndim(key))
+        if key.endswith("'k']") or key.endswith("'v']"):
+            names = lead + ("batch", "kv_seq", "kv_heads", None)
+        elif "ssm" in key:
+            names = lead + ("batch", "mlp", None)
+        elif "conv" in key:
+            names = lead + ("batch", None, "mlp")
+        elif "wkv" in key:
+            names = lead + ("batch", None, None, None)
+        elif "shift" in key:
+            names = lead + ("batch", None)
+        else:
+            names = (None,) * nd
+        return shd.spec(leaf.shape, names, mesh)
+
+    return shd.map_with_path(one, cache_tree)
+
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
 @dataclasses.dataclass
-class TrainStep:
-    fn: Callable[[Any, adamw.OptState, dict], tuple]
-    model: Model            # its init draws the parameters ``fn`` takes
+class LoweredStep:
+    fn: Callable               # runs the step on real tensors
+    abstract_args: tuple       # fake tensors / ShapeDtype records
+    in_specs: Any              # one spec tree per argument
+    out_specs: Any             # spec trees of the outputs (None: unset)
+    model: Model               # its init draws the parameters
+
+
+def abstract_train_state(cfg: ModelCfg, state_bits: int = 32
+                         ) -> tuple[Any, Any]:
+    """Parameters and optimizer state as fake tensors: the shapes and
+    dtypes `Model.init` and `adamw.init` give, with no memory allocated
+    and the card untouched (drawn on the CPU under a `FakeTensorMode`)."""
+    with FakeTensorMode():
+        params = build_model(cfg, device="cpu").init(0)
+        opt = adamw.init(params, state_bits)
+    return params, opt
+
+
+def _opt_moment_specs(moments: Any, mesh) -> Any:
+    """Specs for mu/nu.  f32 moments mirror the param rules; quantized
+    QTensor payloads/scales shard their block dim over the FSDP axis
+    (blockwise layout is shape-agnostic, so any divisible dim0 works)."""
+    quantized = any(leaf.dtype == torch.int8
+                    for _, leaf in shd.leaves_with_path(moments))
+
+    def one(key, leaf):
+        if quantized:
+            names = ("opt_blocks",) + (None,) * (len(leaf.shape) - 1)
+            return shd.spec(leaf.shape, names, mesh)
+        return shd.spec(leaf.shape, shd._leaf_axes(key, len(leaf.shape)),
+                        mesh)
+
+    return shd.map_with_path(one, moments)
 
 
 def _split(batch: dict, n: int) -> list[dict]:
@@ -40,11 +150,12 @@ def _split(batch: dict, n: int) -> list[dict]:
 def make_train_step(
     cfg: ModelCfg,
     shape: ShapeCfg,
+    mesh=None,
     opt_cfg: Optional[adamw.AdamWConfig] = None,
     hw_aware: Optional[HwAwareConfig] = None,
     microbatches: int = 1,
     device="cuda",
-) -> TrainStep:
+) -> LoweredStep:
     """``.fn(params, opt_state, batch) -> (params, opt_state, metrics)``,
     ``metrics = {"loss", "grad_norm", "lr"}`` as tensors; params and
     opt_state are updated in place and returned.  microbatches > 1:
@@ -63,22 +174,100 @@ def make_train_step(
         return loss.detach(), torch.autograd.grad(loss, live)
 
     def train_step(params, opt_state, batch):
-        if microbatches == 1:
-            loss, grads = grads_of(params, batch)
-        else:
-            loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            grads = None
-            for micro in _split(batch, microbatches):
-                l, g = grads_of(params, micro)
-                loss = loss + l.float()
-                grads = ([x.float() for x in g] if grads is None else
-                         [a + b.float() for a, b in zip(grads, g)])
-            loss = loss / microbatches
-            grads = [g / microbatches for g in grads]
-        grads = adamw.tree_unflatten(params, grads)
-        params, opt_state, metrics = adamw.apply(opt_cfg, grads, opt_state,
-                                                 params)
-        metrics["loss"] = loss
+        with shd.use_mesh(mesh):
+            if microbatches == 1:
+                loss, grads = grads_of(params, batch)
+            else:
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=batch["tokens"].device)
+                grads = None
+                for micro in _split(batch, microbatches):
+                    l, g = grads_of(params, micro)
+                    loss = loss + l.float()
+                    grads = ([x.float() for x in g] if grads is None else
+                             [a + b.float() for a, b in zip(grads, g)])
+                loss = loss / microbatches
+                grads = [g / microbatches for g in grads]
+            grads = adamw.tree_unflatten(params, grads)
+            params, opt_state, metrics = adamw.apply(opt_cfg, grads,
+                                                     opt_state, params)
+            metrics["loss"] = loss
         return params, opt_state, metrics
 
-    return TrainStep(train_step, model)
+    params_a, opt_a = abstract_train_state(cfg, opt_cfg.state_bits)
+    batch_a = train_input_specs(cfg, shape)
+    pspec = shd.param_specs(params_a, mesh)
+    ospec = adamw.OptState(step=P(), mu=_opt_moment_specs(opt_a.mu, mesh),
+                           nu=_opt_moment_specs(opt_a.nu, mesh))
+    bspec = batch_specs(batch_a, mesh)
+    return LoweredStep(train_step, (params_a, opt_a, batch_a),
+                       (pspec, ospec, bspec), (pspec, ospec, None), model)
+
+
+# ---------------------------------------------------------------------------
+# Serve: decode + prefill
+# ---------------------------------------------------------------------------
+def _abstract_params(cfg: ModelCfg):
+    """The parameters as fake tensors (`abstract_train_state`'s)."""
+    with FakeTensorMode():
+        return build_model(cfg, device="cpu").init(0)
+
+
+def make_serve_step(cfg: ModelCfg, shape: ShapeCfg, mesh,
+                    device="cuda") -> LoweredStep:
+    """``.fn(params, tokens, pos, cache) -> (logits, cache)``: one decode
+    token (`Model.decode_step`; the cache is written in place)."""
+    model = build_model(cfg, device=device)
+
+    def serve_step(params, tokens, pos, cache):
+        with shd.use_mesh(mesh):
+            return model.decode_step(params, tokens, pos, cache)
+
+    params_a = _abstract_params(cfg)
+    specs = decode_input_specs(cfg, shape)
+    pspec = shd.param_specs(params_a, mesh)
+    cspec = cache_specs(specs["cache"], mesh)
+    tok_spec = shd.spec(specs["tokens"].shape, ("batch", None), mesh)
+    args = (params_a, specs["tokens"], specs["pos"], specs["cache"])
+    return LoweredStep(serve_step, args, (pspec, tok_spec, P(), cspec),
+                       (tok_spec, cspec), model)
+
+
+def make_prefill_step(cfg: ModelCfg, shape: ShapeCfg, mesh,
+                      device="cuda") -> LoweredStep:
+    """``.fn(params, batch)``: `transformer.prefill`'s (last logits,
+    cache), or the encoder-decoder's last-position logits of
+    `whisper.forward`."""
+    model = build_model(cfg, device=device)
+
+    if cfg.enc_dec is not None:
+        def prefill_step(params, batch):
+            with shd.use_mesh(mesh):
+                logits, _ = whisper.forward(params, cfg, batch["tokens"],
+                                            batch["frontend_embeds"])
+            return logits[:, -1:]
+    else:
+        def prefill_step(params, batch):
+            with shd.use_mesh(mesh):
+                return transformer.prefill(
+                    params, cfg, batch["tokens"], batch.get("positions"),
+                    batch.get("frontend_embeds"))
+
+    params_a = _abstract_params(cfg)
+    batch_a = train_input_specs(cfg, shape)
+    batch_a.pop("labels")
+    pspec = shd.param_specs(params_a, mesh)
+    bspec = batch_specs(batch_a, mesh)
+    return LoweredStep(prefill_step, (params_a, batch_a), (pspec, bspec),
+                       None, model)
+
+
+def make_step(cfg: ModelCfg, shape: ShapeCfg, mesh, opt_bits: int = 32,
+              microbatches: int = 1, device="cuda") -> LoweredStep:
+    if shape.kind == "train":
+        opt_cfg = adamw.AdamWConfig(state_bits=opt_bits)
+        return make_train_step(cfg, shape, mesh, opt_cfg,
+                               microbatches=microbatches, device=device)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, shape, mesh, device=device)
+    return make_serve_step(cfg, shape, mesh, device=device)

@@ -1,17 +1,19 @@
 """End-to-end language-model training: the entry point.
 
-The port of ``python -m repro.launch.train`` on one device: the train
-step (fwd + bwd + AdamW, `launch.steps.make_train_step`), the stateless
+The port of ``python -m repro.launch.train``: the train step under a
+mesh (fwd + bwd + AdamW, `launch.steps.make_train_step`), the stateless
 data pipeline, async atomic checkpoints with resume from the latest one,
 the straggler watchdog, and optional hardware-aware training through the
 8-bit DAC + per-channel-gain model (`core.hwaware`, the paper's in-situ
-learning generalized).  ``--device`` defaults to ``cuda``: a machine
-without a GPU needs ``--device cpu``.  ``--mesh`` and ``--data-model``
-come with the multi-card slice (ROADMAP item 12d).
+learning generalized).  ``--mesh host`` with ``--data-model D M``, or
+``pod`` / ``multipod``, names the reference's meshes (`launch.mesh`);
+their devices are logical, all on ``--device``, and the step's values do
+not depend on the mesh.  ``--device`` defaults to ``cuda``: a machine
+without a GPU needs ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
       --reduced --steps 300 --batch 8 --seq 256 --ckpt-dir runs/ckpt \\
-      --device cpu
+      --mesh host --data-model 2 4 --device cpu
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.configs.base import ShapeCfg
 from repro_torch.configs.registry import get_config, get_reduced_config
 from repro_torch.core.hwaware import HwAwareConfig
 from repro_torch.data.pipeline import DataConfig, make_source
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.steps import make_train_step
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import StragglerWatchdog
@@ -41,6 +44,10 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--mesh", choices=["host", "pod", "multipod"],
+                    default="host")
+    ap.add_argument("--data-model", type=int, nargs=2, default=[1, 1],
+                    help="host mesh (data, model) shape")
     ap.add_argument("--hardware-aware", action="store_true",
                     help="train through the 8-bit DAC + mismatch model")
     ap.add_argument("--ckpt-dir", default="")
@@ -54,10 +61,15 @@ def main(argv=None) -> list[dict]:
     cfg = get_reduced_config(args.arch) if args.reduced \
         else get_config(args.arch)
     shape = ShapeCfg("train_cli", args.seq, args.batch, "train")
+    if args.mesh == "host":
+        mesh = mesh_mod.make_host_mesh(*args.data_model)
+    else:
+        mesh = mesh_mod.make_production_mesh(
+            multi_pod=args.mesh == "multipod")
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=max(10, args.steps // 20))
     hw = HwAwareConfig() if args.hardware_aware else None
-    step_obj = make_train_step(cfg, shape, opt_cfg, hw_aware=hw,
+    step_obj = make_train_step(cfg, shape, mesh, opt_cfg, hw_aware=hw,
                                microbatches=args.microbatches,
                                device=args.device)
     dev = step_obj.model.device
@@ -83,7 +95,8 @@ def main(argv=None) -> list[dict]:
 
     n_params = sum(math.prod(p.shape) for p in adamw.tree_leaves(params))
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
-          f"device={dev} batch={args.batch} seq={args.seq}")
+          f"mesh={dict(mesh.shape)} (logical, {dev}) batch={args.batch} "
+          f"seq={args.seq}")
 
     logged = []
     t_last = time.time()

@@ -21,18 +21,22 @@ The full-sequence forward takes each stacked leaf's groups with one
 gradients once, where G indexings ``v[g]`` would each build and add a
 zero gradient of the whole stacked leaf.  With ``cfg.remat`` each group's
 body runs under `torch.utils.checkpoint` (only the group's input is kept,
-the reference's ``save_only_these_names()`` policy), and `chunked_ce`
+the reference's ``save_only_these_names()`` policy; ``REPRO_REMAT=dots``
+also keeps the unbatched products' outputs, `_remat_policy`), and `chunked_ce`
 recomputes each sequence chunk's logits in backward.  Whisper's
 encoder-decoder is `models.whisper`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import attention as attn_mod
@@ -237,6 +241,27 @@ def _embed(params, cfg, tokens, positions, frontend_embeds):
     return x, positions
 
 
+# the products without batch dims: what ``REPRO_REMAT=dots`` saves, as the
+# reference's ``dots_with_no_batch_dims_saveable`` does (attention's
+# batched products, aten.bmm, are recomputed)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_policy() -> dict:
+    """The remat's keyword arguments, read from ``REPRO_REMAT`` at call
+    time: ``dots`` saves the unbatched products' outputs (their backward
+    recomputes the rest of the group), anything else saves nothing."""
+    if os.environ.get("REPRO_REMAT") == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    return {}
+
+
 def forward_hidden(
     params: dict,
     cfg: ModelCfg,
@@ -260,10 +285,11 @@ def forward_hidden(
             aux_acc = aux_acc + aux
         return x, aux_acc
 
+    remat = _remat_policy()
     for gparams in unbind_groups(params["blocks"], n_groups(cfg)):
         if cfg.remat:
             x, aux_total = checkpoint(group_body, x, aux_total, gparams,
-                                      use_reentrant=False)
+                                      use_reentrant=False, **remat)
         else:
             x, aux_total = group_body(x, aux_total, gparams)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -9,19 +9,25 @@
   deterministic schedule re-herd at exactly the same instants.
 * `Heartbeat` — a liveness file per host; a launcher finds dead hosts by
   the time in it.
+* `ElasticState` — re-homes training state onto a new mesh (the node
+  count changed): each leaf's spec is checked against the new mesh, then
+  the leaf is placed.  The port's meshes are logical devices of one card
+  (`launch.mesh`), so placing a leaf puts it whole on the named device.
 
-Counterpart of ``repro.runtime.fault_tolerance``; its `ElasticState`
-(re-homing a checkpoint onto a new mesh) waits for the port's multi-card
-mesh.
+Counterpart of ``repro.runtime.fault_tolerance``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import random as _random
 import time
 from pathlib import Path
 from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
 
 
 class StragglerWatchdog:
@@ -131,3 +137,82 @@ class Heartbeat:
             if now - t > timeout_s:
                 dead.append(host)
         return dead
+
+
+def _check_spec(key: str, shape: tuple, spec, mesh) -> None:
+    """Raise unless ``mesh`` can hold a leaf of ``shape`` under ``spec``:
+    no more entries than dims, every axis in the mesh, each axis used
+    once, and every sharded dim divisible by its axes' product."""
+    from repro_torch.models.sharding import NamedSharding, _spec_axes
+
+    if len(spec) > len(shape):
+        raise ValueError(f"{key}: spec {spec} has more entries than the "
+                         f"leaf's {len(shape)} dims")
+    axes = [a for part in spec for a in _spec_axes(part)]
+    missing = [a for a in axes if a not in mesh.shape]
+    if missing:
+        raise ValueError(f"{key}: spec {spec} names axes {missing} the "
+                         f"mesh {dict(mesh.shape)} lacks")
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"{key}: spec {spec} uses a mesh axis twice")
+    try:
+        NamedSharding(mesh, spec).shard_shape(shape)
+    except ValueError as e:
+        raise ValueError(f"{key}: {e} on mesh {dict(mesh.shape)}") from None
+
+
+@dataclasses.dataclass
+class ElasticState:
+    """Re-homes training state onto a new mesh (node count changed).
+
+    Because checkpoints store logical arrays and the data pipeline is
+    stateless, the procedure is: rebuild mesh -> recompute specs from
+    the same logical rules -> check and place.  Works for both shrink
+    (lost pod) and grow (pod returned).
+    """
+    ckpt_dir: str
+
+    def reshard(self, tree: Any, mesh, specs: Any, device="cuda") -> Any:
+        """``tree``'s leaves (tensors or arrays) checked against their
+        specs on ``mesh`` and placed on ``device``."""
+        from repro_torch.api.spec import require_device
+        from repro_torch.models.sharding import (leaves_with_path,
+                                                 map_with_path)
+
+        dev = require_device(device)
+        by_key = dict(leaves_with_path(specs))
+
+        def one(key, x):
+            _check_spec(key, tuple(x.shape), by_key[key], mesh)
+            if isinstance(x, torch.Tensor):
+                return x.detach().to(dev)
+            return torch.as_tensor(np.array(x)).to(dev)
+
+        return map_with_path(one, tree)
+
+    def resume(self, mesh, make_specs, target_shapes: Any, device="cuda"
+               ) -> tuple[int, Any]:
+        """The latest checkpoint in the target's structure: each leaf
+        found by its key, its shape checked against the target's, its
+        spec (``make_specs(target_shapes)``) against ``mesh``, and placed
+        on ``device`` in the target's dtype."""
+        from repro_torch.api.spec import require_device
+        from repro_torch.checkpoint import checkpoint as ckpt
+        from repro_torch.models.sharding import (leaves_with_path,
+                                                 map_with_path)
+
+        dev = require_device(device)
+        step, arrays, _ = ckpt.load(self.ckpt_dir)
+        by_key = dict(leaves_with_path(make_specs(target_shapes)))
+
+        def one(key, leaf):
+            if key not in arrays:
+                raise KeyError(f"checkpoint missing {key}")
+            val = torch.as_tensor(arrays[key])
+            if tuple(val.shape) != tuple(leaf.shape):
+                raise ValueError(f"{key}: stored {tuple(val.shape)}, "
+                                 f"target {tuple(leaf.shape)}")
+            _check_spec(key, tuple(val.shape), by_key[key], mesh)
+            return val.to(device=dev, dtype=leaf.dtype)
+
+        return step, map_with_path(one, target_shapes)

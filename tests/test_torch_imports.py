@@ -5,6 +5,7 @@ module imports without a GPU, ``nvcc`` or ``triton``; and the default
 device without CUDA raises instead of carrying on on the CPU."""
 import ast
 import importlib
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -220,7 +221,7 @@ def test_lm_train_default_device_without_cuda_raises():
         train.main(["--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         make_train_step(get_reduced_config("gemma2-2b"),
-                        ShapeCfg("t", 8, 2, "train"))
+                        ShapeCfg("t", 8, 2, "train"), None)
     with pytest.raises(RuntimeError, match="cuda"):
         SyntheticLM(DataConfig(vocab_size=50)).batch(0, 2, 8)
 
@@ -250,3 +251,65 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
     assert "torch.compile" not in src
     assert np.all([kw not in src for kw in ("index_add", "sparse_coo",
                                             "scaled_dot_product")])
+
+
+def test_every_reference_module_has_its_counterpart():
+    """A ``comm`` of the two packages' module lists leaves only the
+    reference's ``kernels/util.py`` (``jnp.pad`` helpers of its Pallas
+    kernels, which the port needs none of); the many-devices names of
+    the reference have theirs (``shard_map``, ``_mesh``, ``_ns`` and the
+    HLO parsers have none)."""
+    ref = ROOT / "src" / "repro"
+    missing = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py")
+                     if not (PORT / p.relative_to(ref)).exists())
+    assert missing == ["kernels/util.py"]
+    names = {
+        "launch.mesh": ["make_production_mesh", "make_host_mesh",
+                        "make_line_mesh", "halo_vs_hbm_seconds", "n_chips",
+                        "PEAK_FLOPS_BF16", "HBM_BW", "HBM_BYTES"],
+        "models.sharding": ["PARALLELISM", "LOGICAL_RULES", "_PARAM_RULES",
+                            "use_mesh", "current_mesh", "_axes_for", "spec",
+                            "constrain", "named_sharding", "_leaf_axes",
+                            "param_specs", "param_shardings"],
+        "launch.steps": ["batch_specs", "cache_specs", "LoweredStep",
+                         "abstract_train_state", "_opt_moment_specs",
+                         "make_train_step", "make_serve_step",
+                         "make_prefill_step", "make_step"],
+        "models.model": ["train_input_specs", "decode_input_specs",
+                         "make_dummy_batch", "VLM_PATCHES"],
+        "launch.dryrun": ["run_cell", "run_pbit", "main"],
+        "runtime.compression": ["BLOCK", "Compressed", "compress",
+                                "decompress", "ef_compress_tree",
+                                "decompress_tree", "init_error"],
+        "runtime.fault_tolerance": ["ElasticState"],
+        "core.distributed": ["lattice_input_sharding"],
+        "core.hardware": ["measure_node_transfer"],
+    }
+    for mod, attrs in names.items():
+        m = importlib.import_module(f"repro_torch.{mod}")
+        assert [a for a in attrs if not hasattr(m, a)] == [], mod
+    for twin in ("serve_lm.py", "train_lm.py", "pbit_lattice_pod.py"):
+        assert (ROOT / "examples_torch" / twin).exists(), twin
+
+
+def test_dry_run_touches_no_card():
+    """The dry run's modules import no CUDA state, and a full-width
+    decode cell traces on fake and meta tensors only (a subprocess that
+    hides every GPU)."""
+    code = (
+        "import sys, tempfile, torch\n"
+        "from repro_torch.launch import dryrun\n"
+        "from pathlib import Path\n"
+        "rec = dryrun.run_cell('gemma2-2b', 'decode_32k', False,"
+        " Path(tempfile.mkdtemp()), force=True)\n"
+        "assert rec['status'] == 'ok', rec\n"
+        "assert rec['memory']['argument_bytes'] > 0\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+             "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")

@@ -51,7 +51,7 @@ def test_loss_trajectory_matches_reference():
         ref_mesh.make_host_mesh(1, 1), RA.AdamWConfig(**ocfg),
         hw_aware=RHw(**HW))
     step = make_train_step(get_reduced_config("gemma2-2b"),
-                           ShapeCfg("t", S, B, "train"),
+                           ShapeCfg("t", S, B, "train"), None,
                            adamw.AdamWConfig(**ocfg),
                            hw_aware=HwAwareConfig(**HW), device="cpu")
     rp = jax.tree.map(jnp.asarray, np_params)
@@ -78,7 +78,7 @@ def test_hwaware_training_step_decreases_loss():
     cfg = get_reduced_config("gemma2-2b")
     hw = HwAwareConfig(bits=8, sigma_gain=0.05, min_size=256)
     step = make_train_step(
-        cfg, ShapeCfg("t", 64, 4, "train"),
+        cfg, ShapeCfg("t", 64, 4, "train"), None,
         adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=50),
         hw_aware=hw, device="cpu")
     params = step.model.init(0)
@@ -100,7 +100,7 @@ def test_microbatched_step_matches_full_batch():
     batch = src.batch(0, 8, 32, device="cpu")
     outs = []
     for mb in (1, 4):
-        step = make_train_step(cfg, shape, ocfg, microbatches=mb,
+        step = make_train_step(cfg, shape, None, ocfg, microbatches=mb,
                                device="cpu")
         params = step.model.init(0)
         _, _, m = step.fn(params, adamw.init(params), batch)
