@@ -3,6 +3,7 @@
 time, and what each chain tile costs.
 
     python3 benchmarks_torch/k5_parts.py [--seed 0] [--ptxas] [--sass]
+    python3 benchmarks_torch/k5_parts.py --trees _parent .
 
 Needs one CUDA device and ``nvcc``.  At the sharded path's shape — the
 64x64-cell Chimera lattice (32768 spins) on 8 row bands, 256 chains, 4608
@@ -36,11 +37,19 @@ rounds are printed:
 library (registers, spills, shared memory); ``--sass`` the instruction mix
 of each cluster-body kernel's SASS (``cuobjdump``).  Then the card's name
 and power limit.
+
+``--trees`` needs ``nvcc`` alone (no card) and prints nothing else: for
+each tree given, a checkout of this repository, one JSON line of its
+``csrc/sweep_exchange.cu``'s kernel instances (the cluster body's
+``sweep_exchange_cluster_kernel<NQ, stream|plain>``, the mailbox body's
+``sweep_exchange_kernel<D, stream|plain>``, the reductions), each with its
+registers and spill stores and loads in bytes.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -111,19 +120,45 @@ def build_variant(name: str, edits, tmp: Path):
     return declare_exchange(ctypes.CDLL(str(out)))
 
 
-def ptxas_lines() -> list[str]:
-    """``nvcc -Xptxas -v`` on csrc/sweep_exchange.cu: its per-kernel
-    register, spill and shared-memory lines."""
+def ptxas_lines(src: Path | None = None) -> list[str]:
+    """``nvcc -Xptxas -v`` on ``src`` (default this tree's
+    csrc/sweep_exchange.cu): its per-kernel register, spill and
+    shared-memory lines."""
     from repro_torch.kernels import build
 
+    src = build.CSRC / "sweep_exchange.cu" if src is None else src
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run(
             [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(Path(tmp) / "lib.so"),
-             str(build.CSRC / "sweep_exchange.cu")],
+             str(Path(tmp) / "lib.so"), str(src)],
             capture_output=True, text=True, check=True)
     return [ln.strip() for ln in proc.stderr.splitlines()
             if "ptxas info" in ln or "spill" in ln]
+
+
+def register_table(lines: list[str]) -> dict:
+    """`ptxas_lines` -> {kernel instance: {"registers", "spill_stores",
+    "spill_loads"}}."""
+    table, name = {}, None
+    for line in lines:
+        entry = re.search(r"entry function '(\S+)'", line)
+        if entry:
+            short = re.search(r"(sweep_exchange_cluster_kernel|"
+                              r"sweep_exchange_kernel|reduce_\w*kernel)"
+                              r"(ILi(\d+)ELb(\d))?", entry.group(1))
+            name = (f"{short.group(1)}<{short.group(3)}, "
+                    f"{'stream' if short.group(4) == '1' else 'plain'}>"
+                    if short.group(2) else short.group(1))
+            table[name] = {}
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill and name:
+            table[name].update(spill_stores=int(spill.group(1)),
+                               spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            table[name]["registers"] = int(regs.group(1))
+    return table
 
 
 def sass_mix(lib_path: str) -> dict:
@@ -198,7 +233,15 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--trees", nargs="+", metavar="TREE")
     args = ap.parse_args()
+    if args.trees:
+        for tree in args.trees:
+            src = (ROOT / tree / "src/repro_torch/kernels/csrc"
+                   / "sweep_exchange.cu")
+            print(json.dumps({"tree": tree, "kernels": register_table(
+                ptxas_lines(src))}), flush=True)
+        return 0
 
     import torch
     if not torch.cuda.is_available():

@@ -90,7 +90,15 @@ the kernels' launch counts set to 0 just before it and read just after:
   dry run of three gemma2-2b cells on the pod mesh, traced on the host's
   CPU beside the card's work; `examples_torch/pbit_lattice_pod.py` at
   full size under three sync policies on 4 logical bands (barrier equal
-  to one band), through K1 and K5.
+  to one band), through K1 and K5;
+* ranks: the sharded engine across processes, each world a group of
+  child processes: NCCL at world size 1 (8 bands on one rank), 2 and 4
+  gloo ranks sharing the card (boundary rows staged through host
+  memory), ``Sync()``, ``halo_every=4`` and its async twin at 100 sweeps
+  a call — K5 per card with ``edge_halos="block"``, the rank's edge halos
+  from the process group between windows — every rank equal to the
+  one-process engine bit for bit, every K5 launch replayed in its rank;
+  two NCCL ranks on the one card tried and their refusal recorded.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -116,6 +124,8 @@ Output: one JSON object per line —
                                    ms, memory, bounds, splits
   {"phase": "mesh", ...}           meshed steps, remat, compression, dry
                                    run, the lattice twin: checks, ms, GB
+  {"phase": "ranks", ...}          worlds of processes: checks, routes,
+                                   ms a call, halo bytes, NCCL on one card
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -938,12 +948,15 @@ def check_lattice_kernel(seed: int) -> dict:
 
 def exchange_launch(graph, bands, chains, gen, rng, *, mode, halo_every, S,
                     clamp=False, moments=False, stream=False, block_b=None,
-                    sparse=False):
+                    sparse=False, edge_halos="zero"):
     """One K5 launch as the sharded engine makes it: a programmed chip cut
     into ``bands`` row bands (`ShardedEngine`'s plan and layout), its halos
     exchanged once before the launch, through
-    `shard_sweep.fused_shard_exchange_resident`.  Returns the recorded
-    wrapper call (args, kwargs, outputs) and the `ExchangePlan` it ran."""
+    `shard_sweep.fused_shard_exchange_resident`.  With ``edge_halos=
+    "block"`` the first band's halo_up and the last band's halo_dn hold
+    random spins, what neighbouring ranks would supply, and the launch
+    keeps them.  Returns the recorded wrapper call (args, kwargs, outputs)
+    and the `ExchangePlan` it ran."""
     from repro_torch import api
     from repro_torch.core import distributed as dist
     from repro_torch.core.cd import PBitMachine
@@ -962,6 +975,10 @@ def exchange_launch(graph, bands, chains, gen, rng, *, mode, halo_every, S,
     m = eng._m_parts(st.m)
     halo_up, halo_dn = shard_sweep.halo_exchange(m, d["send_up"],
                                                  d["send_dn"])
+    if edge_halos == "block":
+        outer = ses.random_spins(gen)[:, :2 * halo_up.shape[2]]
+        halo_up = torch.cat([outer[None, :, :halo_up.shape[2]], halo_up[1:]])
+        halo_dn = torch.cat([halo_dn[:-1], outer[None, :, halo_up.shape[2]:]])
     masks = [d["upd"][:, c] for c in (0, 1)]
     kw = {}
     if clamp:
@@ -985,7 +1002,7 @@ def exchange_launch(graph, bands, chains, gen, rng, *, mode, halo_every, S,
             parts["gain"], parts["off"], parts["rg"], parts["co"], masks[0],
             masks[1], betas, st.noise_state, 0, d["cols"][:, 0].tolist(),
             d["send_up"], d["send_dn"], ex_pts=sync.exchange_points(),
-            mode=mode, block_b=block_b, **kw)
+            mode=mode, block_b=block_b, edge_halos=edge_halos, **kw)
     finally:
         shard_sweep.sweep_sparse_exchange = recorder.wrapper
     return recorder.calls[0], sweep_fused.sweep_sparse_exchange.last_plan
@@ -1000,7 +1017,10 @@ def check_exchange_kernel(seed: int) -> dict:
     ``halo_every=3`` — windows that open and close on half sweeps — ragged
     B=5 with 2 chains per block, ``halo_every=inf`` — one exchange point);
     the mailbox body at 17 bands of the lattice (plain with moments, and
-    ragged B=5).  Rule: equality in every output (spins with their halo
+    ragged B=5); ``edge_halos="block"`` (the outer edge halos kept as
+    given, random spins) on 2 bands of the chip, on the ranks phase's 4
+    and 2 bands of the lattice a card (one exchange point, S=2) and in the
+    mailbox body.  Rule: equality in every output (spins with their halo
     columns, noise state, moments, staged program)."""
     from repro_torch.core.chimera import make_chimera, make_chip_graph
 
@@ -1043,7 +1063,19 @@ def check_exchange_kernel(seed: int) -> dict:
                  dict(halo_every=2, S=4, sparse=True, moments=True)),
                 ("lattice_32768_17_bands_ragged_B5", lattice_graph, 17, 5,
                  "mailbox", dict(halo_every=3, S=4, sparse=True,
-                                 block_b=2))):
+                                 block_b=2)),
+                ("block_edges", chip_graph, 2, B, "cluster",
+                 dict(halo_every=2, S=4, moments=True, clamp=True,
+                      edge_halos="block")),
+                ("lattice_32768_4_bands_block", lattice_graph, 4, B,
+                 "cluster", dict(halo_every=math.inf, S=2, sparse=True,
+                                 edge_halos="block")),
+                ("lattice_32768_2_bands_block_moments", lattice_graph, 2, B,
+                 "cluster", dict(halo_every=math.inf, S=2, sparse=True,
+                                 moments=True, edge_halos="block")),
+                ("lattice_32768_17_bands_block", lattice_graph, 17, B,
+                 "mailbox", dict(halo_every=2, S=4, sparse=True,
+                                 edge_halos="block"))):
             (args, kwargs, got), plan = exchange_launch(
                 graph, bands, chains, gen, rng, mode=mode, **kw)
             kwargs = {k: v for k, v in kwargs.items()
@@ -1054,6 +1086,7 @@ def check_exchange_kernel(seed: int) -> dict:
             cases.append({"case": name, "mode": mode, "N": graph.n_nodes,
                           "bands": bands, "B": chains,
                           "ex_pts": list(kwargs["ex_pts"]),
+                          "edge_halos": kwargs.get("edge_halos", "zero"),
                           "body": plan.body, "want_body": body,
                           "cluster": plan.cluster, "chains": plan.chains,
                           "outputs": len(got), "max_abs_diff": diff,
@@ -1081,8 +1114,11 @@ def check_exchange_kernel(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 class LaunchRecorder:
     """Stands between a path and one kernel wrapper while the path runs:
-    passes every call through and keeps its operands and outputs, so each
-    launch can be replayed through the plain version."""
+    passes every call through and keeps its operands and a copy of its
+    outputs, so each launch can be replayed through the plain version.
+    The outputs are copied because a path may write into an output it owns
+    (the sharded engine sets a rank's edge halos in the block a K5 window
+    returned before the next window reads it)."""
 
     def __init__(self, wrapper):
         self.wrapper = wrapper
@@ -1090,7 +1126,9 @@ class LaunchRecorder:
 
     def __call__(self, *args, **kwargs):
         out = self.wrapper(*args, **kwargs)
-        self.calls.append((args, kwargs, out))
+        kept = (tuple(_copy(x) for x in out) if isinstance(out, tuple)
+                else _copy(out))
+        self.calls.append((args, kwargs, kept))
         return out
 
     # a wrapper whose own module is the seam (K6) counts through its module
@@ -1102,6 +1140,10 @@ class LaunchRecorder:
     @launches.setter
     def launches(self, n: int) -> None:
         self.wrapper.launches = n
+
+
+def _copy(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
 
 
 def _seams() -> dict:
@@ -4970,6 +5012,334 @@ def mesh_phase(seed: int) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase: the sharded engine across processes (K5 per card, boundary rows
+# through torch.distributed)
+# ---------------------------------------------------------------------------
+RANKS_CELLS = 64        # the lattice's cell rows and columns: 32768 spins
+RANKS_SWEEPS = 100      # sweeps a call (25 launches of 4 for the fused ones)
+RANKS_WORLDS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
+RANKS_TIMEOUT_S = 300   # a rank's whole run, and its wait for a peer
+RANKS_TIMED = 2         # timed calls a policy, after a warm one
+
+# one rank of the ranks phase: python -c <this> backend rank world store out
+_RANK_RUN = """
+import sys
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.ranks_child(*sys.argv[1:])
+"""
+
+# NCCL with two ranks on the one card: python -c <this> rank store
+_NCCL_SHARED_CARD = """
+import datetime, sys, torch, torch.distributed as dist
+rank = int(sys.argv[1])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", store=dist.FileStore(sys.argv[2], 2),
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=30))
+x = torch.ones(1, device="cuda:0")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print("all_reduce", float(x))
+dist.destroy_process_group()
+"""
+
+
+def _ranks_policies():
+    from repro_torch import api
+    return {"barrier": (api.Sync(), "sparse"),
+            "halo4": (api.Sync(halo_every=4, sweeps_per_launch=4), "auto"),
+            "async": (api.Sync(halo_every=4, mode="async",
+                               sweeps_per_launch=4), "auto"),
+            # exchange points inside a sweep: K5 in one process, K1
+            # windows across ranks (a K5 window is whole sweeps)
+            "halo1": (api.Sync(halo_every=1, sweeps_per_launch=4),
+                      "fused_sparse")}
+
+
+def _ranks_problem(seed: int):
+    """The sharded phase's lattice (64x64 cells, 32768 spins, SK codes from
+    the seed), its 256-chain state and schedule, the same in every
+    process: (graph, machine, schedule, unsharded Session, chip, state)."""
+    from repro_torch import api
+    from repro_torch.core.cd import PBitMachine
+    from repro_torch.core.chimera import make_chimera
+
+    g = make_chimera(RANKS_CELLS, RANKS_CELLS)
+    rng = np.random.default_rng(seed + 400)
+    mach = PBitMachine.create(g, seed + 400, sparse=True, noise="counter",
+                              device=DEVICE)
+    sched = api.Anneal(0.05, 3.0, n_sweeps=RANKS_SWEEPS)
+    ses0 = mach.session(schedule=sched, chains=B)
+    chip = ses0.program_edges(*sk_edge_codes(g, rng))
+    st = ses0.init_state(ses0.generator(seed + 401))
+    return g, mach, sched, ses0, chip, st
+
+
+def _ranks_sessions(mach, sched, mesh):
+    from repro_torch import api
+    return {name: api.Session(mach.sampler_spec(
+        schedule=sched, chains=B, mesh=mesh, sync=sync).replace(
+            backend=backend))
+        for name, (sync, backend) in _ranks_policies().items()}
+
+
+def ranks_child(backend: str, rank: str, world: str, store: str,
+                out: str, seed: str) -> None:
+    """One rank of the ranks phase: join the group, build the problem,
+    drive the four policies' Session calls once (`drive`: launch counts
+    from 0, every K1 and K5 launch replayed through its plain version),
+    time them, and leave the spins (int8) and noise states in ``out``.npz and a
+    JSON record on stdout."""
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core import ranks
+
+    rank, world, seed = int(rank), int(world), int(seed)
+    os.environ["RANK"] = str(rank)
+    os.environ["LOCAL_RANK"] = "0" if backend == "nccl" else str(rank)
+    ranks.init_rank(backend, rank, world, store_path=store,
+                    timeout_s=RANKS_TIMEOUT_S)
+    try:
+        _, mach, sched, _, chip, st = _ranks_problem(seed)
+        mesh = dist_mod.make_rank_mesh((SHARD_BANDS,), ("data",))
+        sessions = _ranks_sessions(mach, sched, mesh)
+        engines = {n: ses._engine for n, ses in sessions.items()}
+
+        def path():
+            return {n: ses.sample(chip, st.m, st.noise_state)
+                    for n, ses in sessions.items()}
+
+        sent0 = {n: e.comm.bytes_sent for n, e in engines.items()}
+        outs, counts, calls = drive(path)
+        sent = {n: e.comm.bytes_sent - sent0[n] for n, e in engines.items()}
+        comm_s0 = {n: e.comm.seconds for n, e in engines.items()}
+        summary, worst = replay_all(calls)
+        k5 = calls["sweep_sparse_exchange"]
+        ms = {n: cuda_ms(lambda ses=ses: ses.sample(chip, st.m,
+                                                    st.noise_state),
+                         RANKS_TIMED)
+              for n, ses in sessions.items()}
+        # host ms a call inside the transport (swaps and gathers, staging
+        # included), over the timed calls and their warm-up
+        comm_ms = {n: 1e3 * (e.comm.seconds - comm_s0[n]) / (RANKS_TIMED + 1)
+                   for n, e in engines.items()}
+        np.savez(out, **{f"{n}/m": o[0].to(torch.int8).cpu().numpy()
+                         for n, o in outs.items()},
+                 **{f"{n}/ns": o[1].cpu().numpy() for n, o in outs.items()})
+        print(json.dumps({
+            "rank": rank, "world": world, "backend": backend,
+            "transport": {n: e.transport for n, e in engines.items()},
+            "route": {n: e.route for n, e in engines.items()},
+            "bands": engines["barrier"].R_loc,
+            "launches": counts, "replay": summary, "worst": worst,
+            "edge_block_launches": sum(
+                kw.get("edge_halos") == "block" for _, kw, _ in k5),
+            "bytes_sent_driven": sent,
+            "ms_per_call": ms, "transport_host_ms_per_call": comm_ms}),
+            flush=True)
+    finally:
+        import torch.distributed as tdist
+        tdist.destroy_process_group()
+
+
+def _start_ranks(code: str, world: int, argv) -> list:
+    return [subprocess.Popen(
+        [sys.executable, "-c", code, *argv(rank)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        for rank in range(world)]
+
+
+def _finish_ranks(procs, timeout: float) -> list:
+    """(exit code, stdout, stderr) of each rank; every process ends here:
+    when one rank fails, or at the deadline, the others are killed."""
+    import threading
+
+    outs = [None] * len(procs)
+
+    def read(i, proc):
+        outs[i] = proc.communicate()
+
+    readers = [threading.Thread(target=read, args=(i, p), daemon=True)
+               for i, p in enumerate(procs)]
+    for t in readers:
+        t.start()
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and any(p.poll() is None
+                                              for p in procs):
+        if any(p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+    for t in readers:
+        t.join()
+    return [(p.returncode, *outs[i]) for i, p in enumerate(procs)]
+
+
+def _nccl_shared_card(tmp: Path) -> dict:
+    """Two NCCL ranks on the one card: does NCCL refuse, and in what
+    words?"""
+    store = str(tmp / "nccl_shared_store")
+    done = _finish_ranks(_start_ranks(_NCCL_SHARED_CARD, 2,
+                                      lambda r: [str(r), store]), 60)
+    said = [ln.strip() for _, _, err in done for ln in err.splitlines()
+            if "Duplicate GPU" in ln or "ncclInvalidUsage" in ln
+            or "Error" in ln]
+    return {"exit_codes": [rc for rc, _, _ in done],
+            "refused": any(rc != 0 for rc, _, _ in done),
+            "stdout": [o.strip()[-200:] for _, o, _ in done],
+            "said": said[:4]}
+
+
+def ranks_phase(seed: int) -> dict:
+    """The sharded engine across processes on the card, each world a
+    group of child processes (one rank each; the libraries already built
+    by this process, so the ranks load them): NCCL at world size 1 (8
+    bands on one rank), then 2 and 4 gloo ranks sharing the card (4 and 2
+    bands a rank, the boundary rows staged through host memory), each
+    under four policies at 100 sweeps a call — ``Sync()`` (the scan),
+    ``halo_every=4`` and its async twin (K5 per card: every launch two K5
+    windows with ``edge_halos="block"``, the rank's edge halos from the
+    process group between them), and ``halo_every=1`` on the fused
+    kernels (K5 on one rank; across ranks K1 windows, a half-sweep each).
+    Every rank of every world returns the one-process engine's spins and
+    noise state bit for bit (the barrier and ``halo_every=1`` also the
+    unsharded Session's), each rank's driven run launched K1 and K5 where
+    its route says so, and every launch equals its plain version.  Two
+    NCCL ranks on the one card are tried once and their refusal
+    recorded."""
+    import tempfile
+
+    from repro_torch.core import distributed as dist_mod
+
+    t_phase = time.perf_counter()
+    _, mach, sched, ses0, chip, st = _ranks_problem(seed)
+    unsharded = ses0.sample(chip, st.m, st.noise_state)
+    logical = _ranks_sessions(mach, sched,
+                              dist_mod.make_mesh((SHARD_BANDS,), ("data",)))
+    want = {n: ses.sample(chip, st.m, st.noise_state)
+            for n, ses in logical.items()}
+    one_ms = {n: cuda_ms(lambda ses=ses: ses.sample(chip, st.m,
+                                                    st.noise_state),
+                         RANKS_TIMED) for n, ses in logical.items()}
+    torch.cuda.synchronize()
+    code = _RANK_RUN.format(src=str(ROOT / "src"), root=str(ROOT))
+    worlds, failed = {}, []
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        nccl_shared = _nccl_shared_card(tmp)
+        for backend, world in RANKS_WORLDS:
+            tag = f"{backend}{world}"
+            store = str(tmp / f"{tag}_store")
+            t = time.perf_counter()
+            done = _finish_ranks(_start_ranks(
+                code, world, lambda r: [backend, str(r), str(world), store,
+                                        str(tmp / f"{tag}_{r}"),
+                                        str(seed)]), RANKS_TIMEOUT_S)
+            recs = []
+            for r, (rc, out, err) in enumerate(done):
+                if rc != 0:
+                    raise AssertionError(f"rank {r} of {tag} exited {rc}: "
+                                         f"{err[-3000:]}")
+                rec = json.loads(out.strip().splitlines()[-1])
+                with np.load(tmp / f"{tag}_{r}.npz") as got:
+                    rec["equal_one_process"] = {
+                        n: bool(np.array_equal(
+                            got[f"{n}/m"],
+                            w[0].to(torch.int8).cpu().numpy())
+                            and np.array_equal(got[f"{n}/ns"],
+                                               w[1].cpu().numpy()))
+                        for n, w in want.items()}
+                recs.append(rec)
+            worlds[tag] = {"seconds": time.perf_counter() - t,
+                           "ranks": recs}
+    same = lambda a, b: bool(torch.equal(a[0], b[0])  # noqa: E731
+                             and torch.equal(a[1], b[1]))
+    checks = {
+        "barrier_equals_unsharded": same(want["barrier"], unsharded),
+        "halo1_equals_unsharded": same(want["halo1"], unsharded),
+        "relaxed_differ_from_barrier": {
+            n: not same(want[n], want["barrier"]) for n in ("halo4",
+                                                           "async")},
+        "ranks_equal_one_process": {
+            tag: all(all(r["equal_one_process"].values())
+                     for r in w["ranks"]) for tag, w in worlds.items()}}
+    launches = {k: 0 for k in KERNELS}
+    worst = 0.0
+    summary = {}
+    for tag, w in worlds.items():
+        routes = w["ranks"][0]["route"]
+        cross = int(tag[-1]) > 1
+        want_route = {"barrier": "scan",
+                      "halo4": "k5 per card" if cross else "k5",
+                      "async": "k5 per card" if cross else "k5",
+                      "halo1": "k1 windows" if cross else "k5"}
+        # launches of 4 sweeps: halo4 and async two K5 windows each across
+        # ranks (with edge_halos="block"), one K5 launch each on one rank;
+        # halo1 one K5 launch on one rank, across ranks a K1 launch a band
+        # each half-sweep
+        k5_block = 2 * 2 * RANKS_SWEEPS // 4 if cross else 0
+        want_counts = {
+            "sweep_sparse_exchange": k5_block if cross
+            else 3 * RANKS_SWEEPS // 4,
+            "sweep_sparse": 2 * RANKS_SWEEPS * w["ranks"][0]["bands"]
+            if cross else 0}
+        for r in w["ranks"]:
+            for k, c in r["launches"].items():
+                launches[k] += c
+            worst = max(worst, r["worst"])
+            if r["route"] != want_route:
+                failed.append(f"{tag} rank {r['rank']} took {r['route']}")
+            for k, n in want_counts.items():
+                if r["launches"][k] != n:
+                    failed.append(f"{tag} rank {r['rank']} launched {k} "
+                                  f"{r['launches'][k]} times, {n} expected")
+            if r["edge_block_launches"] != k5_block:
+                failed.append(f"{tag} rank {r['rank']}: "
+                              f"{r['edge_block_launches']} K5 launches with "
+                              f"edge_halos='block'")
+        summary[tag] = {
+            "bands_a_rank": w["ranks"][0]["bands"],
+            "transport": w["ranks"][0]["transport"]["barrier"],
+            "routes": routes, "seconds": w["seconds"],
+            "ms_per_call": {n: [r["ms_per_call"][n] for r in w["ranks"]]
+                            for n in want},
+            "transport_host_ms_per_call": {
+                n: [r["transport_host_ms_per_call"][n] for r in w["ranks"]]
+                for n in want},
+            # boundary bytes that crossed ranks in the driven call, all
+            # ranks, a sweep
+            "halo_bytes_per_sweep": {
+                n: sum(r["bytes_sent_driven"][n] for r in w["ranks"])
+                / RANKS_SWEEPS for n in want},
+            "launches": [r["launches"] for r in w["ranks"]],
+            "edge_block_launches": sum(r["edge_block_launches"]
+                                       for r in w["ranks"]),
+            "replayed": sum(sum(s["launches"] for s in r["replay"].values())
+                            for r in w["ranks"])}
+    res = {"phase": "ranks", "card": nvidia_smi_line(),
+           "graph": f"make_chimera({RANKS_CELLS}, {RANKS_CELLS})", "B": B,
+           "bands": SHARD_BANDS, "S": RANKS_SWEEPS,
+           "policies": {n: str(p[0]) for n, p in _ranks_policies().items()},
+           "one_process_ms_per_call": one_ms, "worlds": summary,
+           "nccl_two_ranks_one_card": nccl_shared, "checks": checks,
+           "launches": launches, "max_abs_diff": worst,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    flat = [checks["barrier_equals_unsharded"],
+            checks["halo1_equals_unsharded"],
+            *checks["relaxed_differ_from_barrier"].values(),
+            *checks["ranks_equal_one_process"].values()]
+    if not all(flat) or failed or worst != 0.0:
+        raise AssertionError(f"a ranks check failed: {checks} {failed} "
+                             f"(worst replay difference {worst})")
+    res["_worst"] = worst
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the kernel records
 # ---------------------------------------------------------------------------
 def _bound(moved: int, ops: int, int8_ops: int = 0) -> dict:
@@ -5453,6 +5823,15 @@ def main() -> int:
         rec["launches_by_path"]["mesh"] = lattice["launches"][rec["name"]]
         if lattice["launches"][rec["name"]]:
             rec["max_abs_err"] = max(rec["max_abs_err"], lattice["_worst"])
+    # the ranks' launches, counted and replayed in each rank's process
+    across = ranks_phase(args.seed)
+    for rec in records:
+        rec["launches_by_path"]["ranks"] = across["launches"][rec["name"]]
+        if across["launches"][rec["name"]]:
+            rec["max_abs_err"] = max(rec["max_abs_err"], across["_worst"])
+    k5 = next(r for r in records if r["name"] == "sweep_sparse_exchange")
+    k5["edge_block_launches"] = sum(
+        w["edge_block_launches"] for w in across["worlds"].values())
     emit({"kernels": records})
     emit({"phase": "timing", "run_seconds": time.perf_counter() - t_run})
 

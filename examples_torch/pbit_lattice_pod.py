@@ -11,6 +11,17 @@ one card (`repro_torch.launch.mesh.make_line_mesh`): on the GPU the
 launch-resident policies run the in-kernel halo exchange (K5) over all of
 them in one launch.
 
+``--ranks N`` runs the bands on N processes, the ranks of one
+``torch.distributed`` group (`core.distributed.make_rank_mesh`), each with
+its run of ``--bands / N`` bands: the boundary rows between ranks go
+through the process group and K5 runs per card.  ``--backend nccl`` (the
+default on CUDA) takes one card a rank and refuses to run with fewer
+cards than ranks; ``--backend gloo`` carries CPU tensors, and CUDA tensors
+staged through host memory (several ranks may share one card).  The
+script starts its ranks itself (``torch.multiprocessing`` and a
+``FileStore`` in a temporary directory), or joins the group torchrun's
+environment describes.  A rank that fails fails the run.
+
 ``--sync`` demos the synchronization policies (`api.Sync`):
 
   * ``barrier`` — per-half-sweep halo exchange, the bit-exact default;
@@ -26,21 +37,26 @@ constants.  Twin of ``examples/pbit_lattice_pod.py`` on the PyTorch/CUDA
 port.
 
 Run:  PYTHONPATH=src python examples_torch/pbit_lattice_pod.py --sync async [--device cpu]
+      PYTHONPATH=src python examples_torch/pbit_lattice_pod.py --ranks 2 --backend gloo --device cpu
+      PYTHONPATH=src torchrun --nproc-per-node 4 examples_torch/pbit_lattice_pod.py --ranks 4
 (on the GPU unless ``--device cpu``; REPRO_EXAMPLE_QUICK=1 shrinks the
 lattice for a smoke job.)
 """
 import argparse
 import math
 import os
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import api
+from repro_torch.core import ranks as ranks_mod
 from repro_torch.core.cd import PBitMachine
 from repro_torch.core.chimera import make_chimera
-from repro_torch.core.distributed import halo_bytes_per_sweep, sparse_energy
+from repro_torch.core.distributed import (halo_bytes_per_sweep,
+                                          make_rank_mesh, sparse_energy)
 from repro_torch.core.hardware import HardwareConfig
 from repro_torch.launch.mesh import halo_vs_hbm_seconds, make_line_mesh
 
@@ -62,13 +78,18 @@ def sizes(quick: bool) -> dict:
 
 
 def anneal(sync_name: str, bands: int, device, side: int, n_sweeps: int,
-           rec: int, chains: int, repeats: int = 3) -> dict:
-    """Anneal one SK instance on ``bands`` logical row bands (1: no mesh)
-    under one Sync policy: the final spins, the energy trace (one Session
-    call per ``rec``-sweep segment) and the median of ``repeats`` timed
-    whole-schedule calls."""
+           rec: int, chains: int, repeats: int = 3,
+           ranked: bool = False) -> dict:
+    """Anneal one SK instance on ``bands`` logical row bands (1: no mesh),
+    or with ``ranked`` on a rank mesh of ``bands`` over the process
+    group's ranks, under one Sync policy: the final spins, the energy
+    trace (one Session call per ``rec``-sweep segment) and the median of
+    ``repeats`` timed whole-schedule calls."""
     graph = make_chimera(side, side)
-    mesh = make_line_mesh(bands) if bands > 1 else None
+    if ranked:
+        mesh = make_rank_mesh((bands,), ("data",))
+    else:
+        mesh = make_line_mesh(bands) if bands > 1 else None
     # sparse-native chip instance: process variation sampled straight into
     # the O(D·N) slot layout; mesh+partition+sync ride the machine into
     # every Session
@@ -92,10 +113,12 @@ def anneal(sync_name: str, bands: int, device, side: int, n_sweeps: int,
 
     m, ns = state.m, state.noise_state
     trace = []
+    engine = session._engine
     for seg in betas.reshape(n_sweeps // rec, rec):
         m, ns, _ = session.sample(chip, m, ns, seg)
-        trace.append(float(sparse_energy(chip, m).mean()) / graph.n_nodes)
-    e = sparse_energy(chip, m)
+        trace.append(float(sparse_energy(chip, m, engine).mean())
+                     / graph.n_nodes)
+    e = sparse_energy(chip, m, engine)
 
     def sync_dev():
         if session.device.type == "cuda":
@@ -115,7 +138,9 @@ def anneal(sync_name: str, bands: int, device, side: int, n_sweeps: int,
     out = {"sync": sync_name, "bands": bands, "backend": session.backend,
            "n_nodes": graph.n_nodes, "chains": chains, "sweeps": n_sweeps,
            "m": m, "trace": np.asarray(trace), "energy": e.cpu().numpy(),
-           "seconds": dt, "sweeps_per_s": n_sweeps / dt}
+           "seconds": dt, "sweeps_per_s": n_sweeps / dt,
+           "route": None if engine is None else engine.route,
+           "transport": None if engine is None else engine.transport}
     plan = session.partition_plan
     if plan is not None:
         halo = halo_bytes_per_sweep(plan, chains, sync=sync)
@@ -130,20 +155,83 @@ def anneal(sync_name: str, bands: int, device, side: int, n_sweeps: int,
     return out
 
 
-def main(argv=None) -> dict:
+def _rank_device(backend: str, device: str) -> str:
+    """This rank's device: its own card under NCCL; under gloo the named
+    device, a CUDA rank on card ``LOCAL_RANK`` modulo the cards."""
+    if backend == "nccl":
+        return f"cuda:{ranks_mod.local_rank()}"
+    if torch.device(device).type == "cuda":
+        return f"cuda:{ranks_mod.local_rank() % torch.cuda.device_count()}"
+    return device
+
+
+def _spawned_rank(rank: int, argv, world: int, backend: str, store: str):
+    """One rank started by `main`'s spawn: join the group, run."""
+    os.environ["RANK"] = os.environ["LOCAL_RANK"] = str(rank)
+    ranks_mod.init_rank(backend, rank, world, store_path=store)
+    try:
+        _run(parse(argv), ranked=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def parse(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sync", choices=sorted(SYNCS), default="barrier",
                     help="shard synchronization policy (api.Sync)")
     ap.add_argument("--bands", type=int, default=4,
-                    help="logical row bands of the line mesh")
+                    help="row bands of the line mesh")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="processes of a torch.distributed group; each "
+                         "runs --bands / --ranks bands")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the group's backend (default: nccl on CUDA, gloo "
+                         "on the CPU)")
     args = ap.parse_args(argv)
-    size = sizes(bool(os.environ.get("REPRO_EXAMPLE_QUICK")))
+    if args.backend is None:
+        args.backend = ("nccl" if torch.device(args.device).type == "cuda"
+                        else "gloo")
+    return args
 
-    res = anneal(args.sync, args.bands, args.device, **size)
+
+def main(argv=None) -> dict | None:
+    args = parse(argv)
+    torchrun = "TORCHELASTIC_RUN_ID" in os.environ
+    if args.ranks == 1 and not torchrun:
+        return _run(args)
+    ranks_mod.require_cards(args.backend, args.ranks)
+    if torchrun:     # torchrun started this rank and set its environment
+        ranks_mod.init_rank(args.backend, int(os.environ["RANK"]),
+                            int(os.environ["WORLD_SIZE"]))
+        try:
+            return _run(args, ranked=True)
+        finally:
+            torch.distributed.destroy_process_group()
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_spawned_rank, nprocs=args.ranks, join=True,
+                 args=(argv, args.ranks, args.backend,
+                       os.path.join(tmp, "store")))
+    return None
+
+
+def _run(args, ranked: bool = False) -> dict:
+    size = sizes(bool(os.environ.get("REPRO_EXAMPLE_QUICK")))
+    device = (_rank_device(args.backend, args.device) if ranked
+              else args.device)
+    lead = not ranked or torch.distributed.get_rank() == 0
+    res = anneal(args.sync, args.bands, device, ranked=ranked, **size)
+    if not lead:
+        if args.sync != "barrier":
+            anneal("barrier", args.bands, device, ranked=ranked, **size)
+        return res
     n = res["n_nodes"]
+    where = (f"{args.bands} bands on {torch.distributed.get_world_size()} "
+             f"ranks ({res['transport']}, {res['route']})" if ranked
+             else f"{args.bands} logical band(s)")
     print(f"lattice: {size['side']}x{size['side']} cells = {n} p-bits on "
-          f"{args.bands} logical band(s) of {args.device}, sync={args.sync}, "
+          f"{where} of {device}, sync={args.sync}, "
           f"backend={res['backend']}")
     e = res["energy"]
     print(f"energy/spin after anneal: best {e.min() / n:+.3f}, "
@@ -152,7 +240,7 @@ def main(argv=None) -> dict:
           f"M spin-updates/s ({res['sweeps_per_s']:.1f} sweeps/s, "
           f"{res['seconds']:.3f}s for {size['n_sweeps']} sweeps)")
     if args.sync != "barrier":
-        base = anneal("barrier", args.bands, args.device, **size)
+        base = anneal("barrier", args.bands, device, ranked=ranked, **size)
         gap = np.abs(res["trace"] - base["trace"])
         res["baseline"] = base
         res["trace_gap_mean"], res["trace_gap_max"] = gap.mean(), gap.max()

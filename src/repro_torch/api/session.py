@@ -256,9 +256,10 @@ class Session:
         self._engine = None
         if spec.mesh is not None:
             # row-band sharded execution: the plan, the sync policy's loop
-            # and the per-band kernels live in core/distributed.py.  Stuck
-            # spins reach it as clamp arguments; flips and stuck LFSR bits
-            # it regenerates per band from global coordinates
+            # and the per-band kernels live in core/distributed.py (under
+            # a rank mesh, this process's rank of it).  Stuck spins reach
+            # it as clamp arguments; flips and stuck LFSR bits it
+            # regenerates per band from global coordinates
             from repro_torch.core.distributed import ShardedEngine
             self._engine = ShardedEngine(
                 g, spec.mesh, spec.partitioning(), spec.noise,

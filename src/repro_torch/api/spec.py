@@ -45,10 +45,10 @@ import torch
 from repro_torch.api.faults import Faults
 from repro_torch.core.chimera import ChimeraGraph
 from repro_torch.core.hardware import HardwareConfig, Mismatch, SparseMismatch
-from repro_torch.core.distributed import plan_row_partition
+from repro_torch.core.distributed import k5_runs, plan_row_partition
+from repro_torch.core.ranks import rank_blocks
 from repro_torch.kernels.sweep_fused import (card_limits,
-                                             dense_resident_feasible,
-                                             exchange_resident_feasible)
+                                             dense_resident_feasible)
 
 BACKENDS = ("ref", "pallas", "fused", "sparse", "fused_sparse")
 FUSED_BACKENDS = ("fused", "fused_sparse")
@@ -373,11 +373,14 @@ class SamplerSpec:
                         for f in dataclasses.fields(mm)))
         mesh_sig = None
         if self.mesh is not None:
+            ranks = getattr(self.mesh, "ranks", None)
             mesh_sig = (tuple(self.mesh.axis_names),
                         tuple(int(self.mesh.shape[a])
                               for a in self.mesh.axis_names),
                         tuple(int(d) for d in
-                              np.asarray(self.mesh.devices).reshape(-1)))
+                              np.asarray(self.mesh.devices).reshape(-1)),
+                        None if ranks is None else
+                        tuple(int(r) for r in np.asarray(ranks).reshape(-1)))
         part = self.partitioning()
         part_sig = None if part is None else (part.rows_axes, part.chain_axes)
         sync = self.sync_policy()
@@ -580,10 +583,10 @@ def _resolve_sharded_backend(spec: SamplerSpec) -> str:
 
     ``auto`` picks 'fused_sparse' for a launch-resident, fused-compatible
     policy with counter noise, else 'sparse' — and 'sparse' too when the
-    policy's mid-launch exchanges need K5 and K5 has no body for the shape
-    on the spec's card (`exchange_resident_feasible`, the card's own
-    limits: the cluster body up to 16 bands at any chain count, else the
-    mailbox body, whose grid must be resident at once).  Fault hooks
+    policy's mid-launch exchanges need K5 and K5 does not run the launch
+    (`k5_runs`: on the spec's card, the cluster body up to 16 bands at any
+    chain count, else the mailbox body, whose grid must be resident at
+    once; across ranks, no exchange point inside a sweep).  Fault hooks
     (flips, stuck LFSR bits) run between half-sweeps, so they keep the
     sharded spec on 'sparse'.  The env default takes part as everywhere
     else, but a value the partition cannot honour raises rather than being
@@ -627,14 +630,21 @@ def _resolve_sharded_backend(spec: SamplerSpec) -> str:
 
 
 def _exchange_fits(spec: SamplerSpec) -> bool:
-    """Has K5 a body for one launch of this sharded spec on its card?"""
+    """Does K5 run a launch of this sharded spec on its card (a rank mesh:
+    one rank's bands and chains; the engine's own rule, `k5_runs`)?"""
     part = spec.partitioning()
     n_row = int(np.prod([spec.mesh.shape[a] for a in part.rows_axes],
                         dtype=np.int64))
     plan = plan_row_partition(spec.graph, n_row)
-    return exchange_resident_feasible(n_row, spec.chains,
-                                      plan.n_loc + 2 * plan.halo, plan.halo,
-                                      card_limits(spec.device))
+    bands, chains = n_row, spec.chains
+    if getattr(spec.mesh, "ranks", None) is not None:
+        r0, r1, c0, c1 = rank_blocks(spec.mesh, part.rows_axes,
+                                     part.chain_axes)[0]
+        n_chain = int(np.prod([spec.mesh.shape[a] for a in part.chain_axes],
+                              dtype=np.int64))
+        bands, chains = r1 - r0, spec.chains // n_chain * (c1 - c0)
+    return k5_runs(spec.sync_policy(), bands, n_row, chains, plan,
+                   card_limits(spec.device))
 
 
 def _fault_hooks(spec: SamplerSpec) -> bool:

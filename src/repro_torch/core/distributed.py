@@ -8,22 +8,26 @@ chain-coupler boundary spins (O(√N)) between neighbouring bands:
   * `Mesh` / `make_mesh` name the logical devices a `SamplerSpec` shards
     over.  On one card a "device" of the mesh is a row band (or a chain
     shard) living on the spec's device; a mesh that names more than one
-    CUDA device raises (several cards through ``torch.distributed`` are
-    later work).
+    CUDA device raises.  `make_rank_mesh` names the ranks of the default
+    process group instead (`core/ranks.py`): each process, one card a
+    rank on CUDA, owns a contiguous run of the bands and chain shards.
   * `plan_row_partition` (numpy, memoized) cuts the grid into bands and
     precomputes the padded per-band node slices, the (D, n_loc) neighbour
     tables re-indexed into ``[local | halo_up | halo_dn]``, the boundary
     send lists, the per-band edge lists for the moments and the LFSR cell
     bands — array-equal to the reference's plan.
-  * `ShardedEngine` runs the spec's `api.Sync` policy over the plan.  All
-    bands live on one device with a leading band axis: the scan shapes run
-    every band in one batched op, the halo exchange is an index gather
+  * `ShardedEngine` runs the spec's `api.Sync` policy over the plan.  The
+    bands of a device live on it with a leading band axis: the scan shapes
+    run every band in one batched op, the halo exchange is an index gather
     over the band axis (edge bands read zeros), the launch-resident shape
     runs K1 per band, and the fused-resident-exchange shape runs every
     band of the card in one launch of K5
     (`kernels/sweep_fused.py::sweep_sparse_exchange`), which refreshes the
-    halos inside the kernel.  Under the default barrier policy spins equal
-    the single-device engine bit for bit.
+    halos inside the kernel.  Under a rank mesh the boundary rows between
+    ranks go through the process group, and K5 runs per card on windows
+    between exchange points with the card's edge halos supplied.  Under
+    the default barrier policy spins equal the single-device engine bit
+    for bit.
 
 `LatticeSpec` / `make_sk_lattice` generate SK-style lattice instances;
 `lattice_to_chip` converts them into the shared `EffectiveChip` slot
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import lfsr as lfsr_mod
+from repro_torch.core import ranks as ranks_mod
 from repro_torch.core.chimera import ChimeraGraph, make_chimera
 from repro_torch.core.hardware import EffectiveChip, HardwareConfig
 from repro_torch.core.pbit import fma32
@@ -75,6 +80,10 @@ class Mesh:
     axis_names: tuple
     shape: dict
     devices: np.ndarray
+    # a rank mesh (`make_rank_mesh`): the rank of every position, shaped
+    # like the axes, and the process group (None: the default group)
+    ranks: np.ndarray | None = None
+    group: Any = None
 
 
 def _logical_ids(devices, n: int) -> np.ndarray:
@@ -91,10 +100,10 @@ def _logical_ids(devices, n: int) -> np.ndarray:
     cards = {torch.device(d) for d in devs}
     if len({(c.type, c.index) for c in cards if c.type == "cuda"}) > 1:
         raise NotImplementedError(
-            f"this mesh names {len(cards)} CUDA devices; the sharded engine "
-            f"runs every row band on one card (several cards through "
-            f"torch.distributed are not built yet) — name one card, or "
-            f"leave devices=None")
+            f"this mesh names {len(cards)} CUDA devices; a logical mesh "
+            f"runs every row band on one card — name one card, leave "
+            f"devices=None, or run one torch.distributed rank a card on "
+            f"a rank mesh (make_rank_mesh)")
     return np.arange(n, dtype=np.int64)
 
 
@@ -111,6 +120,34 @@ def make_mesh(axis_shapes, axis_names, *, devices=None) -> Mesh:
     n = int(np.prod(axis_shapes, dtype=np.int64))
     ids = _logical_ids(devices, n).reshape(axis_shapes)
     return Mesh(axis_names, dict(zip(axis_names, axis_shapes)), ids)
+
+
+def make_rank_mesh(axis_shapes, axis_names, group=None) -> Mesh:
+    """`Mesh` of ``prod(axis_shapes)`` positions over the ranks of
+    ``group`` (None: the default process group), mirroring
+    ``jax.make_mesh(axis_shapes, axis_names)`` over ``jax.devices()``.
+
+    The ranks split the axes in order (`core.ranks.rank_grid`), so each
+    owns a contiguous block of every axis: under a `Partition`, a run of
+    row bands and of chain shards.  Raises when no process group is
+    initialised, when the world size does not divide the mesh, and under
+    NCCL when this rank's current card is not its own
+    (``cuda:{LOCAL_RANK}``)."""
+    import torch.distributed as tdist
+
+    if not (tdist.is_available() and tdist.is_initialized()):
+        raise RuntimeError(
+            "make_rank_mesh needs a process group: call "
+            "torch.distributed.init_process_group (or core.ranks.init_rank) "
+            "in every rank first, or use make_mesh for logical devices of "
+            "one card")
+    mesh = make_mesh(axis_shapes, axis_names)
+    shapes = tuple(mesh.shape[a] for a in mesh.axis_names)
+    grid = ranks_mod.rank_grid(shapes, tdist.get_world_size(group))
+    if tdist.get_backend(group) == "nccl":
+        ranks_mod.check_rank_device(group, "cuda")
+    return dataclasses.replace(mesh, ranks=ranks_mod.rank_ids(shapes, grid),
+                               group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +380,10 @@ def surviving_mesh(mesh: Mesh, dead_ids) -> Mesh | None:
     ``Partition(rows=axis)`` stays valid.  None when fewer than two
     survive (the caller drops ``mesh=`` and runs unsharded); raises when
     none does."""
+    if mesh.ranks is not None:
+        raise NotImplementedError(
+            "losing a rank of a process group is not handled: re-plan a "
+            "logical mesh (make_mesh) or restart the ranks")
     dead = {int(d) for d in dead_ids}
     ids = [int(d) for d in np.asarray(mesh.devices).reshape(-1)]
     survivors = [d for d in ids if d not in dead]
@@ -355,6 +396,22 @@ def surviving_mesh(mesh: Mesh, dead_ids) -> Mesh | None:
     axis = mesh.axis_names[0]
     return Mesh((axis,), {axis: len(survivors)},
                 np.asarray(survivors, dtype=np.int64))
+
+
+def k5_runs(sync, bands: int, n_row: int, chains: int,
+            plan: RowPartition, limits) -> bool:
+    """Does K5 run a launch of ``sync`` for one process's ``bands`` of the
+    ``n_row`` row bands and its ``chains`` chains, on a card of
+    ``limits``?  Across ranks (``bands < n_row``) a launch runs as one K5
+    window of whole sweeps between exchange points, so an exchange point
+    inside a sweep leaves the launch to K1 windows; and K5 needs a body
+    for the shape (`exchange_resident_feasible`).  The engine's route and
+    the spec's ``auto`` both ask this."""
+    if bands < n_row and any(x % 2 for x in sync.exchange_points()):
+        return False
+    return exchange_resident_feasible(bands, chains,
+                                      plan.n_loc + 2 * plan.halo, plan.halo,
+                                      limits)
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +444,21 @@ class ShardedEngine:
     `_local_sweeps`); ``resident_exchange`` (None: the spec's device is
     CUDA) runs the fused shapes' launches through K5 instead of their
     emulation (K1 per band).
+
+    Under a rank mesh (`make_rank_mesh`) this process is one rank and
+    holds its run of ``R_loc`` bands and its chain shards
+    (`core.ranks.rank_blocks`): ``n_row`` stays global, the per-band
+    tables, ``_part_ids``, ``_col0`` and ``_chain_offsets`` are the rank's,
+    and noise and faults still come from global coordinates.  The boundary
+    rows between ranks go through the process group (`RankComm`, from
+    `kernels/shard_sweep.py::halo_exchange`); K5 runs per card, a launch
+    split at its exchange points into windows with ``edge_halos="block"``
+    and the card's edge halos supplied between them, where every window is
+    whole sweeps (else K1 windows).  Outputs are gathered, never summed,
+    so every rank returns the one-process engine's global tensors — apart
+    from the sums the reference takes with ``psum``: a chains partition's
+    raw moments and the visible histogram's codes, sums of integers,
+    exact in any order.  ``route`` names how a ``sample`` launch runs.
 
     ``faults`` (an `api.Faults`): stuck spins arrive as clamp arguments
     from the Session, as every backend takes them; what the engine owns
@@ -429,6 +501,24 @@ class ShardedEngine:
             raise ValueError(f"chains={chains} not divisible by the "
                              f"chain-axis size {self.n_chain}")
         self.b_loc = chains // self.n_chain
+        # this process's run of bands [r0, r1) and chain shards [c0, c1):
+        # all of them, or under a rank mesh the rank's block
+        self.comm = None
+        self._blocks = [(0, self.n_row, 0, self.n_chain)]
+        if mesh.ranks is not None:
+            self._blocks = ranks_mod.rank_blocks(mesh, self.rows_axes,
+                                                 self.chain_axes)
+            self.comm = ranks_mod.RankComm(mesh.group, self._blocks, dev)
+        r0, r1, c0, c1 = self._blocks[0 if self.comm is None
+                                      else self.comm.rank]
+        self._bands = slice(r0, r1)
+        self.R_loc = r1 - r0
+        self._shards = range(c0, c1)
+        self.chain0 = c0 * self.b_loc          # global id of chain 0 here
+        self.chains_loc = (c1 - c0) * self.b_loc
+        # the process group carries boundary rows: the bands are cut across
+        # ranks (more than one rank along the rows)
+        self._cross_rows = self.R_loc < self.n_row
         # the fused shapes: on the card one K5 launch runs a whole launch
         # for every band, the kernel owning the halo refresh (with
         # ``ex_pts=(0,)`` for a policy without mid-launch exchange, where
@@ -441,38 +531,39 @@ class ShardedEngine:
         self.plan = plan_row_partition(graph, self.n_row,
                                        with_lfsr=(noise == "lfsr"))
         p = self.plan
-        if self._resident and sync.kernel_fusible:
-            self._resident = exchange_resident_feasible(
-                self.n_row, chains, p.n_loc + 2 * p.halo, p.halo,
-                card_limits(dev))
+        if self._resident and (sync.kernel_fusible or self._cross_rows):
+            self._resident = k5_runs(sync, self.R_loc, self.n_row,
+                                     self.chains_loc, p, card_limits(dev))
 
         def long(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=dev)
 
-        self._part_ids = long(p.part_ids)
+        band = self._bands
+        self._part_ids = long(p.part_ids[band])
         # each band's global column 0: the counter hash's coordinate offset
-        self._col0 = [int(c) for c in p.part_ids[:, 0]]
+        self._col0 = [int(c) for c in p.part_ids[band, 0]]
         self._inv_ids = long(p.inv_ids)
         self._edge_inv = long(p.edge_inv)
         self._dev = {
-            "nbr": long(p.nbr_idx),
-            "send_up": long(p.send_up),
-            "send_dn": long(p.send_dn),
-            "upd": torch.as_tensor(p.upd_masks, device=dev),
-            "cols": long(p.part_ids),
-            "edge_e0": long(p.edge_e0),
-            "edge_e1": long(p.edge_e1),
+            "nbr": long(p.nbr_idx[band]),
+            "send_up": long(p.send_up[band]),
+            "send_dn": long(p.send_dn[band]),
+            "upd": torch.as_tensor(p.upd_masks[band], device=dev),
+            "cols": long(p.part_ids[band]),
+            "edge_e0": long(p.edge_e0[band]),
+            "edge_e1": long(p.edge_e1[band]),
         }
         if noise == "lfsr":
-            self._dev["lfsr_perm"] = long(p.lfsr_perm)
-            self._cell_ids = long(p.cell_ids)
+            self._dev["lfsr_perm"] = long(p.lfsr_perm[band])
+            self._cell_ids = long(p.cell_ids[band])
             self._cell_inv = long(p.cell_inv)
             if faults is not None and faults.lfsr_stuck:
                 from repro_torch.api.faults import lfsr_stuck_masks
                 s0, s1 = lfsr_stuck_masks(faults, graph.n_nodes // 8)
-                # (n_row, 1, c_loc): broadcast over each band's chains
-                self._dev["lfsr_stuck"] = (long(s0[p.cell_ids])[:, None, :],
-                                           long(s1[p.cell_ids])[:, None, :])
+                # (R_loc, 1, c_loc): broadcast over each band's chains
+                cells = p.cell_ids[band]
+                self._dev["lfsr_stuck"] = (long(s0[cells])[:, None, :],
+                                           long(s1[cells])[:, None, :])
         if self._fused:
             # per-edge slot row into the kernels' (D, N_ext) correlation
             # table: edge q of band b lives at c_slots[edge_slot[b, q],
@@ -481,14 +572,34 @@ class ShardedEngine:
             for b in range(p.n_shards):
                 hit = p.nbr_idx[b][:, p.edge_e0[b]] == p.edge_e1[b][None, :]
                 es[b] = np.argmax(hit, axis=0)
-            self._dev["edge_slot"] = long(es)
-            self._dev["nbr32"] = torch.as_tensor(p.nbr_idx, device=dev)
+            self._dev["edge_slot"] = long(es[band])
+            self._dev["nbr32"] = torch.as_tensor(p.nbr_idx[band], device=dev)
         self.loop_shape = self._loop_shape(collect=False, hist=False)
+        self.route = self._route()
+
+    @property
+    def transport(self) -> str | None:
+        """What carries the boundary rows between ranks: "nccl", "gloo" or
+        "gloo (host-staged)"; None on a logical mesh."""
+        return None if self.comm is None else self.comm.transport
+
+    def _route(self) -> str:
+        """How a ``sample`` launch runs: "scan" (the batched half-sweeps),
+        "k5" (one K5 launch owns every exchange), "k5 per card" (K5 windows
+        between exchange points, the process group between them), "k1 per
+        band" or "k1 windows" (the emulation: K1 per band on half-sweep
+        windows, the exchanges between them)."""
+        if self.loop_shape in ("segment scan", "unrolled launch"):
+            return "scan"
+        if self._resident:
+            return "k5 per card" if self._cross_rows else "k5"
+        return "k1 per band" if self.loop_shape == "fused" else "k1 windows"
 
     # -- global <-> parts layout ----------------------------------------
     def _chip_parts(self, chip: EffectiveChip) -> dict:
-        """The chip's per-band ``(n_row, ...)`` slices (gathers on the
-        plan's tables; the chip is an operand of every call)."""
+        """The chip's per-band ``(R_loc, ...)`` slices of this process's
+        bands (gathers on the plan's tables; the chip is an operand of
+        every call)."""
         if chip.nbr_w is None or chip.nbr_idx is None:
             raise ValueError(
                 "sharded execution needs a chip carrying the slot layout "
@@ -504,34 +615,80 @@ class ShardedEngine:
             "co": chip.comp_offset[ids],
         }
 
+    def _my_chains(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of this process's chains of a (B, ...) tensor."""
+        return x[self.chain0:self.chain0 + self.chains_loc]
+
     def _m_parts(self, m: torch.Tensor) -> torch.Tensor:
-        """(B, N) -> (n_row, B, n_loc)."""
-        return m[:, self._part_ids].permute(1, 0, 2).contiguous()
+        """(B, N) -> (R_loc, B_loc, n_loc): this process's bands and
+        chains."""
+        return self._my_chains(m)[:, self._part_ids].permute(
+            1, 0, 2).contiguous()
+
+    def _gather(self, x: torch.Tensor, band_dim: int = 0,
+                chain_dim: int | None = 1) -> torch.Tensor:
+        """This process's part -> the global tensor: its ``R_loc`` bands on
+        ``band_dim`` (and its chains on ``chain_dim``) among every rank's,
+        by ``all_gather`` — copies, never sums.  With ``chain_dim=None``
+        the part has no chain axis and the chain ranks of a band block
+        hold raw sums over their chains, which are added in rank order
+        (integer sums: exact in any order).  Without a rank mesh, ``x``."""
+        if self.comm is None:
+            return x
+        parts = self.comm.all_gather(x)
+        shape = list(x.shape)
+        shape[band_dim] = self.n_row
+        if chain_dim is not None:
+            shape[chain_dim] = self.chains
+        out = x.new_zeros(shape)
+        seen = set()
+        for k, (r0, r1, c0, c1) in enumerate(self._blocks):
+            at = [slice(None)] * x.ndim
+            at[band_dim] = slice(r0, r1)
+            if chain_dim is not None:
+                at[chain_dim] = slice(c0 * self.b_loc, c1 * self.b_loc)
+            at = tuple(at)
+            if chain_dim is None and (r0, r1) in seen:
+                out[at] = out[at] + parts[k]
+            else:
+                out[at] = parts[k]
+            seen.add((r0, r1))
+        return out
 
     def _m_global(self, parts: torch.Tensor) -> torch.Tensor:
+        parts = self._gather(parts)
         flat = parts.permute(1, 0, 2).reshape(parts.shape[1], -1)
         return flat[:, self._inv_ids]
 
     def _ns_parts(self, ns):
         if self.noise == "lfsr":
-            return ns[:, self._cell_ids].permute(1, 0, 2).contiguous()
+            return self._my_chains(ns)[:, self._cell_ids].permute(
+                1, 0, 2).contiguous()
         return ns  # counter: one (2,) state for every band
 
     def _ns_global(self, ns, parts):
         if self.noise == "lfsr":
+            parts = self._gather(parts)
             flat = parts.permute(1, 0, 2).reshape(parts.shape[1], -1)
             return flat[:, self._cell_inv]
         return parts
 
     def _part_cols(self, x: torch.Tensor) -> torch.Tensor:
-        """(N,) node vector -> (n_row, n_loc)."""
+        """(N,) node vector -> (R_loc, n_loc)."""
         return x[self._part_ids]
+
+    def _betas_here(self, betas: torch.Tensor) -> torch.Tensor:
+        """A (S, B) per-chain schedule's columns of this process's chains
+        ((S,) passes)."""
+        if betas.ndim == 2:
+            return betas[:, self.chain0:self.chain0 + self.chains_loc]
+        return betas
 
     # -- band-local pieces ----------------------------------------------
     def _chain_offsets(self) -> list[int]:
-        """Global id of each chain shard's first chain, in shard order
-        (the reference's per-device ``_chain_offset``)."""
-        return [c * self.b_loc for c in range(self.n_chain)]
+        """Global id of each of this process's chain shards' first chain,
+        in shard order (the reference's per-device ``_chain_offset``)."""
+        return [c * self.b_loc for c in self._shards]
 
     def _noise_step(self):
         """Step fn regenerating the *global* noise stream's columns for
@@ -638,12 +795,30 @@ class ShardedEngine:
         dev = self.device
         d = self._dev
         send_up, send_dn, nbr = d["send_up"], d["send_dn"], d["nbr"]
-        R = self.n_row
+        R = self.R_loc
+        H = self.plan.halo
         inv_b = _recip(self.chains).to(dev)
         col0 = self._col0
+        row0 = self.chain0
+        comm = self.comm
+        windows = self._cross_rows    # K5 per card: windows, edges between
 
         def exchange(m):
-            return halo_exchange(m, send_up, send_dn)
+            return halo_exchange(m, send_up, send_dn, comm)
+
+        def edge_swap(m_ext):
+            """The boundary rows of this rank's edge bands to and from its
+            row neighbours: (halo_up of band 0, halo_dn of band R-1)."""
+            return comm.swap_edges(m_ext[0].index_select(1, send_up[0]),
+                                   m_ext[-1].index_select(1, send_dn[-1]))
+
+        def install_edges(m_ext, edges):
+            """The outer edge halos of the extended block set in place (K5
+            launches with ``edge_halos="block"`` keep them); the block is
+            the call's own: a concatenation, a clamp or a K5 output."""
+            m_ext[0, :, n_loc:n_loc + H] = edges[0]
+            m_ext[-1, :, n_loc + H:] = edges[1]
+            return m_ext
 
         def run(chip, m, ns, betas, measured=None, cm=None, cv=None,
                 vis_idx=None, vis_w=None):
@@ -657,15 +832,19 @@ class ShardedEngine:
                 masks = [mk & ~cm for mk in masks]
             impose = clamped and cv is not None
             exact_stats = accumulate and k1_exact
+            codes = []    # histogram: each sweep's visible codes
             tables = None
             if (shape in ("fused", "fused-resident-exchange")
                     and self._resident and not exact_stats):
-                # what every K5 launch of this call shares, prepared once
+                # what every K5 launch of this call shares, prepared once:
+                # per card, every window is a launch with one exchange
+                # point, and the edge halos come from the process group
                 kwc = dict(clamp_mask=cm, clamp_values=cv) if impose else {}
                 tables = exchange_tables(
                     d["nbr32"], w, h, gain, off, rg, co, masks[0], masks[1],
-                    col0, send_up, send_dn, chains=m.shape[1], ex_pts=ex_pts,
-                    mode=sync.mode, **kwc)
+                    col0, send_up, send_dn, chains=m.shape[1],
+                    ex_pts=(0,) if windows else ex_pts, mode=sync.mode,
+                    edge_halos="block" if windows else "zero", **kwc)
 
             S_total = int(betas.shape[0])
             if S_total % L:
@@ -719,8 +898,8 @@ class ShardedEngine:
                     vi = vis_idx[:, None, :].expand(-1, m.shape[1], -1)
                     bits = (m.gather(2, vi) > 0).to(torch.int64)
                     code = (bits * vis_w[:, None, :]).sum(dim=2).sum(dim=0)
-                    accs[0] = accs[0].index_add(0, code,
-                                                w_t.expand(code.shape[0]))
+                    # counted at the end of the call (`_count_codes`)
+                    codes.append((code, w_t))
                 return accs
 
             def band_launch(m, hu, hd, ns, betas_t, meas, h0=0, n_half=None):
@@ -735,7 +914,7 @@ class ShardedEngine:
                     res = fused_shard_sweeps(
                         m[r], hu[r], hd[r], d["nbr32"][r], w[r], h[r],
                         gain[r], off[r], rg[r], co[r], masks[0][r],
-                        masks[1][r], betas_t, ns, 0, col0[r],
+                        masks[1][r], betas_t, ns, row0, col0[r],
                         measured=meas, half_offset=h0, n_half=n_half, **kwc)
                     outs_m.append(res[0])
                     ns_out = res[1]
@@ -825,14 +1004,53 @@ class ShardedEngine:
                 if impose:  # the boundary is published post-clamp
                     m_ext = torch.where(tables.clamp_mask[:, None, :],
                                         tables.clamp_values, m_ext)
-                res = exchange_launch(m_ext, tables, betas_t, ns, 0,
+                res = exchange_launch(m_ext, tables, betas_t, ns, row0,
                                       meas_t if accumulate else None)
                 if accumulate:
-                    c_k = res[3][torch.arange(R, device=dev)[:, None],
-                                 d["edge_slot"], d["edge_e0"]]
-                    accs = add_kernel_moments(accs, res[2][:, :n_loc], c_k,
-                                              m_ext.shape[1])
+                    accs = kernel_moments(accs, res[2], res[3],
+                                          m_ext.shape[1])
                 return (res[0], res[1], None, None, None, accs), []
+
+            def kernel_moments(accs, s_k, c_k, B):
+                """A K5 call's (R, N_ext) / (R, D, N_ext) sums onto the
+                per-band accumulators."""
+                c_k = c_k[torch.arange(R, device=dev)[:, None],
+                          d["edge_slot"], d["edge_e0"]]
+                return add_kernel_moments(accs, s_k[:, :n_loc], c_k, B)
+
+            def resident_windows(state, betas_t, meas_t):
+                """One launch of K5 per card: a K5 launch with
+                ``edge_halos="block"`` per window between the policy's
+                exchange points, the rank's edge halos from its neighbours
+                before each (async: the values of the exchange before,
+                and after the last window the last exchange's), so the
+                windows equal the one-process launch bit for bit."""
+                m_ext, ns, _, _, _, accs = state
+                if impose:
+                    m_ext = torch.where(tables.clamp_mask[:, None, :],
+                                        tables.clamp_values, m_ext)
+                s_l = c_l = pend = None
+                for e, (h0, h1) in enumerate(
+                        halo_exchange_segments(ex_pts, 2 * L)):
+                    fresh = edge_swap(m_ext)
+                    if not async_:
+                        m_ext = install_edges(m_ext, fresh)
+                    elif e > 0:
+                        m_ext = install_edges(m_ext, pend)
+                    pend = fresh
+                    win = slice(h0 // 2, h1 // 2)
+                    res = exchange_launch(
+                        m_ext, tables, betas_t[win], ns, row0,
+                        meas_t[win] if accumulate else None)
+                    m_ext, ns = res[0], res[1]
+                    if accumulate:
+                        s_l = res[2] if s_l is None else s_l + res[2]
+                        c_l = res[3] if c_l is None else c_l + res[3]
+                if async_:
+                    m_ext = install_edges(m_ext, pend)
+                if accumulate:
+                    accs = kernel_moments(accs, s_l, c_l, m_ext.shape[1])
+                return (m_ext, ns, None, None, None, accs), []
 
             def segment(state, betas_t, meas_t):
                 """One inter-exchange segment: swap once, then the
@@ -853,8 +1071,9 @@ class ShardedEngine:
                         outs.append(m)
                 return (m, ns, hu, hd, pend, accs), outs
 
-            body = (segment if shape == "segment scan" else
-                    resident if tables is not None else launch)
+            body = (segment if shape == "segment scan" else launch
+                    if tables is None else
+                    resident_windows if windows else resident)
             zh = m.new_zeros((R, m.shape[1], self.plan.halo))
             pend = ()
             if async_:
@@ -890,6 +1109,8 @@ class ShardedEngine:
             m, ns, _, _, _, accs = state
             if tables is not None:
                 m = m[:, :, :n_loc]
+            if codes:
+                accs = [self._count_codes(accs[0], codes)]
             return (m, ns, *accs), (torch.stack(traj) if collect else None)
 
         return run
@@ -907,16 +1128,34 @@ class ShardedEngine:
                 cv, dtype=torch.float32, device=self.device))
         return kw
 
+    def _count_codes(self, hist, codes):
+        """The per-sweep visible codes -> the histogram, counted sweep by
+        sweep.  Under a rank mesh each rank's partial codes are first
+        summed across the row ranks (the reference's psum; each band's
+        bits are its own powers of two: exact) and laid out on the global
+        chains."""
+        code = torch.stack([c for c, _ in codes])        # (S, B_loc)
+        if self.comm is not None:
+            parts = self.comm.all_gather(code)
+            code = code.new_zeros((code.shape[0], self.chains))
+            for k, (_, _, c0, c1) in enumerate(self._blocks):
+                cols = slice(c0 * self.b_loc, c1 * self.b_loc)
+                code[:, cols] = code[:, cols] + parts[k]
+        for s, (_, w_t) in enumerate(codes):
+            hist = hist.index_add(0, code[s], w_t.expand(self.chains))
+        return hist
+
     def sample(self, chip, m, ns, betas, cm=None, cv=None, collect=False):
         """(m', noise_state', traj|None), as `core.pbit.gibbs_sample`."""
         run = self._local_sweeps(cm is not None, collect, False, None)
         betas = torch.as_tensor(betas, dtype=torch.float32,
                                 device=self.device)
         (m_o, ns_o), traj = run(self._chip_parts(chip), self._m_parts(m),
-                                self._ns_parts(ns), betas,
+                                self._ns_parts(ns), self._betas_here(betas),
                                 **self._clamp_parts(cm, cv))
         if collect:
             # (S, n_row, B, n_loc) -> (S, B, N)
+            traj = self._gather(traj, band_dim=1, chain_dim=2)
             t = traj.permute(0, 2, 1, 3).reshape(traj.shape[0],
                                                  traj.shape[2], -1)
             traj = t[:, :, self._inv_ids]
@@ -940,8 +1179,10 @@ class ShardedEngine:
         scale = (np.float32(denom) if self.n_chain == 1
                  else np.float32(denom) * np.float32(self.chains))
         inv = _recip(scale).to(dev)
-        s = s_acc.reshape(-1)[self._inv_ids]
-        c = c_acc.reshape(-1)[self._edge_inv]
+        # per band: gathered across the row ranks; a chains partition's raw
+        # sums added across its chain ranks (the reference's psum)
+        s = self._gather(s_acc, chain_dim=None).reshape(-1)[self._inv_ids]
+        c = self._gather(c_acc, chain_dim=None).reshape(-1)[self._edge_inv]
         m_o, ns_o = self._m_global(m_o), self._ns_global(ns, ns_o)
         if sums:
             return s, c, inv, m_o, ns_o
@@ -969,8 +1210,9 @@ class ShardedEngine:
             torch.float32)
         (m_o, ns_o, hist), _ = run(
             self._chip_parts(chip), self._m_parts(m), self._ns_parts(ns),
-            betas, measured, vis_idx=torch.as_tensor(vi, device=dev),
-            vis_w=torch.as_tensor(vw, device=dev),
+            self._betas_here(betas), measured,
+            vis_idx=torch.as_tensor(vi[self._bands], device=dev),
+            vis_w=torch.as_tensor(vw[self._bands], device=dev),
             **self._clamp_parts(cm, cv))
         return hist, self._m_global(m_o), self._ns_global(ns, ns_o)
 
@@ -1109,13 +1351,34 @@ def lattice_to_chip(spec: LatticeSpec, lat: LatticeChip,
         nbr_w=nbr_w)
 
 
-def sparse_energy(chip: EffectiveChip, m: torch.Tensor) -> torch.Tensor:
+def sparse_energy(chip: EffectiveChip, m: torch.Tensor,
+                  engine: "ShardedEngine | None" = None) -> torch.Tensor:
     """Symmetrized Ising energy per chain from the slot layout, O(B·N·D):
     E = -1/2 Σ_i m_i Σ_j W_ij m_j - Σ_i h_i m_i (the directional W averaged
-    over its two directions)."""
-    I = sparse_neuron_input(m, chip.nbr_idx.to(torch.int64), chip.nbr_w,
-                            0.0)
-    return -0.5 * torch.sum(m * I, dim=1) - m @ chip.h
+    over its two directions).
+
+    ``engine``: a rank mesh's `ShardedEngine`.  Each rank sums the terms of
+    its own bands' nodes for its own chains, and the partial energies are
+    added across the row ranks in rank order, so every rank returns the
+    global (B,) energies — equal to the one-process sum up to float32
+    association (ROADMAP Queue 3 item 10)."""
+    idx = chip.nbr_idx.to(torch.int64)
+    if engine is None or engine.comm is None:
+        I = sparse_neuron_input(m, idx, chip.nbr_w, 0.0)
+        return -0.5 * torch.sum(m * I, dim=1) - m @ chip.h
+    starts = engine.plan.node_starts
+    lo = int(starts[engine._bands.start])
+    hi = int(starts[engine._bands.stop])
+    mc = engine._my_chains(m)
+    I = sparse_neuron_input(mc, idx[:, lo:hi], chip.nbr_w[:, lo:hi], 0.0)
+    own = mc[:, lo:hi]
+    parts = engine.comm.all_gather(
+        -0.5 * torch.sum(own * I, dim=1) - own @ chip.h[lo:hi])
+    out = m.new_zeros((m.shape[0],))
+    for k, (_, _, c0, c1) in enumerate(engine._blocks):
+        cols = slice(c0 * engine.b_loc, c1 * engine.b_loc)
+        out[cols] = out[cols] + parts[k]
+    return out
 
 
 def make_lattice_anneal(
@@ -1132,6 +1395,9 @@ def make_lattice_anneal(
     engine: cell rows partition over ``row_axes`` exactly like every other
     sharded `api.Session` workload (``col_axes`` is accepted for
     signature compatibility — the spatial cut is 1-D over cell rows).
+    Under a rank mesh (`make_rank_mesh`) every rank runs it: the spins are
+    the one-process run's on every rank, and the energies are summed
+    across the ranks (`sparse_energy` with the engine).
 
     Returns run(lattice_chip, gen, betas) -> (final_m (chains, N),
     energies (n_sweeps // record_every,)); ``gen`` is a `torch.Generator`
@@ -1170,7 +1436,7 @@ def make_lattice_anneal(
         energies = []
         for b in segs:
             m, ns, _ = session.sample(chip, m, ns, b)
-            energies.append(sparse_energy(chip, m).mean())
+            energies.append(sparse_energy(chip, m, session._engine).mean())
         return m, torch.stack(energies)
 
     return run

@@ -22,11 +22,17 @@
 //              runs on the halo columns the caller primed), and after the
 //              last window the values of the last exchange are installed, so
 //              the output carries them into the next launch.
-// Edge bands install zeros.  Noise is the counter hash at (chain + row0,
-// column + col0[band]) with counter ctr0 + half-sweep index; the noise state
-// comes back as ctr0 + 2S.  Optional: per-band moments (as K1's, over the
-// extended columns), clamps (re-imposed at every sweep start and at a window
-// that opens on a second half), or a staged copy of the next program.
+// Edge bands install zeros, or with `edge_block` (the `edge_halos="block"`
+// operand) keep the outer halo columns they were given: the first band's
+// halo_up and the last band's halo_dn, which a rank of a process group
+// fills between launches from its neighbouring ranks (the launch is then
+// one window between exchange points, and the bands of the launch are one
+// card's run of a lattice cut across cards).  Noise is the counter hash at
+// (chain + row0, column + col0[band]) with counter ctr0 + half-sweep
+// index; the noise state comes back as ctr0 + 2S.  Optional: per-band
+// moments (as K1's, over the extended columns), clamps (re-imposed at every
+// sweep start and at a window that opens on a second half), or a staged
+// copy of the next program.
 //
 // What bounds it on this card: operations, as K1 (per update: D shared-memory
 // gathers with a multiply-add, two 32-bit hashes, one tanhf), plus the
@@ -123,6 +129,7 @@ struct ExStatic {
   int cluster;                // CTAs a cluster (R; 1 for the mailbox body)
   int tb;                     // chains per block
   int threads, smem;
+  int edge_block;             // 1: the outer edge halos are kept as given
 };
 
 namespace {
@@ -165,6 +172,7 @@ struct ExParams {
   unsigned int* barrier;      // one counter, zero at launch
   int tb;                     // chains per block
   int tiles;                  // chain tiles per band
+  int edge_block;             // 1: the outer edge halos are kept as given
 };
 
 // Every block of the grid arrives before any leaves; `target` is the count
@@ -213,13 +221,16 @@ __device__ void install(const ExParams& p, int8_t* sp, int slot, int r,
   for (int k = tid; k < nb * H; k += nt) {
     const int b = k / H, j = k - b * H;
     int8_t* row = sp + (size_t)b * p.N;
-    row[p.n_loc + j] =
-        r > 0 ? read_mailbox(p, mailbox_at(p, slot, r - 1, 1, b0 + b, j))
-              : (int8_t)0;
-    row[p.n_loc + H + j] =
-        r < p.R - 1
-            ? read_mailbox(p, mailbox_at(p, slot, r + 1, 0, b0 + b, j))
-            : (int8_t)0;
+    if (r > 0)
+      row[p.n_loc + j] =
+          read_mailbox(p, mailbox_at(p, slot, r - 1, 1, b0 + b, j));
+    else if (!p.edge_block)
+      row[p.n_loc + j] = 0;
+    if (r < p.R - 1)
+      row[p.n_loc + H + j] =
+          read_mailbox(p, mailbox_at(p, slot, r + 1, 0, b0 + b, j));
+    else if (!p.edge_block)
+      row[p.n_loc + H + j] = 0;
   }
 }
 
@@ -373,6 +384,7 @@ struct ClusterParams {
   float* staged_w;
   float* staged_h;
   uint32_t two23_bits;        // 0x4B000000 (see spin_in)
+  int edge_block;             // 1: the outer edge halos are kept as given
 };
 
 __host__ __device__ inline size_t pad16(size_t x) {
@@ -596,12 +608,14 @@ __device__ __forceinline__ void publish_rows(const uint32_t* sp,
 
 // The halo columns from the neighbours' outbox slot `slot`, through
 // distributed shared memory: halo_up from band r-1's last row, halo_dn from
-// band r+1's first row; zeros past the edge.
+// band r+1's first row; past the edge zeros, or with `keep_edges` the
+// columns as they are.
 template <int NQ>
 __device__ __forceinline__ void install_rows(cg::cluster_group& cluster,
                                              uint32_t* sp, uint32_t* outbox,
                                              int slot, int r, int R,
-                                             int n_loc, int H, int tid,
+                                             int n_loc, int H,
+                                             bool keep_edges, int tid,
                                              int nt) {
   const int per = H * NQ;
   for (int k = tid; k < 2 * per; k += nt) {
@@ -611,6 +625,8 @@ __device__ __forceinline__ void install_rows(cg::cluster_group& cluster,
     if (src >= 0 && src < R) {
       const uint32_t* box = cluster.map_shared_rank(outbox, src);
       v = box[((size_t)slot * 2 + (dir ? 0 : 1)) * per + jq];
+    } else if (keep_edges) {
+      continue;
     }
     sp[(size_t)(n_loc + dir * H) * NQ + jq] = v;
   }
@@ -755,10 +771,10 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     cluster_wait();
     if (!p.async_mode)
       install_rows<NQ>(cluster, sp, outbox, e % kSlots, r, p.R, p.n_loc, H,
-                       tid, nt);
+                       p.edge_block, tid, nt);
     else if (e > 0)
       install_rows<NQ>(cluster, sp, outbox, (e - 1) % kSlots, r, p.R,
-                       p.n_loc, H, tid, nt);
+                       p.n_loc, H, p.edge_block, tid, nt);
     __syncthreads();
 
     for (int g = h0; g < h1; ++g) {
@@ -801,7 +817,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   if (p.async_mode) {
     // the last exchange is the next launch's first halo
     install_rows<NQ>(cluster, sp, outbox, (p.n_ex - 1) % kSlots, r, p.R,
-                     p.n_loc, H, tid, nt);
+                     p.n_loc, H, p.edge_block, tid, nt);
     __syncthreads();
   }
   // this CTA reads no outbox past here; it leaves only when its neighbours
@@ -984,6 +1000,7 @@ int sweep_sparse_exchange_launch(
     p.part_s = part_s; p.part_c = part_c; p.next_w = next_w;
     p.next_h = next_h; p.staged_w = staged_w; p.staged_h = staged_h;
     p.two23_bits = 0x4B000000u;
+    p.edge_block = s->edge_block;
     const ClusterKernel kernel =
         cluster_kernel_for(chain_words(s->tb), next_w != nullptr);
     cudaLaunchAttribute attr[1];
@@ -1004,7 +1021,7 @@ int sweep_sparse_exchange_launch(
     p.async_mode = s->async_mode; p.part_s = part_s; p.part_c = part_c;
     p.next_w = next_w; p.next_h = next_h; p.staged_w = staged_w;
     p.staged_h = staged_h; p.mailbox = s->mailbox; p.barrier = s->barrier;
-    p.tb = s->tb; p.tiles = tiles;
+    p.tb = s->tb; p.tiles = tiles; p.edge_block = s->edge_block;
     err = cudaMemsetAsync(s->barrier, 0, sizeof(unsigned int), stream);
     if (err != cudaSuccess) return (int)err;
     const Kernel kernel = kernel_for(s->D, next_w != nullptr);

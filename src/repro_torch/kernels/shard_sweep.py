@@ -39,7 +39,8 @@ from repro_torch.kernels.sweep_fused import (
 
 
 def halo_exchange(m_loc: torch.Tensor, send_up: torch.Tensor,
-                  send_dn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                  send_dn: torch.Tensor, comm=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every band's halos from its row neighbours' boundary spins.
 
     m_loc: (R, B, n_loc) spins; send_up / send_dn: (R, H) local columns of
@@ -47,13 +48,23 @@ def halo_exchange(m_loc: torch.Tensor, send_up: torch.Tensor,
     — padding halo slots are never referenced by a neighbour table).
     Returns (halo_up, halo_dn), each (R, B, H): the last row of the band
     above and the first row of the band below; zeros at the edges.
+
+    ``comm`` (a `core.ranks.RankComm`): the bands are one rank's run of a
+    rank mesh.  Within the rank the halos are the same gather; the first
+    band's ``halo_up`` and the last band's ``halo_dn`` are the neighbouring
+    ranks' boundary rows, swapped in one ``batch_isend_irecv``
+    (`RankComm.swap_edges`; zeros past the lattice's edge).
     """
     R, B, _ = m_loc.shape
     H = send_up.shape[1]
     last = m_loc.gather(2, send_dn[:, None, :].expand(R, B, H))
     first = m_loc.gather(2, send_up[:, None, :].expand(R, B, H))
-    zero = m_loc.new_zeros((1, B, H))
-    return torch.cat([zero, last[:-1]]), torch.cat([first[1:], zero])
+    if comm is None:
+        up0 = dn1 = m_loc.new_zeros((B, H))
+    else:
+        up0, dn1 = comm.swap_edges(first[0], last[-1])
+    return (torch.cat([up0[None], last[:-1]]),
+            torch.cat([first[1:], dn1[None]]))
 
 
 def halo_neuron_input(m_loc, halo_up, halo_dn, nbr_idx, nbr_w, h):
@@ -188,12 +199,13 @@ def exchange_tables(nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off,
                     mask0, mask1, col0, send_up, send_dn, clamp_mask=None,
                     clamp_values=None, *, chains: int, ex_pts,
                     mode: str = "barrier", stream: bool = False,
-                    block_b: int | None = None) -> ExchangeTables:
+                    block_b: int | None = None,
+                    edge_halos: str = "zero") -> ExchangeTables:
     """The prepared launch every K5 launch of one call shares (arguments as
     `fused_shard_exchange_resident`'s; ``chains`` per band): the tables
     extended to the halo columns, the send lists as int32, each band's
-    column 0, the exchange points and mode, and the plan, update lists and
-    node tables of `ExchangeTables`."""
+    column 0, the exchange points, mode and edge halos, and the plan,
+    update lists and node tables of `ExchangeTables`."""
     pad = 2 * send_up.shape[1]
     e = _extended(pad, nbr_idx, nbr_w, (h, gain, off, rand_gain, comp_off),
                   (mask0, mask1), clamp_mask, clamp_values)
@@ -202,7 +214,8 @@ def exchange_tables(nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off,
         send_up.to(torch.int32).contiguous(),
         send_dn.to(torch.int32).contiguous(), e["cm"], e["cv"],
         chains=chains, n_loc=nbr_idx.shape[2], halo=send_up.shape[1],
-        ex_pts=ex_pts, mode=mode, col0=col0, stream=stream, block_b=block_b)
+        ex_pts=ex_pts, mode=mode, col0=col0, stream=stream, block_b=block_b,
+        edge_halos=edge_halos)
 
 
 def exchange_launch(m_ext, tables: ExchangeTables, betas, noise_state,
@@ -227,7 +240,7 @@ def exchange_launch(m_ext, tables: ExchangeTables, betas, noise_state,
         _betas(betas, m_ext.shape[1], m_ext.device), noise_state, t.send_up,
         t.send_dn, t.clamp_mask, t.clamp_values, measured, (int(row0), t.col0),
         nw_e, nh_e, n_loc=t.n_loc, halo=t.halo, ex_pts=t.ex_pts, mode=t.mode,
-        prepared=t)
+        prepared=t, edge_halos=t.edge_halos)
 
 
 def fused_shard_exchange_resident(
@@ -254,13 +267,16 @@ def fused_shard_exchange_resident(
     ex_pts: tuple,
     mode: str = "barrier",
     block_b: int | None = None,
+    edge_halos: str = "zero",
 ):
     """`fused_shard_sweeps` for every band in ONE launch, with the halo
     exchange inside it (K5, `sweep_sparse_exchange`): identical noise
     counters and exchange-point staleness to the engine's emulation
     (half-sweep windows of `fused_shard_sweeps` with an exchange between
     them).  A caller launching many times prepares the tables once
-    (`exchange_tables`) and calls `exchange_launch`.
+    (`exchange_tables`) and calls `exchange_launch`.  ``edge_halos="block"``
+    keeps the first band's ``halo_up`` and the last band's ``halo_dn`` as
+    given (a rank's bands between two exchanges with its neighbours).
 
     Returns (m', noise_state', halo_up', halo_dn') — the halo columns as
     the kernel left them: barrier, the last installed exchange; async, the
@@ -274,7 +290,8 @@ def fused_shard_exchange_resident(
                              comp_off, mask0, mask1, col0, send_up, send_dn,
                              clamp_mask, clamp_values, chains=B,
                              ex_pts=ex_pts, mode=mode,
-                             stream=next_nbr_w is not None, block_b=block_b)
+                             stream=next_nbr_w is not None, block_b=block_b,
+                             edge_halos=edge_halos)
     outs = exchange_launch(torch.cat([m_loc, halo_up, halo_dn], dim=2),
                            tables, betas, noise_state, row0, measured,
                            next_nbr_w, next_h)

@@ -883,9 +883,20 @@ sweep_sparse_stream.last_plan = None
 # ---------------------------------------------------------------------------
 # K5: every row band of the card in one launch, halos refreshed inside it
 # ---------------------------------------------------------------------------
-def _check_exchange(m, n_loc, halo, mode, measured, next_nbr_w, next_h):
+EDGE_HALOS = ("zero", "block")   # K5's outer edge halos: zeros, or as given
+
+
+def _check_edge_halos(edge_halos: str) -> None:
+    if edge_halos not in EDGE_HALOS:
+        raise ValueError(f"edge_halos must be one of {EDGE_HALOS}, got "
+                         f"{edge_halos!r}")
+
+
+def _check_exchange(m, n_loc, halo, mode, measured, next_nbr_w, next_h,
+                    edge_halos="zero"):
     if mode not in ("barrier", "async"):
         raise ValueError(f"mode must be 'barrier' or 'async', got {mode!r}")
+    _check_edge_halos(edge_halos)
     if m.ndim != 3:
         raise ValueError(f"m must be (bands, chains, n_loc + 2*halo), got "
                          f"shape {tuple(m.shape)}")
@@ -930,13 +941,14 @@ def sweep_sparse_exchange_ref(
     m, nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off, mask0, mask1,
     betas, noise_state, send_up, send_dn, clamp_mask=None, clamp_values=None,
     measured=None, coord_offset=None, next_nbr_w=None, next_h=None, *,
-    n_loc, halo, ex_pts, mode="barrier", staged=None,
+    n_loc, halo, ex_pts, mode="barrier", staged=None, edge_halos="zero",
 ):
     """`sweep_sparse_exchange` in plain PyTorch, any device: same
     arguments (nothing to tile or prepare), same return tuple.  Every band at once, one half-sweep at a
     time (the arithmetic of `sweep_sparse_ref` with a band axis), the
     exchanges as index gathers over the band axis."""
-    _check_exchange(m, n_loc, halo, mode, measured, next_nbr_w, next_h)
+    _check_exchange(m, n_loc, halo, mode, measured, next_nbr_w, next_h,
+                    edge_halos)
     R, B, N = m.shape
     D = nbr_idx.shape[1]
     S = betas.shape[0]
@@ -971,7 +983,11 @@ def sweep_sparse_exchange_ref(
         return (torch.cat([zero, last[:-1]]), torch.cat([first[1:], zero]))
 
     def install(m, halos):
-        return torch.cat([m[:, :, :n_loc], halos[0], halos[1]], dim=2)
+        up, dn = halos
+        if edge_halos == "block":   # the outer edges keep what they hold
+            up = torch.cat([m[:1, :, n_loc:n_loc + H], up[1:]])
+            dn = torch.cat([dn[:-1], m[-1:, :, n_loc + H:]])
+        return torch.cat([m[:, :, :n_loc], up, dn], dim=2)
 
     pend = None
     for e, (h0, h1) in enumerate(segments):
@@ -1250,7 +1266,7 @@ class _ExStatic(ctypes.Structure):
         "tab", "n_list", "mailbox", "barrier")] + [
         (n, _I) for n in ("R", "B", "N", "D", "n_loc", "H", "n_ex",
                           "async_mode", "L", "body", "cluster", "tb",
-                          "threads", "smem")]
+                          "threads", "smem", "edge_block")]
 
 
 def _exchange_library() -> ctypes.CDLL:
@@ -1308,7 +1324,8 @@ class ExchangeTables:
     """What every K5 launch of one call shares, prepared once: the operands
     on the extended block (``idx``, ``w``, ``rows``, ``masks``,
     ``clamp_mask``, ``clamp_values``, ``send_up``, ``send_dn``, each band's
-    column 0 ``col0``, the exchange points and ``mode``), the `plan`, each
+    column 0 ``col0``, the exchange points, ``mode`` and ``edge_halos``),
+    the `plan`, each
     band's per-colour update lists (`exchange_lists`) with the cluster
     body's node tables (`exchange_node_tables`) and, on the card, the
     checked operands, the mailbox body's mailbox and counter, and the
@@ -1321,10 +1338,13 @@ class ExchangeTables:
                  mask0, mask1, send_up, send_dn, clamp_mask=None,
                  clamp_values=None, *, chains: int, n_loc: int, halo: int,
                  ex_pts, mode: str = "barrier", col0=None,
-                 stream: bool = False, block_b: int | None = None):
+                 stream: bool = False, block_b: int | None = None,
+                 edge_halos: str = "zero"):
         if mode not in ("barrier", "async"):
             raise ValueError(f"mode must be 'barrier' or 'async', got "
                              f"{mode!r}")
+        _check_edge_halos(edge_halos)
+        self.edge_halos = edge_halos
         R, D, N = nbr_idx.shape
         dev = nbr_w.device
         self.idx, self.w = nbr_idx, nbr_w
@@ -1407,16 +1427,18 @@ class ExchangeTables:
                                 self.mailbox, self.barrier)),
             R, B, N, D, self.n_loc, H, len(self.ex_pts),
             int(self.mode == "async"), self.tab.shape[-1], body,
-            plan.cluster, plan.chains, plan.threads, plan.smem_bytes)
+            plan.cluster, plan.chains, plan.threads, plan.smem_bytes,
+            int(self.edge_halos == "block"))
         with torch.cuda.device(dev):
             _raise_exchange(lib, lib.sweep_exchange_prepare(ctypes.byref(st)),
                             "sweep_sparse_exchange prepare")
         self._lib, self._static = lib, st
 
     def check(self, operands, coord_offset, *, n_loc, halo, ex_pts, mode,
-              stream) -> None:
+              stream, edge_halos="zero") -> None:
         """Raise unless a call names the operands, exchange points, mode,
-        band columns and program stream this was prepared for."""
+        edge halos, band columns and program stream this was prepared
+        for."""
         mine = (self.idx, self.w, *self.rows, *self.masks, self.send_up,
                 self.send_dn, self.clamp_mask, self.clamp_values)
         col0 = None if coord_offset is None else coord_offset[1]
@@ -1427,10 +1449,11 @@ class ExchangeTables:
         if (any(a is not b for a, b in zip(operands, mine))
                 or (n_loc, halo) != (self.n_loc, self.halo)
                 or tuple(ex_pts) != self.ex_pts or mode != self.mode
+                or edge_halos != self.edge_halos
                 or bool(stream) != self.stream or not same_cols):
             raise ValueError("these ExchangeTables were prepared for other "
-                             "operands, exchange points, mode, band columns "
-                             "or program stream")
+                             "operands, exchange points, mode, edge halos, "
+                             "band columns or program stream")
 
 
 def sweep_sparse_exchange(
@@ -1462,6 +1485,7 @@ def sweep_sparse_exchange(
     staged=None,                  # (staged_w, staged_h) buffers, or None
     block_b: int | None = None,   # chains per block; None -> the plan's
     prepared: ExchangeTables | None = None,
+    edge_halos: str = "zero",     # "block": keep the outer edge halos
 ):
     """S resident sweeps of every row band in one launch, the halos
     refreshed inside it at every exchange point — K5.
@@ -1472,7 +1496,11 @@ def sweep_sparse_exchange(
     ``send_dn``; under ``mode="barrier"`` the next half-sweeps read the
     fresh values, under ``"async"`` the previous exchange's (the first
     window runs on the halo columns given) and the last exchange is
-    installed at the end.  Edge bands read zeros.  Counter noise at
+    installed at the end.  Edge bands read zeros, or with
+    ``edge_halos="block"`` the first band's ``halo_up`` and the last band's
+    ``halo_dn`` keep the columns given (a rank of a process group supplies
+    them between launches: `ShardedEngine` under a rank mesh).  Counter
+    noise at
     ``(chain + row0, column + col0[band])``; ``coord_offset`` gives row0 as
     a Python int and col0 as Python ints or as an int32 (R,) tensor of
     uint32 bit patterns on m's device.  ``prepared``: the `ExchangeTables`
@@ -1496,22 +1524,25 @@ def sweep_sparse_exchange(
                 mask1, send_up, send_dn, clamp_mask, clamp_values)
     if prepared is not None:
         prepared.check(operands, coord_offset, n_loc=n_loc, halo=halo,
-                       ex_pts=ex_pts, mode=mode, stream=stream)
+                       ex_pts=ex_pts, mode=mode, stream=stream,
+                       edge_halos=edge_halos)
     if not m.is_cuda:
         return sweep_sparse_exchange_ref(
             m, nbr_idx, nbr_w, h, gain, off, rand_gain, comp_off, mask0,
             mask1, betas, noise_state, send_up, send_dn, clamp_mask,
             clamp_values, measured, coord_offset, next_nbr_w, next_h,
-            n_loc=n_loc, halo=halo, ex_pts=ex_pts, mode=mode, staged=staged)
+            n_loc=n_loc, halo=halo, ex_pts=ex_pts, mode=mode, staged=staged,
+            edge_halos=edge_halos)
 
-    _check_exchange(m, n_loc, halo, mode, measured, next_nbr_w, next_h)
+    _check_exchange(m, n_loc, halo, mode, measured, next_nbr_w, next_h,
+                    edge_halos)
     halo_exchange_segments(ex_pts, 2 * betas.shape[0])   # checks the points
     if prepared is None:
         prepared = ExchangeTables(
             *operands, chains=m.shape[1], n_loc=n_loc, halo=halo,
             ex_pts=ex_pts, mode=mode,
             col0=None if coord_offset is None else coord_offset[1],
-            stream=stream, block_b=block_b)
+            stream=stream, block_b=block_b, edge_halos=edge_halos)
     R, B, N = prepared.shape
     D = nbr_idx.shape[1]
     S = betas.shape[0]

@@ -94,6 +94,96 @@ def run_forced_reference(script: str, n_dev: int, out_dir,
 
 
 # ---------------------------------------------------------------------------
+# the port's sharded engine across processes: gloo ranks on the CPU
+# ---------------------------------------------------------------------------
+# Each rank runs the prelude, then the script: one thread, the default
+# process group joined through a FileStore in the output directory (no
+# ports), ``INPUTS`` the arrays the test passed, and ``save`` for what the
+# rank returns.  A peer that hangs fails the rank after RANK_TIMEOUT_S.
+_RANK_PRELUDE = """
+import os, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repro_torch.core import ranks
+RANK, WORLD = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+ranks.init_rank("gloo", RANK, WORLD, store_path={store!r},
+                timeout_s={timeout!r})
+with np.load({inputs!r}) as _f:
+    INPUTS = {{k: _f[k] for k in _f.files}}
+OUT = {{}}
+
+def save(name, *arrays):
+    for i, a in enumerate(arrays):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        OUT[f"{{name}}/{{i}}"] = np.asarray(a)
+"""
+
+RANK_TIMEOUT_S = 60
+
+
+def run_ranks(script: str, world: int, out_dir, inputs: dict | None = None,
+              timeout: int = 180) -> list[dict]:
+    """Run ``script`` (after the prelude) in ``world`` fresh interpreters,
+    ranks 0..world-1 of one gloo group; returns each rank's ``{name:
+    [arrays]}`` of what it passed to ``save(name, *arrays)``.  Every rank
+    must exit 0 within ``timeout`` seconds (the others are killed when one
+    fails or hangs)."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    import time
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    in_path = out_dir / "inputs.npz"
+    np.savez(in_path, **(inputs or {}))
+    code = (_RANK_PRELUDE.format(store=str(out_dir / "store"),
+                                 timeout=RANK_TIMEOUT_S,
+                                 inputs=str(in_path))
+            + textwrap.dedent(script)
+            + f"\nnp.savez({str(out_dir)!r} + f'/rank{{RANK}}.npz', **OUT)\n"
+            + "torch.distributed.destroy_process_group()\n")
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=root))
+    deadline = time.monotonic() + timeout
+    errs = []
+    try:
+        for rank, proc in enumerate(procs):
+            left = max(1.0, deadline - time.monotonic())
+            _, err = proc.communicate(timeout=left)
+            if proc.returncode != 0:
+                errs.append(f"rank {rank} exited {proc.returncode}: "
+                            f"{err[-3000:]}")
+                break
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    assert not errs, errs[0]
+    outs = []
+    for rank in range(world):
+        got: dict = {}
+        with np.load(out_dir / f"rank{rank}.npz") as data:
+            for key in sorted(data.files,
+                              key=lambda k: (k.rsplit("/", 1)[0],
+                                             int(k.rsplit("/", 1)[1]))):
+                got.setdefault(key.rsplit("/", 1)[0], []).append(data[key])
+        outs.append(got)
+    return outs
+
+
+# ---------------------------------------------------------------------------
 # language models: the reference's reduced models carried to the port
 # ---------------------------------------------------------------------------
 def lm_state(arch: str, batch: int = 2, seq: int = 64):
