@@ -134,6 +134,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -5340,6 +5341,395 @@ def ranks_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: the dense language model's steps across processes
+# ---------------------------------------------------------------------------
+LMR_STEPS = 3                     # train steps, B = 8, S = 256
+LMR_B, LMR_PROMPT, LMR_GEN, LMR_MAX_SEQ = 4, 32, 17, 64  # 16 decode tokens
+LMR_DEPTH = 4                     # the 2 x 2 run's layers (full width)
+# the ranks add partial sums in another order than one process (the
+# row-parallel products' bf16 partials, the batch mean, the gradient
+# norm): a step's loss is held to one process's within 1e-3, its gradient
+# norm within 1e-2 relative, the logits of every decode step whose inputs
+# are one process's within 0.05, and a greedy token must equal one
+# process's where its top-2 logit margin exceeds 0.05.  Loss and logits
+# stated first as 0.05 and 0.5 (one bf16 ulp of the loss's magnitude,
+# four of the logits'); tightened to 16x and 5x the largest differences
+# an H100 showed (6.3e-5 and 0.0098, the same in four runs; PERF.md).  The
+# gradient norm's is 4.5x the largest relative difference those runs
+# showed (2.2e-3, 1 x 2's third step): the loss alone cannot see a
+# gradient scaled wrongly, as AdamW divides it by its RMS
+LMR_LOSS_TOL = 1e-3
+LMR_GRAD_RTOL = 1e-2
+LMR_LOGIT_TOL = 0.05
+LMR_TIMEOUT_S = 600
+# (backend, world, rank meshes with their decode tokens, depth: None for
+# the config's).  FSDP gathers every weight for every decode token, which
+# gloo carries through the host at ~1 GB/s: its meshes decode 4 tokens,
+# within the script's time
+LMR_WORLDS = (("nccl", 1, (((1, 1), LMR_GEN),), None),
+              ("gloo", 2, (((1, 2), LMR_GEN), ((2, 1), 5)), None),
+              ("gloo", 4, (((2, 2), 5),), LMR_DEPTH))
+
+_LM_RANK_RUN = """
+import sys
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.lm_ranks_child(*sys.argv[1:])
+"""
+
+
+def _lmr_cfg(depth):
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    return cfg if depth is None else dataclasses.replace(cfg,
+                                                         num_layers=depth)
+
+
+def _lmr_digest(tree) -> dict:
+    """Two int64 checksums of every leaf's bits (their sum, and their sum
+    weighted by position mod 1021): equal trees give equal digests, and
+    any difference of bits changes them but by a chance not worth
+    counting."""
+    out = {}
+    from repro_torch.models.sharding import leaves_with_path, local_block
+
+    for key, t in leaves_with_path(tree):
+        flat = local_block(t).detach().reshape(-1)
+        bits = flat.view(torch.int16 if flat.element_size() == 2
+                         else torch.int32)
+        plain = weighted = 0
+        for i in range(0, bits.numel(), 1 << 24):
+            c = bits[i:i + (1 << 24)].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device) % 1021 + 1
+            plain += int(c.sum())
+            weighted += int((c * w).sum())
+        out[key] = [plain, weighted]
+    return out
+
+
+def _lmr_train(cfg, mesh, seed: int) -> dict:
+    """`LMR_STEPS` train steps (B = 8, S = 256, float32 moments) on the
+    pipeline's batches from seed 0's parameters: each step's loss, gradient
+    norm and ms (CUDA events), the peak memory, the final state's digest;
+    on a rank mesh also the rank's resident bytes against the specs' and
+    one step's collectives."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import sharding as shd
+    from repro_torch.optim import adamw
+
+    ranked = shd.is_rank_mesh(mesh)
+    step = make_train_step(cfg, ShapeCfg("train_cli", LM_TRAIN_S,
+                                         LM_TRAIN_B, "train"), mesh,
+                           adamw.AdamWConfig(total_steps=100,
+                                             warmup_steps=10),
+                           device=DEVICE)
+    pspec, ospec, bspec = step.in_specs
+    src = make_source(DataConfig(seed=seed, vocab_size=cfg.vocab_size))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = step.model.init(seed)
+    if ranked:
+        params = shd.shard_tree(params, pspec, mesh, DEVICE)
+        torch.cuda.empty_cache()
+    opt = adamw.init(params)
+    out = {"losses": [], "grad_norms": [], "ms": []}
+    comm = shd.rank_comm(mesh, DEVICE) if ranked else None
+    for i in range(LMR_STEPS):
+        batch = src.batch(i, LM_TRAIN_B, LM_TRAIN_S, device=DEVICE)
+        if ranked:
+            batch = shd.shard_tree(batch, bspec, mesh, DEVICE)
+            comm.reset()
+        (params, opt, m), ms = timed_once(lambda: step.fn(params, opt,
+                                                          batch))
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["ms"].append(ms)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["digest"] = _lmr_digest((params, opt.mu, opt.nu))
+    if ranked:
+        out["step_collectives"] = comm.record()
+        logical = dataclasses.replace(mesh, ranks=None, group=None)
+        out["resident_bytes"] = {}
+        for tag, tree, specs in (("params", params, pspec),
+                                 ("moments", (opt.mu, opt.nu),
+                                  (ospec.mu, ospec.nu))):
+            by_key = dict(shd.leaves_with_path(specs))
+            held = spec_bytes = whole = 0
+            for key, leaf in shd.leaves_with_path(tree):
+                blk = shd.local_block(leaf)
+                held += blk.numel() * blk.element_size()
+                spec_bytes += math.prod(shd.NamedSharding(
+                    logical, by_key[key]).shard_shape(leaf.shape)) \
+                    * blk.element_size()
+                whole += leaf.numel() * blk.element_size()
+            out["resident_bytes"][tag] = {"held": held, "specs": spec_bytes,
+                                          "whole": whole}
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lmr_serve(cfg, mesh, seed: int, gen: int = LMR_GEN) -> dict:
+    """Prefill `LMR_B` x `LMR_PROMPT` and ``gen`` - 1 greedy decode tokens
+    from seed 0's parameters: the tokens, each step's logits (B, V) on
+    the host, ms a decode token (host clock, synchronised)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import sharding as shd
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg, device=DEVICE)
+    params = model.init(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (LMR_B, LMR_PROMPT),
+                            generator=torch.Generator().manual_seed(seed + 5)
+                            ).to(DEVICE)
+    if shd.is_rank_mesh(mesh):
+        from repro_torch.configs import ShapeCfg
+        from repro_torch.launch import steps
+        pspec = steps.make_prefill_step(
+            cfg, ShapeCfg("prefill", LMR_PROMPT, LMR_B, "prefill"), mesh,
+            device=DEVICE).in_specs[0]
+        params = shd.shard_tree(params, pspec, mesh, DEVICE)
+        torch.cuda.empty_cache()
+        got = serve.generate_ranked(cfg, mesh, params, prompts, gen,
+                                    LMR_MAX_SEQ, DEVICE, temperature=0.0)
+        logits = [x.cpu() for x in got["logits"]]
+        res = {"decode_collectives": got["decode_comm"]}
+    else:
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            lg, pcache = transformer.prefill(params, cfg, prompts)
+            cache = serve.graft(model.init_cache(LMR_B, LMR_MAX_SEQ),
+                                pcache)
+            del pcache
+            logits = [lg[:, -1].float().cpu()]
+            tok = lg[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            step_s = []
+            t_pre = time.perf_counter() - t0
+            for i in range(gen - 1):
+                ts = time.perf_counter()
+                lg, cache = model.decode_step(params, tok, LMR_PROMPT + i,
+                                              cache)
+                tok = lg[:, -1].argmax(-1)[:, None]
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - ts)
+                logits.append(lg[:, -1].float().cpu())
+            got = {"prefill_s": t_pre, "decode_step_s": step_s}
+        res = {}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update({"tokens": torch.stack([x.argmax(-1) for x in logits], 1),
+                "logits": torch.stack(logits, 1),
+                "prefill_ms": got["prefill_s"] * 1e3,
+                "ms_per_token": float(np.median(got["decode_step_s"])) * 1e3})
+    return res
+
+
+def _lmr_tokens_agree(got, want, got_logits, logits) -> dict:
+    """Greedy tokens against one process's, step by step per row, while
+    the row's earlier tokens agree (after a parting the inputs differ):
+    a token must be equal where one process's top-2 margin exceeds
+    `LMR_LOGIT_TOL`, and may part where it does not.  Also the largest
+    logit difference over the steps compared."""
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).numpy()
+    agree, held, steps, worst = True, 0, 0, 0.0
+    for b in range(got.shape[0]):
+        for t in range(got.shape[1]):
+            steps += 1
+            worst = max(worst, float((got_logits[b, t]
+                                      - logits[b, t]).abs().max()))
+            if got[b, t] != want[b, t]:
+                agree &= bool(margin[b, t] <= LMR_LOGIT_TOL)
+                break
+            held += bool(margin[b, t] > LMR_LOGIT_TOL)
+    return {"agree": agree, "steps_compared": steps,
+            "held_over_margin": held, "max_logit_diff": worst,
+            "min_margin": float(margin.min())}
+
+
+def lm_ranks_child(backend: str, rank: str, world: str, store: str,
+                   tmp: str, seed: str, depth: str, meshes: str) -> None:
+    """One rank of the lm_ranks phase (see `lm_ranks_phase`): world 1 also
+    runs the one-process references (full depth and `LMR_DEPTH`) and
+    writes them to ``tmp`` for the later worlds; every rank prints a JSON
+    record.  The launch counts of K1-K6 are read around the whole run."""
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core import ranks
+    from repro_torch.models import sharding as shd
+
+    rank, world, seed = int(rank), int(world), int(seed)
+    depth = None if depth == "full" else int(depth)
+    shapes = [(tuple(int(x) for x in m.split(":")[0].split("x")),
+               int(m.split(":")[1])) for m in meshes.split(",")]
+    os.environ["RANK"] = str(rank)
+    os.environ["LOCAL_RANK"] = "0" if backend == "nccl" else str(rank)
+    ranks.init_rank(backend, rank, world, store_path=store,
+                    timeout_s=LMR_TIMEOUT_S)
+    torch.cuda.set_device(0)
+    tmp = Path(tmp)
+
+    def run():
+        rec = {"rank": rank, "world": world, "backend": backend,
+               "meshes": {}}
+        if world == 1:
+            for d in (None, LMR_DEPTH):
+                one = {"train": _lmr_train(_lmr_cfg(d), None, seed),
+                       "serve": _lmr_serve(_lmr_cfg(d), None, seed)}
+                tag = "full" if d is None else str(d)
+                torch.save({"losses": one["train"]["losses"],
+                            "grad_norms": one["train"]["grad_norms"],
+                            "digest": one["train"]["digest"],
+                            "tokens": one["serve"]["tokens"],
+                            "logits": one["serve"]["logits"]},
+                           tmp / f"one_{tag}.pt")
+                rec[f"one_process_{tag}"] = {
+                    k: v for k, v in one["train"].items() if k != "digest"}
+                rec[f"one_process_{tag}"].update(
+                    {k: one["serve"][k] for k in ("prefill_ms",
+                                                  "ms_per_token")})
+        want = torch.load(tmp / f"one_{'full' if depth is None else depth}"
+                          ".pt")
+        cfg = _lmr_cfg(depth)
+        for shape, gen in shapes:
+            mesh = dist_mod.make_rank_mesh(shape, ("data", "model"))
+            tr = _lmr_train(cfg, mesh, seed)
+            sv = _lmr_serve(cfg, mesh, seed, gen)
+            name = "x".join(map(str, shape))
+            same_state = tr.pop("digest") == want["digest"]
+            diff = [abs(a - b) for a, b in zip(tr["losses"],
+                                               want["losses"])]
+            grad = [abs(a - b) / b for a, b in zip(tr["grad_norms"],
+                                                   want["grad_norms"])]
+            w_tok, w_log = want["tokens"][:, :gen], want["logits"][:, :gen]
+            tokens = _lmr_tokens_agree(sv["tokens"], w_tok, sv["logits"],
+                                       w_log)
+            rec["meshes"][name] = {
+                **tr, "loss_diffs": diff, "decode_tokens": gen - 1,
+                "losses_within_tol": max(diff) <= LMR_LOSS_TOL,
+                "grad_norm_rel_diffs": grad,
+                "grad_norms_within_tol": max(grad) <= LMR_GRAD_RTOL,
+                "logits_within_tol": (tokens["max_logit_diff"]
+                                      <= LMR_LOGIT_TOL),
+                "state_bit_equal": same_state,
+                "tokens": tokens,
+                "tokens_equal": bool(torch.equal(sv["tokens"], w_tok)),
+                "logits_bit_equal": bool(torch.equal(sv["logits"], w_log)),
+                "prefill_ms": sv["prefill_ms"],
+                "ms_per_token": sv["ms_per_token"],
+                "decode_collectives": sv["decode_collectives"],
+                "transport": shd.rank_comm(mesh, DEVICE).transport,
+                "finite": bool(np.isfinite(tr["losses"]).all()
+                               and torch.isfinite(sv["logits"]).all())}
+        return rec
+
+    try:
+        rec, counts, _ = drive(run)
+        rec["launches"] = counts
+        print(json.dumps(rec), flush=True)
+    finally:
+        import torch.distributed as tdist
+        tdist.destroy_process_group()
+
+
+def lm_ranks_phase(seed: int) -> dict:
+    """gemma2-2b's steps across processes on the card (`launch.steps` on a
+    rank mesh: FSDP over data x tensor parallel over model), each world a
+    group of child processes run in turn, never together: NCCL at world
+    size 1 first (it also runs the one-process references: 3 train steps
+    at B = 8, S = 256 in bf16 with float32 moments, and a B = 4 prefill of
+    32 tokens with 16 greedy decode tokens) — a 1 x 1 rank mesh, bit-equal
+    to them; then 2 gloo ranks sharing the card on 1 x 2 (tensor
+    parallel; 16 decode tokens) and 2 x 1 (FSDP; 4), each step's loss
+    within `LMR_LOSS_TOL` of one process's and its gradient norm within
+    `LMR_GRAD_RTOL`, the logits within `LMR_LOGIT_TOL` while the tokens
+    agree, and the greedy tokens equal where the margin exceeds
+    `LMR_LOGIT_TOL`; then 4 gloo ranks on 2 x 2
+    at `LMR_DEPTH` layers (4 decode tokens) against one process at that
+    depth.  Each rank holds the specs' bytes
+    of parameters and moments, and launches none of K1-K6."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    code = _LM_RANK_RUN.format(src=str(ROOT / "src"), root=str(ROOT))
+    worlds, failed = {}, []
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        for backend, world, meshes, depth in LMR_WORLDS:
+            tag = f"{backend}{world}"
+            store = str(tmp / f"{tag}_store")
+            argv = lambda r: [backend, str(r), str(world), store, str(tmp),  # noqa: E731
+                              str(seed), "full" if depth is None
+                              else str(depth),
+                              ",".join("x".join(map(str, m)) + f":{g}"
+                                       for m, g in meshes)]
+            t = time.perf_counter()
+            done = _finish_ranks(_start_ranks(code, world, argv),
+                                 LMR_TIMEOUT_S)
+            recs = []
+            for r, (rc, out, err) in enumerate(done):
+                if rc != 0:
+                    raise AssertionError(f"lm_ranks: rank {r} of {tag} "
+                                         f"exited {rc}: {err[-3000:]}")
+                recs.append(json.loads(out.strip().splitlines()[-1]))
+            worlds[tag] = {"seconds": time.perf_counter() - t,
+                           "depth": depth or "full", "ranks": recs}
+    launches = {k: 0 for k in KERNELS}
+    checks = {}
+    for tag, w in worlds.items():
+        for r in w["ranks"]:
+            for k, c in r["launches"].items():
+                launches[k] += c
+            for name, m in r["meshes"].items():
+                key = f"{tag}/{name}/rank{r['rank']}"
+                if tag == "nccl1":
+                    checks[key] = {
+                        "state_bit_equal": m["state_bit_equal"],
+                        "losses_bit_equal": m["loss_diffs"] == [0.0] * len(
+                            m["loss_diffs"]),
+                        "tokens_equal": m["tokens_equal"],
+                        "logits_bit_equal": m["logits_bit_equal"]}
+                else:
+                    checks[key] = {
+                        "losses_within_tol": m["losses_within_tol"],
+                        "grad_norms_within_tol": m["grad_norms_within_tol"],
+                        "logits_within_tol": m["logits_within_tol"],
+                        "tokens_agree": m["tokens"]["agree"]}
+                checks[key]["finite"] = m["finite"]
+                checks[key]["resident_bytes_equal_specs"] = all(
+                    v["held"] == v["specs"]
+                    for v in m["resident_bytes"].values())
+    if any(launches.values()):
+        failed.append(f"the rank steps launched kernels: {launches}")
+    failed += [f"{k}: {n}" for k, c in checks.items()
+               for n, ok in c.items() if not ok]
+    res = {"phase": "lm_ranks", "card": nvidia_smi_line(),
+           "arch": LM_ARCH, "train": {"B": LM_TRAIN_B, "S": LM_TRAIN_S,
+                                      "steps": LMR_STEPS},
+           "serve": {"B": LMR_B, "prompt": LMR_PROMPT,
+                     "decode_tokens": {
+                         f"{b}{w}/{'x'.join(map(str, m))}": g - 1
+                         for b, w, ms, _ in LMR_WORLDS for m, g in ms},
+                     "max_seq": LMR_MAX_SEQ},
+           "tolerances": {"loss": LMR_LOSS_TOL, "grad_norm": LMR_GRAD_RTOL,
+                          "logit": LMR_LOGIT_TOL},
+           "worlds": worlds, "checks": checks, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    if failed:
+        raise AssertionError(f"an lm_ranks check failed: {failed}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the kernel records
 # ---------------------------------------------------------------------------
 def _bound(moved: int, ops: int, int8_ops: int = 0) -> dict:
@@ -5832,6 +6222,11 @@ def main() -> int:
     k5 = next(r for r in records if r["name"] == "sweep_sparse_exchange")
     k5["edge_block_launches"] = sum(
         w["edge_block_launches"] for w in across["worlds"].values())
+    # the language model's steps across processes launch no kernel
+    lm_across = lm_ranks_phase(args.seed)
+    for rec in records:
+        rec["launches_by_path"]["lm_ranks"] = lm_across["launches"][
+            rec["name"]]
     emit({"kernels": records})
     emit({"phase": "timing", "run_seconds": time.perf_counter() - t_run})
 

@@ -38,6 +38,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import ranks
+
 _MARKER = ".complete"
 _BF16 = "__bf16__"
 
@@ -128,9 +130,35 @@ def _unflatten_arrays(arrays: dict[str, np.ndarray]) -> dict:
     return out
 
 
+def _whole(tree: Any) -> tuple[Any, bool]:
+    """(tree, ranked): a tree of per-rank DTensors (a rank mesh) gathered
+    whole on every rank — a collective, every rank calls it — and True;
+    any other tree as it is and False."""
+    found = []
+    _map_keyed(lambda _, x: found.append(ranks.is_dtensor(x)), tree)
+    if not any(found):
+        return tree, False
+    return _map_keyed(lambda _, x: ranks.whole(x) if ranks.is_dtensor(x)
+                      else x, tree), True
+
+
 def save(directory: str | Path, step: int, tree: Any,
          extra: Optional[dict] = None) -> Path:
-    """Blocking atomic save. Returns the committed checkpoint path."""
+    """Blocking atomic save. Returns the committed checkpoint path.  A tree
+    of per-rank DTensors is written whole, as one process's would be:
+    every rank gathers it, rank 0 writes, the others wait for it."""
+    whole, ranked = _whole(tree)
+    if not ranked:
+        return _save(directory, step, tree, extra)
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        _save(directory, step, whole, extra)
+    dist.barrier()
+    return Path(directory) / f"step_{step:09d}"
+
+
+def _save(directory: str | Path, step: int, tree: Any,
+          extra: Optional[dict] = None) -> Path:
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:09d}"
@@ -233,13 +261,20 @@ class AsyncCheckpointer:
         self._error: Optional[BaseException] = None
 
     def save(self, step: int, tree: Any, extra: Optional[dict] = None):
+        """A tree of per-rank DTensors is gathered whole here, by every
+        rank; rank 0 writes it, the others return."""
         self.wait()
+        whole, ranked = _whole(tree)
+        if ranked:
+            import torch.distributed as dist
+            if dist.get_rank() != 0:
+                return
         # snapshot to host before returning control to the train loop
-        host_tree = _to_host(tree)
+        host_tree = _to_host(whole)
 
         def _run():
             try:
-                save(self.directory, step, host_tree, extra)
+                _save(self.directory, step, host_tree, extra)
                 gc_old(self.directory, self.keep)
             except BaseException as e:  # surfaced on next wait()
                 self._error = e

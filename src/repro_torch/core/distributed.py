@@ -150,6 +150,18 @@ def make_rank_mesh(axis_shapes, axis_names, group=None) -> Mesh:
                                group=group)
 
 
+def device_mesh(mesh: Mesh, device="cuda"):
+    """The ``torch.distributed`` ``DeviceMesh`` of a rank mesh that holds
+    one rank a position (the language model's steps; `core.ranks.
+    MeshComm`), on ``device``'s type, with the mesh's axis names; made
+    once a mesh, by every rank together.  Raises for a rank that holds a
+    block of positions (the p-bit engine's layout)."""
+    if not ranks_mod.is_rank_mesh(mesh):
+        raise ValueError("device_mesh needs a rank mesh (make_rank_mesh); a "
+                         "logical mesh's devices are all on one card")
+    return ranks_mod.rank_comm(mesh, device).dm
+
+
 # ---------------------------------------------------------------------------
 # Partition plan (numpy, built once at Session construction)
 # ---------------------------------------------------------------------------

@@ -16,16 +16,22 @@ of the parameter's path, so every process draws the same chip; the
 reference folds the per-process salted ``hash()`` of the path into its key
 and draws another chip in each interpreter (ROADMAP Queue 3 item 18).
 The gains are equal in distribution to the reference's.
+
+On a rank mesh a parameter is a DTensor (`core.ranks`): its
+quantizer's scale is the maximum over the whole tensor (the blocks'
+maxima reduced across their ranks), and the gains are sliced to the
+block's output channels.
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.core import lfsr as lfsr_mod
+from repro_torch.core import ranks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +52,15 @@ class HwAwareConfig:
                              sigma_bit=hw.sigma_dac_bit)
 
 
-def _fake_quant(w: torch.Tensor, bits: int) -> torch.Tensor:
+def _fake_quant(w: torch.Tensor, bits: int,
+                peak: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Symmetric per-tensor fake quantization with STE (round half to
-    even, as ``jnp.round``)."""
+    even, as ``jnp.round``).  ``peak``: the tensor's largest magnitude
+    where ``w`` is only a block of it (else ``w``'s own)."""
     qmax = 2.0 ** (bits - 1) - 1.0
-    scale = torch.clamp(w.abs().max(), min=1e-8) / qmax
+    if peak is None:
+        peak = w.abs().max()
+    scale = torch.clamp(peak, min=1e-8) / qmax
     q = torch.round(w / scale) * scale
     return w + (q - w).detach()  # STE
 
@@ -106,9 +116,33 @@ def apply_hardware(params: Any, cfg: HwAwareConfig, chip_seed: int = 0
     def leaf(pstr, w):
         if not _should_quantize(pstr, w, cfg):
             return w
+        if ranks.is_dtensor(w):
+            return _hardware_block(pstr, w, cfg, chip_seed)
         wq = _fake_quant(w.float(), cfg.bits)
         gain = _channel_gain(pstr, tuple(w.shape), cfg.sigma_gain,
                              chip_seed, w.device)
         return (wq * gain).to(w.dtype)
 
     return _map_keyed(leaf, params)
+
+
+def _hardware_block(path: str, w, cfg: HwAwareConfig, chip_seed: int):
+    """`apply_hardware`'s leaf for a DTensor: the rank's block quantized
+    with the whole tensor's scale, times its channels' gains; a DTensor
+    with the weight's placements (differentiable, the quantizer straight
+    through)."""
+    from torch.distributed.tensor import DTensor
+
+    comm = ranks.rank_comm_of(w)
+    dims = ranks.dims_axes(w)
+    t = w.to_local().float()
+    peak = comm.all_reduce(t.detach().abs().max(),
+                           tuple(a for ax in dims.values() for a in ax),
+                           op="max")
+    wq = _fake_quant(t, cfg.bits, peak)
+    gain = _channel_gain(path, tuple(w.shape), cfg.sigma_gain, chip_seed,
+                         t.device)
+    gain = comm.block(gain, 0, dims.get(w.ndim - 1, ()))
+    return DTensor.from_local((wq * gain).to(w.dtype), w.device_mesh,
+                              w.placements, run_check=False, shape=w.shape,
+                              stride=w.stride())

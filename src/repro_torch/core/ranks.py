@@ -19,6 +19,13 @@ rank on CUDA:
   * `init_rank` is the rendezvous: a ``FileStore`` shared by the ranks, or
     torchrun's environment; `require_cards` refuses NCCL with fewer cards
     than ranks (no quiet fall back to gloo or the CPU).
+  * `MeshComm` is the language model's side: the collectives along the
+    axes of a rank mesh that holds one rank a position, made once a mesh
+    (`rank_comm`; `rank_comm_of` finds a DTensor's).  `is_dtensor`,
+    `dims_axes` and `whole` read a DTensor's layout and gather it.
+
+Both transports stage through the same page-locked host buffers under
+gloo and gather alike (`_Transport`).
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import datetime
 import math
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -153,8 +161,70 @@ def init_rank(backend: str, rank: int, world: int, store_path=None,
     dist.init_process_group(**kw)
 
 
-class RankComm:
-    """One rank's side of the rank mesh's transport (see the module
+# the one-tensor collectives under their newer names where torch has them
+_ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+
+def _as_integers(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as int32 (or uint8 when its size is not
+    a multiple of 4): summed with zeros, integers keep every bit."""
+    flat = t.reshape(-1).view(torch.uint8)
+    return flat.view(torch.int32) if flat.numel() % 4 == 0 else flat
+
+
+class _Transport:
+    """What `RankComm` and `MeshComm` share: the buffers a collective
+    moves through, the gather, and ``seconds``, the host time inside the
+    collectives, staging included (under NCCL the enqueue only: its work
+    is asynchronous).  NCCL carries CUDA tensors and gloo CPU ones; gloo
+    with CUDA tensors stages them through page-locked host buffers, only
+    because the caller chose gloo (``transport`` "gloo (host-staged)")."""
+
+    def __init__(self, backend: str, device):
+        self.backend = backend
+        self.device = torch.device(device)
+        self.staged = backend == "gloo" and self.device.type == "cuda"
+        self.transport = ("gloo (host-staged)" if self.staged
+                          else backend)
+        self.seconds = 0.0
+
+    def _buffer(self, shape, dtype, zero: bool = False) -> torch.Tensor:
+        """A buffer for a collective: page-locked on the host when staging
+        (copies to and from the card ~10x faster than pageable ones at
+        300 MB on an H100's host; PERF.md), else on the device."""
+        make = torch.zeros if zero else torch.empty
+        if self.staged:
+            return make(shape, dtype=dtype, pin_memory=True)
+        return make(shape, dtype=dtype, device=self.device)
+
+    def _staged_copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` in a fresh `_buffer` (what a collective may write into)."""
+        h = self._buffer(t.shape, t.dtype)
+        h.copy_(t)
+        return h
+
+    def _gather_rows(self, x: torch.Tensor, n: int, i: int, group
+                     ) -> torch.Tensor:
+        """The ``n`` ranks' contiguous ``x`` (this rank's is block ``i``)
+        joined along dim 0, in a `_buffer`.  Under gloo each block is put
+        in a zeroed whole and the wholes summed as integers: an all-reduce,
+        faster than gloo's all-gather (PERF.md), and a copy of every
+        bit."""
+        rows = x.shape[0]
+        out = self._buffer((n * rows,) + tuple(x.shape[1:]), x.dtype,
+                           zero=self.backend == "gloo")
+        if self.backend == "gloo":
+            out[i * rows:(i + 1) * rows].copy_(x)
+            dist.all_reduce(_as_integers(out), group=group)
+        else:
+            _ALL_GATHER(out, x, group=group)
+        return out
+
+
+class RankComm(_Transport):
+    """One rank's side of the p-bit engine's transport (see the module
     docstring).  ``blocks``: every rank's `rank_blocks` entry; the row
     neighbours are the ranks whose bands end just above this rank's first
     band and start just below its last, on the same chain shards."""
@@ -166,12 +236,8 @@ class RankComm:
         if len(blocks) != self.world:
             raise ValueError(f"the mesh names {len(blocks)} ranks, the "
                              f"process group has {self.world}")
-        self.backend = dist.get_backend(group)
         check_rank_device(group, device)
-        dev = torch.device(device)
-        self.staged = self.backend == "gloo" and dev.type == "cuda"
-        self.transport = ("gloo (host-staged)" if self.staged
-                          else self.backend)
+        super().__init__(dist.get_backend(group), device)
         r0, r1, c0, c1 = blocks[self.rank]
 
         def peer(pred):
@@ -184,12 +250,6 @@ class RankComm:
         self.up = peer(lambda b: b[1] == r0)
         self.dn = peer(lambda b: b[0] == r1)
         self.bytes_sent = 0     # boundary bytes this rank sent, a counter
-        # host seconds inside swap_edges / all_gather, staging included
-        # (under NCCL the enqueue only: its work is asynchronous)
-        self.seconds = 0.0
-
-    def _host(self, t: torch.Tensor) -> torch.Tensor:
-        return t.cpu() if self.staged else t
 
     def swap_edges(self, first: torch.Tensor, last: torch.Tensor):
         """``first`` (B, H), the first band's first-row boundary, to the
@@ -205,7 +265,7 @@ class RankComm:
                                  (self.dn, last, from_dn)):
             if peer is None:
                 continue
-            out = self._host(send).contiguous()
+            out = self._staged_copy(send)
             buf = torch.empty_like(out)
             ops += [dist.P2POp(dist.isend, out, peer, self.group),
                     dist.P2POp(dist.irecv, buf, peer, self.group)]
@@ -223,9 +283,194 @@ class RankComm:
         """(world, *x.shape): every rank's ``x`` in rank order, on x's
         device (the same shape on every rank)."""
         t0 = time.perf_counter()
-        src = self._host(x).contiguous().reshape(-1)
-        out = src.new_empty((self.world * src.numel(),))
-        dist.all_gather_into_tensor(out, src, group=self.group)
+        src = x.contiguous().reshape(1, -1)
+        out = self._gather_rows(src, self.world, self.rank, self.group)
         out = out.view(self.world, *x.shape).to(x.device)
         self.seconds += time.perf_counter() - t0
         return out
+
+
+class MeshComm(_Transport):
+    """The collectives along the axes of a rank mesh that holds one rank a
+    position: what the language model's steps move between ranks (the
+    parameters' FSDP gathers and gradient reduce-scatters, the tensor-
+    parallel sums, the vocabulary's reductions, the decode cache's
+    gathers).
+
+    ``dm`` is the ``DeviceMesh`` over the mesh's ranks (its per-axis
+    process groups carry the collectives); ``coord`` is this rank's
+    position on each axis.  Collectives go through the c10d calls on each
+    axis's group; an axis of size 1 moves nothing.  ``counts`` /
+    ``nbytes`` count each kind's calls and the bytes this rank
+    contributed."""
+
+    KINDS = ("all_reduce", "all_gather", "reduce_scatter")
+
+    def __init__(self, mesh, device):
+        from torch.distributed.device_mesh import DeviceMesh
+
+        ranks = np.asarray(mesh.ranks)
+        world = dist.get_world_size(mesh.group)
+        if ranks.size != world or sorted(ranks.reshape(-1)) != list(
+                range(world)):
+            raise ValueError(
+                f"the language model runs one rank a mesh position; this "
+                f"mesh {dict(mesh.shape)} puts {world} ranks on "
+                f"{ranks.size} positions (a rank holding a block of "
+                f"positions is the p-bit engine's layout): make the rank "
+                f"mesh with as many positions as ranks")
+        super().__init__(dist.get_backend(mesh.group), device)
+        self.axis_names = tuple(mesh.axis_names)
+        self.sizes = dict(mesh.shape)
+        self.rank = dist.get_rank(mesh.group)
+        pos = np.argwhere(ranks == self.rank)[0]
+        self.coord = {a: int(i) for a, i in zip(self.axis_names, pos)}
+        self.dm = DeviceMesh(self.device.type, torch.as_tensor(ranks),
+                             mesh_dim_names=self.axis_names)
+        self.groups = {a: self.dm.get_group(a) for a in self.axis_names
+                       if self.sizes[a] > 1}
+        self.reset()
+
+    def reset(self) -> None:
+        self.counts = {k: 0 for k in self.KINDS}
+        self.nbytes = {k: 0 for k in self.KINDS}
+        self.seconds = 0.0
+
+    def moving(self, axes) -> tuple:
+        """The axes of ``axes`` that have more than one rank."""
+        return tuple(a for a in axes if self.sizes.get(a, 1) > 1)
+
+    def block(self, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim`` split over ``axes``
+        (major to minor), a view; nothing moves."""
+        for a in axes:
+            n = self.sizes[a]
+            size = t.shape[dim] // n
+            t = t.narrow(dim, self.coord[a] * size, size)
+        return t
+
+    def offset(self, length: int, axes) -> int:
+        """The global start of this rank's block of a dim of ``length``
+        split over ``axes``."""
+        start = 0
+        for a in axes:
+            length //= self.sizes[a]
+            start += self.coord[a] * length
+        return start
+
+    def _count(self, kind: str, t0: float, x: torch.Tensor) -> None:
+        self.counts[kind] += 1
+        self.nbytes[kind] += x.numel() * x.element_size()
+        self.seconds += time.perf_counter() - t0
+
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
+                   ) -> torch.Tensor:
+        """The sum (or ``op="max"``) of ``t`` over the ranks along
+        ``axes``; a new tensor on ``t``'s device."""
+        red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+        for a in self.moving(axes):
+            t0 = time.perf_counter()
+            x = t.detach()
+            h = self._staged_copy(x)
+            dist.all_reduce(h, op=red, group=self.groups[a])
+            t = h.to(x.device)
+            self._count("all_reduce", t0, x)
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
+        """The blocks of the ranks along ``axes`` joined along ``dim``
+        (the inverse of `block`)."""
+        for a in reversed(self.moving(axes)):
+            t0 = time.perf_counter()
+            x = t.detach().movedim(dim, 0).contiguous()
+            out = self._gather_rows(x, self.sizes[a], self.coord[a],
+                                    self.groups[a])
+            t = out.to(x.device).movedim(0, dim)
+            self._count("all_gather", t0, x)
+        return t
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int, axes
+                       ) -> torch.Tensor:
+        """The sum over the ranks along ``axes`` of ``t``, each rank
+        keeping its `block` along ``dim`` (under gloo: an all-reduce, then
+        the block)."""
+        for a in self.moving(axes):
+            t0 = time.perf_counter()
+            n, i = self.sizes[a], self.coord[a]
+            x = t.detach().movedim(dim, 0).contiguous()
+            size = x.shape[0] // n
+            if self.backend == "gloo":
+                h = self._staged_copy(x)
+                dist.all_reduce(h, group=self.groups[a])
+                out = h[i * size:(i + 1) * size]
+            else:
+                out = x.new_empty((size,) + tuple(x.shape[1:]))
+                _REDUCE_SCATTER(out, x, group=self.groups[a])
+            t = out.to(x.device).movedim(0, dim)
+            self._count("reduce_scatter", t0, x)
+        return t
+
+    def record(self) -> dict:
+        """The counters as plain numbers: calls and bytes by kind, host
+        seconds, the transport."""
+        return {"transport": self.transport, "calls": dict(self.counts),
+                "bytes": dict(self.nbytes), "seconds": self.seconds}
+
+
+# ---------------------------------------------------------------------------
+# A rank mesh's MeshComm, and the DTensors laid out on it
+# ---------------------------------------------------------------------------
+_COMMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def is_rank_mesh(mesh) -> bool:
+    return mesh is not None and getattr(mesh, "ranks", None) is not None
+
+
+def rank_comm(mesh, device) -> MeshComm:
+    """The `MeshComm` of a rank mesh on ``device``'s type, made once a
+    mesh (a collective call: every rank makes it together)."""
+    kind = torch.device(device if device is not None else "cpu").type
+    per_mesh = _COMMS.setdefault(mesh, {})
+    if kind not in per_mesh:
+        per_mesh[kind] = MeshComm(mesh, device)
+    return per_mesh[kind]
+
+
+def rank_comm_of(x, prefer=None) -> MeshComm:
+    """The `MeshComm` of a DTensor's mesh: ``prefer`` (the caller's
+    ambient one) where its mesh is equal, else any made for an equal mesh
+    (DTensor's dispatch may hand out an equal mesh object it cached for
+    an earlier rank mesh of the same ranks)."""
+    if prefer is not None and prefer.dm == x.device_mesh:
+        return prefer
+    for per_mesh in list(_COMMS.values()):
+        for comm in per_mesh.values():
+            if comm.dm == x.device_mesh:
+                return comm
+    raise ValueError("this DTensor's mesh is not a rank mesh's")
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def dims_axes(w) -> dict:
+    """{tensor dim: mesh axes splitting it, in mesh order} of a DTensor."""
+    names = w.device_mesh.mesh_dim_names
+    out: dict = {}
+    for name, pl in zip(names, w.placements):
+        if pl.is_shard():
+            out.setdefault(pl.dim % w.ndim, []).append(name)
+    return {d: tuple(a) for d, a in out.items()}
+
+
+def whole(x, prefer=None) -> torch.Tensor:
+    """A DTensor gathered whole on every rank (a collective: every rank
+    calls it), a new contiguous tensor: what one process would hold."""
+    comm = rank_comm_of(x, prefer)
+    t = x.to_local().clone()      # a copy, as a gather's result is
+    for d, ax in dims_axes(x).items():
+        t = comm.all_gather(t, d, ax)
+    return t.contiguous()

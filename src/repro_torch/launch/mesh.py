@@ -8,16 +8,19 @@ The port of ``repro.launch.mesh``.  Its meshes are the port's
 `core.distributed.Mesh`: logical devices that all live on one card, with
 the reference's axis names and shapes.  A spec over such a mesh changes
 no value and moves no data; per-device sizes come from the specs
-(`models.sharding.NamedSharding.shard_shape`).  Several cards through
-``torch.distributed`` are not built: a mesh naming more than one CUDA
-device raises (`core.distributed.make_mesh`).
+(`models.sharding.NamedSharding.shard_shape`).  A mesh naming more than
+one CUDA device raises (`core.distributed.make_mesh`).  With
+``ranks=True`` the same shapes are rank meshes instead
+(`core.distributed.make_rank_mesh`): one ``torch.distributed`` process a
+position, after the process group exists; the dense language model's
+steps shard across them (`launch.steps`).
 
 Functions, not module constants, and no CUDA call at import: the dry run
 (`launch.dryrun`) traces on fake tensors and must never touch the card.
 """
 from __future__ import annotations
 
-from repro_torch.core.distributed import Mesh, make_mesh
+from repro_torch.core.distributed import Mesh, make_mesh, make_rank_mesh
 
 # NVIDIA H100 SXM5 80 GB (roofline + napkin math), per card
 PEAK_FLOPS_BF16 = 989e12   # dense bf16 tensor-core FLOP/s (H100 datasheet)
@@ -31,14 +34,19 @@ NVLINK_BW = 450e9
 NVLINK_LAT_S = 2e-6
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         ranks: bool = False) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_rank_mesh(shape, axes) if ranks else make_mesh(shape, axes)
 
 
-def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
-    """A (data, model) mesh of ``data * model`` logical devices."""
+def make_host_mesh(data: int = 1, model: int = 1, ranks: bool = False
+                   ) -> Mesh:
+    """A (data, model) mesh of ``data * model`` logical devices, or of as
+    many ranks of the process group (``ranks=True``)."""
+    if ranks:
+        return make_rank_mesh((data, model), ("data", "model"))
     return make_mesh((data, model), ("data", "model"))
 
 

@@ -9,7 +9,10 @@ random weights (drawn on the device), runs a batched prefill of random
 prompts, grafts the prefill cache into a ``max_seq`` decode cache and
 decodes token by token under ``torch.inference_mode()``.  The port of
 ``python -m repro.launch.serve``, with ``--device`` (default ``cuda``: a
-machine without a GPU needs ``--device cpu``).
+machine without a GPU needs ``--device cpu``).  ``--ranks N --backend
+{nccl,gloo} --data-model D M`` serves the dense family sharded across N
+processes, one a position of the rank mesh (`generate_ranked`; the
+decode cache's positions split over "model"); rank 0 prints.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
       --reduced --batch 4 --prompt-len 32 --gen 32 --device cpu
@@ -17,6 +20,7 @@ machine without a GPU needs ``--device cpu``).
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
@@ -47,6 +51,27 @@ def graft(cache: dict, pcache: dict) -> dict:
         else:
             dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
     walk(cache, pcache)
+    return cache
+
+
+def graft_ranked(cache: dict, pcache: dict) -> dict:
+    """`graft` for per-rank DTensor caches (a rank mesh): each prefill
+    leaf gathered whole, zero-padded to the decode leaf's shape, and the
+    decode leaf's block of it copied into this rank's block — the two
+    caches are split differently (prefill's K/V by heads, decode's by
+    position)."""
+    from repro_torch.models import sharding as shd
+
+    full = shd.full_tree(pcache)
+    dst = dict(shd.leaves_with_path(cache))
+    for key, src in shd.leaves_with_path(full):
+        d = dst[key]
+        whole = torch.zeros(d.shape, dtype=d.dtype, device=src.device)
+        whole[tuple(slice(0, n) for n in src.shape)] = src
+        comm = shd.rank_comm_of(d)
+        for dim, axes in shd.dims_axes(d).items():
+            whole = comm.block(whole, dim, axes)
+        d.to_local().copy_(whole)
     return cache
 
 
@@ -89,7 +114,73 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, gen: int,
             "graft_s": t2 - t1, "decode_step_s": step_s}
 
 
-def main(argv=None) -> None:
+def generate_ranked(cfg, mesh, params: dict, prompts: torch.Tensor,
+                    gen: int, max_seq: int, device,
+                    temperature: float = 1.0,
+                    generator: torch.Generator | None = None) -> dict:
+    """`generate` on a rank mesh through the sharded steps
+    (`launch.steps.make_prefill_step` / `make_serve_step`): ``params``
+    per-rank DTensors, ``prompts`` (B, P) the same on every rank.  Each
+    token is drawn from the logits gathered whole on every rank (the same
+    draws everywhere: ``generator`` seeded alike on each).  Returns what
+    `generate` does, plus the logits of every step (B, V each, float32)
+    and the collectives' record of the decode steps."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import steps
+    from repro_torch.models import sharding as shd
+
+    B, P = prompts.shape
+    pre = steps.make_prefill_step(cfg, ShapeCfg("prefill", P, B, "prefill"),
+                                  mesh, device=device)
+    dec = steps.make_serve_step(cfg, ShapeCfg("decode", max_seq, B,
+                                              "decode"), mesh, device=device)
+    dev, comm = pre.model.device, shd.rank_comm(mesh, device)
+    bspec = pre.in_specs[1]
+    tok_spec = dec.in_specs[1]
+
+    def whole(x):
+        with shd.use_mesh(mesh, dev):
+            return shd.full_tree(x)
+
+    def pick(logits):
+        if temperature > 0:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=generator)
+        return torch.argmax(logits, dim=-1)[:, None]
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        batch = shd.shard_tree({"tokens": prompts}, bspec, mesh, dev)
+        logits, pcache = pre.fn(params, batch)
+        _sync(dev)
+        t1 = time.perf_counter()
+        with shd.use_mesh(mesh, dev):
+            cache = shd.shard_tree(pre.model.init_cache(B, max_seq),
+                                   dec.in_specs[3], mesh, dev)
+            cache = graft_ranked(cache, pcache)
+        del pcache
+        _sync(dev)
+        t2 = time.perf_counter()
+        last = whole(logits)[:, -1].float()
+        all_logits, tok = [last], pick(last)
+        out_toks, step_s = [tok], []
+        comm.reset()
+        for i in range(gen - 1):
+            ts = time.perf_counter()
+            toks = shd.shard_tree(tok.to(torch.int32), tok_spec, mesh, dev)
+            logits, cache = dec.fn(params, toks, P + i, cache)
+            last = whole(logits)[:, -1].float()
+            tok = pick(last)
+            all_logits.append(last)
+            out_toks.append(tok)
+            _sync(dev)
+            step_s.append(time.perf_counter() - ts)
+    return {"tokens": torch.cat(out_toks, dim=1), "prefill_s": t1 - t0,
+            "graft_s": t2 - t1, "decode_step_s": step_s,
+            "logits": all_logits, "decode_comm": comm.record()}
+
+
+def parse(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
         description="Language-model inference demo (decoder-only archs, "
@@ -105,21 +196,69 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where the model runs (default cuda)")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="processes of a torch.distributed group, one a "
+                         "position of the --data-model rank mesh")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the ranks' backend (default: nccl on CUDA, gloo "
+                         "on the CPU)")
+    ap.add_argument("--data-model", type=int, nargs=2, default=[1, 1],
+                    help="the rank mesh's (data, model) shape")
     args = ap.parse_args(argv)
+    if args.backend is None:
+        args.backend = "gloo" if args.device == "cpu" else "nccl"
+    if args.ranks is not None and math.prod(args.data_model) != args.ranks:
+        ap.error(f"--ranks {args.ranks} needs --data-model D M with D x M "
+                 f"= {args.ranks}")
+    if get_config(args.arch).enc_dec is not None:
+        ap.error(f"{args.arch} is an encoder-decoder; this demo drives "
+                 "decoder-only archs")
+    return args
 
+
+def main(argv=None) -> None:
+    args = parse(argv)
+    if args.ranks is not None:
+        from repro_torch.launch.train import spawn_ranks
+        spawn_ranks(_serve, argv, args.ranks, args.backend)
+        return
+    _serve(argv)
+
+
+def _serve(argv=None) -> None:
+    args = parse(argv)
+    ranked = args.ranks is not None
     cfg = get_reduced_config(args.arch) if args.reduced \
         else get_config(args.arch)
-    if cfg.enc_dec is not None:
-        ap.error(f"{cfg.name} is an encoder-decoder; this demo drives "
-                 "decoder-only archs")
+    if ranked:
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.launch.train import rank_device
+        from repro_torch.models import sharding as shd
+        args.device = rank_device(args.backend, args.device)
+        mesh = mesh_mod.make_host_mesh(*args.data_model, ranks=True)
     model = build_model(cfg, device=args.device)
     params = model.init(args.seed)
     gen = torch.Generator(device=model.device).manual_seed(args.seed + 1)
     B, P = args.batch, args.prompt_len
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                             device=model.device)
-    out = generate(model, params, prompts, args.gen, args.max_seq,
-                   args.temperature, gen)
+    if ranked:
+        from repro_torch.configs.base import ShapeCfg
+        from repro_torch.launch import steps
+        pspec = steps.make_prefill_step(
+            cfg, ShapeCfg("prefill", P, B, "prefill"), mesh,
+            device=model.device).in_specs[0]
+        params = shd.shard_tree(params, pspec, mesh, model.device)
+        out = generate_ranked(cfg, mesh, params, prompts, args.gen,
+                              args.max_seq, model.device, args.temperature,
+                              gen)
+        if torch.distributed.get_rank() != 0:
+            return
+        print(f"{args.ranks} ranks, mesh {dict(mesh.shape)}, "
+              f"{out['decode_comm']['transport']}")
+    else:
+        out = generate(model, params, prompts, args.gen, args.max_seq,
+                       args.temperature, gen)
     print(f"prefill {B}x{P} in {out['prefill_s']:.2f}s "
           f"(graft {out['graft_s'] * 1e3:.1f} ms)")
     dt = sum(out["decode_step_s"])

@@ -21,10 +21,20 @@ The loss's gradients come from ``torch.autograd.grad`` with respect to
 detached views of the parameter leaves, and `optim.adamw.apply` writes
 the new parameters and moments into the caller's tensors in place (the
 reference donates the state).
+
+On a rank mesh (`core.distributed.make_rank_mesh`, one process a
+position) the dense family's steps are sharded as the specs say, FSDP
+over "data" and tensor parallel over "model": every argument and result
+is a tree of per-rank DTensors (`models.sharding.shard_tree` makes them
+from whole trees, `full_tree` gathers them back), each rank holding its
+block of every parameter, float32 moment, batch and cache.  The specs are
+the same as on a logical mesh.  Other families and 8-bit moments raise
+there (ROADMAP item 12e): nothing is replicated in their place.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -136,6 +146,58 @@ def _opt_moment_specs(moments: Any, mesh) -> Any:
     return shd.map_with_path(one, moments)
 
 
+def rank_setup(cfg: ModelCfg, mesh, device) -> tuple:
+    """On a rank mesh: check the step can be sharded there and make the
+    mesh's collectives (every rank calls this together); returns
+    (rank mesh?, the model's device)."""
+    from repro_torch.api.spec import require_device
+
+    dev = require_device(device)
+    if not shd.is_rank_mesh(mesh):
+        return False, dev
+    if cfg.family != "dense" or cfg.enc_dec is not None:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) on a rank mesh: only the dense "
+            f"family's steps are sharded across processes so far (its "
+            f"mixture-of-experts, Mamba, RWKV and Whisper sites are ROADMAP "
+            f"item 12e); use a logical mesh (launch.mesh.make_host_mesh)")
+    if shd.PARALLELISM != "2d":
+        raise NotImplementedError(
+            f"REPRO_PARALLELISM={shd.PARALLELISM} on a rank mesh: only the "
+            f"2d preset (FSDP over data x tensor parallel over model) is "
+            f"sharded across processes")
+    shd.rank_comm(mesh, dev)
+    return True, dev
+
+
+def _batch_axes(spec_tree) -> tuple:
+    """The mesh axes the batch rows are split over (the tokens' dim 0)."""
+    sp = spec_tree["tokens"]
+    return shd._spec_axes(sp[0]) if len(sp) else ()
+
+
+def _as_dtensor(block: torch.Tensor, names, shape, mesh) -> Any:
+    """A rank's block of a result laid out as the rules give for ``names``
+    on the global ``shape``, as a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    sp = shd.spec(shape, names, mesh)
+    comm = shd.current_comm()
+    return DTensor.from_local(block.contiguous(), comm.dm,
+                              shd.placements(sp, mesh), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def _logits_out(logits: torch.Tensor, cfg: ModelCfg, mesh) -> Any:
+    """A rank's (B_block, 1, V_block) logits as a DTensor of the whole
+    (B, 1, V)."""
+    B = logits.shape[0] * shd.batch_split()
+    return _as_dtensor(logits, ("batch", None, "vocab"),
+                       (B, logits.shape[1], cfg.vocab_size), mesh)
+
+
 def _split(batch: dict, n: int) -> list[dict]:
     """``n`` microbatches along the batch axis (axis 1 of a (3, B, S)
     positions leaf)."""
@@ -162,6 +224,9 @@ def make_train_step(
     gradient accumulation in float32 over batch slices, divided by the
     count."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
+    ranked, device = rank_setup(cfg, mesh, device)
+    if ranked and opt_cfg.state_bits == 8:
+        adamw._refuse_8bit()
     model = build_model(cfg, hw_aware=hw_aware, device=device)
     if shape.global_batch % microbatches:
         raise ValueError(f"batch {shape.global_batch} does not split into "
@@ -174,7 +239,8 @@ def make_train_step(
         return loss.detach(), torch.autograd.grad(loss, live)
 
     def train_step(params, opt_state, batch):
-        with shd.use_mesh(mesh):
+        with shd.use_mesh(mesh, device, baxes):
+            batch = shd.local_tree(batch)
             if microbatches == 1:
                 loss, grads = grads_of(params, batch)
             else:
@@ -200,6 +266,7 @@ def make_train_step(
     ospec = adamw.OptState(step=P(), mu=_opt_moment_specs(opt_a.mu, mesh),
                            nu=_opt_moment_specs(opt_a.nu, mesh))
     bspec = batch_specs(batch_a, mesh)
+    baxes = _batch_axes(bspec) if ranked else ()
     return LoweredStep(train_step, (params_a, opt_a, batch_a),
                        (pspec, ospec, bspec), (pspec, ospec, None), model)
 
@@ -217,17 +284,24 @@ def make_serve_step(cfg: ModelCfg, shape: ShapeCfg, mesh,
                     device="cuda") -> LoweredStep:
     """``.fn(params, tokens, pos, cache) -> (logits, cache)``: one decode
     token (`Model.decode_step`; the cache is written in place)."""
+    ranked, device = rank_setup(cfg, mesh, device)
     model = build_model(cfg, device=device)
 
     def serve_step(params, tokens, pos, cache):
-        with shd.use_mesh(mesh):
-            return model.decode_step(params, tokens, pos, cache)
+        if not ranked:
+            with shd.use_mesh(mesh):
+                return model.decode_step(params, tokens, pos, cache)
+        with torch.no_grad(), shd.use_mesh(mesh, device, baxes):
+            logits, cache = model.decode_step(
+                params, shd.local_block(tokens), pos, cache)
+            return _logits_out(logits, cfg, mesh), cache
 
     params_a = _abstract_params(cfg)
     specs = decode_input_specs(cfg, shape)
     pspec = shd.param_specs(params_a, mesh)
     cspec = cache_specs(specs["cache"], mesh)
     tok_spec = shd.spec(specs["tokens"].shape, ("batch", None), mesh)
+    baxes = shd._spec_axes(tok_spec[0]) if ranked and len(tok_spec) else ()
     args = (params_a, specs["tokens"], specs["pos"], specs["cache"])
     return LoweredStep(serve_step, args, (pspec, tok_spec, P(), cspec),
                        (tok_spec, cspec), model)
@@ -237,10 +311,22 @@ def make_prefill_step(cfg: ModelCfg, shape: ShapeCfg, mesh,
                       device="cuda") -> LoweredStep:
     """``.fn(params, batch)``: `transformer.prefill`'s (last logits,
     cache), or the encoder-decoder's last-position logits of
-    `whisper.forward`."""
+    `whisper.forward`.  On a rank mesh the logits and the cache are
+    DTensors: the cache in the layout prefill computes it (K/V heads split
+    as the projections' are), which `launch.serve.graft` re-blocks."""
+    ranked, device = rank_setup(cfg, mesh, device)
     model = build_model(cfg, device=device)
 
-    if cfg.enc_dec is not None:
+    if ranked:
+        def prefill_step(params, batch):
+            with torch.no_grad(), shd.use_mesh(mesh, device, baxes):
+                b = shd.local_tree(batch)
+                logits, cache = transformer.prefill(
+                    params, cfg, b["tokens"], b.get("positions"),
+                    b.get("frontend_embeds"))
+                return (_logits_out(logits, cfg, mesh),
+                        _cache_out(cache, params, cfg, mesh))
+    elif cfg.enc_dec is not None:
         def prefill_step(params, batch):
             with shd.use_mesh(mesh):
                 logits, _ = whisper.forward(params, cfg, batch["tokens"],
@@ -258,8 +344,23 @@ def make_prefill_step(cfg: ModelCfg, shape: ShapeCfg, mesh,
     batch_a.pop("labels")
     pspec = shd.param_specs(params_a, mesh)
     bspec = batch_specs(batch_a, mesh)
+    baxes = _batch_axes(bspec) if ranked else ()
     return LoweredStep(prefill_step, (params_a, batch_a), (pspec, bspec),
                        None, model)
+
+
+def _cache_out(cache: dict, params: dict, cfg: ModelCfg, mesh) -> dict:
+    """Prefill's per-rank K/V blocks (G, B_block, P, KV_block, hd) as
+    DTensors of the whole cache: the batch split as the batch's, the KV
+    heads as the projections'."""
+    def one(key, leaf):
+        heads = shd.split_axes(params["blocks"]["layer_0"]["attn"]["wk"], -2)
+        shape = list(leaf.shape)
+        shape[1] *= shd.batch_split()
+        shape[3] *= math.prod(shd.current_comm().sizes[a] for a in heads)
+        names = (None, "batch", None, "kv_heads" if heads else None, None)
+        return _as_dtensor(leaf, names, tuple(shape), mesh)
+    return shd.map_with_path(one, cache)
 
 
 def make_step(cfg: ModelCfg, shape: ShapeCfg, mesh, opt_bits: int = 32,

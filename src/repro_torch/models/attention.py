@@ -18,21 +18,46 @@ the encoder's K/V once; ``attention(kv=...)`` projects the queries only,
 never causal, and ``decode_attention(cross=True)`` attends one query
 against the whole cached encoder K/V, writing nothing.  The reference's
 scan baseline (``_attend_chunked``) is not ported.
+
+On a rank mesh (`models.sharding`) the heads are tensor-parallel: the
+Q/K/V projections are column-parallel over "heads" / "kv_heads" (a
+rank's query heads use only its own KV heads, so both must split alike),
+the output projection row-parallel (its partial sums summed at a
+`constrain`).  With ``REPRO_SEQ_SHARD_ATTN=1`` and a head count the
+"model" axis does not divide, the flash path splits the queries' sequence
+over it instead (`flash.flash_attention`'s ``seq_shard``).  Decode
+against a cache whose sequence is split over ranks ("kv_seq") writes the
+token's K/V on the rank that holds its position and gathers the cache's
+positions to attend: an all-gather of the cache each step.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.models import flash as flash_mod
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import apply_mrope, apply_rope, dense_init
 from repro_torch.models.layers import softcap as softcap_fn
 
 NEG_INF = -2.0e38
 DIRECT_MAX_SEQ = 2048  # direct path above this switches to flash
+# sequence-parallel attention for archs whose head count cannot shard over
+# the model axis (read at import, as the reference does)
+SEQ_SHARD_ATTN = os.environ.get("REPRO_SEQ_SHARD_ATTN", "0") == "1"
+
+
+def _want_seq_shard(cfg: ModelCfg) -> bool:
+    if not SEQ_SHARD_ATTN:
+        return False
+    mesh = shd.current_mesh()
+    if mesh is None or "model" not in mesh.shape:
+        return False
+    return cfg.num_heads % mesh.shape["model"] != 0
 
 
 def init_attention(gen, cfg: ModelCfg, dtype, lead=()) -> dict:
@@ -61,13 +86,29 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(D, H * hd)).unflatten(-1, (H, hd))
 
 
+def heads_axes(params) -> tuple:
+    """The mesh axes this rank's query and KV heads are split over (the
+    same for both: a rank's queries attend only its own KV heads)."""
+    ax = shd.split_axes(params["wq"], -2)
+    if "wk" in params and shd.split_axes(params["wk"], -2) != ax:
+        raise NotImplementedError(
+            f"query heads split over {ax} but KV heads over "
+            f"{shd.split_axes(params['wk'], -2)}: a rank's queries must "
+            f"find their KV heads on the same rank (the head counts "
+            f"divide the model axis alike)")
+    return ax
+
+
 def _project_qkv(params, cfg: ModelCfg, x, positions):
     """positions: (B, S), or (3, B, S) for M-RoPE."""
-    q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    x = shd.psum_grad(x, heads_axes(params))
+    q = _proj(x, shd.local(params["wq"]))
+    k = _proj(x, shd.local(params["wk"]))
+    v = _proj(x, shd.local(params["wv"]))
     if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        q = q + shd.local(params["bq"])
+        k = k + shd.local(params["bk"])
+        v = v + shd.local(params["bv"])
     if cfg.rope_kind == "rope":
         pos2 = positions if positions.ndim == 2 else positions[0]
         q = apply_rope(q, pos2, cfg.rope_theta)
@@ -75,6 +116,9 @@ def _project_qkv(params, cfg: ModelCfg, x, positions):
     elif cfg.rope_kind == "mrope":
         q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    q = shd.constrain(q, ("batch", "seq", "heads", None))
+    k = shd.constrain(k, ("batch", "seq", "kv_heads", None))
+    v = shd.constrain(v, ("batch", "seq", "kv_heads", None))
     return q, k, v
 
 
@@ -101,7 +145,7 @@ def _scores(q, k, cfg: ModelCfg, scale):
 
 def _attend_direct(q, k, v, cfg, scale, q_pos, k_pos, causal, window):
     B, Sq, H, hd = q.shape
-    KV = cfg.num_kv_heads
+    KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
     s = _scores(qg, k, cfg, scale)
     s = s + _mask_bias(q_pos, k_pos, causal, window)
@@ -142,31 +186,70 @@ def attention(
         causal = False
     else:
         q, k, v = _project_qkv(params, cfg, x, positions)
+    held = None
     if max(S, k.shape[1]) <= DIRECT_MAX_SEQ:
         q_pos = torch.arange(S, device=x.device)
         k_pos = torch.arange(k.shape[1], device=x.device)
         o = _attend_direct(q, k, v, cfg, scale, q_pos, k_pos, causal,
                            window)
     else:
+        seq_shard = _want_seq_shard(cfg)
         o = flash_mod.flash_attention(
-            q, k, v, num_kv_heads=cfg.num_kv_heads, scale=scale,
-            softcap=cfg.attn_softcap, causal=causal, window=window)
-    out = _out(o, params["wo"])
+            q, k, v, num_kv_heads=k.shape[2], scale=scale,
+            softcap=cfg.attn_softcap, causal=causal, window=window,
+            seq_shard=seq_shard)
+        if seq_shard:
+            held = ("batch", "qseq", None, None)
+    o = shd.constrain(o, ("batch", "seq", "heads", None), held=held)
+    out = _out(o, shd.local(params["wo"]))
+    out = shd.constrain(out, ("batch", "seq", None),
+                        partial=shd.split_axes(params["wo"], 0))
     return out, ((k, v) if return_kv else None)
 
 
 def cross_kv(params: dict, cfg: ModelCfg, enc_out: torch.Tensor):
     """The encoder's K/V for cross-attention (cached once a request)."""
-    k = _proj(enc_out, params["wk"])
-    v = _proj(enc_out, params["wv"])
+    k = _proj(enc_out, shd.local(params["wk"]))
+    v = _proj(enc_out, shd.local(params["wv"]))
     if cfg.qkv_bias:
-        k, v = k + params["bk"], v + params["bv"]
+        k = k + shd.local(params["bk"])
+        v = v + shd.local(params["bv"])
     return k, v
 
 
 def _q_only(params, cfg: ModelCfg, x):
-    q = _proj(x, params["wq"])
-    return q + params["bq"] if cfg.qkv_bias else q
+    q = _proj(x, shd.local(params["wq"]))
+    return q + shd.local(params["bq"]) if cfg.qkv_bias else q
+
+
+def _cache_for_rank(params, cache_k, cache_v, k_new, v_new, pos):
+    """Decode on a rank mesh: write the token's K/V (every KV head, or the
+    rank's, as the cache holds them) on the rank whose block of the
+    cache's positions holds ``pos``, and return the keys and values this
+    rank's query heads attend — every position (the cache's blocks
+    gathered), the rank's KV heads."""
+    comm = shd.current_comm()
+    ax_h = heads_axes(params)
+    ax_seq = shd.split_axes(cache_k, 1)
+    ax_ch = shd.split_axes(cache_k, 2)
+    if ax_ch not in ((), ax_h):
+        raise NotImplementedError(f"a cache with KV heads split over {ax_ch}"
+                                  f" for heads split over {ax_h}")
+    kl, vl = cache_k.to_local(), cache_v.to_local()
+    if k_new is not None:
+        if ax_h and not ax_ch:
+            k_new = comm.all_gather(k_new, 2, ax_h)
+            v_new = comm.all_gather(v_new, 2, ax_h)
+        lo = shd.offset(cache_k, 1)
+        if lo <= pos < lo + kl.shape[1]:
+            kl[:, pos - lo] = k_new[:, 0].to(kl.dtype)
+            vl[:, pos - lo] = v_new[:, 0].to(vl.dtype)
+    if ax_seq:
+        kl = comm.all_gather(kl, 1, ax_seq)
+        vl = comm.all_gather(vl, 1, ax_seq)
+    if ax_h and not ax_ch:
+        kl, vl = comm.block(kl, 2, ax_h), comm.block(vl, 2, ax_h)
+    return kl, vl
 
 
 def decode_attention(
@@ -188,21 +271,25 @@ def decode_attention(
     is projected, nothing is written and every key is attended."""
     B = x.shape[0]
     hd = cfg.hd()
-    KV = cfg.num_kv_heads
     scale = 1.0 / math.sqrt(hd)
+    ranked = shd.current_comm() is not None and shd.is_dtensor(cache_k)
 
+    k_new = v_new = None
     if cross:
         q = _q_only(params, cfg, x)
     else:
         lead = (3, B, 1) if cfg.rope_kind == "mrope" else (B, 1)
         posn = torch.full(lead, pos, dtype=torch.int32, device=x.device)
         q, k_new, v_new = _project_qkv(params, cfg, x, posn)
-        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+        if not ranked:
+            cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
+            cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+    keys, values = ((cache_k, cache_v) if not ranked else _cache_for_rank(
+        params, cache_k, cache_v, k_new, v_new, pos))
 
-    S = cache_k.shape[1]
-    qg = q.reshape(B, 1, KV, cfg.num_heads // KV, hd)
-    s = _scores(qg, cache_k, cfg, scale)[:, :, :, 0, :]   # (B, KV, G, S)
+    S, KV = keys.shape[1], keys.shape[2]
+    qg = q.reshape(B, 1, KV, q.shape[2] // KV, hd)
+    s = _scores(qg, keys, cfg, scale)[:, :, :, 0, :]      # (B, KV, G, S)
     if not cross:
         k_pos = torch.arange(S, device=x.device)
         ok = k_pos <= pos
@@ -210,6 +297,8 @@ def decode_attention(
             ok &= (pos - k_pos) < window
         s = torch.where(ok, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskh->bkgh", p.to(cache_v.dtype), cache_v)
-    out = _out(o.reshape(B, 1, cfg.num_heads, hd), params["wo"])
+    o = torch.einsum("bkgs,bskh->bkgh", p.to(values.dtype), values)
+    out = _out(o.reshape(B, 1, q.shape[2], hd), shd.local(params["wo"]))
+    out = shd.constrain(out, ("batch", "seq", None),
+                        partial=shd.split_axes(params["wo"], 0))
     return out, cache_k, cache_v

@@ -24,14 +24,23 @@ in q's dtype, widened; ``dv = pᵀ do`` uses float32 ``p`` (not the value
 dtype the forward cast it to); dk and dv are cast to k's and v's dtype per
 KV chunk, dq accumulates in float32 and is cast once.  Each q-chunk's K/V
 range is an ordinary slice of k and v, so autograd adds the dk/dv of
-overlapping q-chunks as the reference's slice VJPs do.  ``seq_shard``
-belongs to the multi-card slice.
+overlapping q-chunks as the reference's slice VJPs do.
+
+``seq_shard`` (the reference's sequence-parallel attention, for a head
+count the "model" axis does not divide): on a rank mesh each rank takes
+its block of the queries' sequence (`models.sharding.constrain` from
+"seq" to "qseq"), attends it against the whole K/V (whose gradients,
+partial on each rank, are summed over the axis) from its absolute
+position ``q_offset``, and returns its block of the output; elsewhere the
+constraints move nothing.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.models import sharding as shd
 
 NEG_INF = -2.0e38
 Q_CHUNK = 1024
@@ -165,18 +174,36 @@ def flash_attention(
     softcap: Optional[float] = None,
     causal: bool = True,
     window: Optional[int] = None,
+    q_offset: int = 0,            # absolute position of q[0]
+    seq_shard: bool = False,      # sequence-parallel: shard q chunks over
+                                  # "model" when heads can't take the axis
 ) -> torch.Tensor:
-    """Static triangular q-chunk schedule over `_MeaChunk`."""
+    """Static triangular q-chunk schedule over `_MeaChunk`.  With
+    ``seq_shard`` on a rank mesh the result is this rank's block of the
+    sequence ("qseq")."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     KV = num_kv_heads
     G = H // KV
-    cq = _pick_chunk(Sq, Q_CHUNK)
     qg = q.reshape(B, Sq, KV, G, hd)
+    if seq_shard:
+        # one reshard for the whole tensor, as the reference
+        qg = shd.constrain(qg, ("batch", "qseq", None, None, None),
+                           held=("batch", "seq", None, None, None))
+        k = shd.constrain(k, ("batch", None, None, None))
+        v = shd.constrain(v, ("batch", None, None, None))
+        comm = shd.current_comm()
+        if comm is not None:
+            ax = comm.moving(tuple(a for a in shd.LOGICAL_RULES["qseq"]
+                                   if a in comm.sizes))
+            q_offset += comm.offset(Sq, ax)
+            k, v = shd.psum_grad(k, ax), shd.psum_grad(v, ax)
+        Sq = qg.shape[1]
+    cq = _pick_chunk(Sq, Q_CHUNK)
     ckv = _pick_chunk(Sk, KV_CHUNK)
     outs = []
     for i in range(Sq // cq):
-        q_lo, q_hi = i * cq, (i + 1) * cq
+        q_lo, q_hi = q_offset + i * cq, q_offset + (i + 1) * cq
         # the KV range this chunk can see, aligned to the KV chunk
         lo, hi = 0, Sk
         if causal:
@@ -191,4 +218,6 @@ def flash_attention(
                             q_lo, lo)
         outs.append(o)
     out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    if seq_shard:
+        out = shd.constrain(out, ("batch", "qseq", None, None, None))
     return out.reshape(B, Sq, H, hd)

@@ -6,6 +6,15 @@ counterpart does, in the same dtypes at each step (norms and RoPE in
 float32, cast back; the embedding scale rounded to the parameter dtype
 before it multiplies).  Parameter draws are equal in distribution only:
 weights cross from the reference through `repro_torch.convert`.
+
+On a rank mesh (`models.sharding`) a weight enters through `shd.local`
+(its FSDP dims gathered) and the products are tensor-parallel: the gated
+MLP's up projections are column-parallel over "mlp" and its down
+projection row-parallel (its partial sums summed, `constrain(...,
+partial=)`); the embedding looks up the rank's vocabulary block and the
+unembedding gives the block's logits, whose cross-entropy reduces its
+max, its sum of exponentials and the gold logit across the block's ranks
+(`token_nll` with a vocabulary layout).
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.models import sharding as shd
 
 
 def dtype_of(cfg: ModelCfg) -> torch.dtype:
@@ -44,7 +54,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
     """Gemma's form: float32, times ``1 + scale``, cast back."""
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    out = x32 * torch.rsqrt(var + eps) * (1.0 + shd.local(scale).float())
     return out.to(x.dtype)
 
 
@@ -114,8 +124,14 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(params: dict, x: torch.Tensor, act=F.silu) -> torch.Tensor:
-    h = act(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    ax = shd.split_axes(params["w_gate"], -1)
+    x = shd.psum_grad(x, ax)
+    h = (act(x @ shd.local(params["w_gate"]))
+         * (x @ shd.local(params["w_up"])))
+    lead = ("batch",) + (None,) * (h.ndim - 2)
+    h = shd.constrain(h, lead + ("mlp",))
+    return shd.constrain(h @ shd.local(params["w_down"]), lead + (None,),
+                         partial=ax)
 
 
 def init_norm(d: int, lead=(), device=None) -> torch.Tensor:
@@ -125,7 +141,17 @@ def init_norm(d: int, lead=(), device=None) -> torch.Tensor:
 
 def embed_tokens(cfg: ModelCfg, tok_embed: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
-    x = tok_embed[tokens]
+    """The tokens' rows, scaled.  With the vocabulary split over ranks a
+    rank looks up the tokens of its block and leaves zeros for the rest:
+    the result is a partial sum over `vocab_layout`'s axes."""
+    ax = shd.split_axes(tok_embed, 0)
+    w = shd.local(tok_embed)
+    if ax:
+        ids = tokens.long() - shd.offset(tok_embed, 0)
+        mine = ((ids >= 0) & (ids < w.shape[0]))[..., None]
+        x = torch.where(mine, w[ids.clamp(0, w.shape[0] - 1)], 0.0)
+    else:
+        x = w[tokens]
     if cfg.scale_embed:
         # sqrt(d_model) rounded to the parameter dtype first, as the
         # reference's ``jnp.asarray(np.sqrt(d), x.dtype)``: 59.75 in bf16
@@ -135,21 +161,71 @@ def embed_tokens(cfg: ModelCfg, tok_embed: torch.Tensor,
     return x
 
 
-def unembed(cfg: ModelCfg, params: dict, x: torch.Tensor) -> torch.Tensor:
+def vocab_layout(cfg: ModelCfg, params: dict) -> tuple[tuple, int]:
+    """(mesh axes, start) of this rank's block of the unembedding's
+    vocabulary; ((), 0) off a rank mesh or when it is whole."""
     if cfg.tie_embeddings:
-        logits = x @ params["tok_embed"].T.to(x.dtype)
+        w, dim = params["tok_embed"], 0
     else:
-        logits = x @ params["lm_head"]
+        w, dim = params["lm_head"], 1
+    return shd.split_axes(w, dim), shd.offset(w, dim)
+
+
+def unembed(cfg: ModelCfg, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Softcapped float32 logits (of the rank's vocabulary block on a rank
+    mesh: a column-parallel product)."""
+    ax, _ = vocab_layout(cfg, params)
+    x = shd.psum_grad(x, ax)
+    if cfg.tie_embeddings:
+        logits = x @ shd.local(params["tok_embed"]).T.to(x.dtype)
+    else:
+        logits = x @ shd.local(params["lm_head"])
     return softcap(logits.float(), cfg.final_softcap)
 
 
-def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              vocab_axes: tuple = (), vocab_start: int = 0
+              ) -> torch.Tensor:
     """logsumexp - gold logit at each position: logits (..., V) f32,
     labels (...) of any integer dtype (widened to int64 for the gather
-    only)."""
+    only).  With ``vocab_axes`` the logits are this rank's vocabulary
+    block from ``vocab_start`` (`vocab_layout`), and the max, the sum of
+    exponentials and the gold logit are reduced across its ranks."""
+    if vocab_axes:
+        return _VocabNLL.apply(logits, labels, vocab_start, vocab_axes)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None]).squeeze(-1)
     return logz - gold
+
+
+class _VocabNLL(torch.autograd.Function):
+    """`token_nll` over vocabulary blocks split across ranks: forward as
+    ``torch.logsumexp`` computes it (the max, then the sum of
+    ``exp(x - max)``), each partial result reduced across the ranks; the
+    gradient ``softmax - onehot(label)`` of the rank's block."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, axes):
+        comm = shd.current_comm()
+        m = comm.all_reduce(logits.amax(dim=-1), axes, op="max")
+        s = comm.all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1),
+                            axes)
+        logz = torch.log(s) + m
+        ids = labels.long() - start
+        mine = (ids >= 0) & (ids < logits.shape[-1])
+        ids = ids.clamp(0, logits.shape[-1] - 1)
+        gold = torch.gather(logits, -1, ids[..., None]).squeeze(-1)
+        gold = comm.all_reduce(torch.where(mine, gold, 0.0), axes)
+        ctx.save_for_backward(logits, logz, ids, mine)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, ids, mine = ctx.saved_tensors
+        d = torch.exp(logits - logz[..., None]) * g[..., None]
+        d.scatter_add_(-1, ids[..., None],
+                       -torch.where(mine, g, 0.0)[..., None])
+        return d, None, None, None
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

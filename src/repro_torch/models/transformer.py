@@ -25,6 +25,13 @@ the reference's ``save_only_these_names()`` policy; ``REPRO_REMAT=dots``
 also keeps the unbatched products' outputs, `_remat_policy`), and `chunked_ce`
 recomputes each sequence chunk's logits in backward.  Whisper's
 encoder-decoder is `models.whisper`.
+
+The reference's layout constraints stand where it has them (the embedded
+tokens, each layer's output, the chunk's logits; `models.sharding.
+constrain`).  On a rank mesh (the dense family; `launch.steps`) every
+rank runs these functions on its block of the batch with its blocks of
+the weights, and the cross-entropy's mean divides by the whole batch and
+sums over the batch's ranks.
 """
 from __future__ import annotations
 
@@ -43,10 +50,11 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import (cross_entropy, dense_init, dtype_of,
                                        embed_tokens, gelu_tanh, init_mlp,
                                        init_norm, mlp, rms_norm, token_nll,
-                                       unembed)
+                                       unembed, vocab_layout)
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +231,7 @@ def apply_layer(
         if new_cache is not None and shift_c is not None:
             new_cache["shift_c"] = shift_c
     x = _residual(p, cfg, x, out, "norm2_post")
+    x = shd.constrain(x, ("batch", "seq", None))
     return x, aux, new_cache
 
 
@@ -232,13 +241,20 @@ def _embed(params, cfg, tokens, positions, frontend_embeds):
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         if cfg.rope_kind == "mrope":
             positions = positions[None].expand(3, B, S)
-    x = embed_tokens(cfg, params["tok_embed"], tokens)
+    x = _embed_tokens(cfg, params, tokens)
     if frontend_embeds is not None:
         # modality stub: precomputed patch/frame embeddings own the first
         # S_f positions
         x = x.clone()
         x[:, :frontend_embeds.shape[1]] = frontend_embeds.to(x.dtype)
     return x, positions
+
+
+def _embed_tokens(cfg, params, tokens):
+    """The embedded tokens, summed over the vocabulary's ranks."""
+    return shd.constrain(embed_tokens(cfg, params["tok_embed"], tokens),
+                         ("batch", "seq", None),
+                         partial=shd.split_axes(params["tok_embed"], 0))
 
 
 # the products without batch dims: what ``REPRO_REMAT=dots`` saves, as the
@@ -311,7 +327,8 @@ CE_CHUNK = 512
 def _ce_sum(cfg: ModelCfg, params: dict, x: torch.Tensor,
             labels: torch.Tensor) -> torch.Tensor:
     """Summed CE of one sequence chunk: unembed -> logsumexp - gold."""
-    return torch.sum(token_nll(unembed(cfg, params, x), labels))
+    logits = shd.constrain(unembed(cfg, params, x), ("batch", None, "vocab"))
+    return torch.sum(token_nll(logits, labels, *vocab_layout(cfg, params)))
 
 
 def chunked_ce(params: dict, cfg: ModelCfg, x: torch.Tensor,
@@ -325,14 +342,18 @@ def chunked_ce(params: dict, cfg: ModelCfg, x: torch.Tensor,
     """
     B, S, _ = x.shape
     c = min(CE_CHUNK, S)
-    if S % c != 0:
+    if shd.current_comm() is None and S % c != 0:
         return cross_entropy(unembed(cfg, params, x), labels)
+    if S % c != 0:
+        c = S
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(S // c):
         sl = slice(i * c, (i + 1) * c)
         total = total + checkpoint(_ce_sum, cfg, params, x[:, sl],
                                    labels[:, sl], use_reentrant=False)
-    return total / (B * S)
+    # a rank's block of the batch: the mean over the whole batch is the
+    # sum over the batch's ranks of each block's sum over all the rows
+    return shd.psum(total / (B * shd.batch_split() * S), shd.batch_axes())
 
 
 def lm_loss(params: dict, cfg: ModelCfg, batch: dict) -> torch.Tensor:
@@ -434,7 +455,7 @@ def decode_step(
     K/V and the new states are written into ``cache`` in place, and the
     same cache is returned."""
     plans = period_plan(cfg)
-    x = embed_tokens(cfg, params["tok_embed"], tokens)
+    x = _embed_tokens(cfg, params, tokens)
     positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
                            device=tokens.device)
     for p, plan, c in zip(params.get("prefix", []), prefix_plans(cfg),

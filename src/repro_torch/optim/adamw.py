@@ -15,6 +15,13 @@ state.  The caller may not reuse the old trees.
 Arithmetic follows the reference op for op in float32; the bias
 corrections' ``b ** step`` are taken in float64 and rounded once (XLA's
 float32 ``pow`` is close to correctly rounded; ROADMAP Queue 3).
+
+On a rank mesh the parameters, gradients and float32 moments are
+DTensors (`models.sharding`): `global_norm` sums each leaf's squares over
+its blocks' ranks, and `apply` updates each rank's blocks in place.
+8-bit moments are refused there: a moment's quantization blocks are
+blocks of the whole flattened leaf, which a rank's block does not hold
+(ROADMAP item 12e).
 """
 from __future__ import annotations
 
@@ -126,17 +133,52 @@ def init(params: Any, state_bits: int = 32) -> OptState:
     parameters' device."""
     device = tree_leaves(params)[0].device
     step = torch.zeros((), dtype=torch.int32, device=device)
+    ranked = _ranked(params)
+    if ranked and state_bits == 8:
+        _refuse_8bit()
 
     def zeros(p):
+        if ranked:      # a DTensor of the parameter's placements
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     moment = (lambda p: _quantize(zeros(p))) if state_bits == 8 else zeros
     return OptState(step, tree_map(moment, params), tree_map(moment, params))
 
 
+def _ranked(tree: Any) -> bool:
+    from repro_torch.core.ranks import is_dtensor
+    return any(is_dtensor(x) for x in tree_leaves(tree))
+
+
+def _refuse_8bit():
+    raise NotImplementedError(
+        "8-bit moments on a rank mesh: a moment's quantization blocks are "
+        "blocks of the whole flattened leaf, not of a rank's block of it "
+        "(ROADMAP item 12e); use state_bits=32")
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(tree)))
+    leaves = tree_leaves(tree)
+    if not _ranked(tree):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    from repro_torch.models import sharding as shd
+
+    # each leaf's sum of squares over its blocks' ranks (one all-reduce
+    # for the leaves split alike), then added in leaf order
+    sq = [torch.sum(torch.square(shd.local_block(g).float()))
+          for g in leaves]
+    by_axes: dict = {}
+    for i, g in enumerate(leaves):
+        by_axes.setdefault(shd.shard_axes(g), []).append(i)
+    for axes, idx in by_axes.items():
+        if axes:
+            comm = shd.rank_comm_of(leaves[idx[0]])
+            tot = comm.all_reduce(torch.stack([sq[i] for i in idx]), axes)
+            for j, i in enumerate(idx):
+                sq[i] = tot[j]
+    return torch.sqrt(sum(sq))
 
 
 def _pow32(base: float, step: torch.Tensor) -> torch.Tensor:
@@ -150,19 +192,30 @@ def apply(cfg: AdamWConfig, grads: Any, state: OptState, params: Any
           ) -> tuple[Any, OptState, dict]:
     """One AdamW step, in place: returns ``params`` and ``state`` (the
     same objects, updated) and ``{"grad_norm", "lr"}`` (grad_norm before
-    clipping).  Gradients may be in the leaf's dtype or float32."""
+    clipping).  Gradients may be in the leaf's dtype or float32.  On a
+    rank mesh every leaf is a DTensor and each rank updates its blocks."""
+    ranked = _ranked(params)
+    if ranked and cfg.state_bits == 8:
+        _refuse_8bit()
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    state.step.add_(1)
-    lr = schedule(cfg, state.step)
+    step = state.step
+    if ranked:          # replicated: every rank's block is the whole
+        from repro_torch.models.sharding import local_block
+        step = local_block(step)
+    step.add_(1)
+    lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - _pow32(b1, state.step)
-    bc2 = 1.0 - _pow32(b2, state.step)
+    bc1 = 1.0 - _pow32(b1, step)
+    bc2 = 1.0 - _pow32(b2, step)
     quantized = cfg.state_bits == 8
 
-    for p, g, mu_t, nu_t in zip(*map(tree_leaves, (params, grads, state.mu,
-                                                   state.nu))):
+    leaves = zip(*map(tree_leaves, (params, grads, state.mu, state.nu)))
+    if ranked:
+        from repro_torch.models.sharding import local_block
+        leaves = ([local_block(x) for x in four] for four in list(leaves))
+    for p, g, mu_t, nu_t in leaves:
         g = g.float() * scale
         mu = _dequantize(mu_t) if quantized else mu_t
         nu = _dequantize(nu_t) if quantized else nu_t

@@ -168,7 +168,10 @@ class ElasticState:
     Because checkpoints store logical arrays and the data pipeline is
     stateless, the procedure is: rebuild mesh -> recompute specs from
     the same logical rules -> check and place.  Works for both shrink
-    (lost pod) and grow (pod returned).
+    (lost pod) and grow (pod returned).  On a rank mesh each leaf is
+    placed as this rank's DTensor block: a checkpoint written by one
+    process resumes on several ranks, and one written by ranks (whole
+    leaves, `checkpoint.save`) in one process.
     """
     ckpt_dir: str
 
@@ -176,19 +179,22 @@ class ElasticState:
         """``tree``'s leaves (tensors or arrays) checked against their
         specs on ``mesh`` and placed on ``device``."""
         from repro_torch.api.spec import require_device
+        from repro_torch.models import sharding as shd
         from repro_torch.models.sharding import (leaves_with_path,
                                                  map_with_path)
 
         dev = require_device(device)
         by_key = dict(leaves_with_path(specs))
 
+        host = "cpu" if shd.is_rank_mesh(mesh) else None
+
         def one(key, x):
             _check_spec(key, tuple(x.shape), by_key[key], mesh)
             if isinstance(x, torch.Tensor):
-                return x.detach().to(dev)
-            return torch.as_tensor(np.array(x)).to(dev)
+                return x.detach().to(host or dev)
+            return torch.as_tensor(np.array(x)).to(host or dev)
 
-        return map_with_path(one, tree)
+        return _place(map_with_path(one, tree), mesh, specs, dev)
 
     def resume(self, mesh, make_specs, target_shapes: Any, device="cuda"
                ) -> tuple[int, Any]:
@@ -198,10 +204,12 @@ class ElasticState:
         on ``device`` in the target's dtype."""
         from repro_torch.api.spec import require_device
         from repro_torch.checkpoint import checkpoint as ckpt
+        from repro_torch.models import sharding as shd
         from repro_torch.models.sharding import (leaves_with_path,
                                                  map_with_path)
 
         dev = require_device(device)
+        host = "cpu" if shd.is_rank_mesh(mesh) else None
         step, arrays, _ = ckpt.load(self.ckpt_dir)
         by_key = dict(leaves_with_path(make_specs(target_shapes)))
 
@@ -213,6 +221,18 @@ class ElasticState:
                 raise ValueError(f"{key}: stored {tuple(val.shape)}, "
                                  f"target {tuple(leaf.shape)}")
             _check_spec(key, tuple(val.shape), by_key[key], mesh)
-            return val.to(device=dev, dtype=leaf.dtype)
+            # whole leaves stay on the host when only a block goes on
+            return val.to(device=host or dev, dtype=leaf.dtype)
 
-        return step, map_with_path(one, target_shapes)
+        return step, _place(map_with_path(one, target_shapes), mesh,
+                            make_specs(target_shapes), dev)
+
+
+def _place(tree: Any, mesh, specs: Any, device) -> Any:
+    """On a rank mesh each whole leaf as this rank's DTensor block by its
+    spec (`models.sharding.shard_tree`); elsewhere the tree as it is."""
+    from repro_torch.models import sharding as shd
+
+    if not shd.is_rank_mesh(mesh):
+        return tree
+    return shd.shard_tree(tree, specs, mesh, device)
