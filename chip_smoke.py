@@ -133,6 +133,7 @@ Output: one JSON object per line —
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -5341,11 +5342,15 @@ def ranks_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase: the dense language model's steps across processes
+# phase: the language models' steps across processes
 # ---------------------------------------------------------------------------
 LMR_STEPS = 3                     # train steps, B = 8, S = 256
 LMR_B, LMR_PROMPT, LMR_GEN, LMR_MAX_SEQ = 4, 32, 17, 64  # 16 decode tokens
-LMR_DEPTH = 4                     # the 2 x 2 run's layers (full width)
+LMR_DEPTH = 2                     # gemma2-2b's 2 x 1 and 2 x 2 runs' layers
+# jamba's gradient check: loss and gradients without the optimizer (its
+# float32 moments alone would be ~106 GB), at B = 2 so that one process's
+# parameters, gradients and activations fit the card (~60 GB)
+LMR_GRADS_B = 2
 # the ranks add partial sums in another order than one process (the
 # row-parallel products' bf16 partials, the batch mean, the gradient
 # norm): a step's loss is held to one process's within 1e-3, its gradient
@@ -5358,17 +5363,45 @@ LMR_DEPTH = 4                     # the 2 x 2 run's layers (full width)
 # gradient norm's is 4.5x the largest relative difference those runs
 # showed (2.2e-3, 1 x 2's third step): the loss alone cannot see a
 # gradient scaled wrongly, as AdamW divides it by its RMS
+# The logit gate is gemma2-2b's 0.05 at its logits' scale: a model whose
+# one-process logits have a larger RMS than gemma2-2b's (no final softcap:
+# jamba's and kimi-k2's) is held to 0.05 times the ratio.  bf16 rounding
+# moves logits in proportion to their size: on 1 x 2 they sit as far from
+# one process's as one process's bf16 logits from its float32 ones
+# (`benchmarks_torch/lm_ranks_logits.py`; PERF.md)
 LMR_LOSS_TOL = 1e-3
 LMR_GRAD_RTOL = 1e-2
 LMR_LOGIT_TOL = 0.05
 LMR_TIMEOUT_S = 600
-# (backend, world, rank meshes with their decode tokens, depth: None for
-# the config's).  FSDP gathers every weight for every decode token, which
-# gloo carries through the host at ~1 GB/s: its meshes decode 4 tokens,
-# within the script's time
-LMR_WORLDS = (("nccl", 1, (((1, 1), LMR_GEN),), None),
-              ("gloo", 2, (((1, 2), LMR_GEN), ((2, 1), 5)), None),
-              ("gloo", 4, (((2, 2), 5),), LMR_DEPTH))
+GRANITE, JAMBA, KIMI = ("granite-moe-1b-a400m", "jamba-v0.1-52b",
+                        "kimi-k2-1t-a32b")
+# (backend, world, runs); a run is (arch, depth: None for the config's,
+# rank mesh, train: "steps" (`LMR_STEPS`), "step" (the first of them),
+# "grads" (loss and gradients, no optimizer) or None, decode tokens + 1).
+# World 1 also runs every model's one-process reference.  FSDP gathers
+# every weight for every decode token, which gloo carries through the
+# host at ~1 GB/s: FSDP meshes decode 4 tokens, and gemma2-2b's FSDP
+# runs at `LMR_DEPTH` layers (at full depth its 2 x 1 took 100-125 s, at
+# 4 layers its 2 x 1 and 2 x 2 51 and 67 s, of a script that took 1,067
+# of its 1,200 s; granite-moe's 2 x 1 keeps full depth).  jamba is cut to one
+# period (7 Mamba, 1 attention, 4 MoE layers) and kimi-k2 to its dense
+# prefix and one MoE layer: the card holds neither whole
+LMR_WORLDS = (
+    ("nccl", 1, ((LM_ARCH, None, (1, 1), "steps", LMR_GEN),
+                 (GRANITE, None, (1, 1), "steps", LMR_GEN))),
+    ("gloo", 2, ((LM_ARCH, None, (1, 2), "steps", LMR_GEN),
+                 (LM_ARCH, LMR_DEPTH, (2, 1), "steps", 5),
+                 (GRANITE, None, (1, 2), "steps", LMR_GEN),
+                 (GRANITE, None, (2, 1), "steps", 5),
+                 (JAMBA, 8, (1, 2), "grads", LMR_GEN),
+                 (KIMI, 2, (1, 2), None, LMR_GEN))),
+    ("gloo", 4, ((LM_ARCH, LMR_DEPTH, (2, 2), "steps", 5),
+                 (GRANITE, None, (2, 2), "step", 5))),
+)
+# drawn a piece at a time (`_lmr_pieces`): too large for every rank
+# sharing the card to draw the whole tree
+LMR_PIECEWISE = (JAMBA, KIMI)
+LMR_PIECES = 2                    # pieces a leaf, along its model-split dim
 
 _LM_RANK_RUN = """
 import sys
@@ -5379,11 +5412,27 @@ chip_smoke.lm_ranks_child(*sys.argv[1:])
 """
 
 
-def _lmr_cfg(depth):
+def _lmr_cfg(arch: str, depth):
     from repro_torch.configs import get_config
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     return cfg if depth is None else dataclasses.replace(cfg,
                                                          num_layers=depth)
+
+
+def _lmr_tag(arch: str, depth) -> str:
+    return f"{arch}@{'full' if depth is None else depth}"
+
+
+def _lmr_references() -> dict:
+    """(arch, depth) -> the train kind its one-process reference runs
+    ("steps" covers "step"), from every run of `LMR_WORLDS`."""
+    refs: dict = {}
+    for _, _, runs in LMR_WORLDS:
+        for arch, depth, _, train, _ in runs:
+            kind = "steps" if train in ("steps", "step") else train
+            if refs.setdefault((arch, depth), kind) != kind:
+                raise ValueError(f"{arch} at depth {depth} trains two ways")
+    return refs
 
 
 def _lmr_digest(tree) -> dict:
@@ -5408,12 +5457,199 @@ def _lmr_digest(tree) -> dict:
     return out
 
 
-def _lmr_train(cfg, mesh, seed: int) -> dict:
-    """`LMR_STEPS` train steps (B = 8, S = 256, float32 moments) on the
-    pipeline's batches from seed 0's parameters: each step's loss, gradient
+def _lmr_piece_dim(key: str, ndim: int):
+    """The dim of a leaf the model axis splits (its "heads", "kv_heads",
+    "mlp", "experts" or "vocab" name), or None."""
+    from repro_torch.models import sharding as shd
+
+    names = shd._leaf_axes(key, ndim)
+    dims = [d for d, n in enumerate(names)
+            if n is not None and "model" in shd.LOGICAL_RULES[n]]
+    return dims[0] if dims else None
+
+
+def _lmr_piece(key: str, like, shape, piece: int, seed: int):
+    """Piece ``piece`` (of shape ``shape``) of the leaf ``like`` (a fake
+    tensor of the whole), drawn on the card from its own generator: the
+    model's constants where its init has them (norms and biases 0,
+    ``D_skip`` 1, ``A_log`` log 1..N, ``dt_b`` the inverse softplus of a
+    log-uniform step), else a normal clipped to [-2, 2] over sqrt(fan in)
+    of the whole leaf (the model's fan in: the dims up to the input axis,
+    1 for ``wo``, the experts' and the convolution's, else 0)."""
+    import zlib
+
+    name = key.rsplit("['", 1)[1].rstrip("']")
+    gen = torch.Generator(device=DEVICE).manual_seed(
+        seed * 1_000_003 + zlib.crc32(key.encode()) * 16 + piece)
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    if "norm" in name or name in ("conv_b", "bq", "bk", "bv"):
+        z = torch.zeros(shape, **f32)
+    elif name == "D_skip":
+        z = torch.ones(shape, **f32)
+    elif name == "A_log":
+        z = torch.log(torch.arange(1, shape[-1] + 1, **f32)).expand(
+            shape).contiguous()
+    elif name == "dt_b":
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        u = torch.rand(shape, generator=gen, **f32) * (hi - lo) + lo
+        z = torch.log(torch.expm1(torch.clamp(torch.exp(u), min=1e-4)))
+    else:
+        from repro_torch.models import sharding as shd
+        base = next(len(n) for k, n in shd._PARAM_RULES
+                    if key.endswith(f"['{k}']"))
+        whole = tuple(like.shape)[like.ndim - base:]
+        in_axis = 1 if name in ("wo", "we_gate", "we_up", "we_down",
+                                "conv_w") else 0
+        z = torch.randn(shape, generator=gen, **f32).clamp_(-2.0, 2.0)
+        z.mul_(1.0 / math.sqrt(math.prod(whole[:in_axis + 1])))
+    return z.to(like.dtype)
+
+
+def _lmr_pieces(cfg, seed: int, mesh=None, pspec=None):
+    """Seed's parameters of a model too large for every rank sharing the
+    card to draw whole (`LMR_PIECEWISE`): each leaf in `LMR_PIECES` pieces
+    along its model-split dim (`_lmr_piece`), so a rank of a 1 x M mesh
+    draws only its own.  Whole tensors off a rank mesh, else the rank's
+    DTensors by ``pspec``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import steps
+    from repro_torch.models import sharding as shd
+
+    like_tree = steps._abstract_params(cfg)
+    ranked = shd.is_rank_mesh(mesh)
+    if ranked:
+        comm = shd.rank_comm(mesh, DEVICE)
+        if comm.sizes["data"] != 1 or LMR_PIECES % comm.sizes["model"]:
+            raise ValueError(f"pieces of {LMR_PIECES} on mesh {comm.sizes}")
+        specs = dict(shd.leaves_with_path(pspec))
+
+    def one(key, like):
+        dim = _lmr_piece_dim(key, like.ndim)
+        n = LMR_PIECES if dim is not None and \
+            like.shape[dim] % LMR_PIECES == 0 else 1
+        rows = like.shape[dim] // n if n > 1 else None
+        if not ranked:
+            whole = torch.empty(tuple(like.shape), dtype=like.dtype,
+                                device=DEVICE)
+            for p in range(n):
+                dst = whole.narrow(dim, p * rows, rows) if n > 1 else whole
+                dst.copy_(_lmr_piece(key, like, tuple(dst.shape), p, seed))
+            return whole
+        sp = specs[key]
+        axes = shd._spec_axes(sp[dim]) if dim is not None and \
+            dim < len(sp) else ()
+        if not axes:           # whole on every rank: every piece
+            blk_dims, mine = tuple(like.shape), range(n)
+        else:
+            per = n // comm.sizes["model"]
+            mine = range(comm.coord["model"] * per,
+                         (comm.coord["model"] + 1) * per)
+            blk_dims = list(like.shape)
+            blk_dims[dim] //= comm.sizes["model"]
+        blk = torch.empty(tuple(blk_dims), dtype=like.dtype, device=DEVICE)
+        for i, p in enumerate(mine):
+            dst = blk.narrow(dim, i * rows, rows) if n > 1 else blk
+            dst.copy_(_lmr_piece(key, like, tuple(dst.shape), p, seed))
+        return DTensor.from_local(blk, comm.dm, shd.placements(sp, mesh),
+                                  run_check=False,
+                                  shape=torch.Size(like.shape),
+                                  stride=torch.empty(
+                                      tuple(like.shape),
+                                      device="meta").stride())
+
+    return shd.map_with_path(one, like_tree)
+
+
+def _lmr_params(cfg, arch: str, seed: int, mesh, pspec):
+    """Seed's parameters: the model's own init (on a rank mesh each rank
+    draws the whole tree and keeps its blocks), or `_lmr_pieces` for the
+    models in `LMR_PIECEWISE`."""
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.model import build_model
+
+    if arch in LMR_PIECEWISE:
+        return _lmr_pieces(cfg, seed, mesh, pspec)
+    params = build_model(cfg, device=DEVICE).init(seed)
+    if shd.is_rank_mesh(mesh):
+        params = shd.shard_tree(params, pspec, mesh, DEVICE)
+        torch.cuda.empty_cache()
+    return params
+
+
+def _lmr_resident(mesh, trees) -> dict:
+    """A rank's bytes of each tree against the specs' shard shapes, and
+    whether every leaf's block has the spec's shape: {tag: {"held",
+    "specs", "whole", "shapes_equal_specs"}}; ``trees`` {tag: (tree,
+    specs)}."""
+    from repro_torch.models import sharding as shd
+
+    logical = dataclasses.replace(mesh, ranks=None, group=None)
+    out = {}
+    for tag, (tree, specs) in trees.items():
+        by_key = dict(shd.leaves_with_path(specs))
+        held = spec_bytes = whole = 0
+        shapes_ok = True
+        for key, leaf in shd.leaves_with_path(tree):
+            blk = shd.local_block(leaf)
+            want = shd.NamedSharding(logical, by_key[key]).shard_shape(
+                leaf.shape)
+            shapes_ok &= tuple(blk.shape) == tuple(want)
+            held += blk.numel() * blk.element_size()
+            spec_bytes += math.prod(want) * blk.element_size()
+            whole += leaf.numel() * blk.element_size()
+        out[tag] = {"held": held, "specs": spec_bytes, "whole": whole,
+                    "shapes_equal_specs": bool(shapes_ok)}
+    return out
+
+
+class _LayerCollectives:
+    """The collectives each MoE layer and each Mamba block call makes in
+    its forward, counted by wrapping `models.moe.moe_layer` and
+    `models.mamba.mamba_forward` (the backward's are the step's): calls,
+    and the collectives' counts and bytes by kind summed over them."""
+
+    def __init__(self, comm):
+        self.comm = comm
+        self.tally = {}
+
+    def __enter__(self):
+        from repro_torch.models import mamba, moe
+
+        self.saved = [(moe, "moe_layer", moe.moe_layer),
+                      (mamba, "mamba_forward", mamba.mamba_forward)]
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def counted(*a, **k):
+            before = (dict(self.comm.counts), dict(self.comm.nbytes))
+            out = fn(*a, **k)
+            t = self.tally.setdefault(name, {"calls": 0, "counts": {},
+                                             "bytes": {}})
+            t["calls"] += 1
+            for kind in self.comm.KINDS:
+                for field, now, was in (("counts", self.comm.counts,
+                                         before[0]),
+                                        ("bytes", self.comm.nbytes,
+                                         before[1])):
+                    t[field][kind] = (t[field].get(kind, 0)
+                                      + now[kind] - was[kind])
+            return out
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _lmr_train(cfg, arch: str, mesh, seed: int, n_steps: int) -> dict:
+    """``n_steps`` train steps (B = 8, S = 256, float32 moments) on the
+    pipeline's batches from seed's parameters: each step's loss, gradient
     norm and ms (CUDA events), the peak memory, the final state's digest;
-    on a rank mesh also the rank's resident bytes against the specs' and
-    one step's collectives."""
+    on a rank mesh also the rank's resident bytes against the specs', the
+    last step's collectives and its MoE layers' and Mamba blocks'."""
     from repro_torch.configs import ShapeCfg
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.launch.steps import make_train_step
@@ -5430,20 +5666,20 @@ def _lmr_train(cfg, mesh, seed: int) -> dict:
     src = make_source(DataConfig(seed=seed, vocab_size=cfg.vocab_size))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    params = step.model.init(seed)
-    if ranked:
-        params = shd.shard_tree(params, pspec, mesh, DEVICE)
-        torch.cuda.empty_cache()
+    params = _lmr_params(cfg, arch, seed, mesh, pspec)
     opt = adamw.init(params)
     out = {"losses": [], "grad_norms": [], "ms": []}
     comm = shd.rank_comm(mesh, DEVICE) if ranked else None
-    for i in range(LMR_STEPS):
+    layers = None
+    for i in range(n_steps):
         batch = src.batch(i, LM_TRAIN_B, LM_TRAIN_S, device=DEVICE)
         if ranked:
             batch = shd.shard_tree(batch, bspec, mesh, DEVICE)
             comm.reset()
-        (params, opt, m), ms = timed_once(lambda: step.fn(params, opt,
-                                                          batch))
+            layers = _LayerCollectives(comm)
+        with layers or contextlib.nullcontext():
+            (params, opt, m), ms = timed_once(lambda: step.fn(params, opt,
+                                                              batch))
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
         out["ms"].append(ms)
@@ -5451,39 +5687,90 @@ def _lmr_train(cfg, mesh, seed: int) -> dict:
     out["digest"] = _lmr_digest((params, opt.mu, opt.nu))
     if ranked:
         out["step_collectives"] = comm.record()
-        logical = dataclasses.replace(mesh, ranks=None, group=None)
-        out["resident_bytes"] = {}
-        for tag, tree, specs in (("params", params, pspec),
-                                 ("moments", (opt.mu, opt.nu),
-                                  (ospec.mu, ospec.nu))):
-            by_key = dict(shd.leaves_with_path(specs))
-            held = spec_bytes = whole = 0
-            for key, leaf in shd.leaves_with_path(tree):
-                blk = shd.local_block(leaf)
-                held += blk.numel() * blk.element_size()
-                spec_bytes += math.prod(shd.NamedSharding(
-                    logical, by_key[key]).shard_shape(leaf.shape)) \
-                    * blk.element_size()
-                whole += leaf.numel() * blk.element_size()
-            out["resident_bytes"][tag] = {"held": held, "specs": spec_bytes,
-                                          "whole": whole}
+        out["layer_collectives"] = layers.tally
+        out["resident_bytes"] = _lmr_resident(mesh, {
+            "params": (params, pspec),
+            "moments": ((opt.mu, opt.nu), (ospec.mu, ospec.nu))})
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def _lmr_serve(cfg, mesh, seed: int, gen: int = LMR_GEN) -> dict:
+def _lmr_grads(cfg, arch: str, mesh, seed: int) -> dict:
+    """`Model.loss` and its gradients (no optimizer) on the pipeline's
+    first batch at B = `LMR_GRADS_B`, S = 256, as the train step takes
+    them: the loss, the gradients' global norm, ms (CUDA events), the
+    peak memory; on a rank mesh also the resident parameter and gradient
+    bytes against the specs' and the collectives, the MoE layers' and
+    the Mamba blocks' among them."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch import steps
+    from repro_torch.models import sharding as shd
+    from repro_torch.optim import adamw
+
+    ranked = shd.is_rank_mesh(mesh)
+    st = steps.make_train_step(cfg, ShapeCfg("grads", LM_TRAIN_S,
+                                             LMR_GRADS_B, "train"), mesh,
+                               device=DEVICE)
+    pspec, _, bspec = st.in_specs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = _lmr_params(cfg, arch, seed, mesh, pspec)
+    batch = make_source(DataConfig(seed=seed, vocab_size=cfg.vocab_size)
+                        ).batch(0, LMR_GRADS_B, LM_TRAIN_S, device=DEVICE)
+    baxes = ()
+    comm = layers = None
+    if ranked:
+        batch = shd.shard_tree(batch, bspec, mesh, DEVICE)
+        baxes = steps._batch_axes(bspec)
+        comm = shd.rank_comm(mesh, DEVICE)
+        comm.reset()
+        layers = _LayerCollectives(comm)
+
+    def run():
+        with shd.use_mesh(mesh, DEVICE, baxes), \
+                (layers or contextlib.nullcontext()):
+            live = [p.detach().requires_grad_()
+                    for p in adamw.tree_leaves(params)]
+            loss = st.model.loss(adamw.tree_unflatten(params, live),
+                                 shd.local_tree(batch))
+            grads = adamw.tree_unflatten(params, list(
+                torch.autograd.grad(loss, live)))
+            return loss.detach(), grads, adamw.global_norm(grads)
+
+    (loss, grads, gnorm), ms = timed_once(run)
+    out = {"losses": [float(loss)], "grad_norms": [float(gnorm)],
+           "ms": [ms], "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "batch": [LMR_GRADS_B, LM_TRAIN_S]}
+    if ranked:
+        out["step_collectives"] = comm.record()
+        out["layer_collectives"] = layers.tally
+        out["resident_bytes"] = _lmr_resident(mesh, {
+            "params": (params, pspec), "grads": (grads, pspec)})
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lmr_serve(cfg, arch: str, mesh, seed: int, gen: int = LMR_GEN
+               ) -> dict:
     """Prefill `LMR_B` x `LMR_PROMPT` and ``gen`` - 1 greedy decode tokens
-    from seed 0's parameters: the tokens, each step's logits (B, V) on
-    the host, ms a decode token (host clock, synchronised)."""
+    from seed's parameters: the tokens, each step's logits (B, V) on the
+    host, ms a decode token (host clock, synchronised); on a rank mesh
+    also the decode run's collectives, its MoE layers' and Mamba blocks'
+    among them, and the parameters' and the decode cache's resident bytes
+    against the specs'."""
     from repro_torch.launch import serve
     from repro_torch.models import sharding as shd
     from repro_torch.models import transformer
     from repro_torch.models.model import build_model
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=DEVICE)
-    params = model.init(seed)
     prompts = torch.randint(0, cfg.vocab_size, (LMR_B, LMR_PROMPT),
                             generator=torch.Generator().manual_seed(seed + 5)
                             ).to(DEVICE)
@@ -5493,13 +5780,22 @@ def _lmr_serve(cfg, mesh, seed: int, gen: int = LMR_GEN) -> dict:
         pspec = steps.make_prefill_step(
             cfg, ShapeCfg("prefill", LMR_PROMPT, LMR_B, "prefill"), mesh,
             device=DEVICE).in_specs[0]
-        params = shd.shard_tree(params, pspec, mesh, DEVICE)
-        torch.cuda.empty_cache()
-        got = serve.generate_ranked(cfg, mesh, params, prompts, gen,
-                                    LMR_MAX_SEQ, DEVICE, temperature=0.0)
+        cspec = steps.make_serve_step(
+            cfg, ShapeCfg("decode", LMR_MAX_SEQ, LMR_B, "decode"), mesh,
+            device=DEVICE).in_specs[3]
+        params = _lmr_params(cfg, arch, seed, mesh, pspec)
+        with _LayerCollectives(shd.rank_comm(mesh, DEVICE)) as layers:
+            got = serve.generate_ranked(cfg, mesh, params, prompts, gen,
+                                        LMR_MAX_SEQ, DEVICE, temperature=0.0)
         logits = [x.cpu() for x in got["logits"]]
-        res = {"decode_collectives": got["decode_comm"]}
+        res = {"decode_collectives": got["decode_comm"],
+               "layer_collectives": layers.tally,
+               "serve_bytes": _lmr_resident(mesh, {
+                   "params": (params, pspec),
+                   "cache": (got["cache"], cspec)})}
+        del got["cache"]
     else:
+        params = _lmr_params(cfg, arch, seed, None, None)
         with torch.no_grad():
             t0 = time.perf_counter()
             lg, pcache = transformer.prefill(params, cfg, prompts)
@@ -5520,7 +5816,9 @@ def _lmr_serve(cfg, mesh, seed: int, gen: int = LMR_GEN) -> dict:
                 step_s.append(time.perf_counter() - ts)
                 logits.append(lg[:, -1].float().cpu())
             got = {"prefill_s": t_pre, "decode_step_s": step_s}
+            del cache
         res = {}
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5531,12 +5829,13 @@ def _lmr_serve(cfg, mesh, seed: int, gen: int = LMR_GEN) -> dict:
     return res
 
 
-def _lmr_tokens_agree(got, want, got_logits, logits) -> dict:
+def _lmr_tokens_agree(got, want, got_logits, logits,
+                      tol: float = LMR_LOGIT_TOL) -> dict:
     """Greedy tokens against one process's, step by step per row, while
     the row's earlier tokens agree (after a parting the inputs differ):
     a token must be equal where one process's top-2 margin exceeds
-    `LMR_LOGIT_TOL`, and may part where it does not.  Also the largest
-    logit difference over the steps compared."""
+    ``tol``, and may part where it does not.  Also the largest logit
+    difference over the steps compared."""
     top2 = logits.topk(2, dim=-1).values
     margin = (top2[..., 0] - top2[..., 1]).numpy()
     agree, held, steps, worst = True, 0, 0, 0.0
@@ -5546,28 +5845,109 @@ def _lmr_tokens_agree(got, want, got_logits, logits) -> dict:
             worst = max(worst, float((got_logits[b, t]
                                       - logits[b, t]).abs().max()))
             if got[b, t] != want[b, t]:
-                agree &= bool(margin[b, t] <= LMR_LOGIT_TOL)
+                agree &= bool(margin[b, t] <= tol)
                 break
-            held += bool(margin[b, t] > LMR_LOGIT_TOL)
+            held += bool(margin[b, t] > tol)
     return {"agree": agree, "steps_compared": steps,
             "held_over_margin": held, "max_logit_diff": worst,
             "min_margin": float(margin.min())}
 
 
-def lm_ranks_child(backend: str, rank: str, world: str, store: str,
-                   tmp: str, seed: str, depth: str, meshes: str) -> None:
-    """One rank of the lm_ranks phase (see `lm_ranks_phase`): world 1 also
-    runs the one-process references (full depth and `LMR_DEPTH`) and
-    writes them to ``tmp`` for the later worlds; every rank prints a JSON
-    record.  The launch counts of K1-K6 are read around the whole run."""
+def _lmr_one_process(arch: str, depth, kind, seed: int, tmp: Path) -> dict:
+    """One model's one-process reference: its training (``kind``), its
+    serving, saved to ``tmp`` for the later worlds; returns the record."""
+    cfg = _lmr_cfg(arch, depth)
+    t0 = time.perf_counter()
+    one = {"serve": _lmr_serve(cfg, arch, None, seed)}
+    if kind == "steps":
+        one["train"] = _lmr_train(cfg, arch, None, seed, LMR_STEPS)
+    elif kind == "grads":
+        one["train"] = _lmr_grads(cfg, arch, None, seed)
+    saved = {"tokens": one["serve"]["tokens"],
+             "logits": one["serve"]["logits"],
+             "logit_rms": float(one["serve"]["logits"].pow(2).mean()
+                                .sqrt())}
+    rec = {k: one["serve"][k] for k in ("prefill_ms", "ms_per_token")}
+    rec["logit_rms"] = saved["logit_rms"]
+    rec["serve_peak_gb"] = one["serve"]["peak_gb"]
+    if "train" in one:
+        saved.update({k: one["train"].get(k) for k in ("losses",
+                                                       "grad_norms",
+                                                       "digest")})
+        rec.update({k: v for k, v in one["train"].items() if k != "digest"})
+    torch.save(saved, tmp / f"one_{_lmr_tag(arch, depth)}.pt")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def _lmr_logit_tol(arch: str, rms: float, tmp: Path) -> float:
+    """`LMR_LOGIT_TOL` at ``arch``'s logits' scale: times the ratio of
+    their RMS to gemma2-2b's (full depth, one process) where it exceeds 1;
+    gemma2-2b's own runs are held to it as it is."""
+    if arch == LM_ARCH:
+        return LMR_LOGIT_TOL
+    ref = torch.load(tmp / f"one_{_lmr_tag(LM_ARCH, None)}.pt")
+    return LMR_LOGIT_TOL * max(1.0, rms / ref["logit_rms"])
+
+
+def _lmr_run(run, seed: int, tmp: Path) -> tuple:
+    """One run of `LMR_WORLDS` on its rank mesh, against its one-process
+    reference: (name, record)."""
     from repro_torch.core import distributed as dist_mod
-    from repro_torch.core import ranks
     from repro_torch.models import sharding as shd
 
+    arch, depth, shape, train, gen = run
+    t0 = time.perf_counter()
+    want = torch.load(tmp / f"one_{_lmr_tag(arch, depth)}.pt")
+    cfg = _lmr_cfg(arch, depth)
+    mesh = dist_mod.make_rank_mesh(tuple(shape), ("data", "model"))
+    rec = {"arch": arch, "layers": cfg.num_layers, "train": train}
+    if train in ("steps", "step"):
+        rec.update(_lmr_train(cfg, arch, mesh, seed,
+                              LMR_STEPS if train == "steps" else 1))
+    elif train == "grads":
+        rec.update(_lmr_grads(cfg, arch, mesh, seed))
+    if train is not None:
+        n = len(rec["losses"])
+        rec["loss_diffs"] = [abs(a - b) for a, b in zip(
+            rec["losses"], want["losses"][:n])]
+        rec["grad_norm_rel_diffs"] = [abs(a - b) / b for a, b in zip(
+            rec["grad_norms"], want["grad_norms"][:n])]
+        digest = rec.pop("digest", None)
+        rec["state_bit_equal"] = (digest == want["digest"]
+                                  if train == "steps" else None)
+    sv = _lmr_serve(cfg, arch, mesh, seed, gen)
+    w_tok, w_log = want["tokens"][:, :gen], want["logits"][:, :gen]
+    tol = _lmr_logit_tol(arch, want["logit_rms"], tmp)
+    tokens = _lmr_tokens_agree(sv["tokens"], w_tok, sv["logits"], w_log,
+                               tol)
+    rec.update({
+        "decode_tokens": gen - 1, "tokens": tokens, "logit_tol": tol,
+        "logit_rms": want["logit_rms"],
+        "tokens_equal": bool(torch.equal(sv["tokens"], w_tok)),
+        "logits_bit_equal": bool(torch.equal(sv["logits"], w_log)),
+        "prefill_ms": sv["prefill_ms"], "ms_per_token": sv["ms_per_token"],
+        "serve_peak_gb": sv["peak_gb"],
+        "decode_collectives": sv["decode_collectives"],
+        "decode_layer_collectives": sv["layer_collectives"],
+        "serve_bytes": sv["serve_bytes"],
+        "transport": shd.rank_comm(mesh, DEVICE).transport,
+        "finite": bool(np.isfinite(rec.get("losses", [0.0])).all()
+                       and torch.isfinite(sv["logits"]).all()),
+        "seconds": time.perf_counter() - t0})
+    name = f"{_lmr_tag(arch, depth)}/{'x'.join(map(str, shape))}"
+    return name, rec
+
+
+def lm_ranks_child(backend: str, rank: str, world: str, store: str,
+                   tmp: str, seed: str, runs: str) -> None:
+    """One rank of the lm_ranks phase (see `lm_ranks_phase`): world 1 also
+    runs the one-process references of every model and writes them to
+    ``tmp`` for the later worlds; every rank prints a JSON record.  The
+    launch counts of K1-K6 are read around the whole run."""
+    from repro_torch.core import ranks
+
     rank, world, seed = int(rank), int(world), int(seed)
-    depth = None if depth == "full" else int(depth)
-    shapes = [(tuple(int(x) for x in m.split(":")[0].split("x")),
-               int(m.split(":")[1])) for m in meshes.split(",")]
     os.environ["RANK"] = str(rank)
     os.environ["LOCAL_RANK"] = "0" if backend == "nccl" else str(rank)
     ranks.init_rank(backend, rank, world, store_path=store,
@@ -5577,56 +5957,14 @@ def lm_ranks_child(backend: str, rank: str, world: str, store: str,
 
     def run():
         rec = {"rank": rank, "world": world, "backend": backend,
-               "meshes": {}}
+               "one_process": {}, "meshes": {}}
         if world == 1:
-            for d in (None, LMR_DEPTH):
-                one = {"train": _lmr_train(_lmr_cfg(d), None, seed),
-                       "serve": _lmr_serve(_lmr_cfg(d), None, seed)}
-                tag = "full" if d is None else str(d)
-                torch.save({"losses": one["train"]["losses"],
-                            "grad_norms": one["train"]["grad_norms"],
-                            "digest": one["train"]["digest"],
-                            "tokens": one["serve"]["tokens"],
-                            "logits": one["serve"]["logits"]},
-                           tmp / f"one_{tag}.pt")
-                rec[f"one_process_{tag}"] = {
-                    k: v for k, v in one["train"].items() if k != "digest"}
-                rec[f"one_process_{tag}"].update(
-                    {k: one["serve"][k] for k in ("prefill_ms",
-                                                  "ms_per_token")})
-        want = torch.load(tmp / f"one_{'full' if depth is None else depth}"
-                          ".pt")
-        cfg = _lmr_cfg(depth)
-        for shape, gen in shapes:
-            mesh = dist_mod.make_rank_mesh(shape, ("data", "model"))
-            tr = _lmr_train(cfg, mesh, seed)
-            sv = _lmr_serve(cfg, mesh, seed, gen)
-            name = "x".join(map(str, shape))
-            same_state = tr.pop("digest") == want["digest"]
-            diff = [abs(a - b) for a, b in zip(tr["losses"],
-                                               want["losses"])]
-            grad = [abs(a - b) / b for a, b in zip(tr["grad_norms"],
-                                                   want["grad_norms"])]
-            w_tok, w_log = want["tokens"][:, :gen], want["logits"][:, :gen]
-            tokens = _lmr_tokens_agree(sv["tokens"], w_tok, sv["logits"],
-                                       w_log)
-            rec["meshes"][name] = {
-                **tr, "loss_diffs": diff, "decode_tokens": gen - 1,
-                "losses_within_tol": max(diff) <= LMR_LOSS_TOL,
-                "grad_norm_rel_diffs": grad,
-                "grad_norms_within_tol": max(grad) <= LMR_GRAD_RTOL,
-                "logits_within_tol": (tokens["max_logit_diff"]
-                                      <= LMR_LOGIT_TOL),
-                "state_bit_equal": same_state,
-                "tokens": tokens,
-                "tokens_equal": bool(torch.equal(sv["tokens"], w_tok)),
-                "logits_bit_equal": bool(torch.equal(sv["logits"], w_log)),
-                "prefill_ms": sv["prefill_ms"],
-                "ms_per_token": sv["ms_per_token"],
-                "decode_collectives": sv["decode_collectives"],
-                "transport": shd.rank_comm(mesh, DEVICE).transport,
-                "finite": bool(np.isfinite(tr["losses"]).all()
-                               and torch.isfinite(sv["logits"]).all())}
+            for (arch, depth), kind in _lmr_references().items():
+                rec["one_process"][_lmr_tag(arch, depth)] = \
+                    _lmr_one_process(arch, depth, kind, seed, tmp)
+        for r in json.loads(runs):
+            name, m = _lmr_run(r, seed, tmp)
+            rec["meshes"][name] = m
         return rec
 
     try:
@@ -5638,22 +5976,60 @@ def lm_ranks_child(backend: str, rank: str, world: str, store: str,
         tdist.destroy_process_group()
 
 
+def _lmr_checks(tag: str, m: dict) -> dict:
+    """A run's checks: NCCL world 1 bit-equal to one process, the gloo
+    worlds within the tolerances; every block as the specs say."""
+    checks = {}
+    if m["train"] is not None:
+        if tag == "nccl1":
+            checks["losses_bit_equal"] = m["loss_diffs"] == [0.0] * len(
+                m["loss_diffs"])
+            if m["state_bit_equal"] is not None:
+                checks["state_bit_equal"] = m["state_bit_equal"]
+        else:
+            checks["losses_within_tol"] = max(m["loss_diffs"]) \
+                <= LMR_LOSS_TOL
+            checks["grad_norms_within_tol"] = max(
+                m["grad_norm_rel_diffs"]) <= LMR_GRAD_RTOL
+        for t, v in m["resident_bytes"].items():
+            checks[f"{t}_bytes_equal_specs"] = v["held"] == v["specs"]
+            checks[f"{t}_shapes_equal_specs"] = v["shapes_equal_specs"]
+    if tag == "nccl1":
+        checks["tokens_equal"] = m["tokens_equal"]
+        checks["logits_bit_equal"] = m["logits_bit_equal"]
+    else:
+        checks["logits_within_tol"] = (m["tokens"]["max_logit_diff"]
+                                       <= m["logit_tol"])
+        checks["tokens_agree"] = m["tokens"]["agree"]
+    for t, v in m["serve_bytes"].items():
+        checks[f"serve_{t}_bytes_equal_specs"] = v["held"] == v["specs"]
+        checks[f"serve_{t}_shapes_equal_specs"] = v["shapes_equal_specs"]
+    checks["finite"] = m["finite"]
+    return checks
+
+
 def lm_ranks_phase(seed: int) -> dict:
-    """gemma2-2b's steps across processes on the card (`launch.steps` on a
-    rank mesh: FSDP over data x tensor parallel over model), each world a
-    group of child processes run in turn, never together: NCCL at world
-    size 1 first (it also runs the one-process references: 3 train steps
-    at B = 8, S = 256 in bf16 with float32 moments, and a B = 4 prefill of
-    32 tokens with 16 greedy decode tokens) — a 1 x 1 rank mesh, bit-equal
-    to them; then 2 gloo ranks sharing the card on 1 x 2 (tensor
-    parallel; 16 decode tokens) and 2 x 1 (FSDP; 4), each step's loss
-    within `LMR_LOSS_TOL` of one process's and its gradient norm within
-    `LMR_GRAD_RTOL`, the logits within `LMR_LOGIT_TOL` while the tokens
-    agree, and the greedy tokens equal where the margin exceeds
-    `LMR_LOGIT_TOL`; then 4 gloo ranks on 2 x 2
-    at `LMR_DEPTH` layers (4 decode tokens) against one process at that
-    depth.  Each rank holds the specs' bytes
-    of parameters and moments, and launches none of K1-K6."""
+    """The language models' steps across processes on the card
+    (`launch.steps` on a rank mesh: FSDP over data x tensor and expert
+    parallel over model), each world a group of child processes run in
+    turn, never together (`LMR_WORLDS`): NCCL at world size 1 first — it
+    also runs every model's one-process reference (3 train steps at B =
+    8, S = 256 in bf16 with float32 moments, or jamba's loss and
+    gradients at B = `LMR_GRADS_B`; a B = 4 prefill of 32 tokens with 16
+    greedy decode tokens) — gemma2-2b and granite-moe on a 1 x 1 rank
+    mesh, bit-equal to them; then 2 gloo ranks sharing the card: gemma2-2b
+    and granite-moe (all 24 layers, 16 experts a rank) on 1 x 2 (16
+    decode tokens) and 2 x 1 (FSDP, gemma2-2b at `LMR_DEPTH` layers; 4
+    decode tokens), jamba's period (its loss and
+    gradients, serving) and kimi-k2's cut (serving, 192 experts a rank)
+    on 1 x 2; then 4 gloo ranks on 2 x 2 (gemma2-2b at `LMR_DEPTH`
+    layers, granite-moe one step).  Each step's loss within
+    `LMR_LOSS_TOL` of one process's and its gradient norm within
+    `LMR_GRAD_RTOL`, the logits within `LMR_LOGIT_TOL` (at the logits'
+    scale, `_lmr_logit_tol`) while the tokens agree, the greedy tokens
+    equal where the margin exceeds it.  Each rank holds the specs' blocks
+    of parameters, moments (or gradients) and the decode cache, and
+    launches none of K1-K6."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -5663,14 +6039,11 @@ def lm_ranks_phase(seed: int) -> dict:
     worlds, failed = {}, []
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
-        for backend, world, meshes, depth in LMR_WORLDS:
+        for backend, world, runs in LMR_WORLDS:
             tag = f"{backend}{world}"
             store = str(tmp / f"{tag}_store")
             argv = lambda r: [backend, str(r), str(world), store, str(tmp),  # noqa: E731
-                              str(seed), "full" if depth is None
-                              else str(depth),
-                              ",".join("x".join(map(str, m)) + f":{g}"
-                                       for m, g in meshes)]
+                              str(seed), json.dumps(runs)]
             t = time.perf_counter()
             done = _finish_ranks(_start_ranks(code, world, argv),
                                  LMR_TIMEOUT_S)
@@ -5680,8 +6053,7 @@ def lm_ranks_phase(seed: int) -> dict:
                     raise AssertionError(f"lm_ranks: rank {r} of {tag} "
                                          f"exited {rc}: {err[-3000:]}")
                 recs.append(json.loads(out.strip().splitlines()[-1]))
-            worlds[tag] = {"seconds": time.perf_counter() - t,
-                           "depth": depth or "full", "ranks": recs}
+            worlds[tag] = {"seconds": time.perf_counter() - t, "ranks": recs}
     launches = {k: 0 for k in KERNELS}
     checks = {}
     for tag, w in worlds.items():
@@ -5689,38 +6061,20 @@ def lm_ranks_phase(seed: int) -> dict:
             for k, c in r["launches"].items():
                 launches[k] += c
             for name, m in r["meshes"].items():
-                key = f"{tag}/{name}/rank{r['rank']}"
-                if tag == "nccl1":
-                    checks[key] = {
-                        "state_bit_equal": m["state_bit_equal"],
-                        "losses_bit_equal": m["loss_diffs"] == [0.0] * len(
-                            m["loss_diffs"]),
-                        "tokens_equal": m["tokens_equal"],
-                        "logits_bit_equal": m["logits_bit_equal"]}
-                else:
-                    checks[key] = {
-                        "losses_within_tol": m["losses_within_tol"],
-                        "grad_norms_within_tol": m["grad_norms_within_tol"],
-                        "logits_within_tol": m["logits_within_tol"],
-                        "tokens_agree": m["tokens"]["agree"]}
-                checks[key]["finite"] = m["finite"]
-                checks[key]["resident_bytes_equal_specs"] = all(
-                    v["held"] == v["specs"]
-                    for v in m["resident_bytes"].values())
+                checks[f"{tag}/{name}/rank{r['rank']}"] = _lmr_checks(tag, m)
     if any(launches.values()):
         failed.append(f"the rank steps launched kernels: {launches}")
     failed += [f"{k}: {n}" for k, c in checks.items()
                for n, ok in c.items() if not ok]
     res = {"phase": "lm_ranks", "card": nvidia_smi_line(),
-           "arch": LM_ARCH, "train": {"B": LM_TRAIN_B, "S": LM_TRAIN_S,
-                                      "steps": LMR_STEPS},
+           "train": {"B": LM_TRAIN_B, "S": LM_TRAIN_S, "steps": LMR_STEPS,
+                     "grads_B": LMR_GRADS_B},
            "serve": {"B": LMR_B, "prompt": LMR_PROMPT,
-                     "decode_tokens": {
-                         f"{b}{w}/{'x'.join(map(str, m))}": g - 1
-                         for b, w, ms, _ in LMR_WORLDS for m, g in ms},
                      "max_seq": LMR_MAX_SEQ},
+           "runs": [[b, w, *r] for b, w, runs in LMR_WORLDS for r in runs],
            "tolerances": {"loss": LMR_LOSS_TOL, "grad_norm": LMR_GRAD_RTOL,
-                          "logit": LMR_LOGIT_TOL},
+                          "logit": LMR_LOGIT_TOL,
+                          "logit_scaled_by_rms": "over gemma2-2b's"},
            "worlds": worlds, "checks": checks, "launches": launches,
            "seconds": time.perf_counter() - t_phase}
     emit(res)

@@ -10,12 +10,16 @@ prompts, grafts the prefill cache into a ``max_seq`` decode cache and
 decodes token by token under ``torch.inference_mode()``.  The port of
 ``python -m repro.launch.serve``, with ``--device`` (default ``cuda``: a
 machine without a GPU needs ``--device cpu``).  ``--ranks N --backend
-{nccl,gloo} --data-model D M`` serves the dense family sharded across N
-processes, one a position of the rank mesh (`generate_ranked`; the
-decode cache's positions split over "model"); rank 0 prints.
+{nccl,gloo} --data-model D M`` serves the dense, mixture-of-experts and
+hybrid families sharded across N processes, one a position of the rank
+mesh (`generate_ranked`; the decode cache's positions, and Mamba's state
+channels, split over "model"); rank 0 prints.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
       --reduced --batch 4 --prompt-len 32 --gen 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-1b-a400m --reduced --ranks 2 --backend gloo \\
+      --data-model 1 2 --device cpu
 """
 from __future__ import annotations
 
@@ -123,8 +127,9 @@ def generate_ranked(cfg, mesh, params: dict, prompts: torch.Tensor,
     per-rank DTensors, ``prompts`` (B, P) the same on every rank.  Each
     token is drawn from the logits gathered whole on every rank (the same
     draws everywhere: ``generator`` seeded alike on each).  Returns what
-    `generate` does, plus the logits of every step (B, V each, float32)
-    and the collectives' record of the decode steps."""
+    `generate` does, plus the logits of every step (B, V each, float32),
+    the collectives' record of the decode steps and the decode cache (the
+    rank's blocks, as DTensors)."""
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.launch import steps
     from repro_torch.models import sharding as shd
@@ -177,7 +182,8 @@ def generate_ranked(cfg, mesh, params: dict, prompts: torch.Tensor,
             step_s.append(time.perf_counter() - ts)
     return {"tokens": torch.cat(out_toks, dim=1), "prefill_s": t1 - t0,
             "graft_s": t2 - t1, "decode_step_s": step_s,
-            "logits": all_logits, "decode_comm": comm.record()}
+            "logits": all_logits, "decode_comm": comm.record(),
+            "cache": cache}
 
 
 def parse(argv=None):

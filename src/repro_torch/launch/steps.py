@@ -23,13 +23,16 @@ the new parameters and moments into the caller's tensors in place (the
 reference donates the state).
 
 On a rank mesh (`core.distributed.make_rank_mesh`, one process a
-position) the dense family's steps are sharded as the specs say, FSDP
-over "data" and tensor parallel over "model": every argument and result
-is a tree of per-rank DTensors (`models.sharding.shard_tree` makes them
-from whole trees, `full_tree` gathers them back), each rank holding its
-block of every parameter, float32 moment, batch and cache.  The specs are
-the same as on a logical mesh.  Other families and 8-bit moments raise
-there (ROADMAP item 12e): nothing is replicated in their place.
+position) the steps of the dense, mixture-of-experts and hybrid (Mamba)
+families are sharded as the specs say, FSDP over "data" and tensor
+parallel over "model" (the experts and the Mamba channels split over it
+too): every argument and result is a tree of per-rank DTensors
+(`models.sharding.shard_tree` makes them from whole trees, `full_tree`
+gathers them back), each rank holding its block of every parameter,
+float32 moment, batch and cache.  The specs are the same as on a logical
+mesh.  The other families (RWKV, Whisper, the vision-language model) and
+8-bit moments raise there (ROADMAP item 12e): nothing is replicated in
+their place.
 """
 from __future__ import annotations
 
@@ -146,6 +149,10 @@ def _opt_moment_specs(moments: Any, mesh) -> Any:
     return shd.map_with_path(one, moments)
 
 
+# the families whose steps run on a rank mesh
+RANKED_FAMILIES = ("dense", "moe", "hybrid")
+
+
 def rank_setup(cfg: ModelCfg, mesh, device) -> tuple:
     """On a rank mesh: check the step can be sharded there and make the
     mesh's collectives (every rank calls this together); returns
@@ -155,12 +162,13 @@ def rank_setup(cfg: ModelCfg, mesh, device) -> tuple:
     dev = require_device(device)
     if not shd.is_rank_mesh(mesh):
         return False, dev
-    if cfg.family != "dense" or cfg.enc_dec is not None:
+    if cfg.family not in RANKED_FAMILIES or cfg.enc_dec is not None:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a rank mesh: only the dense "
-            f"family's steps are sharded across processes so far (its "
-            f"mixture-of-experts, Mamba, RWKV and Whisper sites are ROADMAP "
-            f"item 12e); use a logical mesh (launch.mesh.make_host_mesh)")
+            f"{cfg.name} ({cfg.family}) on a rank mesh: only the "
+            f"{', '.join(RANKED_FAMILIES)} families' steps are sharded "
+            f"across processes so far (RWKV's, Whisper's and the "
+            f"vision-language model's sites are ROADMAP item 12e); use a "
+            f"logical mesh (launch.mesh.make_host_mesh)")
     if shd.PARALLELISM != "2d":
         raise NotImplementedError(
             f"REPRO_PARALLELISM={shd.PARALLELISM} on a rank mesh: only the "
@@ -350,17 +358,37 @@ def make_prefill_step(cfg: ModelCfg, shape: ShapeCfg, mesh,
 
 
 def _cache_out(cache: dict, params: dict, cfg: ModelCfg, mesh) -> dict:
-    """Prefill's per-rank K/V blocks (G, B_block, P, KV_block, hd) as
-    DTensors of the whole cache: the batch split as the batch's, the KV
-    heads as the projections'."""
+    """Prefill's per-rank cache blocks as DTensors of the whole cache: the
+    batch split as the batch's, K/V (lead, B, P, KV, hd) with the KV heads
+    split as the projections', Mamba's conv (lead, B, K-1, d_in) and ssm
+    (lead, B, d_in, N) with the channels split as its weights'."""
+    comm = shd.current_comm()
+    heads = shd.split_axes(_first_leaf(params, "wk"), -2)
+    chans = shd.split_axes(_first_leaf(params, "conv_w"), -2)
+    names_of = {"kv_heads": heads, "mlp": chans}
+
     def one(key, leaf):
-        heads = shd.split_axes(params["blocks"]["layer_0"]["attn"]["wk"], -2)
-        shape = list(leaf.shape)
-        shape[1] *= shd.batch_split()
-        shape[3] *= math.prod(shd.current_comm().sizes[a] for a in heads)
-        names = (None, "batch", None, "kv_heads" if heads else None, None)
+        lead = (None,) * (leaf.ndim - _base_ndim(key))
+        if key.endswith("'k']") or key.endswith("'v']"):
+            names = lead + ("batch", None, "kv_heads", None)
+        elif "ssm" in key:
+            names = lead + ("batch", "mlp", None)
+        else:
+            names = lead + ("batch", None, "mlp")
+        names = tuple(n if n is None or n == "batch" or names_of[n] else None
+                      for n in names)
+        shape = [d * (shd.batch_split() if n == "batch" else
+                      math.prod(comm.sizes[a] for a in names_of[n])
+                      if n is not None else 1)
+                 for d, n in zip(leaf.shape, names)]
         return _as_dtensor(leaf, names, tuple(shape), mesh)
     return shd.map_with_path(one, cache)
+
+
+def _first_leaf(tree, name: str):
+    """The first leaf called ``name`` in a parameter tree (None if none)."""
+    return next((leaf for key, leaf in shd.leaves_with_path(tree)
+                 if key.endswith(f"'{name}']")), None)
 
 
 def make_step(cfg: ModelCfg, shape: ShapeCfg, mesh, opt_bits: int = 32,

@@ -12,19 +12,24 @@ not depend on the mesh.  ``--device`` defaults to ``cuda``: a machine
 without a GPU needs ``--device cpu``.
 
 ``--ranks N`` runs the step sharded across N processes instead, one a
-position of the ``--data-model D M`` rank mesh (D x M = N; the dense
-family): FSDP over data, tensor parallel over model.  The script starts
-its ranks itself (a ``FileStore`` in a temporary directory), or joins
-torchrun's; ``--backend nccl`` (the default on CUDA) needs a card a rank,
-``gloo`` (the default on the CPU) lets ranks share a card, its tensors
-staged through host memory.  Rank 0 prints; a checkpoint holds whole
-leaves, so a run resumes on another number of ranks.
+position of the ``--data-model D M`` rank mesh (D x M = N; the dense,
+mixture-of-experts and hybrid families): FSDP over data, tensor parallel
+over model (the experts and the Mamba channels split over it too).  The
+script starts its ranks itself (a ``FileStore`` in a temporary
+directory), or joins torchrun's; ``--backend nccl`` (the default on
+CUDA) needs a card a rank, ``gloo`` (the default on the CPU) lets ranks
+share a card, its tensors staged through host memory.  Rank 0 prints; a
+checkpoint holds whole leaves, so a run resumes on another number of
+ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
       --reduced --steps 300 --batch 8 --seq 256 --ckpt-dir runs/ckpt \\
       --mesh host --data-model 2 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 20 \\
       --ranks 2 --backend gloo --data-model 1 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite-moe-1b-a400m --reduced --steps 20 --ranks 2 \\
+      --backend gloo --data-model 1 2 --device cpu
 """
 from __future__ import annotations
 

@@ -19,6 +19,17 @@ carrying the conv and SSM states, each chunk recomputed in backward
 (`torch.utils.checkpoint`, the reference's ``jax.checkpoint``).  Decode
 is the O(1) recurrent step with (conv, ssm) carried in the cache.
 `CHUNK` and `SEQ_CHUNK` are read at call time.
+
+On a rank mesh (`models.sharding`) the inner channels (d_in) are split
+over "model", as the rules split every Mamba leaf along them: the
+convolution, the softplus and the selective scan are per channel and run
+on the rank's channels, and the decode states hold them.  ``in_proj``'s
+columns are ``[xs | z]`` and its block on a rank is a contiguous run of
+them (on 2 ranks all of xs on one and all of z on the other), so its
+output is gathered whole on its last dim and each half split into the
+rank's channels (`_xs_z`).  ``x_proj`` is row-parallel: its partial sums
+are all-reduced before the (dt, B, C) split, and their gradient, partial
+on each rank's channels, is summed; ``out_proj`` is row-parallel too.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import HybridCfg
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import dense_init
 
 CHUNK = 128
@@ -164,8 +176,11 @@ def mamba_forward(params: dict, hc: HybridCfg, x: torch.Tensor,
     d_inner · d_state) instead of O(S · d_inner · d_state).
     """
     B, S, D = x.shape
+    if state is not None:
+        # a rank's block of the decode cache: the plain tensors it holds
+        state = {k: shd.local_block(v) for k, v in state.items()}
     if S > SEQ_CHUNK and S % SEQ_CHUNK == 0:
-        d_in = hc.expand * D
+        d_in = _channels(params, hc, D)
         if state is None:
             state = {
                 "conv": torch.zeros((B, hc.d_conv - 1, d_in),
@@ -186,25 +201,55 @@ def mamba_forward(params: dict, hc: HybridCfg, x: torch.Tensor,
     return _mamba_impl(params, hc, x, state, return_state)
 
 
+def _channels(params: dict, hc: HybridCfg, d_model: int) -> int:
+    """The inner channels this rank holds (all of them off a rank mesh)."""
+    ax = shd.split_axes(params["conv_w"], -2)
+    n = math.prod(shd.current_comm().sizes[a] for a in ax) if ax else 1
+    return hc.expand * d_model // n
+
+
+def _xs_z(xz: torch.Tensor, ax: tuple):
+    """(xs, z) of ``in_proj``'s output, each on this rank's channels.  On
+    a rank mesh ``xz`` is the rank's contiguous block of the [xs | z]
+    columns: gathered whole on its last dim, then each half split (the
+    split's backward gathers each half's gradient, so the gather's keeps
+    its block of a gradient every rank holds whole)."""
+    if not ax:
+        return xz.chunk(2, dim=-1)
+    xz = shd.constrain(xz, ("batch", "seq", None),
+                       held=("batch", "seq", "mlp"))
+    return tuple(shd.constrain(h, ("batch", "seq", "mlp"),
+                               held=("batch", "seq", None))
+                 for h in xz.chunk(2, dim=-1))
+
+
 def _mamba_impl(params: dict, hc: HybridCfg, x: torch.Tensor,
                 state: dict | None, return_state: bool):
     B, S, D = x.shape
     N = hc.d_state
+    ax = shd.split_axes(params["conv_w"], -2)
 
-    xz = x @ params["in_proj"]                             # (B, S, 2*d_in)
-    xs, z = xz.chunk(2, dim=-1)
-    xs, conv_state = _causal_conv(xs, params["conv_w"], params["conv_b"],
+    # column-parallel: the rank's channels give a partial gradient of x
+    xz = shd.psum_grad(x, ax) @ shd.local(params["in_proj"])
+    xs, z = _xs_z(xz, ax)                                  # (B, S, d_in)
+    xs, conv_state = _causal_conv(xs, shd.local(params["conv_w"]),
+                                  shd.local(params["conv_b"]),
                                   None if state is None else state["conv"])
     xs = F.silu(xs)
 
-    proj = xs @ params["x_proj"]                           # (B, S, R+2N)
+    proj = xs @ shd.local(params["x_proj"])                # (B, S, R+2N)
+    # row-parallel: the channels' partial sums summed; dt, B and C are
+    # then used on every rank's channels, each giving a partial gradient
+    proj = shd.psum_grad(shd.constrain(proj, ("batch", "seq", None),
+                                       partial=ax), ax)
     dt_rank = params["dt_w"].shape[0]
     dt, Bp, Cp = proj.split([dt_rank, N, N], dim=-1)
     # softplus as jax.nn.softplus, log(1 + e^x) everywhere (F.softplus
     # switches to the identity above 20)
-    dt = torch.logaddexp(dt @ params["dt_w"] + params["dt_b"].to(dt.dtype),
+    dt = torch.logaddexp(dt @ shd.local(params["dt_w"])
+                         + shd.local(params["dt_b"]).to(dt.dtype),
                          torch.zeros((), dtype=dt.dtype, device=x.device))
-    A = -torch.exp(params["A_log"])                        # (d_in, N)
+    A = -torch.exp(shd.local(params["A_log"]))             # (d_in, N)
 
     a = torch.exp(dt.float()[..., None] * A)               # (B, S, d_in, N)
     bx = (dt * xs).float()[..., None] * Bp.float()[..., None, :]
@@ -212,9 +257,10 @@ def _mamba_impl(params: dict, hc: HybridCfg, x: torch.Tensor,
                      device=x.device) if state is None else state["ssm"]
     h_all, h_fin = _selective_scan(a, bx, h0)
     y = torch.einsum("bsdn,bsn->bsd", h_all, Cp.float())  # (B, S, d_in)
-    y = y + params["D_skip"] * xs.float()
+    y = y + shd.local(params["D_skip"]) * xs.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ params["out_proj"]
+    out = shd.constrain(y @ shd.local(params["out_proj"]),
+                        ("batch", "seq", None), partial=ax)
     new_state = {"conv": conv_state, "ssm": h_fin} if return_state else None
     return out, new_state
 

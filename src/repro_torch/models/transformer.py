@@ -28,10 +28,12 @@ encoder-decoder is `models.whisper`.
 
 The reference's layout constraints stand where it has them (the embedded
 tokens, each layer's output, the chunk's logits; `models.sharding.
-constrain`).  On a rank mesh (the dense family; `launch.steps`) every
-rank runs these functions on its block of the batch with its blocks of
-the weights, and the cross-entropy's mean divides by the whole batch and
-sums over the batch's ranks.
+constrain`).  On a rank mesh (the dense, mixture-of-experts and hybrid
+families; `launch.steps`) every rank runs these functions on its block of
+the batch with its blocks of the weights, and the cross-entropy's mean
+divides by the whole batch and sums over the batch's ranks; the aux term
+is the same on every rank (`models.moe` averages its statistics across
+the batch's ranks), so it adds to the loss as in one process.
 """
 from __future__ import annotations
 
@@ -438,10 +440,10 @@ def init_cache(cfg: ModelCfg, batch: int, max_seq: int,
 
 def _write_back(dst: dict, src: dict) -> None:
     """The layer's new cache into its slice of the decode cache, in place
-    (attention's K/V are already there)."""
+    (attention's K/V are already there; a rank writes its block)."""
     for k, v in src.items():
         if v is not dst[k]:
-            dst[k].copy_(v)
+            shd.local_block(dst[k]).copy_(v)
 
 
 def decode_step(

@@ -141,6 +141,7 @@ def generate(save, mesh, c, params, *, tag):
         logits = out["logits"]
         save(f"{tag}/comm", np.array(sum(out["decode_comm"]["calls"]
                                          .values())))
+        _save_shapes(save, f"{tag}/cache", out["cache"])
     else:
         logits = _one_process_logits(c, params, prompts)
     save(f"{tag}/tokens", torch.stack([x.argmax(-1) for x in logits], 1))
@@ -187,9 +188,16 @@ def seq_shard_cfg():
     return dataclasses.replace(cfg(), num_heads=3, num_kv_heads=1)
 
 
+# the families a rank mesh still refuses, each with a model of it
+REFUSED_FAMILIES = (("ssm", "rwkv6-3b"), ("audio", "whisper-tiny"),
+                    ("vlm", "qwen2-vl-72b"))
+
+
 def refusals(save, make_rank_mesh):
-    """What a rank mesh refuses: a rank holding several positions, a
-    non-dense family, 8-bit moments.  Saves each error's type name."""
+    """What a rank mesh refuses: a rank holding several positions, the
+    families whose sites are not sharded yet (RWKV, Whisper, the
+    vision-language model), 8-bit moments.  Saves each error's type name
+    and message."""
     c = cfg()
     shape = ShapeCfg("t", S, B, "train")
     mesh = make_rank_mesh((1, 2), ("data", "model"))
@@ -197,9 +205,9 @@ def refusals(save, make_rank_mesh):
         "several_positions": lambda: steps.make_train_step(
             c, shape, make_rank_mesh((2, 2), ("data", "model")),
             device="cpu"),
-        "moe_family": lambda: steps.make_train_step(
-            get_reduced_config("granite-moe-1b-a400m"), shape, mesh,
-            device="cpu"),
+        **{f"{fam}_family": (lambda arch=arch: steps.make_train_step(
+            get_reduced_config(arch), shape, mesh, device="cpu"))
+           for fam, arch in REFUSED_FAMILIES},
         "eight_bit_step": lambda: steps.make_train_step(
             c, shape, mesh, adamw.AdamWConfig(state_bits=8), device="cpu"),
         "eight_bit_init": lambda: adamw.init(shd.shard_tree(
@@ -215,10 +223,11 @@ def refusals(save, make_rank_mesh):
             save(f"refused/{name}", np.array(f"{type(e).__name__}: {e}"))
 
 
-def checkpoints(save, mesh, c, params, ckpt_in, ckpt_out):
+def checkpoints(save, mesh, c, params, ckpt_in, ckpt_out, prefix=""):
     """Resume the one-process checkpoint in ``ckpt_in`` on this rank mesh
     (`ElasticState`), and write the state after one more step to
-    ``ckpt_out`` (whole leaves, rank 0 writing)."""
+    ``ckpt_out`` (whole leaves, rank 0 writing); the results are saved
+    under ``prefix + "ckpt/"``."""
     from repro_torch.runtime.fault_tolerance import ElasticState
 
     st = steps.make_train_step(c, ShapeCfg("t", S, B, "train"), mesh, OPT,
@@ -226,13 +235,13 @@ def checkpoints(save, mesh, c, params, ckpt_in, ckpt_out):
     pspec, ospec, bspec = st.in_specs
     step, (params, opt) = ElasticState(ckpt_in).resume(
         mesh, lambda _: (pspec, ospec), st.abstract_args[:2], device="cpu")
-    save("ckpt/resumed_step", np.array(step))
-    _save_shapes(save, "ckpt/params", params)
+    save(prefix + "ckpt/resumed_step", np.array(step))
+    _save_shapes(save, prefix + "ckpt/params", params)
     with shd.use_mesh(mesh, "cpu"):
-        _save_tree(save, "ckpt/resumed", shd.full_tree(params))
+        _save_tree(save, prefix + "ckpt/resumed", shd.full_tree(params))
     batch = shd.shard_tree(batch_of(c), bspec, mesh, "cpu")
     params, opt, m = st.fn(params, opt, batch)
-    save("ckpt/loss", m["loss"])
+    save(prefix + "ckpt/loss", m["loss"])
     ckpt.save(ckpt_out, step + 1, (params, opt))
 
 

@@ -70,6 +70,13 @@ def run_forced_reference(script: str, n_dev: int, out_dir,
     """Run ``script`` (after the prelude) in a fresh interpreter with
     ``n_dev`` forced host devices; returns ``{name: [arrays]}`` of what it
     passed to ``save(name, *arrays)``."""
+    return finish_forced_reference(
+        start_forced_reference(script, n_dev, out_dir), timeout)
+
+
+def start_forced_reference(script: str, n_dev: int, out_dir):
+    """`run_forced_reference`'s interpreter, started and not waited for:
+    hand the result to `finish_forced_reference`."""
     import os
     import subprocess
     import sys
@@ -82,13 +89,37 @@ def run_forced_reference(script: str, n_dev: int, out_dir,
             + f"\nnp.savez({str(out)!r}, **OUT)\n")
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=str(root / "src"))
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=timeout, env=env, cwd=root)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    # output to a file: a pipe nobody reads yet could fill and stall
+    log = Path(out_dir) / "reference.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=f,
+                                stderr=subprocess.STDOUT, env=env, cwd=root)
+    return proc, out, log
+
+
+def finish_forced_reference(started, timeout: int = 300) -> dict:
+    """Wait for `start_forced_reference`'s interpreter (killed after
+    ``timeout`` seconds) and read what it saved."""
+    import subprocess
+
+    proc, out, log = started
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    assert proc.returncode == 0, log.read_text()[-3000:]
+    return _load_saved(out)
+
+
+def _load_saved(path) -> dict:
+    """``{name: [arrays]}`` of an npz written from ``save(name, *arrays)``
+    (keys ``name/i``)."""
     got: dict = {}
-    with np.load(out) as data:
-        for key in sorted(data.files, key=lambda k: (k.rsplit("/", 1)[0],
-                                                     int(k.rsplit("/", 1)[1]))):
+    with np.load(path) as data:
+        for key in sorted(data.files, key=lambda k: (
+                k.rsplit("/", 1)[0], int(k.rsplit("/", 1)[1]))):
             got.setdefault(key.rsplit("/", 1)[0], []).append(data[key])
     return got
 
@@ -130,11 +161,17 @@ def run_ranks(script: str, world: int, out_dir, inputs: dict | None = None,
     [arrays]}`` of what it passed to ``save(name, *arrays)``.  Every rank
     must exit 0 within ``timeout`` seconds (the others are killed when one
     fails or hangs)."""
+    return finish_ranks(start_ranks(script, world, out_dir, inputs), timeout)
+
+
+def start_ranks(script: str, world: int, out_dir,
+                inputs: dict | None = None):
+    """`run_ranks`' interpreters, started and not waited for: hand the
+    result to `finish_ranks`."""
     import os
     import subprocess
     import sys
     import textwrap
-    import time
     from pathlib import Path
 
     root = Path(__file__).resolve().parent.parent
@@ -152,16 +189,29 @@ def run_ranks(script: str, world: int, out_dir, inputs: dict | None = None,
     for rank in range(world):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
                    PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", code], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True, env=env, cwd=root))
+        # output to files: a pipe nobody reads yet could fill and stall
+        with open(out_dir / f"rank{rank}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], stdout=log,
+                stderr=subprocess.STDOUT, env=env, cwd=root))
+    return procs, out_dir
+
+
+def finish_ranks(started, timeout: int = 180) -> list[dict]:
+    """Wait for `start_ranks`' interpreters: every rank must exit 0 within
+    ``timeout`` seconds of this call (the others are killed when one fails
+    or hangs); returns each rank's saved arrays."""
+    import time
+
+    procs, out_dir = started
     deadline = time.monotonic() + timeout
     errs = []
     try:
         for rank, proc in enumerate(procs):
             left = max(1.0, deadline - time.monotonic())
-            _, err = proc.communicate(timeout=left)
+            proc.wait(timeout=left)
             if proc.returncode != 0:
+                err = (out_dir / f"rank{rank}.log").read_text()
                 errs.append(f"rank {rank} exited {proc.returncode}: "
                             f"{err[-3000:]}")
                 break
@@ -169,18 +219,10 @@ def run_ranks(script: str, world: int, out_dir, inputs: dict | None = None,
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
-                proc.communicate()
+                proc.wait()
     assert not errs, errs[0]
-    outs = []
-    for rank in range(world):
-        got: dict = {}
-        with np.load(out_dir / f"rank{rank}.npz") as data:
-            for key in sorted(data.files,
-                              key=lambda k: (k.rsplit("/", 1)[0],
-                                             int(k.rsplit("/", 1)[1]))):
-                got.setdefault(key.rsplit("/", 1)[0], []).append(data[key])
-        outs.append(got)
-    return outs
+    return [_load_saved(out_dir / f"rank{rank}.npz")
+            for rank in range(len(procs))]
 
 
 # ---------------------------------------------------------------------------
