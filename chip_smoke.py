@@ -98,7 +98,18 @@ the kernels' launch counts set to 0 just before it and read just after:
   a call — K5 per card with ``edge_halos="block"``, the rank's edge halos
   from the process group between windows — every rank equal to the
   one-process engine bit for bit, every K5 launch replayed in its rank;
-  two NCCL ranks on the one card tried and their refusal recorded.
+  two NCCL ranks on the one card tried and their refusal recorded;
+* lm_ranks: the language models' steps across processes (`launch.steps`
+  on a rank mesh: FSDP over data x tensor, expert, channel and head
+  parallel over model), each world a group of child processes: NCCL at
+  world size 1 (every model's one-process reference, and gemma2-2b,
+  granite-moe, rwkv6-3b and whisper-tiny on a 1 x 1 rank mesh, bit-equal
+  to it), 2 and 4 gloo ranks sharing the card (gemma2-2b, granite-moe,
+  rwkv6-3b, jamba's period, kimi-k2's cut and qwen2-vl-72b cut to 2
+  layers on 1 x 2 or 2 x 1; gemma2-2b, granite-moe and whisper-tiny on
+  2 x 2, whisper-tiny on 1 x 4): train steps or a loss and its
+  gradients, prefill and greedy decode, each held to one process's, each
+  rank's blocks to the specs'.  It launches none of the six kernels.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -126,6 +137,8 @@ Output: one JSON object per line —
                                    run, the lattice twin: checks, ms, GB
   {"phase": "ranks", ...}          worlds of processes: checks, routes,
                                    ms a call, halo bytes, NCCL on one card
+  {"phase": "lm_ranks", ...}       LM steps on rank meshes: checks, ms,
+                                   bytes a rank, collectives
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -5346,7 +5359,7 @@ def ranks_phase(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 LMR_STEPS = 3                     # train steps, B = 8, S = 256
 LMR_B, LMR_PROMPT, LMR_GEN, LMR_MAX_SEQ = 4, 32, 17, 64  # 16 decode tokens
-LMR_DEPTH = 2                     # gemma2-2b's 2 x 1 and 2 x 2 runs' layers
+LMR_DEPTH = 2                     # the FSDP meshes' layers, rwkv6-3b's
 # jamba's gradient check: loss and gradients without the optimizer (its
 # float32 moments alone would be ~106 GB), at B = 2 so that one process's
 # parameters, gradients and activations fit the card (~60 GB)
@@ -5375,32 +5388,64 @@ LMR_LOGIT_TOL = 0.05
 LMR_TIMEOUT_S = 600
 GRANITE, JAMBA, KIMI = ("granite-moe-1b-a400m", "jamba-v0.1-52b",
                         "kimi-k2-1t-a32b")
+RWKV, WHISPER, VLM = "rwkv6-3b", "whisper-tiny", "qwen2-vl-72b"
 # (backend, world, runs); a run is (arch, depth: None for the config's,
 # rank mesh, train: "steps" (`LMR_STEPS`), "step" (the first of them),
 # "grads" (loss and gradients, no optimizer) or None, decode tokens + 1).
 # World 1 also runs every model's one-process reference.  FSDP gathers
 # every weight for every decode token, which gloo carries through the
-# host at ~1 GB/s: FSDP meshes decode 4 tokens, and gemma2-2b's FSDP
-# runs at `LMR_DEPTH` layers (at full depth its 2 x 1 took 100-125 s, at
-# 4 layers its 2 x 1 and 2 x 2 51 and 67 s, of a script that took 1,067
-# of its 1,200 s; granite-moe's 2 x 1 keeps full depth).  jamba is cut to one
-# period (7 Mamba, 1 attention, 4 MoE layers) and kimi-k2 to its dense
-# prefix and one MoE layer: the card holds neither whole
+# host at ~1 GB/s: FSDP meshes decode 2 tokens, run at `LMR_DEPTH`
+# layers and take one train step (at full depth gemma2-2b's 2 x 1 took
+# 100-125 s, granite-moe's 9.3-10.5 s a step; at 2 layers gemma2-2b's
+# 2 x 1 and 2 x 2 took 56 and 50 s with three steps and 4 tokens, of a
+# script that took 1,115-1,140 of its 1,200 s; the tensor-parallel
+# meshes keep three steps and 16 tokens, whisper-tiny's 4-rank meshes 4).  jamba is cut to one period (7 Mamba, 1 attention, 4 MoE
+# layers) and kimi-k2 to its dense prefix and one MoE layer: the card
+# holds neither whole.
+# rwkv6-3b runs all 32 layers on 1 x 1, and one step at `LMR_DEPTH`
+# layers on 1 x 2 and 2 x 1: at random weights it amplifies rounding
+# with depth — one process's bf16 gradient norm sits 3.6 % from its
+# float32 one at 2 layers, 37 % at 4, its logits 2.77 apart at 32, and in
+# float32 the ranks' gradient norm sits 1.3e-5 from one process's at 2
+# layers and 25 % at 32 (`benchmarks_torch/lm_ranks_depth.py`, PERF.md)
+# — so today's gates hold bf16 at 2 layers, and at the first step (at
+# the second its 1 x 2 gradient norm sat 0.99e-2 from one process's,
+# bf16's noise carried through AdamW).  qwen2-vl-72b is cut to 2 layers
+# (8.49 GB) and checked by its loss and gradients at `LMR_GRADS_SHAPE`,
+# its 1024 patch rows in front of the text; whisper-tiny runs whole, its
+# 6 heads split 2 ways on 2 x 2 and whole on 1 x 4
 LMR_WORLDS = (
     ("nccl", 1, ((LM_ARCH, None, (1, 1), "steps", LMR_GEN),
-                 (GRANITE, None, (1, 1), "steps", LMR_GEN))),
+                 (GRANITE, None, (1, 1), "steps", LMR_GEN),
+                 (RWKV, None, (1, 1), "steps", LMR_GEN),
+                 (WHISPER, None, (1, 1), "steps", LMR_GEN))),
     ("gloo", 2, ((LM_ARCH, None, (1, 2), "steps", LMR_GEN),
-                 (LM_ARCH, LMR_DEPTH, (2, 1), "steps", 5),
+                 (LM_ARCH, LMR_DEPTH, (2, 1), "step", 3),
                  (GRANITE, None, (1, 2), "steps", LMR_GEN),
-                 (GRANITE, None, (2, 1), "steps", 5),
+                 (GRANITE, LMR_DEPTH, (2, 1), "steps", 3),
                  (JAMBA, 8, (1, 2), "grads", LMR_GEN),
-                 (KIMI, 2, (1, 2), None, LMR_GEN))),
-    ("gloo", 4, ((LM_ARCH, LMR_DEPTH, (2, 2), "steps", 5),
-                 (GRANITE, None, (2, 2), "step", 5))),
+                 (KIMI, 2, (1, 2), None, LMR_GEN),
+                 (RWKV, LMR_DEPTH, (1, 2), "step", LMR_GEN),
+                 (RWKV, LMR_DEPTH, (2, 1), "step", 3),
+                 (VLM, 2, (1, 2), "grads", LMR_GEN))),
+    ("gloo", 4, ((LM_ARCH, LMR_DEPTH, (2, 2), "step", 3),
+                 (GRANITE, LMR_DEPTH, (2, 2), "step", 3),
+                 (WHISPER, None, (2, 2), "steps", 5),
+                 (WHISPER, None, (1, 4), "steps", 5))),
 )
 # drawn a piece at a time (`_lmr_pieces`): too large for every rank
 # sharing the card to draw the whole tree
-LMR_PIECEWISE = (JAMBA, KIMI)
+LMR_PIECEWISE = (JAMBA, KIMI, VLM)
+# (B, S) of a "grads" run (default (`LMR_GRADS_B`, 256)): qwen2-vl's
+# sequence holds the vision stub's 1024 patch rows and 256 text tokens
+LMR_GRADS_SHAPE = {VLM: (2, 1280)}
+# (B, prompt, max_seq) of a model's serving (default (`LMR_B`,
+# `LMR_PROMPT`, `LMR_MAX_SEQ`)): qwen2-vl's prompt is its 1024 patch rows
+# and 32 text tokens; whisper-tiny's is its decoder's 4 task tokens (start
+# of transcript, language, task, no timestamps), teacher-forced into the
+# self cache after the cross cache is filled from 1500 frames (on 2 x 2
+# a decode step gathers the cross cache's positions: 1.9 s a step)
+LMR_SERVE_SHAPE = {VLM: (2, 1056, 1088), WHISPER: (LMR_B, 4, LMR_MAX_SEQ)}
 LMR_PIECES = 2                    # pieces a leaf, along its model-split dim
 
 _LM_RANK_RUN = """
@@ -5604,20 +5649,29 @@ def _lmr_resident(mesh, trees) -> dict:
 
 
 class _LayerCollectives:
-    """The collectives each MoE layer and each Mamba block call makes in
-    its forward, counted by wrapping `models.moe.moe_layer` and
-    `models.mamba.mamba_forward` (the backward's are the step's): calls,
-    and the collectives' counts and bytes by kind summed over them."""
+    """The collectives each layer call makes in its forward, counted by
+    wrapping `models.moe.moe_layer`, `models.mamba.mamba_forward`,
+    `models.rwkv.rwkv_time_mix` / `rwkv_channel_mix`,
+    `models.attention.attention` / `decode_attention` and
+    `models.whisper.encode` (whose count holds its layers'; the
+    backward's are the step's): calls, and the collectives' counts and
+    bytes by kind summed over them."""
 
     def __init__(self, comm):
         self.comm = comm
         self.tally = {}
 
     def __enter__(self):
-        from repro_torch.models import mamba, moe
+        from repro_torch.models import attention, mamba, moe, rwkv, whisper
 
         self.saved = [(moe, "moe_layer", moe.moe_layer),
-                      (mamba, "mamba_forward", mamba.mamba_forward)]
+                      (mamba, "mamba_forward", mamba.mamba_forward),
+                      (rwkv, "rwkv_time_mix", rwkv.rwkv_time_mix),
+                      (rwkv, "rwkv_channel_mix", rwkv.rwkv_channel_mix),
+                      (attention, "attention", attention.attention),
+                      (attention, "decode_attention",
+                       attention.decode_attention),
+                      (whisper, "encode", whisper.encode)]
         for mod, name, fn in self.saved:
             setattr(mod, name, self._wrap(name, fn))
         return self
@@ -5653,12 +5707,13 @@ def _lmr_train(cfg, arch: str, mesh, seed: int, n_steps: int) -> dict:
     from repro_torch.configs import ShapeCfg
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import _stub_inputs
     from repro_torch.models import sharding as shd
     from repro_torch.optim import adamw
 
     ranked = shd.is_rank_mesh(mesh)
-    step = make_train_step(cfg, ShapeCfg("train_cli", LM_TRAIN_S,
-                                         LM_TRAIN_B, "train"), mesh,
+    shape = ShapeCfg("train_cli", LM_TRAIN_S, LM_TRAIN_B, "train")
+    step = make_train_step(cfg, shape, mesh,
                            adamw.AdamWConfig(total_steps=100,
                                              warmup_steps=10),
                            device=DEVICE)
@@ -5673,6 +5728,7 @@ def _lmr_train(cfg, arch: str, mesh, seed: int, n_steps: int) -> dict:
     layers = None
     for i in range(n_steps):
         batch = src.batch(i, LM_TRAIN_B, LM_TRAIN_S, device=DEVICE)
+        batch.update(_stub_inputs(cfg, shape, i, seed, DEVICE))
         if ranked:
             batch = shd.shard_tree(batch, bspec, mesh, DEVICE)
             comm.reset()
@@ -5699,27 +5755,30 @@ def _lmr_train(cfg, arch: str, mesh, seed: int, n_steps: int) -> dict:
 
 def _lmr_grads(cfg, arch: str, mesh, seed: int) -> dict:
     """`Model.loss` and its gradients (no optimizer) on the pipeline's
-    first batch at B = `LMR_GRADS_B`, S = 256, as the train step takes
+    first batch at B x S = `LMR_GRADS_SHAPE` (default `LMR_GRADS_B` x
+    256; the modality stub's inputs with it), as the train step takes
     them: the loss, the gradients' global norm, ms (CUDA events), the
     peak memory; on a rank mesh also the resident parameter and gradient
-    bytes against the specs' and the collectives, the MoE layers' and
-    the Mamba blocks' among them."""
+    bytes against the specs' and the collectives, the MoE layers', the
+    Mamba blocks' and the attention's among them."""
     from repro_torch.configs import ShapeCfg
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.launch import steps
+    from repro_torch.launch.train import _stub_inputs
     from repro_torch.models import sharding as shd
     from repro_torch.optim import adamw
 
     ranked = shd.is_rank_mesh(mesh)
-    st = steps.make_train_step(cfg, ShapeCfg("grads", LM_TRAIN_S,
-                                             LMR_GRADS_B, "train"), mesh,
-                               device=DEVICE)
+    Bg, Sg = LMR_GRADS_SHAPE.get(arch, (LMR_GRADS_B, LM_TRAIN_S))
+    shape = ShapeCfg("grads", Sg, Bg, "train")
+    st = steps.make_train_step(cfg, shape, mesh, device=DEVICE)
     pspec, _, bspec = st.in_specs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = _lmr_params(cfg, arch, seed, mesh, pspec)
     batch = make_source(DataConfig(seed=seed, vocab_size=cfg.vocab_size)
-                        ).batch(0, LMR_GRADS_B, LM_TRAIN_S, device=DEVICE)
+                        ).batch(0, Bg, Sg, device=DEVICE)
+    batch.update(_stub_inputs(cfg, shape, 0, seed, DEVICE))
     baxes = ()
     comm = layers = None
     if ranked:
@@ -5743,7 +5802,7 @@ def _lmr_grads(cfg, arch: str, mesh, seed: int) -> dict:
     (loss, grads, gnorm), ms = timed_once(run)
     out = {"losses": [float(loss)], "grad_norms": [float(gnorm)],
            "ms": [ms], "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "batch": [LMR_GRADS_B, LM_TRAIN_S]}
+           "batch": [Bg, Sg]}
     if ranked:
         out["step_collectives"] = comm.record()
         out["layer_collectives"] = layers.tally
@@ -5757,36 +5816,48 @@ def _lmr_grads(cfg, arch: str, mesh, seed: int) -> dict:
 
 def _lmr_serve(cfg, arch: str, mesh, seed: int, gen: int = LMR_GEN
                ) -> dict:
-    """Prefill `LMR_B` x `LMR_PROMPT` and ``gen`` - 1 greedy decode tokens
-    from seed's parameters: the tokens, each step's logits (B, V) on the
-    host, ms a decode token (host clock, synchronised); on a rank mesh
-    also the decode run's collectives, its MoE layers' and Mamba blocks'
-    among them, and the parameters' and the decode cache's resident bytes
-    against the specs'."""
+    """Prefill B x P prompts (`LMR_SERVE_SHAPE`, default `LMR_B` x
+    `LMR_PROMPT`; qwen2-vl's led by its patch rows, whisper-tiny's frames
+    encoded into the cross cache and the prompt teacher-forced into the
+    self cache) and ``gen`` - 1 greedy decode tokens from seed's
+    parameters: the tokens, each step's logits (B, V) on the host, ms a
+    decode token (host clock, synchronised); on a rank mesh also the
+    decode run's collectives, its layers' among them, and the
+    parameters' and the decode cache's resident bytes against the
+    specs'."""
     from repro_torch.launch import serve
     from repro_torch.models import sharding as shd
-    from repro_torch.models import transformer
-    from repro_torch.models.model import build_model
+    from repro_torch.models import transformer, whisper
+    from repro_torch.models.model import VLM_PATCHES, build_model
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=DEVICE)
-    prompts = torch.randint(0, cfg.vocab_size, (LMR_B, LMR_PROMPT),
-                            generator=torch.Generator().manual_seed(seed + 5)
+    Bs, P, max_seq = LMR_SERVE_SHAPE.get(arch, (LMR_B, LMR_PROMPT,
+                                                LMR_MAX_SEQ))
+    cpu = torch.Generator().manual_seed(seed + 5)
+    prompts = torch.randint(0, cfg.vocab_size, (Bs, P), generator=cpu
                             ).to(DEVICE)
+    frames = None
+    if cfg.frontend != "none":
+        rows = (cfg.enc_dec.enc_seq if cfg.enc_dec is not None
+                else min(VLM_PATCHES, P))
+        frames = (0.02 * torch.randn((Bs, rows, cfg.d_model),
+                                     generator=cpu)).to(DEVICE)
     if shd.is_rank_mesh(mesh):
         from repro_torch.configs import ShapeCfg
         from repro_torch.launch import steps
         pspec = steps.make_prefill_step(
-            cfg, ShapeCfg("prefill", LMR_PROMPT, LMR_B, "prefill"), mesh,
+            cfg, ShapeCfg("prefill", P, Bs, "prefill"), mesh,
             device=DEVICE).in_specs[0]
         cspec = steps.make_serve_step(
-            cfg, ShapeCfg("decode", LMR_MAX_SEQ, LMR_B, "decode"), mesh,
+            cfg, ShapeCfg("decode", max_seq, Bs, "decode"), mesh,
             device=DEVICE).in_specs[3]
         params = _lmr_params(cfg, arch, seed, mesh, pspec)
         with _LayerCollectives(shd.rank_comm(mesh, DEVICE)) as layers:
             got = serve.generate_ranked(cfg, mesh, params, prompts, gen,
-                                        LMR_MAX_SEQ, DEVICE, temperature=0.0)
+                                        max_seq, DEVICE, temperature=0.0,
+                                        frontend_embeds=frames)
         logits = [x.cpu() for x in got["logits"]]
         res = {"decode_collectives": got["decode_comm"],
                "layer_collectives": layers.tally,
@@ -5798,10 +5869,17 @@ def _lmr_serve(cfg, arch: str, mesh, seed: int, gen: int = LMR_GEN
         params = _lmr_params(cfg, arch, seed, None, None)
         with torch.no_grad():
             t0 = time.perf_counter()
-            lg, pcache = transformer.prefill(params, cfg, prompts)
-            cache = serve.graft(model.init_cache(LMR_B, LMR_MAX_SEQ),
-                                pcache)
-            del pcache
+            if cfg.enc_dec is not None:
+                lg, _ = whisper.forward(params, cfg, prompts, frames)
+                cache = whisper.fill_cross(params, cfg, frames,
+                                           model.init_cache(Bs, max_seq))
+                for i in range(P):
+                    model.decode_step(params, prompts[:, i:i + 1], i, cache)
+            else:
+                lg, pcache = transformer.prefill(params, cfg, prompts,
+                                                 frontend_embeds=frames)
+                cache = serve.graft(model.init_cache(Bs, max_seq), pcache)
+                del pcache
             logits = [lg[:, -1].float().cpu()]
             tok = lg[:, -1].argmax(-1)[:, None]
             torch.cuda.synchronize()
@@ -5809,8 +5887,7 @@ def _lmr_serve(cfg, arch: str, mesh, seed: int, gen: int = LMR_GEN
             t_pre = time.perf_counter() - t0
             for i in range(gen - 1):
                 ts = time.perf_counter()
-                lg, cache = model.decode_step(params, tok, LMR_PROMPT + i,
-                                              cache)
+                lg, cache = model.decode_step(params, tok, P + i, cache)
                 tok = lg[:, -1].argmax(-1)[:, None]
                 torch.cuda.synchronize()
                 step_s.append(time.perf_counter() - ts)
@@ -6014,16 +6091,22 @@ def lm_ranks_phase(seed: int) -> dict:
     parallel over model), each world a group of child processes run in
     turn, never together (`LMR_WORLDS`): NCCL at world size 1 first — it
     also runs every model's one-process reference (3 train steps at B =
-    8, S = 256 in bf16 with float32 moments, or jamba's loss and
-    gradients at B = `LMR_GRADS_B`; a B = 4 prefill of 32 tokens with 16
-    greedy decode tokens) — gemma2-2b and granite-moe on a 1 x 1 rank
-    mesh, bit-equal to them; then 2 gloo ranks sharing the card: gemma2-2b
-    and granite-moe (all 24 layers, 16 experts a rank) on 1 x 2 (16
-    decode tokens) and 2 x 1 (FSDP, gemma2-2b at `LMR_DEPTH` layers; 4
-    decode tokens), jamba's period (its loss and
-    gradients, serving) and kimi-k2's cut (serving, 192 experts a rank)
-    on 1 x 2; then 4 gloo ranks on 2 x 2 (gemma2-2b at `LMR_DEPTH`
-    layers, granite-moe one step).  Each step's loss within
+    8, S = 256 in bf16 with float32 moments, or a loss and its gradients
+    at `LMR_GRADS_SHAPE`; a B = 4 prefill of 32 tokens with 16 greedy
+    decode tokens, qwen2-vl's at `LMR_SERVE_SHAPE`) — gemma2-2b,
+    granite-moe, rwkv6-3b and whisper-tiny on a 1 x 1 rank mesh,
+    bit-equal to them; then 2 gloo ranks sharing the card: gemma2-2b,
+    granite-moe (all 24 layers, 16 experts a rank) and rwkv6-3b (one
+    step at `LMR_DEPTH` layers, 20 heads a rank) on 1 x 2 (16 decode
+    tokens) and 2 x 1 (FSDP at `LMR_DEPTH` layers, gemma2-2b one step;
+    2 decode tokens),
+    jamba's period (its loss and gradients, serving), kimi-k2's cut
+    (serving, 192 experts a rank) and qwen2-vl-72b's 2 layers (its loss
+    and gradients at B = 2 x S = 1280, serving) on 1 x 2; then 4
+    gloo ranks: gemma2-2b and granite-moe (one step and 2 tokens each)
+    at `LMR_DEPTH` layers and whisper-tiny (4 tokens) on 2 x 2,
+    whisper-tiny on 1 x 4 (its heads whole).
+    Each step's loss within
     `LMR_LOSS_TOL` of one process's and its gradient norm within
     `LMR_GRAD_RTOL`, the logits within `LMR_LOGIT_TOL` (at the logits'
     scale, `_lmr_logit_tol`) while the tokens agree, the greedy tokens

@@ -13,7 +13,9 @@ machine without a GPU needs ``--device cpu``).  ``--ranks N --backend
 {nccl,gloo} --data-model D M`` serves the dense, mixture-of-experts and
 hybrid families sharded across N processes, one a position of the rank
 mesh (`generate_ranked`; the decode cache's positions, and Mamba's state
-channels, split over "model"); rank 0 prints.
+channels, split over "model"); rank 0 prints.  `generate_ranked` also
+serves RWKV, the vision-language model (its vision prefix as
+``frontend_embeds``) and Whisper (its frames) across processes.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
       --reduced --batch 4 --prompt-len 32 --gen 32 --device cpu
@@ -121,18 +123,25 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, gen: int,
 def generate_ranked(cfg, mesh, params: dict, prompts: torch.Tensor,
                     gen: int, max_seq: int, device,
                     temperature: float = 1.0,
-                    generator: torch.Generator | None = None) -> dict:
+                    generator: torch.Generator | None = None,
+                    frontend_embeds: torch.Tensor | None = None) -> dict:
     """`generate` on a rank mesh through the sharded steps
     (`launch.steps.make_prefill_step` / `make_serve_step`): ``params``
-    per-rank DTensors, ``prompts`` (B, P) the same on every rank.  Each
-    token is drawn from the logits gathered whole on every rank (the same
-    draws everywhere: ``generator`` seeded alike on each).  Returns what
-    `generate` does, plus the logits of every step (B, V each, float32),
-    the collectives' record of the decode steps and the decode cache (the
-    rank's blocks, as DTensors)."""
+    per-rank DTensors, ``prompts`` (B, P) and ``frontend_embeds`` (the
+    vision prefix's or the encoder's frames, (B, S_f, D)) the same on
+    every rank.  An encoder-decoder's prefill is its teacher-forced
+    forward's last logits; the cross cache is then filled from the
+    frames (`whisper.fill_cross`) and the prompt decoded token by token
+    into the self cache.  Each token is drawn from the logits gathered
+    whole on every rank (the same draws everywhere: ``generator`` seeded
+    alike on each).  Returns what `generate` does, plus the logits of
+    every step (B, V each, float32), the collectives' record of the
+    decode steps and the decode cache (the rank's blocks, as
+    DTensors)."""
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.launch import steps
     from repro_torch.models import sharding as shd
+    from repro_torch.models import whisper
 
     B, P = prompts.shape
     pre = steps.make_prefill_step(cfg, ShapeCfg("prefill", P, B, "prefill"),
@@ -153,16 +162,31 @@ def generate_ranked(cfg, mesh, params: dict, prompts: torch.Tensor,
             return torch.multinomial(probs, 1, generator=generator)
         return torch.argmax(logits, dim=-1)[:, None]
 
+    def toks_of(t):
+        return shd.shard_tree(t.to(torch.int32), tok_spec, mesh, dev)
+
     with torch.no_grad():
         t0 = time.perf_counter()
-        batch = shd.shard_tree({"tokens": prompts}, bspec, mesh, dev)
-        logits, pcache = pre.fn(params, batch)
-        _sync(dev)
-        t1 = time.perf_counter()
+        feed = {"tokens": prompts}
+        if frontend_embeds is not None:
+            feed["frontend_embeds"] = frontend_embeds
+        batch = shd.shard_tree(feed, bspec, mesh, dev)
+        logits, pcache = ((pre.fn(params, batch), None) if cfg.enc_dec
+                          else pre.fn(params, batch))
         with shd.use_mesh(mesh, dev):
             cache = shd.shard_tree(pre.model.init_cache(B, max_seq),
                                    dec.in_specs[3], mesh, dev)
-            cache = graft_ranked(cache, pcache)
+            if cfg.enc_dec:
+                whisper.fill_cross(params, cfg, shd.local_block(
+                    batch["frontend_embeds"]), cache)
+        if cfg.enc_dec:
+            for i in range(P):
+                dec.fn(params, toks_of(prompts[:, i:i + 1]), i, cache)
+        _sync(dev)
+        t1 = time.perf_counter()
+        if pcache is not None:
+            with shd.use_mesh(mesh, dev):
+                cache = graft_ranked(cache, pcache)
         del pcache
         _sync(dev)
         t2 = time.perf_counter()
@@ -172,8 +196,7 @@ def generate_ranked(cfg, mesh, params: dict, prompts: torch.Tensor,
         comm.reset()
         for i in range(gen - 1):
             ts = time.perf_counter()
-            toks = shd.shard_tree(tok.to(torch.int32), tok_spec, mesh, dev)
-            logits, cache = dec.fn(params, toks, P + i, cache)
+            logits, cache = dec.fn(params, toks_of(tok), P + i, cache)
             last = whole(logits)[:, -1].float()
             tok = pick(last)
             all_logits.append(last)

@@ -23,16 +23,14 @@ the new parameters and moments into the caller's tensors in place (the
 reference donates the state).
 
 On a rank mesh (`core.distributed.make_rank_mesh`, one process a
-position) the steps of the dense, mixture-of-experts and hybrid (Mamba)
-families are sharded as the specs say, FSDP over "data" and tensor
-parallel over "model" (the experts and the Mamba channels split over it
-too): every argument and result is a tree of per-rank DTensors
-(`models.sharding.shard_tree` makes them from whole trees, `full_tree`
-gathers them back), each rank holding its block of every parameter,
-float32 moment, batch and cache.  The specs are the same as on a logical
-mesh.  The other families (RWKV, Whisper, the vision-language model) and
-8-bit moments raise there (ROADMAP item 12e): nothing is replicated in
-their place.
+position) the steps of every family are sharded as the specs say, FSDP
+over "data" and tensor parallel over "model" (the experts, the Mamba
+channels and the RWKV heads split over it too): every argument and
+result is a tree of per-rank DTensors (`models.sharding.shard_tree`
+makes them from whole trees, `full_tree` gathers them back), each rank
+holding its block of every parameter, float32 moment, batch and cache.
+The specs are the same as on a logical mesh.  8-bit moments raise there
+(ROADMAP item 12e): nothing is replicated in their place.
 """
 from __future__ import annotations
 
@@ -150,7 +148,7 @@ def _opt_moment_specs(moments: Any, mesh) -> Any:
 
 
 # the families whose steps run on a rank mesh
-RANKED_FAMILIES = ("dense", "moe", "hybrid")
+RANKED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 
 
 def rank_setup(cfg: ModelCfg, mesh, device) -> tuple:
@@ -162,13 +160,12 @@ def rank_setup(cfg: ModelCfg, mesh, device) -> tuple:
     dev = require_device(device)
     if not shd.is_rank_mesh(mesh):
         return False, dev
-    if cfg.family not in RANKED_FAMILIES or cfg.enc_dec is not None:
+    if cfg.family not in RANKED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) on a rank mesh: only the "
             f"{', '.join(RANKED_FAMILIES)} families' steps are sharded "
-            f"across processes so far (RWKV's, Whisper's and the "
-            f"vision-language model's sites are ROADMAP item 12e); use a "
-            f"logical mesh (launch.mesh.make_host_mesh)")
+            f"across processes; use a logical mesh "
+            f"(launch.mesh.make_host_mesh)")
     if shd.PARALLELISM != "2d":
         raise NotImplementedError(
             f"REPRO_PARALLELISM={shd.PARALLELISM} on a rank mesh: only the "
@@ -321,11 +318,19 @@ def make_prefill_step(cfg: ModelCfg, shape: ShapeCfg, mesh,
     cache), or the encoder-decoder's last-position logits of
     `whisper.forward`.  On a rank mesh the logits and the cache are
     DTensors: the cache in the layout prefill computes it (K/V heads split
-    as the projections' are), which `launch.serve.graft` re-blocks."""
+    as the projections' are), which `launch.serve.graft_ranked`
+    re-blocks."""
     ranked, device = rank_setup(cfg, mesh, device)
     model = build_model(cfg, device=device)
 
-    if ranked:
+    if ranked and cfg.enc_dec is not None:
+        def prefill_step(params, batch):
+            with torch.no_grad(), shd.use_mesh(mesh, device, baxes):
+                b = shd.local_tree(batch)
+                logits, _ = whisper.forward(params, cfg, b["tokens"],
+                                            b["frontend_embeds"])
+                return _logits_out(logits[:, -1:], cfg, mesh)
+    elif ranked:
         def prefill_step(params, batch):
             with torch.no_grad(), shd.use_mesh(mesh, device, baxes):
                 b = shd.local_tree(batch)
@@ -361,7 +366,9 @@ def _cache_out(cache: dict, params: dict, cfg: ModelCfg, mesh) -> dict:
     """Prefill's per-rank cache blocks as DTensors of the whole cache: the
     batch split as the batch's, K/V (lead, B, P, KV, hd) with the KV heads
     split as the projections', Mamba's conv (lead, B, K-1, d_in) and ssm
-    (lead, B, d_in, N) with the channels split as its weights'."""
+    (lead, B, d_in, N) with the channels split as its weights', RWKV's
+    wkv (lead, B, H, hd, hd) and shifts (lead, B, D) whole but for the
+    batch."""
     comm = shd.current_comm()
     heads = shd.split_axes(_first_leaf(params, "wk"), -2)
     chans = shd.split_axes(_first_leaf(params, "conv_w"), -2)
@@ -373,8 +380,12 @@ def _cache_out(cache: dict, params: dict, cfg: ModelCfg, mesh) -> dict:
             names = lead + ("batch", None, "kv_heads", None)
         elif "ssm" in key:
             names = lead + ("batch", "mlp", None)
-        else:
+        elif "conv" in key:
             names = lead + ("batch", None, "mlp")
+        elif "wkv" in key:
+            names = lead + ("batch", None, None, None)
+        else:
+            names = lead + ("batch", None)
         names = tuple(n if n is None or n == "batch" or names_of[n] else None
                       for n in names)
         shape = [d * (shd.batch_split() if n == "batch" else

@@ -11,10 +11,14 @@ their devices are logical, all on ``--device``, and the step's values do
 not depend on the mesh.  ``--device`` defaults to ``cuda``: a machine
 without a GPU needs ``--device cpu``.
 
+A model with a modality stub (Whisper's frames, the vision-language
+model's patch prefix and its M-RoPE positions) gets them with each
+step's batch, drawn from the seed and the step (`_stub_inputs`).
+
 ``--ranks N`` runs the step sharded across N processes instead, one a
-position of the ``--data-model D M`` rank mesh (D x M = N; the dense,
-mixture-of-experts and hybrid families): FSDP over data, tensor parallel
-over model (the experts and the Mamba channels split over it too).  The
+position of the ``--data-model D M`` rank mesh (D x M = N; every
+family): FSDP over data, tensor parallel over model (the experts, the
+Mamba channels and the RWKV heads split over it too).  The
 script starts its ranks itself (a ``FileStore`` in a temporary
 directory), or joins torchrun's; ``--backend nccl`` (the default on
 CUDA) needs a card a rank, ``gloo`` (the default on the CPU) lets ranks
@@ -30,6 +34,9 @@ ranks.
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-1b-a400m --reduced --steps 20 --ranks 2 \\
       --backend gloo --data-model 1 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+      --reduced --steps 20 --ranks 2 --backend gloo --data-model 1 2 \\
+      --device cpu
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from repro_torch.data.pipeline import DataConfig, make_source
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import sharding as shd
+from repro_torch.models.model import make_dummy_batch
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import ElasticState, StragglerWatchdog
 
@@ -96,6 +104,21 @@ def _spawned(rank: int, fn, argv, world: int, backend: str, store: str):
         fn(argv)
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _stub_inputs(cfg, shape, step: int, seed: int, device) -> dict:
+    """A step's modality stub inputs (`make_dummy_batch`'s
+    ``frontend_embeds`` and ``positions``), drawn on ``device`` from a
+    generator seeded by the seed and the step: the same on every rank.
+    Empty for a model without a stub."""
+    import torch
+
+    if cfg.frontend == "none":
+        return {}
+    gen = torch.Generator(device=device).manual_seed(
+        seed * 1_000_003 + step)
+    return {k: v for k, v in make_dummy_batch(cfg, shape, gen).items()
+            if k not in ("tokens", "labels")}
 
 
 def main(argv=None) -> list[dict]:
@@ -210,6 +233,7 @@ def _train(argv=None) -> list[dict]:
     t_last = time.time()
     for step in range(start_step, args.steps):
         batch = source.batch(step, args.batch, args.seq, device=dev)
+        batch.update(_stub_inputs(cfg, shape, step, args.seed, dev))
         if ranked:
             batch = shd.shard_tree(batch, bspec, mesh, dev)
         params, opt_state, metrics = step_obj.fn(params, opt_state, batch)

@@ -23,9 +23,11 @@ On a rank mesh (`models.sharding`) the heads are tensor-parallel: the
 Q/K/V projections are column-parallel over "heads" / "kv_heads" (a
 rank's query heads use only its own KV heads, so both must split alike),
 the output projection row-parallel (its partial sums summed at a
-`constrain`).  With ``REPRO_SEQ_SHARD_ATTN=1`` and a head count the
-"model" axis does not divide, the flash path splits the queries' sequence
-over it instead (`flash.flash_attention`'s ``seq_shard``).  Decode
+`constrain`); cross-attention's queries and its encoder K/V
+(`cross_kv`) are column-parallel alike.  With
+``REPRO_SEQ_SHARD_ATTN=1`` and a head count the "model" axis does not
+divide, the flash path splits the queries' sequence over it instead
+(`flash.flash_attention`'s ``seq_shard``).  Decode
 against a cache whose sequence is split over ranks ("kv_seq") writes the
 token's K/V on the rank that holds its position and gathers the cache's
 positions to attend: an all-gather of the cache each step.
@@ -208,7 +210,9 @@ def attention(
 
 
 def cross_kv(params: dict, cfg: ModelCfg, enc_out: torch.Tensor):
-    """The encoder's K/V for cross-attention (cached once a request)."""
+    """The encoder's K/V for cross-attention (cached once a request); on
+    a rank mesh the rank's KV heads."""
+    enc_out = shd.psum_grad(enc_out, heads_axes(params))
     k = _proj(enc_out, shd.local(params["wk"]))
     v = _proj(enc_out, shd.local(params["wv"]))
     if cfg.qkv_bias:
@@ -218,6 +222,7 @@ def cross_kv(params: dict, cfg: ModelCfg, enc_out: torch.Tensor):
 
 
 def _q_only(params, cfg: ModelCfg, x):
+    x = shd.psum_grad(x, heads_axes(params))
     q = _proj(x, shd.local(params["wq"]))
     return q + shd.local(params["bq"]) if cfg.qkv_bias else q
 

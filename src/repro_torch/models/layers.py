@@ -161,6 +161,15 @@ def embed_tokens(cfg: ModelCfg, tok_embed: torch.Tensor,
     return x
 
 
+def embed(cfg: ModelCfg, params: dict, tokens: torch.Tensor
+          ) -> torch.Tensor:
+    """The embedded tokens (`embed_tokens` of ``params["tok_embed"]``),
+    summed over the vocabulary's ranks."""
+    return shd.constrain(embed_tokens(cfg, params["tok_embed"], tokens),
+                         ("batch", "seq", None),
+                         partial=shd.split_axes(params["tok_embed"], 0))
+
+
 def vocab_layout(cfg: ModelCfg, params: dict) -> tuple[tuple, int]:
     """(mesh axes, start) of this rank's block of the unembedding's
     vocabulary; ((), 0) off a rank mesh or when it is whole."""

@@ -12,13 +12,35 @@ work and O(1) state, so decode is one constant-memory step.  The chunk is
 the largest divisor of T up to `CHUNK` (read at call time): a prime
 length takes chunks of 1.  The per-head group norm is the population
 variance (``correction=0``, as ``jnp.var``), eps 1e-5.
+
+On a rank mesh (`models.sharding`) the time mix is tensor parallel over
+its heads: ``w_r``, ``w_k``, ``w_v`` and ``w_g`` are column-parallel (a
+rank's D/M output channels are its heads), ``w_o`` row-parallel (its
+partial sums all-reduced), and the leaves the rules leave whole on
+"model" (``decay_b``'s columns, ``decay_bias``, ``u_bonus``, ``ln_x``)
+are split to the rank's channels by `constrain`, whose backward gathers
+their gradients.  The WKV and the group norm run on the rank's heads;
+the cache keeps the wkv state whole on every model rank (the specs'
+``("batch", None, None, None)``), so a prefill gathers its final state
+over the heads (B·H·hd² float32 a layer, once a request).  A decode step
+instead gathers r, k, v and w (4·B·D float32 a layer a token, where the
+state would be B·H·hd²: 16x less at hd = 64) and runs the WKV on every
+head against the whole state, as does any step whose D/M channels are
+not whole heads.  The channel mix's ``w_k`` is column-parallel over
+d_ff, but the rules split ``w_v``'s and ``w_r``'s output columns (D),
+not d_ff's rows: ``kk`` is gathered whole, each rank computes its D/M
+output columns (``kk``'s gradient, partial on each, summed) and the
+output is gathered.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.models import sharding as shd
 from repro_torch.models.layers import dense_init
 
 CHUNK = 64
@@ -110,36 +132,82 @@ def _wkv_chunked(r, k, v, w, u, S0):
     return torch.cat(ys, dim=1), S
 
 
+def _ways(axes: tuple) -> int:
+    """How many blocks a dim split over ``axes`` has on the ambient rank
+    mesh (1 for none)."""
+    return math.prod(shd.current_comm().sizes[a] for a in axes) if axes \
+        else 1
+
+
+def _mine(t: torch.Tensor, names: tuple, ax: tuple) -> torch.Tensor:
+    """The rank's channels of a leaf every rank of the model axis holds
+    whole (``names``: the split dim's name, None elsewhere); its gradient
+    is gathered from every rank's channels.  As it is off a rank mesh."""
+    if not ax:
+        return t
+    return shd.constrain(t, names, held=(None,) * t.ndim)
+
+
 def rwkv_time_mix(params: dict, cfg: ModelCfg, x: torch.Tensor,
                   state: dict | None = None, return_state: bool = False):
     """x: (B, T, D); state: {"shift": (B, D), "wkv": (B, H, hd, hd)},
-    float32.  Returns (out, new state or None)."""
+    float32 (on a rank mesh the rank's blocks: its batch rows, every
+    head).  Returns (out, new state or None)."""
     B, T, D = x.shape
     rc = cfg.rwkv
     H, hd = D // rc.head_dim, rc.head_dim
+    if state is not None:
+        state = {k: shd.local_block(v) for k, v in state.items()}
+    ax = shd.split_axes(params["w_r"], -1)
+    # every head on every rank: a decode step (the state is whole), or
+    # channels that are not whole heads
+    whole = bool(ax) and (state is not None or (D // _ways(ax)) % hd != 0)
     prev = _token_shift(x, None if state is None else state["shift"])
-    mu = params["mu"].to(x.dtype)
+    mu = shd.local(params["mu"]).to(x.dtype)
     xr, xk, xv, xg, xw = (x + mu[i] * (prev - x) for i in range(5))
+    if ax:      # column-parallel: each input's gradient partial, summed
+        xr, xk, xv, xg = shd.psum_grad(torch.stack([xr, xk, xv, xg]),
+                                       ax).unbind(0)
 
-    r = (xr @ params["w_r"]).reshape(B, T, H, hd).float()
-    k = (xk @ params["w_k"]).reshape(B, T, H, hd).float()
-    v = (xv @ params["w_v"]).reshape(B, T, H, hd).float()
-    g = F.silu(xg @ params["w_g"])
-    wx = (xw.float() @ params["decay_a"]) @ params["decay_b"]
-    w = torch.exp(-torch.exp(wx + params["decay_bias"]))   # (B, T, D)
-    w = w.reshape(B, T, H, hd)
+    r = (xr @ shd.local(params["w_r"])).float()
+    k = (xk @ shd.local(params["w_k"])).float()
+    v = (xv @ shd.local(params["w_v"])).float()
+    g = F.silu(xg @ shd.local(params["w_g"]))
+    low = shd.psum_grad(xw.float() @ shd.local(params["decay_a"]), ax)
+    wx = low @ _mine(shd.local(params["decay_b"]), (None, "mlp"), ax)
+    bias = _mine(shd.local(params["decay_bias"]), ("mlp",), ax)
+    w = torch.exp(-torch.exp(wx + bias))                   # (B, T, D/M)
+    u = shd.local(params["u_bonus"])
+    ln_x = shd.local(params["ln_x"])
+    if whole:
+        rkvw = shd.constrain(torch.stack([r, k, v, w], dim=2),
+                             ("batch", "seq", None, None),
+                             held=("batch", "seq", None, "mlp"))
+        r, k, v, w = rkvw.unbind(2)
+    else:
+        u = _mine(u, ("heads", None), ax)
+        ln_x = _mine(ln_x, ("mlp",), ax)
+    Hl = r.shape[-1] // hd
+    r, k, v, w = (t.reshape(B, T, Hl, hd) for t in (r, k, v, w))
 
-    S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device) \
+    S0 = torch.zeros((B, Hl, hd, hd), dtype=torch.float32, device=x.device) \
         if state is None else state["wkv"]
-    y, S_fin = _wkv_chunked(r, k, v, w, params["u_bonus"], S0)
+    y, S_fin = _wkv_chunked(r, k, v, w, u, S0)
     # per-head group norm (population variance, as jnp.var)
     mean = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
     y = (y - mean) * torch.rsqrt(var + 1e-5)
-    y = y.reshape(B, T, D) * params["ln_x"]
-    out = (y.to(x.dtype) * g) @ params["w_o"]
+    y = y.reshape(B, T, Hl * hd) * ln_x
+    if whole:
+        y = shd.constrain(y, ("batch", "seq", "mlp"),
+                          held=("batch", "seq", None))
+    out = (y.to(x.dtype) * g) @ shd.local(params["w_o"])
+    out = shd.constrain(out, ("batch", "seq", None), partial=ax)
     new_state = None
     if return_state:
+        if ax and not whole:    # the cache holds every head
+            S_fin = shd.constrain(S_fin, ("batch", None, None, None),
+                                  held=("batch", "heads", None, None))
         new_state = {"shift": x[:, -1].float(), "wkv": S_fin}
     return out, new_state
 
@@ -149,12 +217,24 @@ def rwkv_channel_mix(params: dict, cfg: ModelCfg, x: torch.Tensor,
                      return_state: bool = False):
     """Returns (out, the last input in float32 — the next call's shift
     carry — or None)."""
-    prev = _token_shift(x, state)
-    mu = params["mu"].to(x.dtype)
+    prev = _token_shift(x, shd.local_block(state))
+    mu = shd.local(params["mu"]).to(x.dtype)
     xk = x + mu[0] * (prev - x)
     xr = x + mu[1] * (prev - x)
-    kk = torch.square(torch.relu(xk @ params["w_k"]))
-    out = torch.sigmoid(xr @ params["w_r"]) * (kk @ params["w_v"])
+    ax = shd.split_axes(params["w_k"], -1)         # d_ff's
+    ax_o = shd.split_axes(params["w_v"], -1)       # D's, as w_r's
+    kk = torch.square(torch.relu(shd.psum_grad(xk, ax)
+                                 @ shd.local(params["w_k"])))
+    kk = shd.constrain(kk, ("batch", "seq", "mlp"))
+    if ax:      # every rank's output columns need every row of d_ff
+        kk = shd.constrain(kk, ("batch", "seq", None),
+                           held=("batch", "seq", "mlp"))
+    val = shd.psum_grad(kk, ax_o) @ shd.local(params["w_v"])
+    out = torch.sigmoid(shd.psum_grad(xr, ax_o)
+                        @ shd.local(params["w_r"])) * val
+    if ax_o:
+        out = shd.constrain(out, ("batch", "seq", None),
+                            held=("batch", "seq", "mlp"))
     return out, (x[:, -1].float() if return_state else None)
 
 

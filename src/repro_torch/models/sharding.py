@@ -250,11 +250,15 @@ def constrain(x, names: Sequence[Optional[str]], *,
     dst = [_spec_axes(p) for p in _padded(spec(glob, names, mesh), x.ndim)]
     if partial:
         x = psum(x, partial)
-    for dim, (a, b) in enumerate(zip(src, dst)):
-        if a == b:
-            continue
+    # every gather before any split: an axis that moves from one dim to
+    # another must be gathered off the first while the ranks still hold
+    # the same blocks of the second
+    moved = [(dim, a, b) for dim, (a, b) in enumerate(zip(src, dst))
+             if a != b]
+    for dim, a, _ in moved:
         if a:
             x = _Gather.apply(x, dim, comm.moving(a))
+    for dim, _, b in moved:
         if b:
             x = _Split.apply(x, dim, comm.moving(b))
     return x

@@ -28,12 +28,14 @@ encoder-decoder is `models.whisper`.
 
 The reference's layout constraints stand where it has them (the embedded
 tokens, each layer's output, the chunk's logits; `models.sharding.
-constrain`).  On a rank mesh (the dense, mixture-of-experts and hybrid
-families; `launch.steps`) every rank runs these functions on its block of
-the batch with its blocks of the weights, and the cross-entropy's mean
-divides by the whole batch and sums over the batch's ranks; the aux term
-is the same on every rank (`models.moe` averages its statistics across
-the batch's ranks), so it adds to the loss as in one process.
+constrain`).  On a rank mesh (every family; `launch.steps`) every rank
+runs these functions on its block of the batch with its blocks of the
+weights, and the cross-entropy's mean divides by the whole batch and
+sums over the batch's ranks; the aux term is the same on every rank
+(`models.moe` averages its statistics across the batch's ranks), so it
+adds to the loss as in one process.  A vision prefix (the rank's rows of
+``frontend_embeds``) overwrites the first positions after the embedding's
+partial sums over the vocabulary's ranks are summed.
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import sharding as shd
 from repro_torch.models.layers import (cross_entropy, dense_init, dtype_of,
-                                       embed_tokens, gelu_tanh, init_mlp,
+                                       embed, gelu_tanh, init_mlp,
                                        init_norm, mlp, rms_norm, token_nll,
                                        unembed, vocab_layout)
 
@@ -243,20 +245,13 @@ def _embed(params, cfg, tokens, positions, frontend_embeds):
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         if cfg.rope_kind == "mrope":
             positions = positions[None].expand(3, B, S)
-    x = _embed_tokens(cfg, params, tokens)
+    x = embed(cfg, params, tokens)
     if frontend_embeds is not None:
         # modality stub: precomputed patch/frame embeddings own the first
         # S_f positions
         x = x.clone()
         x[:, :frontend_embeds.shape[1]] = frontend_embeds.to(x.dtype)
     return x, positions
-
-
-def _embed_tokens(cfg, params, tokens):
-    """The embedded tokens, summed over the vocabulary's ranks."""
-    return shd.constrain(embed_tokens(cfg, params["tok_embed"], tokens),
-                         ("batch", "seq", None),
-                         partial=shd.split_axes(params["tok_embed"], 0))
 
 
 # the products without batch dims: what ``REPRO_REMAT=dots`` saves, as the
@@ -457,7 +452,7 @@ def decode_step(
     K/V and the new states are written into ``cache`` in place, and the
     same cache is returned."""
     plans = period_plan(cfg)
-    x = _embed_tokens(cfg, params, tokens)
+    x = embed(cfg, params, tokens)
     positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
                            device=tokens.device)
     for p, plan, c in zip(params.get("prefix", []), prefix_plans(cfg),

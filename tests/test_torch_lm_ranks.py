@@ -24,10 +24,10 @@ gloo ranks.
   the flash path's ``seq_shard`` branch and equals one process.
 * A one-process checkpoint resumes on 2 ranks and a 2-rank checkpoint
   in one process (`ElasticState`, whole leaves written by rank 0).
-* A rank holding several positions, the RWKV, Whisper and
-  vision-language families and 8-bit moments are refused on a rank mesh
-  (the mixture-of-experts and hybrid families run there:
-  `test_torch_lm_ranks_moe.py`).
+* A rank holding several positions and 8-bit moments (the dense
+  model's and Whisper's) are refused on a rank mesh (the other families
+  run there: `test_torch_lm_ranks_moe.py`,
+  `test_torch_lm_ranks_families.py`).
 * The gathers of both transports (`core.ranks`: the language model's
   `MeshComm`, the p-bit engine's `RankComm`) copy every bit.
 """
@@ -397,20 +397,16 @@ def _clone_opt(o):
 
 @pytest.mark.parametrize("case,kind", [
     ("several_positions", "ValueError"),
-    ("ssm_family", "NotImplementedError"),
-    ("audio_family", "NotImplementedError"),
-    ("vlm_family", "NotImplementedError"),
     ("eight_bit_step", "NotImplementedError"),
     ("eight_bit_init", "NotImplementedError"),
+    ("eight_bit_whisper", "NotImplementedError"),
 ])
 def test_rank_mesh_refusals(case, kind, world2):
     for rank in world2[0]:
         said = str(rank[f"refused/{case}"][0])
         assert said.startswith(kind + ":"), said
-        if case.endswith("_family"):
+        if kind == "NotImplementedError":
             assert "12e" in said, said
-        elif kind == "NotImplementedError":
-            assert "12e" in said or "dense" in said
 
 
 def test_placements_follow_the_spec():
