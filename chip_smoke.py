@@ -5158,10 +5158,13 @@ def ranks_child(backend: str, rank: str, world: str, store: str,
         tdist.destroy_process_group()
 
 
-def _start_ranks(code: str, world: int, argv) -> list:
+def _start_ranks(code: str, world: int, argv, env=None) -> list:
+    """``world`` processes running ``code`` with ``argv(rank)``; ``env``:
+    variables set for them (before they import the port)."""
+    env = dict(os.environ, **(env or {}))
     return [subprocess.Popen(
         [sys.executable, "-c", code, *argv(rank)], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, cwd=ROOT)
+        stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
         for rank in range(world)]
 
 
@@ -5358,7 +5361,7 @@ def ranks_phase(seed: int) -> dict:
 # phase: the language models' steps across processes
 # ---------------------------------------------------------------------------
 LMR_STEPS = 3                     # train steps, B = 8, S = 256
-LMR_B, LMR_PROMPT, LMR_GEN, LMR_MAX_SEQ = 4, 32, 17, 64  # 16 decode tokens
+LMR_B, LMR_PROMPT, LMR_GEN, LMR_MAX_SEQ = 4, 32, 5, 64   # 4 decode tokens
 LMR_DEPTH = 2                     # the FSDP meshes' layers, rwkv6-3b's
 # jamba's gradient check: loss and gradients without the optimizer (its
 # float32 moments alone would be ~106 GB), at B = 2 so that one process's
@@ -5385,23 +5388,42 @@ LMR_GRADS_B = 2
 LMR_LOSS_TOL = 1e-3
 LMR_GRAD_RTOL = 1e-2
 LMR_LOGIT_TOL = 0.05
+# 8-bit moments across ranks, after one step against one process's first
+# step, gathered whole: the largest code difference of any ``q`` and the
+# largest relative difference of any ``scale``.  The moments quantize the
+# bf16 gradients, which the ranks sum in another order: a block whose
+# largest gradient is a sum that nearly cancels moves its scale by some
+# percent, and every code of the block with it (127 codes a full scale).
+# Stated loose first at 8 codes and 0.1 relative; an H100 showed 9 and
+# 7 codes, 0.057 and 0.059 (1 x 2, 2 x 1 at 2 layers; PERF.md), so the
+# gates are twice the largest
+LMR_Q8_CODE_TOL = 18
+LMR_Q8_SCALE_RTOL = 0.12
 LMR_TIMEOUT_S = 600
 GRANITE, JAMBA, KIMI = ("granite-moe-1b-a400m", "jamba-v0.1-52b",
                         "kimi-k2-1t-a32b")
 RWKV, WHISPER, VLM = "rwkv6-3b", "whisper-tiny", "qwen2-vl-72b"
-# (backend, world, runs); a run is (arch, depth: None for the config's,
-# rank mesh, train: "steps" (`LMR_STEPS`), "step" (the first of them),
-# "grads" (loss and gradients, no optimizer) or None, decode tokens + 1).
-# World 1 also runs every model's one-process reference.  FSDP gathers
-# every weight for every decode token, which gloo carries through the
-# host at ~1 GB/s: FSDP meshes decode 2 tokens, run at `LMR_DEPTH`
-# layers and take one train step (at full depth gemma2-2b's 2 x 1 took
-# 100-125 s, granite-moe's 9.3-10.5 s a step; at 2 layers gemma2-2b's
-# 2 x 1 and 2 x 2 took 56 and 50 s with three steps and 4 tokens, of a
-# script that took 1,115-1,140 of its 1,200 s; the tensor-parallel
-# meshes keep three steps and 16 tokens, whisper-tiny's 4-rank meshes 4).  jamba is cut to one period (7 Mamba, 1 attention, 4 MoE
-# layers) and kimi-k2 to its dense prefix and one MoE layer: the card
-# holds neither whole.
+# (backend, world, parallelism preset, runs); a run is (arch, depth: None
+# for the config's, rank mesh, train: "steps" (`LMR_STEPS`), "step" (the
+# first of them), "steps8" / "step8" (the same with 8-bit moments),
+# "grads" (loss and gradients, no optimizer) or None, decode tokens + 1,
+# or None: no serving).  World 1 also runs every model's one-process
+# reference.  The preset is `REPRO_PARALLELISM`, set in the ranks'
+# environment before they import the port ("fsdp": the batch over both
+# axes, every weight gathered over both, no tensor parallelism).  FSDP
+# gathers every weight for every decode token, which gloo carries
+# through the host at ~1 GB/s: FSDP meshes decode 2 tokens, run at
+# `LMR_DEPTH` layers and take one train step (at full depth gemma2-2b's
+# 2 x 1 took 100-125 s, granite-moe's 9.3-10.5 s a step; at 2 layers
+# gemma2-2b's 2 x 1 and 2 x 2 took 56 and 50 s with three steps and 4
+# tokens, of a script that took 1,115-1,140 of its 1,200 s).  The
+# 8-bit and fsdp runs are paid by the earlier paths: every one-process
+# reference, NCCL and tensor-parallel run serves 4 decode tokens (16
+# before), gemma2-2b's and granite-moe's 1 x 2 and granite-moe's 2 x 1
+# and whisper-tiny's 2 x 2 take one train step (three before; NCCL 1 x 1
+# keeps three, the bit-equal state after them).  jamba is cut to one
+# period (7 Mamba, 1 attention, 4 MoE layers) and kimi-k2 to its dense
+# prefix and one MoE layer: the card holds neither whole.
 # rwkv6-3b runs all 32 layers on 1 x 1, and one step at `LMR_DEPTH`
 # layers on 1 x 2 and 2 x 1: at random weights it amplifies rounding
 # with depth — one process's bf16 gradient norm sits 3.6 % from its
@@ -5414,24 +5436,35 @@ RWKV, WHISPER, VLM = "rwkv6-3b", "whisper-tiny", "qwen2-vl-72b"
 # (8.49 GB) and checked by its loss and gradients at `LMR_GRADS_SHAPE`,
 # its 1024 patch rows in front of the text; whisper-tiny runs whole, its
 # 6 heads split 2 ways on 2 x 2 and whole on 1 x 4
+# gemma2-2b with 8-bit moments (blockwise int8, their blocks split over
+# data x model): three steps at full depth on NCCL 1 x 1, bit-equal to
+# one process's; one step at `LMR_DEPTH` layers on 1 x 2 and 2 x 1
+# (there the norms' 117 and 9 blocks stay whole), its moments gathered
+# and held to one process's first step by `LMR_Q8_CODE_TOL` and
+# `LMR_Q8_SCALE_RTOL`
 LMR_WORLDS = (
-    ("nccl", 1, ((LM_ARCH, None, (1, 1), "steps", LMR_GEN),
-                 (GRANITE, None, (1, 1), "steps", LMR_GEN),
-                 (RWKV, None, (1, 1), "steps", LMR_GEN),
-                 (WHISPER, None, (1, 1), "steps", LMR_GEN))),
-    ("gloo", 2, ((LM_ARCH, None, (1, 2), "steps", LMR_GEN),
-                 (LM_ARCH, LMR_DEPTH, (2, 1), "step", 3),
-                 (GRANITE, None, (1, 2), "steps", LMR_GEN),
-                 (GRANITE, LMR_DEPTH, (2, 1), "steps", 3),
-                 (JAMBA, 8, (1, 2), "grads", LMR_GEN),
-                 (KIMI, 2, (1, 2), None, LMR_GEN),
-                 (RWKV, LMR_DEPTH, (1, 2), "step", LMR_GEN),
-                 (RWKV, LMR_DEPTH, (2, 1), "step", 3),
-                 (VLM, 2, (1, 2), "grads", LMR_GEN))),
-    ("gloo", 4, ((LM_ARCH, LMR_DEPTH, (2, 2), "step", 3),
-                 (GRANITE, LMR_DEPTH, (2, 2), "step", 3),
-                 (WHISPER, None, (2, 2), "steps", 5),
-                 (WHISPER, None, (1, 4), "steps", 5))),
+    ("nccl", 1, "2d", ((LM_ARCH, None, (1, 1), "steps", LMR_GEN),
+                       (LM_ARCH, None, (1, 1), "steps8", None),
+                       (GRANITE, None, (1, 1), "steps", LMR_GEN),
+                       (RWKV, None, (1, 1), "steps", LMR_GEN),
+                       (WHISPER, None, (1, 1), "steps", LMR_GEN))),
+    ("gloo", 2, "2d", ((LM_ARCH, None, (1, 2), "step", LMR_GEN),
+                       (LM_ARCH, LMR_DEPTH, (2, 1), "step", 3),
+                       (LM_ARCH, LMR_DEPTH, (1, 2), "step8", None),
+                       (LM_ARCH, LMR_DEPTH, (2, 1), "step8", None),
+                       (GRANITE, None, (1, 2), "step", LMR_GEN),
+                       (GRANITE, LMR_DEPTH, (2, 1), "step", 3),
+                       (JAMBA, 8, (1, 2), "grads", LMR_GEN),
+                       (KIMI, 2, (1, 2), None, LMR_GEN),
+                       (RWKV, LMR_DEPTH, (1, 2), "step", LMR_GEN),
+                       (RWKV, LMR_DEPTH, (2, 1), "step", 3),
+                       (VLM, 2, (1, 2), "grads", LMR_GEN))),
+    ("gloo", 2, "fsdp", ((LM_ARCH, LMR_DEPTH, (1, 2), "step", 3),
+                         (GRANITE, LMR_DEPTH, (1, 2), "step", 2))),
+    ("gloo", 4, "2d", ((LM_ARCH, LMR_DEPTH, (2, 2), "step", 3),
+                       (GRANITE, LMR_DEPTH, (2, 2), "step", 3),
+                       (WHISPER, None, (2, 2), "step", 5),
+                       (WHISPER, None, (1, 4), "steps", 5))),
 )
 # drawn a piece at a time (`_lmr_pieces`): too large for every rank
 # sharing the card to draw the whole tree
@@ -5468,16 +5501,28 @@ def _lmr_tag(arch: str, depth) -> str:
     return f"{arch}@{'full' if depth is None else depth}"
 
 
+def _lmr_bits(train) -> int:
+    """The moments' bits of a run's train kind: 8 for "steps8" / "step8"."""
+    return 8 if train in ("steps8", "step8") else 32
+
+
 def _lmr_references() -> dict:
-    """(arch, depth) -> the train kind its one-process reference runs
-    ("steps" covers "step"), from every run of `LMR_WORLDS`."""
+    """(arch, depth, bits) -> the train kind its one-process reference
+    runs ("steps" covers "step", "steps8" "step8"; a float32 reference
+    also serves), from every run of `LMR_WORLDS`."""
     refs: dict = {}
-    for _, _, runs in LMR_WORLDS:
+    for _, _, _, runs in LMR_WORLDS:
         for arch, depth, _, train, _ in runs:
-            kind = "steps" if train in ("steps", "step") else train
-            if refs.setdefault((arch, depth), kind) != kind:
+            bits = _lmr_bits(train)
+            kind = {"step": "steps", "step8": "steps8"}.get(train, train)
+            if refs.setdefault((arch, depth, bits), kind) != kind:
                 raise ValueError(f"{arch} at depth {depth} trains two ways")
     return refs
+
+
+def _lmr_ref_path(tmp: Path, arch: str, depth, bits: int) -> Path:
+    q8 = "_q8" if bits == 8 else ""
+    return tmp / f"one_{_lmr_tag(arch, depth)}{q8}.pt"
 
 
 def _lmr_digest(tree) -> dict:
@@ -5698,12 +5743,16 @@ class _LayerCollectives:
             setattr(mod, name, fn)
 
 
-def _lmr_train(cfg, arch: str, mesh, seed: int, n_steps: int) -> dict:
-    """``n_steps`` train steps (B = 8, S = 256, float32 moments) on the
-    pipeline's batches from seed's parameters: each step's loss, gradient
-    norm and ms (CUDA events), the peak memory, the final state's digest;
-    on a rank mesh also the rank's resident bytes against the specs', the
-    last step's collectives and its MoE layers' and Mamba blocks'."""
+def _lmr_train(cfg, arch: str, mesh, seed: int, n_steps: int,
+               bits: int = 32, first_moments: bool = False) -> dict:
+    """``n_steps`` train steps (B = 8, S = 256; float32 moments, or 8-bit
+    with ``bits``) on the pipeline's batches from seed's parameters: each
+    step's loss, gradient norm and ms (CUDA events), the peak memory, the
+    final state's digest, with ``first_moments`` the moments after the
+    first step gathered whole on the host ({key: tensor}); on a rank mesh
+    also the rank's resident bytes against the specs' (and the bytes its
+    float32 moments would hold), the last step's collectives and its MoE
+    layers' and Mamba blocks'."""
     from repro_torch.configs import ShapeCfg
     from repro_torch.data.pipeline import DataConfig, make_source
     from repro_torch.launch.steps import make_train_step
@@ -5715,14 +5764,15 @@ def _lmr_train(cfg, arch: str, mesh, seed: int, n_steps: int) -> dict:
     shape = ShapeCfg("train_cli", LM_TRAIN_S, LM_TRAIN_B, "train")
     step = make_train_step(cfg, shape, mesh,
                            adamw.AdamWConfig(total_steps=100,
-                                             warmup_steps=10),
+                                             warmup_steps=10,
+                                             state_bits=bits),
                            device=DEVICE)
     pspec, ospec, bspec = step.in_specs
     src = make_source(DataConfig(seed=seed, vocab_size=cfg.vocab_size))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = _lmr_params(cfg, arch, seed, mesh, pspec)
-    opt = adamw.init(params)
+    opt = adamw.init(params, bits)
     out = {"losses": [], "grad_norms": [], "ms": []}
     comm = shd.rank_comm(mesh, DEVICE) if ranked else None
     layers = None
@@ -5739,6 +5789,14 @@ def _lmr_train(cfg, arch: str, mesh, seed: int, n_steps: int) -> dict:
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
         out["ms"].append(ms)
+        if first_moments and i == 0:
+            moments = (opt.mu, opt.nu)
+            if ranked:
+                with shd.use_mesh(mesh, DEVICE):
+                    moments = shd.full_tree(moments)
+            out["first_moments"] = {k: v.to("cpu", copy=True) for k, v in
+                                    shd.leaves_with_path(moments)}
+            del moments
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["digest"] = _lmr_digest((params, opt.mu, opt.nu))
     if ranked:
@@ -5747,6 +5805,8 @@ def _lmr_train(cfg, arch: str, mesh, seed: int, n_steps: int) -> dict:
         out["resident_bytes"] = _lmr_resident(mesh, {
             "params": (params, pspec),
             "moments": ((opt.mu, opt.nu), (ospec.mu, ospec.nu))})
+        out["resident_bytes"]["moments"]["float32_held"] = 8 * sum(
+            shd.local_block(p).numel() for p in adamw.tree_leaves(params))
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -5932,9 +5992,21 @@ def _lmr_tokens_agree(got, want, got_logits, logits,
 
 def _lmr_one_process(arch: str, depth, kind, seed: int, tmp: Path) -> dict:
     """One model's one-process reference: its training (``kind``), its
-    serving, saved to ``tmp`` for the later worlds; returns the record."""
+    serving, saved to ``tmp`` for the later worlds; returns the record.
+    With 8-bit moments ("steps8") its training alone, and the moments
+    after the first step where the config is cut (the gloo runs')."""
     cfg = _lmr_cfg(arch, depth)
     t0 = time.perf_counter()
+    if kind == "steps8":
+        train = _lmr_train(cfg, arch, None, seed, LMR_STEPS, bits=8,
+                           first_moments=depth is not None)
+        torch.save({k: train.get(k) for k in ("losses", "grad_norms",
+                                              "digest", "first_moments")},
+                   _lmr_ref_path(tmp, arch, depth, 8))
+        rec = {k: v for k, v in train.items()
+               if k not in ("digest", "first_moments")}
+        rec["seconds"] = time.perf_counter() - t0
+        return rec
     one = {"serve": _lmr_serve(cfg, arch, None, seed)}
     if kind == "steps":
         one["train"] = _lmr_train(cfg, arch, None, seed, LMR_STEPS)
@@ -5952,7 +6024,7 @@ def _lmr_one_process(arch: str, depth, kind, seed: int, tmp: Path) -> dict:
                                                        "grad_norms",
                                                        "digest")})
         rec.update({k: v for k, v in one["train"].items() if k != "digest"})
-    torch.save(saved, tmp / f"one_{_lmr_tag(arch, depth)}.pt")
+    torch.save(saved, _lmr_ref_path(tmp, arch, depth, 32))
     rec["seconds"] = time.perf_counter() - t0
     return rec
 
@@ -5963,8 +6035,31 @@ def _lmr_logit_tol(arch: str, rms: float, tmp: Path) -> float:
     gemma2-2b's own runs are held to it as it is."""
     if arch == LM_ARCH:
         return LMR_LOGIT_TOL
-    ref = torch.load(tmp / f"one_{_lmr_tag(LM_ARCH, None)}.pt")
+    ref = torch.load(_lmr_ref_path(tmp, LM_ARCH, None, 32))
     return LMR_LOGIT_TOL * max(1.0, rms / ref["logit_rms"])
+
+
+def _lmr_moment_gaps(got: dict, want: dict, mesh) -> dict:
+    """8-bit moments gathered whole against one process's: the largest
+    code difference of any ``q``, the largest relative difference of any
+    ``scale``, and how many ``q`` leaves each rank holds whole on
+    ``mesh`` (their block count not split by the ``opt_blocks`` axes)."""
+    from repro_torch.models import sharding as shd
+
+    code = scale = 0.0
+    q_leaves = whole = 0
+    for key, w in want.items():
+        g = got[key]
+        if w.dtype == torch.int8:
+            code = max(code, float((g.int() - w.int()).abs().max()))
+            q_leaves += 1
+            sp = shd.spec(tuple(w.shape), ("opt_blocks", None), mesh)
+            whole += shd.NamedSharding(mesh, sp).shard_shape(
+                w.shape)[0] == w.shape[0]
+        else:
+            scale = max(scale, float(((g - w).abs() / w.abs()).max()))
+    return {"max_code_diff": code, "max_scale_rel_diff": scale,
+            "q_leaves": q_leaves, "q_leaves_whole": whole}
 
 
 def _lmr_run(run, seed: int, tmp: Path) -> tuple:
@@ -5975,13 +6070,16 @@ def _lmr_run(run, seed: int, tmp: Path) -> tuple:
 
     arch, depth, shape, train, gen = run
     t0 = time.perf_counter()
-    want = torch.load(tmp / f"one_{_lmr_tag(arch, depth)}.pt")
+    bits = _lmr_bits(train)
+    want = torch.load(_lmr_ref_path(tmp, arch, depth, bits))
     cfg = _lmr_cfg(arch, depth)
     mesh = dist_mod.make_rank_mesh(tuple(shape), ("data", "model"))
-    rec = {"arch": arch, "layers": cfg.num_layers, "train": train}
-    if train in ("steps", "step"):
+    rec = {"arch": arch, "layers": cfg.num_layers, "train": train,
+           "parallelism": shd.PARALLELISM}
+    if train in ("steps", "step", "steps8", "step8"):
         rec.update(_lmr_train(cfg, arch, mesh, seed,
-                              LMR_STEPS if train == "steps" else 1))
+                              LMR_STEPS if train.startswith("steps") else 1,
+                              bits=bits, first_moments=train == "step8"))
     elif train == "grads":
         rec.update(_lmr_grads(cfg, arch, mesh, seed))
     if train is not None:
@@ -5992,7 +6090,18 @@ def _lmr_run(run, seed: int, tmp: Path) -> tuple:
             rec["grad_norms"], want["grad_norms"][:n])]
         digest = rec.pop("digest", None)
         rec["state_bit_equal"] = (digest == want["digest"]
-                                  if train == "steps" else None)
+                                  if train.startswith("steps") else None)
+    if train == "step8":
+        rec["moments"] = _lmr_moment_gaps(rec.pop("first_moments"),
+                                          want["first_moments"], mesh)
+    rec["finite"] = bool(np.isfinite(rec.get("losses", [0.0])).all())
+    name = f"{_lmr_tag(arch, depth)}/{'x'.join(map(str, shape))}"
+    if bits == 8:
+        name += "/q8"
+    if gen is None:
+        rec["seconds"] = time.perf_counter() - t0
+        return name, rec
+    want = torch.load(_lmr_ref_path(tmp, arch, depth, 32))
     sv = _lmr_serve(cfg, arch, mesh, seed, gen)
     w_tok, w_log = want["tokens"][:, :gen], want["logits"][:, :gen]
     tol = _lmr_logit_tol(arch, want["logit_rms"], tmp)
@@ -6009,10 +6118,8 @@ def _lmr_run(run, seed: int, tmp: Path) -> tuple:
         "decode_layer_collectives": sv["layer_collectives"],
         "serve_bytes": sv["serve_bytes"],
         "transport": shd.rank_comm(mesh, DEVICE).transport,
-        "finite": bool(np.isfinite(rec.get("losses", [0.0])).all()
-                       and torch.isfinite(sv["logits"]).all()),
+        "finite": bool(rec["finite"] and torch.isfinite(sv["logits"]).all()),
         "seconds": time.perf_counter() - t0})
-    name = f"{_lmr_tag(arch, depth)}/{'x'.join(map(str, shape))}"
     return name, rec
 
 
@@ -6036,9 +6143,10 @@ def lm_ranks_child(backend: str, rank: str, world: str, store: str,
         rec = {"rank": rank, "world": world, "backend": backend,
                "one_process": {}, "meshes": {}}
         if world == 1:
-            for (arch, depth), kind in _lmr_references().items():
-                rec["one_process"][_lmr_tag(arch, depth)] = \
-                    _lmr_one_process(arch, depth, kind, seed, tmp)
+            for (arch, depth, bits), kind in _lmr_references().items():
+                tag = _lmr_tag(arch, depth) + ("/q8" if bits == 8 else "")
+                rec["one_process"][tag] = _lmr_one_process(
+                    arch, depth, kind, seed, tmp)
         for r in json.loads(runs):
             name, m = _lmr_run(r, seed, tmp)
             rec["meshes"][name] = m
@@ -6055,8 +6163,14 @@ def lm_ranks_child(backend: str, rank: str, world: str, store: str,
 
 def _lmr_checks(tag: str, m: dict) -> dict:
     """A run's checks: NCCL world 1 bit-equal to one process, the gloo
-    worlds within the tolerances; every block as the specs say."""
+    worlds within the tolerances (8-bit moments by `LMR_Q8_CODE_TOL` and
+    `LMR_Q8_SCALE_RTOL`); every block as the specs say."""
     checks = {}
+    if "moments" in m:
+        checks["moment_codes_within_tol"] = (
+            m["moments"]["max_code_diff"] <= LMR_Q8_CODE_TOL)
+        checks["moment_scales_within_tol"] = (
+            m["moments"]["max_scale_rel_diff"] <= LMR_Q8_SCALE_RTOL)
     if m["train"] is not None:
         if tag == "nccl1":
             checks["losses_bit_equal"] = m["loss_diffs"] == [0.0] * len(
@@ -6071,6 +6185,9 @@ def _lmr_checks(tag: str, m: dict) -> dict:
         for t, v in m["resident_bytes"].items():
             checks[f"{t}_bytes_equal_specs"] = v["held"] == v["specs"]
             checks[f"{t}_shapes_equal_specs"] = v["shapes_equal_specs"]
+    checks["finite"] = m["finite"]
+    if "tokens" not in m:       # not served
+        return checks
     if tag == "nccl1":
         checks["tokens_equal"] = m["tokens_equal"]
         checks["logits_bit_equal"] = m["logits_bit_equal"]
@@ -6081,37 +6198,42 @@ def _lmr_checks(tag: str, m: dict) -> dict:
     for t, v in m["serve_bytes"].items():
         checks[f"serve_{t}_bytes_equal_specs"] = v["held"] == v["specs"]
         checks[f"serve_{t}_shapes_equal_specs"] = v["shapes_equal_specs"]
-    checks["finite"] = m["finite"]
     return checks
 
 
 def lm_ranks_phase(seed: int) -> dict:
     """The language models' steps across processes on the card
     (`launch.steps` on a rank mesh: FSDP over data x tensor and expert
-    parallel over model), each world a group of child processes run in
-    turn, never together (`LMR_WORLDS`): NCCL at world size 1 first — it
-    also runs every model's one-process reference (3 train steps at B =
-    8, S = 256 in bf16 with float32 moments, or a loss and its gradients
-    at `LMR_GRADS_SHAPE`; a B = 4 prefill of 32 tokens with 16 greedy
-    decode tokens, qwen2-vl's at `LMR_SERVE_SHAPE`) — gemma2-2b,
-    granite-moe, rwkv6-3b and whisper-tiny on a 1 x 1 rank mesh,
-    bit-equal to them; then 2 gloo ranks sharing the card: gemma2-2b,
-    granite-moe (all 24 layers, 16 experts a rank) and rwkv6-3b (one
-    step at `LMR_DEPTH` layers, 20 heads a rank) on 1 x 2 (16 decode
-    tokens) and 2 x 1 (FSDP at `LMR_DEPTH` layers, gemma2-2b one step;
-    2 decode tokens),
+    parallel over model, or the ``fsdp`` preset), each world a group of
+    child processes run in turn, never together (`LMR_WORLDS`): NCCL at
+    world size 1 first — it also runs every model's one-process reference
+    (3 train steps at B = 8, S = 256 in bf16 with float32 moments, and
+    gemma2-2b's with 8-bit moments, or a loss and its gradients at
+    `LMR_GRADS_SHAPE`; a B = 4 prefill of 32 tokens with 4 greedy decode
+    tokens, qwen2-vl's at `LMR_SERVE_SHAPE`) — gemma2-2b (also with
+    8-bit moments), granite-moe, rwkv6-3b and whisper-tiny on a 1 x 1
+    rank mesh, bit-equal to them; then 2 gloo ranks sharing the card:
+    gemma2-2b, granite-moe (all 24 layers, 16 experts a rank) and
+    rwkv6-3b (`LMR_DEPTH` layers, 20 heads a rank) on 1 x 2 (one step,
+    4 decode tokens) and 2 x 1 (FSDP at `LMR_DEPTH` layers, one step, 2
+    decode tokens), gemma2-2b's 8-bit step at `LMR_DEPTH` layers on 1 x 2
+    and 2 x 1 (its moments gathered against one process's first step),
     jamba's period (its loss and gradients, serving), kimi-k2's cut
     (serving, 192 experts a rank) and qwen2-vl-72b's 2 layers (its loss
-    and gradients at B = 2 x S = 1280, serving) on 1 x 2; then 4
+    and gradients at B = 2 x S = 1280, serving) on 1 x 2; 2 gloo ranks
+    under ``REPRO_PARALLELISM=fsdp`` on 1 x 2: gemma2-2b and granite-moe
+    at `LMR_DEPTH` layers (one step; 2 and 1 decode tokens); then 4
     gloo ranks: gemma2-2b and granite-moe (one step and 2 tokens each)
-    at `LMR_DEPTH` layers and whisper-tiny (4 tokens) on 2 x 2,
-    whisper-tiny on 1 x 4 (its heads whole).
+    at `LMR_DEPTH` layers and whisper-tiny (one step, 4 tokens) on 2 x 2,
+    whisper-tiny on 1 x 4 (its heads whole; three steps).
     Each step's loss within
     `LMR_LOSS_TOL` of one process's and its gradient norm within
-    `LMR_GRAD_RTOL`, the logits within `LMR_LOGIT_TOL` (at the logits'
-    scale, `_lmr_logit_tol`) while the tokens agree, the greedy tokens
-    equal where the margin exceeds it.  Each rank holds the specs' blocks
-    of parameters, moments (or gradients) and the decode cache, and
+    `LMR_GRAD_RTOL`, 8-bit moments' codes and scales within
+    `LMR_Q8_CODE_TOL` and `LMR_Q8_SCALE_RTOL`, the logits within
+    `LMR_LOGIT_TOL` (at the logits' scale, `_lmr_logit_tol`) while the
+    tokens agree, the greedy tokens equal where the margin exceeds it.
+    Each rank holds the specs' blocks of parameters, moments (or
+    gradients) and the decode cache, and
     launches none of K1-K6."""
     import tempfile
 
@@ -6122,14 +6244,16 @@ def lm_ranks_phase(seed: int) -> dict:
     worlds, failed = {}, []
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
-        for backend, world, runs in LMR_WORLDS:
-            tag = f"{backend}{world}"
+        for backend, world, preset, runs in LMR_WORLDS:
+            tag = f"{backend}{world}" + ("" if preset == "2d"
+                                         else f"_{preset}")
             store = str(tmp / f"{tag}_store")
             argv = lambda r: [backend, str(r), str(world), store, str(tmp),  # noqa: E731
                               str(seed), json.dumps(runs)]
             t = time.perf_counter()
-            done = _finish_ranks(_start_ranks(code, world, argv),
-                                 LMR_TIMEOUT_S)
+            done = _finish_ranks(_start_ranks(
+                code, world, argv, {"REPRO_PARALLELISM": preset}),
+                LMR_TIMEOUT_S)
             recs = []
             for r, (rc, out, err) in enumerate(done):
                 if rc != 0:
@@ -6154,9 +6278,12 @@ def lm_ranks_phase(seed: int) -> dict:
                      "grads_B": LMR_GRADS_B},
            "serve": {"B": LMR_B, "prompt": LMR_PROMPT,
                      "max_seq": LMR_MAX_SEQ},
-           "runs": [[b, w, *r] for b, w, runs in LMR_WORLDS for r in runs],
+           "runs": [[b, w, p, *r] for b, w, p, runs in LMR_WORLDS
+                    for r in runs],
            "tolerances": {"loss": LMR_LOSS_TOL, "grad_norm": LMR_GRAD_RTOL,
                           "logit": LMR_LOGIT_TOL,
+                          "q8_code": LMR_Q8_CODE_TOL,
+                          "q8_scale": LMR_Q8_SCALE_RTOL,
                           "logit_scaled_by_rms": "over gemma2-2b's"},
            "worlds": worlds, "checks": checks, "launches": launches,
            "seconds": time.perf_counter() - t_phase}

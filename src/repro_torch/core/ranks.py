@@ -23,6 +23,10 @@ rank on CUDA:
     axes of a rank mesh that holds one rank a position, made once a mesh
     (`rank_comm`; `rank_comm_of` finds a DTensor's).  `is_dtensor`,
     `dims_axes` and `whole` read a DTensor's layout and gather it.
+    `MeshComm.exchange` moves a tensor between two layouts of it over the
+    ranks (`BoxLayout`: blocks of its dims; `FlatLayout`: ranges of its
+    flat row-major entries), each rank sending each other rank just the
+    entries the other's new block holds.
 
 Both transports stage through the same page-locked host buffers under
 gloo and gather alike (`_Transport`).
@@ -304,7 +308,7 @@ class MeshComm(_Transport):
     ``nbytes`` count each kind's calls and the bytes this rank
     contributed."""
 
-    KINDS = ("all_reduce", "all_gather", "reduce_scatter")
+    KINDS = ("all_reduce", "all_gather", "reduce_scatter", "exchange")
 
     def __init__(self, mesh, device):
         from torch.distributed.device_mesh import DeviceMesh
@@ -320,6 +324,8 @@ class MeshComm(_Transport):
                 f"positions is the p-bit engine's layout): make the rank "
                 f"mesh with as many positions as ranks")
         super().__init__(dist.get_backend(mesh.group), device)
+        self.group = mesh.group
+        self.ranks = ranks
         self.axis_names = tuple(mesh.axis_names)
         self.sizes = dict(mesh.shape)
         self.rank = dist.get_rank(mesh.group)
@@ -329,6 +335,7 @@ class MeshComm(_Transport):
                              mesh_dim_names=self.axis_names)
         self.groups = {a: self.dm.get_group(a) for a in self.axis_names
                        if self.sizes[a] > 1}
+        self.plans: dict = {}       # `exchange`'s, by the two layouts
         self.reset()
 
     def reset(self) -> None:
@@ -410,11 +417,213 @@ class MeshComm(_Transport):
             self._count("reduce_scatter", t0, x)
         return t
 
+    def exchange(self, src: torch.Tensor, src_layout, dst: torch.Tensor,
+                 dst_layout) -> torch.Tensor:
+        """Write into ``dst`` (this rank's block of a tensor laid out as
+        ``dst_layout``) the entries it holds, from the ranks that hold
+        them in ``src`` (their blocks as ``src_layout``): every rank calls
+        it together.  Each entry comes from the rank whose coordinates on
+        the axes ``src_layout`` does not split are the receiver's own, so
+        a rank that holds an entry in both layouts copies it from itself.
+        One ``batch_isend_irecv``, each peer's pieces packed in one
+        buffer (host-staged under gloo with CUDA tensors); the bytes this
+        rank sends to other ranks count as ``exchange``.  Returns
+        ``dst``."""
+        t0 = time.perf_counter()
+        sends, recvs = _exchange_plan(self, src_layout, dst_layout)
+        me = self.rank
+        for (sloc, sub), (dloc, dsub) in zip(sends.get(me, ()),
+                                             recvs.get(me, ())):
+            dst_layout.view(dst, dloc, dsub).copy_(
+                src_layout.view(src, sloc, sub))
+        ops, landing, sent = [], [], 0
+        for peer in sorted(set(sends) | set(recvs)):
+            if peer == me:
+                continue
+            glob = (peer if self.group is None
+                    else dist.get_global_rank(self.group, peer))
+            if peer in sends:
+                parts = [src_layout.view(src, loc, sub).reshape(-1)
+                         for loc, sub in sends[peer]]
+                out = self._staged_copy(torch.cat(parts))
+                ops.append(dist.P2POp(dist.isend, out, glob, self.group))
+                sent += out.numel() * out.element_size()
+            if peer in recvs:
+                n = sum(_volume(sub) for _, sub in recvs[peer])
+                buf = self._buffer((n,), dst.dtype)
+                ops.append(dist.P2POp(dist.irecv, buf, glob, self.group))
+                landing.append((buf, recvs[peer]))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            for buf, pieces in landing:
+                at = 0
+                for loc, sub in pieces:
+                    view = dst_layout.view(dst, loc, sub)
+                    n = view.numel()
+                    view.copy_(buf[at:at + n].view(view.shape))
+                    at += n
+        self.counts["exchange"] += 1
+        self.nbytes["exchange"] += sent
+        self.seconds += time.perf_counter() - t0
+        return dst
+
     def record(self) -> dict:
         """The counters as plain numbers: calls and bytes by kind, host
         seconds, the transport."""
         return {"transport": self.transport, "calls": dict(self.counts),
                 "bytes": dict(self.nbytes), "seconds": self.seconds}
+
+
+# ---------------------------------------------------------------------------
+# Layouts of one tensor over a rank mesh, and the exchange between two
+# ---------------------------------------------------------------------------
+def _volume(box) -> int:
+    return math.prod(hi - lo for lo, hi in box)
+
+
+def _meet(a, b):
+    """The intersection of two boxes ((lo, hi) per dim), or None."""
+    box = tuple((max(x0, y0), min(x1, y1)) for (x0, x1), (y0, y1)
+                in zip(a, b))
+    return box if all(lo < hi for lo, hi in box) else None
+
+
+def flat_boxes(shape, start: int, stop: int) -> list:
+    """The flat row-major entries ``[start, stop)`` of a tensor of
+    ``shape`` as boxes ((lo, hi) per dim) in flat order: at most two
+    partial rows of each dim around a run of whole ones."""
+    if start >= stop:
+        return []
+    if not shape:
+        return [()]
+    inner = math.prod(shape[1:])
+    first, end = -(-start // inner), stop // inner   # the whole rows
+    if first > end:             # inside one row
+        r = start // inner
+        return [((r, r + 1),) + b for b in
+                flat_boxes(shape[1:], start - r * inner, stop - r * inner)]
+    out = []
+    if start < first * inner:
+        r = first - 1
+        out += [((r, r + 1),) + b for b in
+                flat_boxes(shape[1:], start - r * inner, inner)]
+    if first < end:
+        out.append(((first, end),) + tuple((0, d) for d in shape[1:]))
+    if end * inner < stop:
+        out += [((end, end + 1),) + b for b in
+                flat_boxes(shape[1:], 0, stop - end * inner)]
+    return out
+
+
+def _block_index(coord: dict, sizes: dict, axes) -> tuple[int, int]:
+    """(index, count) of a rank's block of a dim split over ``axes``,
+    major to minor."""
+    k, n = 0, 1
+    for a in axes:
+        k, n = k * sizes[a] + coord[a], n * sizes[a]
+    return k, n
+
+
+class BoxLayout:
+    """A tensor of global ``shape`` whose dim ``d`` is split over the mesh
+    axes ``dims_axes[d]`` (major to minor; a DTensor's layout): each rank
+    holds one box, its local block."""
+
+    def __init__(self, shape, dims_axes: dict):
+        self.shape = tuple(int(d) for d in shape) or (1,)
+        self.dims_axes = {d: tuple(a) for d, a in dims_axes.items() if a}
+        self.axes = tuple(a for d in sorted(self.dims_axes)
+                          for a in self.dims_axes[d])
+
+    def key(self):
+        return ("box", self.shape, tuple(sorted(self.dims_axes.items())))
+
+    def regions(self, coord: dict, sizes: dict) -> list:
+        box = []
+        for d, size in enumerate(self.shape):
+            k, n = _block_index(coord, sizes, self.dims_axes.get(d, ()))
+            box.append((k * size // n, (k + 1) * size // n))
+        box = tuple(box)
+        return [(box, box)]
+
+    def view(self, local: torch.Tensor, origin, sub) -> torch.Tensor:
+        local = local.reshape(self.shape) if local.ndim == 0 else local
+        return local[tuple(slice(lo - o, hi - o) for (lo, hi), (o, _)
+                           in zip(sub, origin))]
+
+
+class FlatLayout:
+    """A tensor of global ``shape`` held as ranges of its flat row-major
+    entries: its ``ceil(numel / unit)`` units of ``unit`` entries split
+    over the mesh ``axes`` (major to minor), each rank holding its units'
+    entries, the last one cut at ``numel``, as one flat tensor."""
+
+    def __init__(self, shape, axes, unit: int):
+        self.shape = tuple(int(d) for d in shape) or (1,)
+        self.axes, self.unit = tuple(axes), int(unit)
+        self.numel = math.prod(self.shape)
+        self.units = -(-self.numel // self.unit)
+
+    def key(self):
+        return ("flat", self.shape, self.axes, self.unit)
+
+    def span(self, coord: dict, sizes: dict) -> tuple[int, int]:
+        """The flat range ``[start, stop)`` a rank holds."""
+        k, n = _block_index(coord, sizes, self.axes)
+        u0, u1 = k * self.units // n, (k + 1) * self.units // n
+        return (min(u0 * self.unit, self.numel),
+                min(u1 * self.unit, self.numel))
+
+    def regions(self, coord: dict, sizes: dict) -> list:
+        start, stop = self.span(coord, sizes)
+        out, at = [], 0
+        for box in flat_boxes(self.shape, start, stop):
+            out.append((box, (at, box)))
+            at += _volume(box)
+        return out
+
+    def view(self, local: torch.Tensor, loc, sub) -> torch.Tensor:
+        at, box = loc
+        piece = local[at:at + _volume(box)].view(
+            tuple(hi - lo for lo, hi in box))
+        return piece[tuple(slice(lo - o, hi - o) for (lo, hi), (o, _)
+                           in zip(sub, box))]
+
+
+def _exchange_plan(comm: MeshComm, src, dst) -> tuple[dict, dict]:
+    """This rank's side of `MeshComm.exchange`: ``sends`` {peer: [(src
+    locator, box)]} and ``recvs`` {peer: [(dst locator, box)]}, each
+    peer's pieces in the same order on both ends."""
+    key = (src.key(), dst.key())
+    if key in comm.plans:
+        return comm.plans[key]
+    sizes, names = comm.sizes, comm.axis_names
+    grid = np.asarray(comm.ranks)
+    coords = {int(grid[idx]): dict(zip(names, map(int, idx)))
+              for idx in np.ndindex(grid.shape)}
+    me = comm.rank
+    tiles = [dict(zip(src.axes, t)) for t in
+             np.ndindex(*[sizes[a] for a in src.axes])]
+    sends: dict = {}
+    recvs: dict = {}
+    for r in sorted(coords):
+        for dbox, dloc in dst.regions(coords[r], sizes):
+            for t in tiles:
+                sc = dict(coords[r], **{a: int(i) for a, i in t.items()})
+                s = int(grid[tuple(sc[a] for a in names)])
+                if s != me and r != me:
+                    continue
+                for sbox, sloc in src.regions(sc, sizes):
+                    sub = _meet(dbox, sbox)
+                    if sub is None:
+                        continue
+                    if s == me:
+                        sends.setdefault(r, []).append((sloc, sub))
+                    if r == me:
+                        recvs.setdefault(s, []).append((dloc, sub))
+    comm.plans[key] = sends, recvs
+    return sends, recvs
 
 
 # ---------------------------------------------------------------------------

@@ -23,14 +23,17 @@ the new parameters and moments into the caller's tensors in place (the
 reference donates the state).
 
 On a rank mesh (`core.distributed.make_rank_mesh`, one process a
-position) the steps of every family are sharded as the specs say, FSDP
-over "data" and tensor parallel over "model" (the experts, the Mamba
-channels and the RWKV heads split over it too): every argument and
-result is a tree of per-rank DTensors (`models.sharding.shard_tree`
-makes them from whole trees, `full_tree` gathers them back), each rank
-holding its block of every parameter, float32 moment, batch and cache.
-The specs are the same as on a logical mesh.  8-bit moments raise there
-(ROADMAP item 12e): nothing is replicated in their place.
+position) the steps of every family are sharded as the specs say: under
+the ``2d`` preset FSDP over "data" and tensor parallel over "model" (the
+experts, the Mamba channels and the RWKV heads split over it too), under
+``REPRO_PARALLELISM=fsdp`` the batch over every axis and the parameters
+gathered over ("data", "model") with no tensor parallelism.  Every
+argument and result is a tree of per-rank DTensors
+(`models.sharding.shard_tree` makes them from whole trees, `full_tree`
+gathers them back), each rank holding its block of every parameter,
+moment, batch and cache; 8-bit moments hold their quantization blocks
+split over ("data", "model") (`optim.adamw`).  The specs are the same as
+on a logical mesh.
 """
 from __future__ import annotations
 
@@ -166,11 +169,6 @@ def rank_setup(cfg: ModelCfg, mesh, device) -> tuple:
             f"{', '.join(RANKED_FAMILIES)} families' steps are sharded "
             f"across processes; use a logical mesh "
             f"(launch.mesh.make_host_mesh)")
-    if shd.PARALLELISM != "2d":
-        raise NotImplementedError(
-            f"REPRO_PARALLELISM={shd.PARALLELISM} on a rank mesh: only the "
-            f"2d preset (FSDP over data x tensor parallel over model) is "
-            f"sharded across processes")
     shd.rank_comm(mesh, dev)
     return True, dev
 
@@ -230,8 +228,6 @@ def make_train_step(
     count."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     ranked, device = rank_setup(cfg, mesh, device)
-    if ranked and opt_cfg.state_bits == 8:
-        adamw._refuse_8bit()
     model = build_model(cfg, hw_aware=hw_aware, device=device)
     if shape.global_batch % microbatches:
         raise ValueError(f"batch {shape.global_batch} does not split into "

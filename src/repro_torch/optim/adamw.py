@@ -19,9 +19,16 @@ float32 ``pow`` is close to correctly rounded; ROADMAP Queue 3).
 On a rank mesh the parameters, gradients and float32 moments are
 DTensors (`models.sharding`): `global_norm` sums each leaf's squares over
 its blocks' ranks, and `apply` updates each rank's blocks in place.
-8-bit moments are refused there: a moment's quantization blocks are
-blocks of the whole flattened leaf, which a rank's block does not hold
-(ROADMAP item 12e).
+8-bit moments are `QTensor`s whose ``q`` and ``scale`` are DTensors split
+along their block dim as the ``opt_blocks`` rule gives (`init`): a rank
+owns whole quantization blocks, that is a range of the leaf's flat
+row-major entries, which its block of the parameter does not hold.  So
+`apply` moves each leaf's parameter and gradient entries into the flat
+range of the rank that owns them (`core.ranks.MeshComm.exchange`), runs
+the update there, requantizes its own blocks (a block's scale is the max
+of its own 256 entries: one process's `_quantize`) and moves the new
+parameter entries back; a leaf at a time, so no rank holds more than one
+leaf's float32 range beyond its blocks.
 """
 from __future__ import annotations
 
@@ -134,15 +141,19 @@ def init(params: Any, state_bits: int = 32) -> OptState:
     device = tree_leaves(params)[0].device
     step = torch.zeros((), dtype=torch.int32, device=device)
     ranked = _ranked(params)
-    if ranked and state_bits == 8:
-        _refuse_8bit()
 
     def zeros(p):
         if ranked:      # a DTensor of the parameter's placements
             return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
-    moment = (lambda p: _quantize(zeros(p))) if state_bits == 8 else zeros
+    if state_bits != 8:
+        moment = zeros
+    elif ranked:
+        moment = _ranked_zero_moment
+    else:
+        def moment(p):
+            return _quantize(zeros(p))
     return OptState(step, tree_map(moment, params), tree_map(moment, params))
 
 
@@ -151,11 +162,38 @@ def _ranked(tree: Any) -> bool:
     return any(is_dtensor(x) for x in tree_leaves(tree))
 
 
-def _refuse_8bit():
-    raise NotImplementedError(
-        "8-bit moments on a rank mesh: a moment's quantization blocks are "
-        "blocks of the whole flattened leaf, not of a rank's block of it "
-        "(ROADMAP item 12e); use state_bits=32")
+def _block_mesh(p):
+    """A DTensor's mesh as the sharding rules read one: its axis sizes."""
+    import types
+    dm = p.device_mesh
+    return types.SimpleNamespace(axis_names=tuple(dm.mesh_dim_names),
+                                 shape=dict(zip(dm.mesh_dim_names,
+                                                dm.shape)))
+
+
+def _ranked_zero_moment(p) -> QTensor:
+    """`_quantize` of a zero moment of DTensor ``p``, as this rank's
+    blocks: ``q`` (nblocks, QBLOCK) and ``scale`` (nblocks,) split along
+    the blocks as the ``opt_blocks`` rule gives (the `launch.steps`
+    moment specs)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import sharding as shd
+
+    mesh = _block_mesh(p)
+    nblocks = -(-math.prod(p.shape) // QBLOCK)
+    sp = shd.spec((nblocks, QBLOCK), ("opt_blocks", None), mesh)
+    pl = shd.placements(sp, mesh)
+    rows = shd.NamedSharding(mesh, sp).shard_shape((nblocks, QBLOCK))[0]
+    zero = _quantize(torch.zeros(rows * QBLOCK, device=p.to_local().device))
+    dm = p.device_mesh
+    return QTensor(
+        DTensor.from_local(zero.q, dm, pl, run_check=False,
+                           shape=torch.Size((nblocks, QBLOCK)),
+                           stride=(QBLOCK, 1)),
+        DTensor.from_local(zero.scale, dm, pl, run_check=False,
+                           shape=torch.Size((nblocks,)), stride=(1,)),
+        tuple(p.shape))
 
 
 def global_norm(tree: Any) -> torch.Tensor:
@@ -195,8 +233,6 @@ def apply(cfg: AdamWConfig, grads: Any, state: OptState, params: Any
     clipping).  Gradients may be in the leaf's dtype or float32.  On a
     rank mesh every leaf is a DTensor and each rank updates its blocks."""
     ranked = _ranked(params)
-    if ranked and cfg.state_bits == 8:
-        _refuse_8bit()
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
@@ -211,23 +247,70 @@ def apply(cfg: AdamWConfig, grads: Any, state: OptState, params: Any
     bc2 = 1.0 - _pow32(b2, step)
     quantized = cfg.state_bits == 8
 
-    leaves = zip(*map(tree_leaves, (params, grads, state.mu, state.nu)))
-    if ranked:
-        from repro_torch.models.sharding import local_block
-        leaves = ([local_block(x) for x in four] for four in list(leaves))
-    for p, g, mu_t, nu_t in leaves:
+    def update(p, g, mu, nu, ndim):
+        """The new parameter values (float32) of entries ``p`` with
+        gradients ``g``; the moments ``mu`` and ``nu`` updated in place."""
         g = g.float() * scale
-        mu = _dequantize(mu_t) if quantized else mu_t
-        nu = _dequantize(nu_t) if quantized else nu_t
         mu.mul_(b1).add_((1 - b1) * g)
         nu.mul_(b2).add_((1 - b2) * g * g)
         u = (mu / bc1).div_(torch.sqrt(nu / bc2).add_(cfg.eps))
         p32 = p.float()
-        if p.ndim >= 2:        # stacked (G, d) norm scales are decayed too
+        if ndim >= 2:          # stacked (G, d) norm scales are decayed too
             u.add_(cfg.weight_decay * p32)
-        p.copy_(p32 - u.mul_(lr))
+        return p32 - u.mul_(lr)
+
+    leaves = zip(*map(tree_leaves, (params, grads, state.mu, state.nu)))
+    if ranked and quantized:
+        for p, g, mu_t, nu_t in leaves:
+            _ranked_quantized_update(update, p, g, mu_t, nu_t)
+        return params, state, {"grad_norm": gnorm, "lr": lr}
+    if ranked:
+        from repro_torch.models.sharding import local_block
+        leaves = ([local_block(x) for x in four] for four in list(leaves))
+    for p, g, mu_t, nu_t in leaves:
+        mu = _dequantize(mu_t) if quantized else mu_t
+        nu = _dequantize(nu_t) if quantized else nu_t
+        p.copy_(update(p, g, mu, nu, p.ndim))
         if quantized:
             for t, new in ((mu_t, _quantize(mu)), (nu_t, _quantize(nu))):
                 t.q.copy_(new.q)
                 t.scale.copy_(new.scale)
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _ranked_quantized_update(update, p, g, mu_t: QTensor, nu_t: QTensor
+                             ) -> None:
+    """`apply`'s update of one DTensor leaf with 8-bit moments: the
+    parameter and gradient entries of this rank's quantization blocks
+    moved in from the ranks that hold them, updated against the
+    dequantized blocks, the blocks requantized in place and the new
+    parameter entries moved back into every rank's block of ``p``."""
+    from repro_torch.core import ranks
+    from repro_torch.models import sharding as shd
+
+    comm = shd.rank_comm_of(p)
+    box = ranks.BoxLayout(p.shape, ranks.dims_axes(p))
+    if ranks.dims_axes(g) != box.dims_axes:
+        raise ValueError(f"a gradient laid out as {ranks.dims_axes(g)} for "
+                         f"a parameter laid out as {box.dims_axes}")
+    flat = ranks.FlatLayout(p.shape, ranks.dims_axes(mu_t.q).get(0, ()),
+                            QBLOCK)
+    start, stop = flat.span(comm.coord, comm.sizes)
+    n = stop - start
+
+    def moved(x):
+        local = x.to_local()
+        return comm.exchange(local, box, local.new_empty(n), flat)
+
+    def dequantized(t):
+        q, s = t.q.to_local(), t.scale.to_local()
+        return (q.float() * s[:, None]).reshape(-1)[:n]
+
+    mu, nu = dequantized(mu_t), dequantized(nu_t)
+    new_p = update(moved(p), moved(g), mu, nu, p.ndim).to(p.dtype)
+    for t, m in ((mu_t, mu), (nu_t, nu)):
+        q, s = t.q.to_local(), t.scale.to_local()
+        new = _quantize(F.pad(m, (0, q.numel() - n)))
+        q.copy_(new.q)
+        s.copy_(new.scale)
+    comm.exchange(new_p, flat, p.to_local(), box)

@@ -8,6 +8,7 @@ rank's block shapes.
 No jax here: the ranks import this module.
 """
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -28,6 +29,10 @@ B, S = 4, 64               # the train batch
 PROMPT, GEN, MAX_SEQ = 16, 5, 32
 STEPS = 2
 OPT = adamw.AdamWConfig(warmup_steps=1)
+# 8-bit moments; reduced gemma2-2b's gradient norm is ~2.1, so the clip
+# of 1.0 scales every step, and a clip of 1e3 never does
+OPT8 = dataclasses.replace(OPT, state_bits=8)
+OPT8_NOCLIP = dataclasses.replace(OPT8, grad_clip=1e3)
 
 
 def cfg():
@@ -70,19 +75,21 @@ def _save_shapes(save, name, tree):
 HW = HwAwareConfig(bits=8, sigma_gain=0.03, min_size=256)
 
 
-def train(save, mesh, c, params, *, tag, steps_=STEPS, microbatches=1):
+def train(save, mesh, c, params, *, tag, steps_=STEPS, microbatches=1,
+          opt_cfg=OPT):
     """``steps_`` train steps on one batch: each step's loss and gradient
     norm, and the parameters and moments after them, whole; on a rank
     mesh also the blocks' shapes."""
-    st = steps.make_train_step(c, ShapeCfg("t", S, B, "train"), mesh, OPT,
-                               microbatches=microbatches, device="cpu")
+    st = steps.make_train_step(c, ShapeCfg("t", S, B, "train"), mesh,
+                               opt_cfg, microbatches=microbatches,
+                               device="cpu")
     batch = batch_of(c)
     if shd.is_rank_mesh(mesh):
         params = shd.shard_tree(params, st.in_specs[0], mesh, "cpu")
         batch = shd.shard_tree(batch, st.in_specs[2], mesh, "cpu")
     else:       # the step writes the parameters in place
         params = shd.map_with_path(lambda _, x: x.clone(), params)
-    opt = adamw.init(params)
+    opt = adamw.init(params, opt_cfg.state_bits)
     for i in range(steps_):
         params, opt, m = st.fn(params, opt, batch)
         save(f"{tag}/loss/{i}", m["loss"])
@@ -100,6 +107,43 @@ def train(save, mesh, c, params, *, tag, steps_=STEPS, microbatches=1):
     _save_tree(save, f"{tag}/mu", mu)
     _save_tree(save, f"{tag}/nu", nu)
     return params, opt
+
+
+@contextlib.contextmanager
+def applies(save, mesh, tag, calls=2):
+    """Record what the train step's first ``calls`` `adamw.apply` calls
+    see: the gradients call n is handed (``<tag>/grads<n>``) and the
+    state it returns (``<tag>/state<n>``, as (params, mu, nu)), whole."""
+    real, seen = adamw.apply, []
+
+    def whole(tree):        # a copy: the next step writes in place
+        if shd.is_rank_mesh(mesh):
+            return shd.full_tree(tree)
+        return shd.map_with_path(lambda _, x: x.detach().clone(), tree)
+
+    def apply(cfg, grads, state, params):
+        seen.append(True)
+        n = len(seen)
+        if n <= calls:
+            _save_tree(save, f"{tag}/grads{n}", whole(grads))
+        out = real(cfg, grads, state, params)
+        if n <= calls:
+            _save_tree(save, f"{tag}/state{n}",
+                       whole((out[0], out[1].mu, out[1].nu)))
+        return out
+
+    adamw.apply = apply
+    try:
+        yield
+    finally:
+        adamw.apply = real
+
+
+def eight_bit(save, mesh, c, params, *, tag, opt=OPT8):
+    """`train` with 8-bit moments (``opt``), and each apply's gradients
+    and state (`applies`)."""
+    with applies(save, mesh, tag):
+        train(save, mesh, c, params, tag=tag, opt_cfg=opt)
 
 
 def loss_and_grads(save, mesh, c, params, *, tag, hw=None):
@@ -189,25 +233,14 @@ def seq_shard_cfg():
 
 
 def refusals(save, make_rank_mesh):
-    """What a rank mesh refuses: a rank holding several positions, 8-bit
-    moments (on the dense model's step and on Whisper's).  Saves each
-    error's type name and message."""
+    """What a rank mesh refuses: a rank holding several positions.  Saves
+    each error's type name and message."""
     c = cfg()
     shape = ShapeCfg("t", S, B, "train")
-    mesh = make_rank_mesh((1, 2), ("data", "model"))
     cases = {
         "several_positions": lambda: steps.make_train_step(
             c, shape, make_rank_mesh((2, 2), ("data", "model")),
             device="cpu"),
-        "eight_bit_step": lambda: steps.make_train_step(
-            c, shape, mesh, adamw.AdamWConfig(state_bits=8), device="cpu"),
-        "eight_bit_whisper": lambda: steps.make_train_step(
-            get_reduced_config("whisper-tiny"), shape, mesh,
-            adamw.AdamWConfig(state_bits=8), device="cpu"),
-        "eight_bit_init": lambda: adamw.init(shd.shard_tree(
-            build_model(c, device="cpu").init(0),
-            shd.param_specs(build_model(c, device="cpu").init(0), mesh),
-            mesh, "cpu"), 8),
     }
     for name, fn in cases.items():
         try:
@@ -217,26 +250,41 @@ def refusals(save, make_rank_mesh):
             save(f"refused/{name}", np.array(f"{type(e).__name__}: {e}"))
 
 
-def checkpoints(save, mesh, c, params, ckpt_in, ckpt_out, prefix=""):
-    """Resume the one-process checkpoint in ``ckpt_in`` on this rank mesh
-    (`ElasticState`), and write the state after one more step to
-    ``ckpt_out`` (whole leaves, rank 0 writing); the results are saved
-    under ``prefix + "ckpt/"``."""
+def checkpoints(save, mesh, c, params, ckpt_in, ckpt_out, prefix="",
+                opt_cfg=OPT, asynchronous=False):
+    """Resume the checkpoint in ``ckpt_in`` (whole leaves, as one process
+    writes them) on this rank mesh (`ElasticState`), and write the state
+    after one more step to ``ckpt_out`` (whole leaves, rank 0 writing;
+    through `checkpoint.AsyncCheckpointer` with ``asynchronous``); the
+    results are saved under ``prefix + "ckpt/"``: the resumed parameters
+    and, with 8-bit moments (``opt_cfg``), the resumed moments and the
+    step's gradients and state (`applies`), whole."""
     from repro_torch.runtime.fault_tolerance import ElasticState
 
-    st = steps.make_train_step(c, ShapeCfg("t", S, B, "train"), mesh, OPT,
-                               device="cpu")
+    st = steps.make_train_step(c, ShapeCfg("t", S, B, "train"), mesh,
+                               opt_cfg, device="cpu")
     pspec, ospec, bspec = st.in_specs
     step, (params, opt) = ElasticState(ckpt_in).resume(
         mesh, lambda _: (pspec, ospec), st.abstract_args[:2], device="cpu")
     save(prefix + "ckpt/resumed_step", np.array(step))
     _save_shapes(save, prefix + "ckpt/params", params)
+    quantized = opt_cfg.state_bits == 8
     with shd.use_mesh(mesh, "cpu"):
-        _save_tree(save, prefix + "ckpt/resumed", shd.full_tree(params))
+        _save_tree(save, prefix + "ckpt/resumed", shd.full_tree(
+            (params, opt.mu, opt.nu) if quantized else params))
     batch = shd.shard_tree(batch_of(c), bspec, mesh, "cpu")
-    params, opt, m = st.fn(params, opt, batch)
+    with (applies(save, mesh, prefix + "ckpt", calls=1) if quantized
+          else contextlib.nullcontext()):
+        params, opt, m = st.fn(params, opt, batch)
     save(prefix + "ckpt/loss", m["loss"])
-    ckpt.save(ckpt_out, step + 1, (params, opt))
+    if quantized:
+        _save_shapes(save, prefix + "ckpt/mu", opt.mu)
+    if asynchronous:
+        writer = ckpt.AsyncCheckpointer(ckpt_out)
+        writer.save(step + 1, (params, opt))
+        writer.wait()
+    else:
+        ckpt.save(ckpt_out, step + 1, (params, opt))
 
 
 # dtypes of the gathers' bit check: (name, torch dtype, the integer dtype
@@ -281,3 +329,71 @@ def transport(save, mesh):
         save(f"transport/{name}",
              comm.all_gather(x, 0, ("model",)).view(bits),
              pbit.all_gather(x).reshape(-1).view(bits))
+
+
+# ---------------------------------------------------------------------------
+# 8-bit moments: the checks the test modules share (no rank runs them)
+# ---------------------------------------------------------------------------
+# the leaves of a `QTensor` as `leaves_with_path` keys them
+Q, SCALE = "[<flat index 0>]", "[<flat index 1>]"
+# the 8-bit contract (ROADMAP Queue 3 item 33): scales to 1e-6 relative
+# for `adamw.apply` on the same state and gradients, where only the clip
+# factor's rounding differs; 1e-5 where the gradients themselves differ
+# in their last places (the ranks' first step; the reference's); the
+# parameters to 1e-5 + lr/5 (item 28's rule)
+SCALE_RTOL, GRAD_SCALE_RTOL = 1e-6, 1e-5
+PARAM_ATOL = 1e-5 + 0.2 * OPT.lr
+
+
+def sub(tree: dict, prefix: str) -> dict:
+    """``{key: array}`` of the leaves saved under ``prefix`` (keys
+    relative to it)."""
+    return {k[len(prefix):]: v[0] for k, v in tree.items()
+            if k.startswith(prefix + "[")}
+
+
+def eight_bit_close(got: dict, want: dict, exact=False,
+                    scale_rtol=SCALE_RTOL):
+    """States ``(params, mu, nu)`` by the 8-bit contract (ROADMAP Queue 3
+    item 33): bit for bit when ``exact``; else the parameters to 1e-5 +
+    lr/5, the codes within one, the scales to ``scale_rtol``."""
+    assert want and got.keys() == want.keys()
+    assert any(k.endswith(Q) for k in want)
+    for k, w in want.items():
+        g = got[k]
+        if exact:
+            np.testing.assert_array_equal(g, w, err_msg=k)
+        elif k.startswith("[0]"):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=PARAM_ATOL,
+                                       err_msg=k)
+        elif k.endswith(Q):
+            assert g.dtype == np.int8, k
+            assert np.abs(g.astype(np.int32) - w).max() <= 1, k
+        else:
+            assert k.endswith(SCALE), k
+            np.testing.assert_allclose(g, w, rtol=scale_rtol, atol=0,
+                                       err_msg=k)
+
+
+def replayed(rank: dict, tag: str, c, opt_cfg, state=None, step=1,
+             call=2) -> dict:
+    """One process's `adamw.apply` on the state a mesh's first step left
+    (or a copy of ``state``, whole tensors, after ``step`` steps) and the
+    gradients the mesh's apply call ``call`` was handed: ``(params, mu,
+    nu)`` keyed as the ranks save them."""
+    like = build_model(c, device="cpu").init(0)
+    opt = adamw.init(like, 8)
+
+    def load(prefix, tree):
+        return shd.map_with_path(lambda key, _: torch.from_numpy(
+            np.array(rank[prefix + key][0])), tree)
+
+    if state is None:
+        state = load(f"{tag}/state1", (like, opt.mu, opt.nu))
+    p1, mu1, nu1 = shd.map_with_path(lambda _, x: x.clone(), state)
+    grads = load(f"{tag}/grads{call}", like)
+    step = torch.tensor(step, dtype=torch.int32)
+    p2, o2, _ = adamw.apply(opt_cfg, grads, adamw.OptState(step, mu1, nu1),
+                            p1)
+    return {k: v.numpy() for k, v in
+            shd.leaves_with_path((p2, o2.mu, o2.nu))}

@@ -227,3 +227,42 @@ def run(save, mesh, arch, name):
             base.train(save, mesh, c, params_of(c), tag=f"{tag}/train")
         generate(save, mesh, c, params_of(c), tag=f"{tag}/gen")
         prefill_cache(save, mesh, c, params_of(c), tag=f"{tag}/prefill")
+
+
+def eight_bit(save, mesh, arch, name):
+    """Two train steps with 8-bit moments (`_torch_lm_ranks_cases.
+    eight_bit`: each apply's gradients and state, whole), tagged
+    ``<arch>/<name>/q8``."""
+    c = cfg(arch)
+    with batches():
+        base.eight_bit(save, mesh, c, params_of(c), tag=f"{arch}/{name}/q8")
+
+
+# `constrain`'s move of the model axis between dims: a (B, P, H, hd)
+# block held with "model" on the heads and asked for with it on the
+# positions, as Whisper's cross K/V moves (ROADMAP Queue 3 item 31)
+MOVE_SHAPE = (4, 8, 4, 3)
+MOVE_HELD = ("batch", None, "heads", None)
+MOVE_NAMES = ("batch", "kv_seq", None, None)
+
+
+def constrain_move(save, mesh):
+    """`models.sharding.constrain` of this rank's `MOVE_HELD` block of a
+    whole tensor (the same on every rank, every entry distinct) to
+    `MOVE_NAMES`, and the block of that whole the rules give for
+    `MOVE_NAMES`: ``constrain/got`` and ``constrain/want``."""
+    x = torch.arange(np.prod(MOVE_SHAPE), dtype=torch.float32).reshape(
+        MOVE_SHAPE)
+
+    def block(names):
+        comm, t = shd.current_comm(), x
+        for dim, part in enumerate(shd.spec(x.shape, names)):
+            t = comm.block(t, dim, shd._spec_axes(part))
+        return t.clone()
+
+    with shd.use_mesh(mesh, "cpu"):
+        got = shd.constrain(block(MOVE_HELD), MOVE_NAMES, held=MOVE_HELD)
+        want = block(MOVE_NAMES)
+    save("constrain/got", got)
+    save("constrain/want", want)
+    save("constrain/held", np.array(block(MOVE_HELD).shape))

@@ -74,9 +74,11 @@ def run_forced_reference(script: str, n_dev: int, out_dir,
         start_forced_reference(script, n_dev, out_dir), timeout)
 
 
-def start_forced_reference(script: str, n_dev: int, out_dir):
+def start_forced_reference(script: str, n_dev: int, out_dir,
+                           env: dict | None = None):
     """`run_forced_reference`'s interpreter, started and not waited for:
-    hand the result to `finish_forced_reference`."""
+    hand the result to `finish_forced_reference`.  ``env``: variables
+    set for it (``REPRO_PARALLELISM``, read at import)."""
     import os
     import subprocess
     import sys
@@ -88,7 +90,7 @@ def start_forced_reference(script: str, n_dev: int, out_dir):
     code = (_FORCED_PRELUDE.format(n_dev=n_dev) + textwrap.dedent(script)
             + f"\nnp.savez({str(out)!r}, **OUT)\n")
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               PYTHONPATH=str(root / "src"))
+               PYTHONPATH=str(root / "src"), **(env or {}))
     # output to a file: a pipe nobody reads yet could fill and stall
     log = Path(out_dir) / "reference.log"
     with open(log, "w") as f:
@@ -165,9 +167,10 @@ def run_ranks(script: str, world: int, out_dir, inputs: dict | None = None,
 
 
 def start_ranks(script: str, world: int, out_dir,
-                inputs: dict | None = None):
+                inputs: dict | None = None, env: dict | None = None):
     """`run_ranks`' interpreters, started and not waited for: hand the
-    result to `finish_ranks`."""
+    result to `finish_ranks`.  ``env``: variables set in every rank
+    before it imports `repro_torch` (``REPRO_PARALLELISM``)."""
     import os
     import subprocess
     import sys
@@ -187,13 +190,14 @@ def start_ranks(script: str, world: int, out_dir,
             + "torch.distributed.destroy_process_group()\n")
     procs = []
     for rank in range(world):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
-                   PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+        rank_env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                        PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1",
+                        **(env or {}))
         # output to files: a pipe nobody reads yet could fill and stall
         with open(out_dir / f"rank{rank}.log", "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", code], stdout=log,
-                stderr=subprocess.STDOUT, env=env, cwd=root))
+                stderr=subprocess.STDOUT, env=rank_env, cwd=root))
     return procs, out_dir
 
 

@@ -99,6 +99,8 @@ for arch in cases.ARCHS:
     cases.run(save, mesh((2, 2)), arch, "2x2")
 for arch in (cases.WHISPER, cases.RWKV):
     cases.run(save, mesh((1, 4)), arch, "1x4")
+cases.eight_bit(save, mesh((2, 2)), cases.WHISPER, "2x2")
+cases.constrain_move(save, mesh((2, 2)))
 """
 
 
@@ -151,6 +153,7 @@ def one_process(started):
         out = {}
         for arch in ARCHS:
             out.update(_collect(cases.run, None, arch, "one"))
+        out.update(_collect(cases.eight_bit, None, WHISPER, "one"))
     finally:
         torch.set_num_threads(threads)
     return out
@@ -463,3 +466,42 @@ def test_train_entry_point_runs_whisper_on_ranks(started):
               if ln.startswith("step")]
     one = train.main(CLI)
     assert ranked and ranked == [f"loss={r['loss']:.4f}" for r in one]
+
+
+def test_constrain_moves_the_model_axis_between_dims(world4):
+    """`models.sharding.constrain` on a 2 x 2 gloo mesh: a block held with
+    "model" on the heads, asked for with it on the positions, is the
+    block of the gathered whole the rules give, bit for bit (the axis is
+    gathered off the heads before the positions split; ROADMAP Queue 3
+    item 31)."""
+    for rank in world4:
+        got, want = rank["constrain/got"][0], rank["constrain/want"][0]
+        assert got.shape == want.shape
+        assert tuple(rank["constrain/held"][0]) != want.shape
+        np.testing.assert_array_equal(got, want)
+    blocks = [tuple(np.unique(r["constrain/got"][0])) for r in world4]
+    assert len(set(blocks)) == 4
+
+
+def test_whisper_eight_bit_steps_match_one_process(world4, one_process):
+    """Whisper on 2 x 2 with 8-bit moments: both steps' losses and the
+    first's gradient norm to 1e-5, the state after the first step by the
+    8-bit contract (ROADMAP Queue 3 item 33; scales to 1e-5, as the
+    gradients), and the second `adamw.apply` equal to one process's on
+    the ranks' own state and gradients (bit for bit where the gradient
+    norm is under the clip)."""
+    one, tag = one_process, f"{WHISPER}/2x2/q8"
+    c = cases.cfg(WHISPER)
+    for rank in world4:
+        for i in range(base.STEPS):
+            _close(rank[f"{tag}/loss/{i}"][0],
+                   one[f"{WHISPER}/one/q8/loss/{i}"][0])
+        _close(rank[f"{tag}/grad_norm/0"][0],
+               one[f"{WHISPER}/one/q8/grad_norm/0"][0])
+        base.eight_bit_close(base.sub(rank, f"{tag}/state1"),
+                             base.sub(one, f"{WHISPER}/one/q8/state1"),
+                             scale_rtol=base.GRAD_SCALE_RTOL)
+        exact = float(rank[f"{tag}/grad_norm/1"][0]) < base.OPT8.grad_clip
+        base.eight_bit_close(base.sub(rank, f"{tag}/state2"),
+                             base.replayed(rank, tag, c, base.OPT8),
+                             exact=exact)
