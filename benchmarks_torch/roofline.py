@@ -8,11 +8,13 @@ Three terms per (arch x shape x mesh) cell, in seconds, per device:
 The reader half of ``benchmarks/roofline.py`` over the records
 ``python -m repro_torch.launch.dryrun`` writes, with the H100 constants of
 `repro_torch.launch.mesh`.  The port has no compiled module, so the HLO
-parsers have no counterpart: ``dot_flops`` is the record's
-``flops_global / n_devices`` (FlopCounterMode on fake tensors), and its
-``collectives`` are ``null`` (the port's meshes are logical devices of one
-card).  Where they are null, ``t_collective_s`` is null and the bottleneck
-and roofline fraction are taken over compute and memory alone.
+parsers have no counterpart: the dry run traces rank 0 of the production
+rank mesh, and its ``dot_flops`` is that rank's ``FlopCounterMode`` total
+and its ``collectives`` that rank's `core.ranks.MeshComm` calls, in bytes
+as the reference's parser charges the same ops (``total_bytes``,
+ring-factored).  A record without collectives (none of the dry run's
+``ok`` cells) leaves ``t_collective_s`` null and takes the bottleneck and
+roofline fraction over compute and memory alone.
 
     PYTHONPATH=src python benchmarks_torch/roofline.py [results/dryrun]
 """
@@ -118,9 +120,9 @@ def main(argv=None) -> list[dict]:
         if rec.get("status") != "ok" or "kind" not in rec:
             continue
         rows.append(roofline_row(rec))
-    print("H100 terms; t_coll is '-' where the record has no collectives "
-          "(logical mesh): bound and roofl then take compute and memory "
-          "alone")
+    print("H100 terms per device, rank 0 of the rank mesh traced; t_coll "
+          "is '-' where a record has no collectives: bound and roofl then "
+          "take compute and memory alone")
     hdr = (f"{'cell':58s} {'t_comp':>9s} {'t_mem':>9s} {'t_coll':>9s} "
            f"{'bound':>10s} {'MF/HF':>6s} {'roofl':>6s}")
     print(hdr)

@@ -87,8 +87,12 @@ the kernels' launch counts set to 0 just before it and read just after:
   logits, ``REPRO_REMAT=dots`` against the default at S = 4096 (bit-equal
   gradients; ms and peak memory), int8 gradient compression of the
   whole gradient tree, `launch.train --mesh host --data-model 2 4`; the
-  dry run of three gemma2-2b cells on the pod mesh, traced on the host's
-  CPU beside the card's work; `examples_torch/pbit_lattice_pod.py` at
+  dry run of four gemma2-2b cells (train_4k, prefill_32k and decode_32k
+  on the pod mesh, train_4k on the multipod mesh), each traced as rank 0
+  of the production rank mesh under a process group that moves nothing,
+  on the host's CPU beside the card's work from the kernel checks on:
+  rank 0's FLOPs and their replication, its collectives by kind, its
+  temporaries; `examples_torch/pbit_lattice_pod.py` at
   full size under three sync policies on 4 logical bands (barrier equal
   to one band), through K1 and K5;
 * ranks: the sharded engine across processes, each world a group of
@@ -109,7 +113,12 @@ the kernels' launch counts set to 0 just before it and read just after:
   layers on 1 x 2 or 2 x 1; gemma2-2b, granite-moe and whisper-tiny on
   2 x 2, whisper-tiny on 1 x 4): train steps or a loss and its
   gradients, prefill and greedy decode, each held to one process's, each
-  rank's blocks to the specs'.  It launches none of the six kernels.
+  rank's blocks to the specs'; the dry run of gemma2-2b's 1 x 2 train
+  steps (full depth, 2 layers with 8-bit moments, 2 layers under the
+  fsdp preset), traced on the host: each rank's collectives equal the
+  gloo rank's by kind, calls and bytes; the 1 x 1 step's traced argument
+  and temporary bytes beside the card's peak.  It launches none of the
+  six kernels.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -138,7 +147,8 @@ Output: one JSON object per line —
   {"phase": "ranks", ...}          worlds of processes: checks, routes,
                                    ms a call, halo bytes, NCCL on one card
   {"phase": "lm_ranks", ...}       LM steps on rank meshes: checks, ms,
-                                   bytes a rank, collectives
+                                   bytes a rank, collectives, the dry
+                                   run's against them
   {"kernels": [...]}               one record per kernel (see PERF.md)
   <name, power limit>              as nvidia-smi prints them
   {"ok": true, "device": {...}}    last line
@@ -146,14 +156,17 @@ Output: one JSON object per line —
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -4592,55 +4605,81 @@ def lm_families_phase(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase: many devices and the dry run (K1 and K5 through the lattice twin)
 # ---------------------------------------------------------------------------
-MESH_DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
-MESH_DRYRUN_TIMEOUT_S = 600   # the three cells trace in parallel, CPU only
+# the dry run's cells: gemma2-2b at full width, each traced as rank 0 of
+# the production rank mesh (`launch.dryrun.rank_trace`), CPU only
+MESH_DRYRUN_CELLS = (("train_4k", "pod"), ("prefill_32k", "pod"),
+                     ("decode_32k", "pod"), ("train_4k", "multipod"))
+# the cells start with the language-model phases and trace beside them
+# (prefill_32k's two traces take ~5 minutes on one core)
+MESH_DRYRUN_TIMEOUT_S = 900
 MESH_REMAT_S = 4096           # REPRO_REMAT=dots against the default, B = 1
 
 
 def _start_dry_runs(out_dir: Path) -> dict:
     """`python -m repro_torch.launch.dryrun` for gemma2-2b at each of
-    `MESH_DRYRUN_SHAPES` on the pod mesh, one process each, started
-    together and with every GPU hidden: the dry run traces on fake and
-    meta tensors and must not touch the card.  They run while the phase
-    drives the card."""
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+    `MESH_DRYRUN_CELLS`, one process each on one thread, started together
+    and with every GPU hidden: the dry run traces on fake and meta tensors
+    and must not touch the card.  They run while the script drives the
+    card."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                PYTHONPATH=str(ROOT / "src"))
-    return {shape: (time.perf_counter(), subprocess.Popen(
+    return {f"{shape}/{mesh}": (time.perf_counter(), subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         LM_ARCH, "--shape", shape, "--mesh", "pod", "--force", "--out",
+         LM_ARCH, "--shape", shape, "--mesh", mesh, "--force", "--out",
          str(out_dir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)) for shape in MESH_DRYRUN_SHAPES}
+        stderr=subprocess.PIPE, text=True))
+        for shape, mesh in MESH_DRYRUN_CELLS}
+
+
+def _stop(procs: dict) -> None:
+    """Kill what is left of the processes of ``procs`` ({name: (anything,
+    process)}: `_start_dry_runs`', `_start_lmr_dry`')."""
+    for _, proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def _finish_dry_runs(procs: dict, out_dir: Path) -> dict:
     """Each dry-run cell's record: status, the seconds it took to build
-    the step and to trace it, argument bytes a device, global FLOPs; a
-    process that outlives `MESH_DRYRUN_TIMEOUT_S` is killed and its cell
-    fails."""
+    the step and to trace it (whole, and as rank 0), argument bytes a
+    device, the unsharded step's FLOPs, rank 0's FLOPs, their
+    replication, its collectives by the reference's op names and by
+    kind, its temporaries; a process that outlives
+    `MESH_DRYRUN_TIMEOUT_S` is killed and its cell fails."""
     out = {}
-    for shape, (t0, proc) in procs.items():
+    for cell, (t0, proc) in procs.items():
         try:
             _, err = proc.communicate(timeout=max(
                 1.0, MESH_DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.communicate()
-            out[shape] = {"status": "timeout", "ok": False}
+            out[cell] = {"status": "timeout", "ok": False}
             continue
-        path = out_dir / f"{LM_ARCH}__{shape}__pod.json"
+        shape, mesh = cell.split("/")
+        path = out_dir / f"{LM_ARCH}__{shape}__{mesh}.json"
         rec = json.loads(path.read_text()) if path.exists() else {}
-        out[shape] = {
+        mem, coll = rec.get("memory", {}), rec.get("collectives") or {}
+        out[cell] = {
             "status": rec.get("status"), "returncode": proc.returncode,
+            "seconds": time.perf_counter() - t0,
             "trace_s": rec.get("trace_s"),
             "build_s": rec.get("build_s"),
-            "argument_bytes_per_device": rec.get("memory", {}).get(
-                "argument_bytes"),
-            "output_bytes_per_device": rec.get("memory", {}).get(
-                "output_bytes"),
+            "rank_trace_s": rec.get("rank_trace_s"),
+            "argument_bytes_per_device": mem.get("argument_bytes"),
+            "output_bytes_per_device": mem.get("output_bytes"),
+            "temp_bytes": mem.get("temp_bytes"),
             "flops_global": rec.get("flops_global"),
             "dot_flops": rec.get("dot_flops"),
+            "replication": rec.get("replication"),
+            "per_op_bytes": coll.get("per_op_bytes"),
+            "collective_bytes": coll.get("total_bytes"),
+            "collective_calls": coll.get("calls"),
             "fits_hbm": rec.get("fits_hbm"),
-            "ok": proc.returncode == 0 and rec.get("status") == "ok",
+            "ok": (proc.returncode == 0 and rec.get("status") == "ok"
+                   and bool(coll.get("per_op_bytes"))
+                   and isinstance(mem.get("temp_bytes"), int)),
             "stderr_tail": err[-400:] if proc.returncode else ""}
     return out
 
@@ -4952,7 +4991,7 @@ def _mesh_compression(seed: int, cfg, src) -> dict:
             "decompress_plus_error_equals_grad": exact, "ok": exact}
 
 
-def mesh_phase(seed: int) -> tuple:
+def mesh_phase(seed: int, dry: tuple | None = None) -> tuple:
     """Many devices and the dry run (the ports of `repro.launch.mesh`,
     `models.sharding`, the step functions under a mesh, `launch.dryrun`,
     `runtime.compression`, ``REPRO_REMAT=dots`` and the lattice pod
@@ -4962,10 +5001,12 @@ def mesh_phase(seed: int) -> tuple:
     1 reckoning of the argument bytes against the card), the prefill and
     serve steps under the production mesh against `launch.serve.generate`,
     remat's ``dots`` policy against the default at S = 4096, int8
-    gradient compression of the whole gradient tree; the dry run's three
-    cells, traced on the host's CPU while the card works; then the
-    lattice twin through K1 and K5, every launch replayed.  Returns (the
-    phase's line, the lattice's recorded launches)."""
+    gradient compression of the whole gradient tree; the dry run's four
+    cells (`MESH_DRYRUN_CELLS`), traced on the host's CPU while the card
+    works (``dry``: (their processes, their directory) started earlier
+    by `_start_dry_runs`, else started here); then the lattice twin
+    through K1 and K5, every launch replayed.  Returns (the phase's line,
+    the lattice's recorded launches)."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -4977,7 +5018,7 @@ def mesh_phase(seed: int) -> tuple:
     cfg = get_config(LM_ARCH)
     src = make_source(DataConfig(seed=seed, vocab_size=cfg.vocab_size))
     with tempfile.TemporaryDirectory() as d:
-        procs = _start_dry_runs(Path(d))
+        procs, dry_dir = dry or (_start_dry_runs(Path(d)), Path(d))
         try:
             t = time.perf_counter()
             train = _mesh_train(seed, cfg, src)
@@ -5002,13 +5043,11 @@ def mesh_phase(seed: int) -> tuple:
             t = time.perf_counter()
             lattice, calls = _mesh_lattice(seed)
             lattice["seconds"] = time.perf_counter() - t
-            dry = _finish_dry_runs(procs, Path(d))
+            dry = _finish_dry_runs(procs, dry_dir)
         finally:
-            for _, proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.communicate()
+            _stop(procs)
     res = {"phase": "mesh", "arch": LM_ARCH, "gb_at_start": gb_at_start,
+           "card": nvidia_smi_line(),
            "train": train, "serve": serve,
            "remat_dots": remat, "compression": packed, "train_cli": cli,
            "dry_run": dry, "lattice_pod": lattice,
@@ -5488,6 +5527,28 @@ sys.path.insert(0, {root!r})
 import chip_smoke
 chip_smoke.lm_ranks_child(*sys.argv[1:])
 """
+# the dry run of runs of `LMR_WORLDS` (`launch.dryrun.rank_trace`: each
+# rank's step on meta tensors under a process group that moves nothing,
+# on the host with the card hidden): (preset, arch, depth, rank mesh,
+# moment bits).  Each rank's traced collectives must equal, call for call
+# and byte for byte by kind, those its real gloo rank recorded in the
+# run's train step; the 1 x 1 one's argument and temporary bytes are
+# printed beside the NCCL run's peak on the card
+LMR_DRY_RUNS = (("2d", LM_ARCH, None, (1, 2), 32),
+                ("2d", LM_ARCH, LMR_DEPTH, (1, 2), 8),
+                ("fsdp", LM_ARCH, LMR_DEPTH, (1, 2), 32),
+                ("2d", LM_ARCH, None, (1, 1), 32))
+LMR_DRY_TIMEOUT_S = 300
+
+# the dry run's traces of `LMR_DRY_RUNS` of one preset: python -c <this>
+# out runs
+_LM_RANK_DRY = """
+import sys
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.lm_ranks_dry_child(*sys.argv[1:])
+"""
 
 
 def _lmr_cfg(arch: str, depth):
@@ -5789,6 +5850,8 @@ def _lmr_train(cfg, arch: str, mesh, seed: int, n_steps: int,
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
         out["ms"].append(ms)
+        if ranked:      # the step's own, before any gather of the moments
+            out["step_collectives"] = comm.record()
         if first_moments and i == 0:
             moments = (opt.mu, opt.nu)
             if ranked:
@@ -5800,7 +5863,6 @@ def _lmr_train(cfg, arch: str, mesh, seed: int, n_steps: int,
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["digest"] = _lmr_digest((params, opt.mu, opt.nu))
     if ranked:
-        out["step_collectives"] = comm.record()
         out["layer_collectives"] = layers.tally
         out["resident_bytes"] = _lmr_resident(mesh, {
             "params": (params, pspec),
@@ -6095,9 +6157,7 @@ def _lmr_run(run, seed: int, tmp: Path) -> tuple:
         rec["moments"] = _lmr_moment_gaps(rec.pop("first_moments"),
                                           want["first_moments"], mesh)
     rec["finite"] = bool(np.isfinite(rec.get("losses", [0.0])).all())
-    name = f"{_lmr_tag(arch, depth)}/{'x'.join(map(str, shape))}"
-    if bits == 8:
-        name += "/q8"
+    name = _lmr_run_name(arch, depth, shape, bits)
     if gen is None:
         rec["seconds"] = time.perf_counter() - t0
         return name, rec
@@ -6159,6 +6219,98 @@ def lm_ranks_child(backend: str, rank: str, world: str, store: str,
     finally:
         import torch.distributed as tdist
         tdist.destroy_process_group()
+
+
+def _lmr_run_name(arch: str, depth, shape, bits: int) -> str:
+    """A run's name in a rank's record (`_lmr_run`)."""
+    name = f"{_lmr_tag(arch, depth)}/{'x'.join(map(str, shape))}"
+    return name + ("/q8" if bits == 8 else "")
+
+
+def lm_ranks_dry_child(out: str, runs: str) -> None:
+    """`launch.dryrun.rank_trace` of every rank of each run of ``runs``
+    (`LMR_DRY_RUNS` entries of the preset this process imported the port
+    under) at the train step's shape, B = 8, S = 256; writes {run name:
+    [each rank's trace]} to ``out`` as JSON."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch import dryrun
+
+    shape = ShapeCfg("train_cli", LM_TRAIN_S, LM_TRAIN_B, "train")
+    recs = {}
+    for _, arch, depth, dims, bits in json.loads(runs):
+        cfg = _lmr_cfg(arch, depth)
+        recs[_lmr_run_name(arch, depth, dims, bits)] = [
+            dryrun.rank_trace(cfg, shape, dict(zip(("data", "model"), dims)),
+                              r, opt_bits=bits)
+            for r in range(math.prod(dims))]
+    Path(out).write_text(json.dumps(recs))
+
+
+def _start_lmr_dry(tmp: Path) -> dict:
+    """One CPU-only process a preset of `LMR_DRY_RUNS` (the preset is read
+    at import), on one thread, with every GPU hidden: {preset: (its JSON
+    file, the process)}."""
+    code = _LM_RANK_DRY.format(src=str(ROOT / "src"), root=str(ROOT))
+    procs = {}
+    for preset in sorted({r[0] for r in LMR_DRY_RUNS}):
+        runs = [r for r in LMR_DRY_RUNS if r[0] == preset]
+        out = tmp / f"dry_{preset}.json"
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                   REPRO_PARALLELISM=preset)
+        procs[preset] = (out, subprocess.Popen(
+            [sys.executable, "-c", code, str(out), json.dumps(runs)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def _lmr_dry_gate(procs: dict, worlds: dict) -> tuple[dict, list]:
+    """Each dry-run rank against the same rank of the real run: calls and
+    contributed bytes by kind of its train step (the gate; a 1 x 1 mesh
+    moves nothing), and the traced argument + temporary bytes beside the
+    rank's peak on the card (printed, not gated).  Returns (the record,
+    what failed)."""
+    rec, failed = {}, []
+    for preset, (out, proc) in procs.items():
+        try:
+            _, err = proc.communicate(timeout=LMR_DRY_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            failed.append(f"dry run {preset}: timed out")
+            continue
+        if proc.returncode != 0:
+            failed.append(f"dry run {preset} exited {proc.returncode}: "
+                          f"{err[-2000:]}")
+            continue
+        for name, traces in json.loads(out.read_text()).items():
+            world = len(traces)
+            tag = (("nccl" if world == 1 else "gloo") + str(world)
+                   + ("" if preset == "2d" else f"_{preset}"))
+            real = [r["meshes"][name] for r in worlds[tag]["ranks"]]
+            one = {"preset": preset, "world": tag, "ranks": []}
+            for r, (t, m) in enumerate(zip(traces, real)):
+                got, want = t["collectives"], m["step_collectives"]
+                equal = (got["calls"] == want["calls"]
+                         and got["bytes"] == want["bytes"])
+                one["ranks"].append({
+                    "calls": got["calls"], "bytes": got["bytes"],
+                    "equal_to_the_rank": equal,
+                    "per_op_bytes": got["reference"]["per_op_bytes"],
+                    "dot_flops": t["flops"], "trace_s": t["trace_s"],
+                    "argument_bytes": t["argument_bytes"],
+                    "temp_bytes": t["temp_bytes"],
+                    # the card's peak spans the run's steps and drawing
+                    # its parameters (a whole copy, then the block)
+                    "dry_argument_plus_temp_bytes": t["peak_bytes"],
+                    "card_max_memory_allocated_bytes":
+                        m["peak_gb"] * 1e9})
+                if world > 1 and not equal:
+                    failed.append(f"dry run {name} rank {r} ({tag}): "
+                                  f"{got['calls']} {got['bytes']} against "
+                                  f"{want['calls']} {want['bytes']}")
+            rec[name] = one
+    return rec, failed
 
 
 def _lmr_checks(tag: str, m: dict) -> dict:
@@ -6244,6 +6396,8 @@ def lm_ranks_phase(seed: int) -> dict:
     worlds, failed = {}, []
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
+        dry_procs = _start_lmr_dry(tmp)
+        atexit.register(_stop, dry_procs)
         for backend, world, preset, runs in LMR_WORLDS:
             tag = f"{backend}{world}" + ("" if preset == "2d"
                                          else f"_{preset}")
@@ -6261,6 +6415,8 @@ def lm_ranks_phase(seed: int) -> dict:
                                          f"exited {rc}: {err[-3000:]}")
                 recs.append(json.loads(out.strip().splitlines()[-1]))
             worlds[tag] = {"seconds": time.perf_counter() - t, "ranks": recs}
+        dry, dry_failed = _lmr_dry_gate(dry_procs, worlds)
+    failed += dry_failed
     launches = {k: 0 for k in KERNELS}
     checks = {}
     for tag, w in worlds.items():
@@ -6286,7 +6442,7 @@ def lm_ranks_phase(seed: int) -> dict:
                           "q8_scale": LMR_Q8_SCALE_RTOL,
                           "logit_scaled_by_rms": "over gemma2-2b's"},
            "worlds": worlds, "checks": checks, "launches": launches,
-           "seconds": time.perf_counter() - t_phase}
+           "dry_run": dry, "seconds": time.perf_counter() - t_phase}
     emit(res)
     if failed:
         raise AssertionError(f"an lm_ranks check failed: {failed}")
@@ -6720,6 +6876,12 @@ def main() -> int:
                         for n in build.LIBRARIES}})
 
     t_run = time.perf_counter()
+    # the dry run's cells trace on the host's CPU beside the card's work
+    # from here to the mesh phase, which reads them
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dry_procs = _start_dry_runs(dry_dir)
+    atexit.register(shutil.rmtree, dry_dir, True)
+    atexit.register(_stop, dry_procs)
     checks = check_kernels(args.seed)
     dense_checks = check_dense_kernels(args.seed)
     stream_checks = check_stream_kernel(args.seed)
@@ -6769,7 +6931,7 @@ def main() -> int:
     lm_serve_phase(args.seed)
     lm_train_phase(args.seed)
     lm_families_phase(args.seed)
-    mesh, mesh_calls = mesh_phase(args.seed)
+    mesh, mesh_calls = mesh_phase(args.seed, (dry_procs, dry_dir))
     del mesh_calls
     # the mesh phase's lattice twin launches K1 and K5 (replayed there)
     lattice = mesh["lattice_pod"]

@@ -132,7 +132,8 @@ def make_rank_mesh(axis_shapes, axis_names, group=None) -> Mesh:
     row bands and of chain shards.  Raises when no process group is
     initialised, when the world size does not divide the mesh, and under
     NCCL when this rank's current card is not its own
-    (``cuda:{LOCAL_RANK}``)."""
+    (``cuda:{LOCAL_RANK}``).  Any other backend passes, the dry run's
+    fake one too (`launch.dryrun.FAKE_BACKEND`: it moves nothing)."""
     import torch.distributed as tdist
 
     if not (tdist.is_available() and tdist.is_initialized()):

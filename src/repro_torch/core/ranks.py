@@ -294,6 +294,16 @@ class RankComm(_Transport):
         return out
 
 
+def _mesh_type(device: torch.device) -> str:
+    """The ``DeviceMesh`` device type of a `MeshComm` on ``device``: its
+    own, but "cpu" for ``meta`` (the dry run's).  DTensor's sharding
+    propagation asks the mesh's device module for a device count, and
+    ``meta`` has none; a DTensor on a "cpu" mesh keeps ``meta`` local
+    tensors where they are, so the buffers, blocks and collectives stay
+    on ``meta`` and nothing is allocated."""
+    return "cpu" if device.type == "meta" else device.type
+
+
 class MeshComm(_Transport):
     """The collectives along the axes of a rank mesh that holds one rank a
     position: what the language model's steps move between ranks (the
@@ -306,9 +316,17 @@ class MeshComm(_Transport):
     position on each axis.  Collectives go through the c10d calls on each
     axis's group; an axis of size 1 moves nothing.  ``counts`` /
     ``nbytes`` count each kind's calls and the bytes this rank
-    contributed."""
+    contributed; ``ring`` / ``result`` count them as the reference's
+    roofline reads its compiled module (`REFERENCE_NAMES`, `ring_bytes`).
+    Under gloo the gather and the reduce-scatter run as all-reduces
+    (`_Transport._gather_rows`, `reduce_scatter`); they are counted as the
+    kind the caller asked for, whatever the transport ran."""
 
     KINDS = ("all_reduce", "all_gather", "reduce_scatter", "exchange")
+    # the reference's name of each kind's HLO op (benchmarks/roofline.py)
+    REFERENCE_NAMES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+                       "reduce_scatter": "reduce-scatter",
+                       "exchange": "collective-permute"}
 
     def __init__(self, mesh, device):
         from torch.distributed.device_mesh import DeviceMesh
@@ -331,7 +349,7 @@ class MeshComm(_Transport):
         self.rank = dist.get_rank(mesh.group)
         pos = np.argwhere(ranks == self.rank)[0]
         self.coord = {a: int(i) for a, i in zip(self.axis_names, pos)}
-        self.dm = DeviceMesh(self.device.type, torch.as_tensor(ranks),
+        self.dm = DeviceMesh(_mesh_type(self.device), torch.as_tensor(ranks),
                              mesh_dim_names=self.axis_names)
         self.groups = {a: self.dm.get_group(a) for a in self.axis_names
                        if self.sizes[a] > 1}
@@ -341,6 +359,8 @@ class MeshComm(_Transport):
     def reset(self) -> None:
         self.counts = {k: 0 for k in self.KINDS}
         self.nbytes = {k: 0 for k in self.KINDS}
+        self.ring = {k: 0.0 for k in self.KINDS}
+        self.result = {k: 0 for k in self.KINDS}
         self.seconds = 0.0
 
     def moving(self, axes) -> tuple:
@@ -365,9 +385,16 @@ class MeshComm(_Transport):
             start += self.coord[a] * length
         return start
 
-    def _count(self, kind: str, t0: float, x: torch.Tensor) -> None:
+    def _count(self, kind: str, t0: float, x: torch.Tensor, g: int = 1
+               ) -> None:
+        """One call of ``kind`` on ``x`` (what this rank contributed) over
+        an axis group of ``g`` ranks."""
+        nb = x.numel() * x.element_size()
         self.counts[kind] += 1
-        self.nbytes[kind] += x.numel() * x.element_size()
+        self.nbytes[kind] += nb
+        self.ring[kind] += ring_bytes(kind, nb, g)
+        self.result[kind] += {"all_gather": nb * g,
+                              "reduce_scatter": nb // g}.get(kind, nb)
         self.seconds += time.perf_counter() - t0
 
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
@@ -381,7 +408,7 @@ class MeshComm(_Transport):
             h = self._staged_copy(x)
             dist.all_reduce(h, op=red, group=self.groups[a])
             t = h.to(x.device)
-            self._count("all_reduce", t0, x)
+            self._count("all_reduce", t0, x, self.sizes[a])
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
@@ -393,7 +420,7 @@ class MeshComm(_Transport):
             out = self._gather_rows(x, self.sizes[a], self.coord[a],
                                     self.groups[a])
             t = out.to(x.device).movedim(0, dim)
-            self._count("all_gather", t0, x)
+            self._count("all_gather", t0, x, self.sizes[a])
         return t
 
     def reduce_scatter(self, t: torch.Tensor, dim: int, axes
@@ -414,7 +441,7 @@ class MeshComm(_Transport):
                 out = x.new_empty((size,) + tuple(x.shape[1:]))
                 _REDUCE_SCATTER(out, x, group=self.groups[a])
             t = out.to(x.device).movedim(0, dim)
-            self._count("reduce_scatter", t0, x)
+            self._count("reduce_scatter", t0, x, n)
         return t
 
     def exchange(self, src: torch.Tensor, src_layout, dst: torch.Tensor,
@@ -465,14 +492,47 @@ class MeshComm(_Transport):
                     at += n
         self.counts["exchange"] += 1
         self.nbytes["exchange"] += sent
+        self.ring["exchange"] += sent
+        self.result["exchange"] += sum(
+            buf.numel() * buf.element_size() for buf, _ in landing)
         self.seconds += time.perf_counter() - t0
         return dst
 
     def record(self) -> dict:
         """The counters as plain numbers: calls and bytes by kind, host
-        seconds, the transport."""
+        seconds, the transport, and the reference's reading of the same
+        calls (``reference``: ``total_bytes``, ``raw_result_bytes`` and
+        ``per_op_bytes`` by its op names, as
+        ``benchmarks/roofline.py::collective_bytes_from_hlo`` gives them;
+        a kind with no call is left out)."""
+        named = {self.REFERENCE_NAMES[k]: k for k in self.KINDS
+                 if self.counts[k]}
         return {"transport": self.transport, "calls": dict(self.counts),
-                "bytes": dict(self.nbytes), "seconds": self.seconds}
+                "bytes": dict(self.nbytes), "seconds": self.seconds,
+                "reference": {
+                    "total_bytes": sum(self.ring[k] for k in named.values()),
+                    "raw_result_bytes": sum(self.result[k]
+                                            for k in named.values()),
+                    "per_op_bytes": {n: self.ring[k]
+                                     for n, k in named.items()}}}
+
+
+def ring_bytes(kind: str, nbytes: int, g: int) -> float:
+    """The bytes the reference's roofline charges a collective of ``kind``
+    over ``g`` ranks to which this rank contributed ``nbytes``
+    (``benchmarks/roofline.py::_ring_factor`` times the op's result
+    size): an all-reduce 2(g-1)/g of the tensor, an all-gather g-1 times
+    the rank's block (its result is g blocks, charged (g-1)/g), a
+    reduce-scatter (g-1)/g of the whole (its result is one block, charged
+    g-1 times), an exchange the bytes it sent (a collective-permute's
+    result, charged once)."""
+    if kind == "all_reduce":
+        return nbytes * 2.0 * (g - 1) / g
+    if kind == "all_gather":
+        return float(nbytes * (g - 1))
+    if kind == "reduce_scatter":
+        return nbytes * (g - 1) / g
+    return float(nbytes)
 
 
 # ---------------------------------------------------------------------------

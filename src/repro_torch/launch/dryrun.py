@@ -1,25 +1,41 @@
-"""Multi-pod dry run: trace every (arch x shape x mesh) cell on fake tensors.
+"""Multi-pod dry run: trace every (arch x shape x mesh) cell as one rank.
 
 For each cell this answers, without a card and without allocating:
   * the sharding rules are coherent: every argument's spec holds on the
     mesh (`models.sharding.NamedSharding.shard_shape`),
-  * whether it fits: per-device argument and output bytes, summed from
-    the specs' shard shapes (exact) against one H100's HBM,
-  * the roofline's compute term: ``FlopCounterMode`` over one step traced
-    on the step's abstract arguments (fake tensors from
-    ``torch._subclasses.fake_tensor``, traced as their ``meta`` twins) —
-    read by ``benchmarks_torch/roofline.py``.
+  * whether it fits: per-device argument bytes, summed from the specs'
+    shard shapes (exact), and the traced rank's temporaries, against one
+    H100's HBM,
+  * the roofline's terms: the traced rank's FLOPs and its collectives by
+    kind, read by ``benchmarks_torch/roofline.py``.
 
 The port of ``python -m repro.launch.dryrun``, with its CLI, cell file
 names and ``status`` values (``ok``, ``skip``, ``fail``; a failure is
-recorded, and raised only at the end).  Without XLA there is nothing to
-lower or compile, so what the reference reads from the compiled module
-is either reckoned or left ``null`` with the reason in the record:
-``temp_bytes`` and ``generated_code_bytes`` (no compiler), and the
-collectives (no partitioner: the port's meshes are logical devices of one
-card, and collectives come with several cards).  ``dot_flops`` is
-``flops_global / n_devices``: work a mesh axis replicates (gemma2-2b's 8
-heads on a 16-way model axis) is under-counted per device.
+recorded, and raised only at the end).  The reference compiles the
+partitioned module of every device and reads it; the port has no
+compiler, so it runs the step itself as one rank of the production rank
+mesh (`rank_trace`): ``make_production_mesh(ranks=True)`` under a process
+group that moves nothing (the ``fake`` backend on ``cpu`` and ``meta``,
+made inside the call and destroyed after it; a real group already
+initialized is refused), every argument that rank's block of the step's
+trees on the ``meta`` device (`models.sharding.shard_tree`), so nothing
+is allocated and the card is never touched.  That rank's step is the one
+the rank meshes run (`launch.steps`), with its collectives
+(`core.ranks.MeshComm`).  From the trace:
+
+  * ``dot_flops`` (and ``cost.flops``): ``FlopCounterMode`` over the
+    rank's step; ``flops_global`` is the same counter over the unsharded
+    step (the step on a logical mesh), and ``replication`` their ratio
+    times the devices: above 1 where a mesh axis repeats work (gemma2-2b's
+    8 heads whole on each rank of a 16-way model axis),
+  * ``collectives``: the rank's `MeshComm` calls and contributed bytes by
+    kind, and the bytes the reference's roofline would read for the same
+    calls (``total_bytes``, ``raw_result_bytes``, ``per_op_bytes``;
+    `core.ranks.ring_bytes`),
+  * ``memory.temp_bytes``: `TEMP_RULE`; ``memory.output_bytes``: the
+    rank's outputs' local bytes.
+
+``generated_code_bytes`` stays null (`CODE_WHY`).
 
 ``--pbit`` traces nothing: it records the sharded lattice's plan — spins,
 bands, the padded band width and halo, the halo bytes a sweep, per-band
@@ -41,23 +57,28 @@ import traceback
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.base import LM_SHAPES, shape_applicable
 from repro_torch.configs.registry import ARCH_IDS, PBIT_CONFIGS, get_config
+from repro_torch.core import ranks
+from repro_torch.core.distributed import make_rank_mesh
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.steps import make_step
 from repro_torch.models.model import ShapeDtype
 from repro_torch.models.sharding import (NamedSharding, P, leaves_with_path,
-                                         map_with_path)
+                                         map_with_path, shard_tree)
 
-TEMP_WHY = ("no compiler: the port runs eagerly, and its temporaries are "
-            "measured on the card (torch.cuda.max_memory_allocated)")
-COLLECTIVES_WHY = ("no partitioner: the mesh is logical devices of one "
-                   "card; collectives come with several cards")
-DOT_FLOPS_RULE = ("flops_global / n_devices, from FlopCounterMode over one "
-                  "step on meta tensors; work replicated over a mesh axis "
-                  "is under-counted per device")
+# a process group that moves nothing, for collectives on CPU and meta
+# tensors (a plain "fake" has no backend for meta tensors' point-to-point
+# calls)
+FAKE_BACKEND = "cpu:fake,meta:fake"
+TEMP_RULE = ("the traced rank's peak of live tensor bytes on the meta device "
+             "over the step (torch.distributed._tools.mem_tracker.MemTracker,"
+             " the rank's arguments tracked from the start) less the rank's "
+             "argument bytes; outputs alive at the peak count as temporaries")
+CODE_WHY = "no compiler: the port runs eagerly and generates no code"
 
 
 def _nbytes(shape, dtype) -> int:
@@ -99,6 +120,90 @@ def trace_step(step, seq_len: int) -> tuple[object, float]:
     return out, float(fc.get_total_flops())
 
 
+def _local_bytes(tree) -> int:
+    """Bytes of the tensors of ``tree`` as this rank holds them (a
+    DTensor's local block)."""
+    return sum(t.numel() * t.element_size() for t in _locals(tree))
+
+
+def _locals(tree) -> list:
+    return [x.to_local() if ranks.is_dtensor(x) else x
+            for _, x in leaves_with_path(tree)
+            if isinstance(x, torch.Tensor)]
+
+
+def rank_trace(cfg, shape, axes: dict, rank: int = 0, opt_bits: int = 32,
+               microbatches: int = 1) -> dict:
+    """One step of ``cfg`` at ``shape``, run as ``rank`` of a rank mesh of
+    ``axes`` ({name: size}, in order) on ``meta`` tensors, under a
+    process group of `FAKE_BACKEND` made for the call and destroyed
+    after it (the mesh's `MeshComm` is dropped with it, so a trace of
+    another rank starts clean).  Refuses while a process group is
+    initialized.  Returns the rank's FLOPs, its `MeshComm` record, its
+    argument bytes (checked against the specs' shard shapes), its peak
+    of live bytes (`TEMP_RULE`), its outputs' bytes and the seconds the
+    build and the trace took."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    # registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_available() and dist.is_initialized():
+        raise RuntimeError(
+            "a process group is already initialized: the dry run traces "
+            "under a process group of its own that moves nothing, and "
+            "never takes over a real one; run it in a process with none")
+    dist.init_process_group(FAKE_BACKEND, rank=rank,
+                            world_size=math.prod(axes.values()),
+                            store=FakeStore())
+    mesh = None
+    try:
+        t0 = time.time()
+        mesh = make_rank_mesh(tuple(axes.values()), tuple(axes))
+        step = make_step(cfg, shape, mesh, opt_bits=opt_bits,
+                         microbatches=microbatches, device="meta")
+        spec_bytes = sum(device_bytes(a, s, mesh) for a, s in
+                         zip(step.abstract_args, step.in_specs))
+        # a decode position is a Python int, as the serving loop passes it
+        args = tuple(a if isinstance(a, int) else
+                     shard_tree(a, s, mesh, "meta") for a, s in
+                     zip(_materialize(step.abstract_args, shape.seq_len),
+                         step.in_specs))
+        held = _local_bytes(args)
+        as_ints = 4 * sum(isinstance(a, int) for a in args)
+        if held + as_ints != spec_bytes:
+            raise AssertionError(
+                f"rank {rank} holds {held} argument bytes; its specs' "
+                f"shard shapes give {spec_bytes - as_ints}")
+        comm = ranks.rank_comm(mesh, "meta")
+        comm.reset()
+        tracker = MemTracker()
+        tracker.track_external(*_locals(args))
+        t_build = time.time() - t0
+        with tracker, FlopCounterMode(display=False) as fc:
+            out = step.fn(*args)
+        peak = tracker.get_tracker_snapshot("peak")[torch.device("meta")]
+        return {"flops": float(fc.get_total_flops()),
+                "collectives": comm.record(),
+                "argument_bytes": spec_bytes,
+                "peak_bytes": peak["Total"],
+                "temp_bytes": peak["Total"] - held,
+                "output_bytes": _local_bytes(out),
+                "build_s": t_build,
+                "trace_s": time.time() - t0 - t_build}
+    finally:
+        if mesh is not None:
+            ranks._COMMS.pop(mesh, None)
+        dist.destroy_process_group()
+
+
+def _collectives(record: dict) -> dict:
+    """A `MeshComm` record under the reference's keys, with the calls and
+    the bytes this rank contributed by kind beside them."""
+    return {**record["reference"], "calls": record["calls"],
+            "contributed_bytes": record["bytes"]}
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              out_dir: Path, force: bool = False,
              opt_bits: int = 32, microbatches: int = 1) -> dict:
@@ -125,37 +230,37 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     n_dev = mesh_mod.n_chips(mesh)
     t0 = time.time()
     try:
-        # the step's model on the CPU: nothing is drawn, and the card is
-        # never touched (its arguments are fake and meta tensors)
+        # the unsharded step's model on the CPU: nothing is drawn, and the
+        # card is never touched (its arguments are fake and meta tensors)
         step = make_step(cfg, shape, mesh, opt_bits=opt_bits,
                          microbatches=microbatches, device="cpu")
         t_build = time.time() - t0
-        out, flops = trace_step(step, shape.seq_len)
+        _, flops = trace_step(step, shape.seq_len)
         t_trace = time.time() - t0 - t_build
         arg_bytes = sum(device_bytes(a, s, mesh)
                         for a, s in zip(step.abstract_args, step.in_specs))
-        # the prefill step has no output specs: the reference leaves its
-        # outputs' layout to the partitioner, and so their bytes unknown
-        out_bytes = None if step.out_specs is None else sum(
-            device_bytes(o, s, mesh) for o, s in zip(out, step.out_specs))
+        # kept where the rank's trace fails
+        rec.update(build_s=round(t_build, 2), trace_s=round(t_trace, 2),
+                   n_devices=n_dev, flops_global=flops,
+                   memory={"argument_bytes": arg_bytes})
+        one = rank_trace(cfg, shape, dict(mesh.shape), 0, opt_bits,
+                         microbatches)
         rec.update(
             status="ok",
-            build_s=round(t_build, 2),
-            trace_s=round(t_trace, 2),
-            n_devices=n_dev,
-            memory={"argument_bytes": arg_bytes, "output_bytes": out_bytes,
-                    "temp_bytes": None, "generated_code_bytes": None,
-                    "why_null": TEMP_WHY,
-                    "output_rule": "outputs under the step's out_specs "
-                                   "(metrics whole on every device); null "
-                                   "where the step has none (prefill)"},
-            flops_global=flops,
-            dot_flops=flops / n_dev,
-            dot_flops_rule=DOT_FLOPS_RULE,
-            cost={"flops": flops / n_dev},
-            collectives=None,
-            collectives_why=COLLECTIVES_WHY,
-            fits_hbm=arg_bytes + (out_bytes or 0) <= mesh_mod.HBM_BYTES,
+            rank_build_s=round(one["build_s"], 2),
+            rank_trace_s=round(one["trace_s"], 2),
+            traced_rank=0,
+            memory={"argument_bytes": arg_bytes,
+                    "output_bytes": one["output_bytes"],
+                    "temp_bytes": one["temp_bytes"],
+                    "generated_code_bytes": None,
+                    "temp_rule": TEMP_RULE,
+                    "why_null": CODE_WHY},
+            dot_flops=one["flops"],
+            replication=one["flops"] * n_dev / flops,
+            cost={"flops": one["flops"]},
+            collectives=_collectives(one["collectives"]),
+            fits_hbm=arg_bytes + one["temp_bytes"] <= mesh_mod.HBM_BYTES,
             params=cfg.param_count(),
             active_params=cfg.active_param_count(),
             seq_len=shape.seq_len,
@@ -163,13 +268,16 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             kind=shape.kind,
         )
         print(f"[ok]     {arch} x {shape_name} x {mesh_tag}: "
-              f"trace={t_trace:.1f}s "
+              f"trace={t_trace:.1f}s rank={one['trace_s']:.1f}s "
               f"args/dev={arg_bytes/2**30:.2f}GiB "
-              f"flops={flops:.3e}")
+              f"temp/dev={one['temp_bytes']/2**30:.2f}GiB "
+              f"coll={rec['collectives']['total_bytes']/2**30:.3f}GiB "
+              f"flops/dev={one['flops']:.3e}", flush=True)
     except Exception as e:
         rec.update(status="fail", error=repr(e),
                    trace=traceback.format_exc()[-4000:])
-        print(f"[FAIL]   {arch} x {shape_name} x {mesh_tag}: {e!r}")
+        print(f"[FAIL]   {arch} x {shape_name} x {mesh_tag}: {e!r}",
+              flush=True)
     out_path.write_text(json.dumps(rec, indent=1))
     return rec
 

@@ -15,7 +15,7 @@ devices of one card (`launch.mesh`): the step runs under
 step's arguments as fake tensors (``torch._subclasses.fake_tensor``) or
 `models.model.ShapeDtype` records: no memory is allocated for them, and
 `launch.dryrun` traces the step on their ``meta`` twins without touching
-the card.
+the card (on a rank mesh, one rank's blocks of them, ``device="meta"``).
 
 The loss's gradients come from ``torch.autograd.grad`` with respect to
 detached views of the parameter leaves, and `optim.adamw.apply` writes
@@ -157,7 +157,8 @@ RANKED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
 def rank_setup(cfg: ModelCfg, mesh, device) -> tuple:
     """On a rank mesh: check the step can be sharded there and make the
     mesh's collectives (every rank calls this together); returns
-    (rank mesh?, the model's device)."""
+    (rank mesh?, the model's device).  ``device`` is ``meta`` only in the
+    dry run's trace (`launch.dryrun.rank_trace`), which runs no data."""
     from repro_torch.api.spec import require_device
 
     dev = require_device(device)
@@ -189,8 +190,17 @@ def _as_dtensor(block: torch.Tensor, names, shape, mesh) -> Any:
     return DTensor.from_local(block.contiguous(), comm.dm,
                               shd.placements(sp, mesh), run_check=False,
                               shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta")
-                              .stride())
+                              stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    """The row-major strides of ``shape``, with no tensor made (the dry
+    run counts every tensor a step makes on ``meta``)."""
+    out, step = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(d), 1)
+    return tuple(reversed(out))
 
 
 def _logits_out(logits: torch.Tensor, cfg: ModelCfg, mesh) -> Any:

@@ -109,6 +109,37 @@ def train(save, mesh, c, params, *, tag, steps_=STEPS, microbatches=1,
     return params, opt
 
 
+def save_comm(save, tag, comm):
+    """A `MeshComm`'s calls and contributed bytes by kind: what
+    `launch.dryrun.rank_trace` must give for the same step."""
+    rec = comm.record()
+    for kind in comm.KINDS:
+        save(f"{tag}/calls/{kind}", np.array(rec["calls"][kind]))
+        save(f"{tag}/bytes/{kind}", np.array(rec["bytes"][kind]))
+
+
+# the dry run's calibration cell: a train step at B = 32, S = 64
+COMM_B = 32
+
+
+def comm_step(save, mesh, c, *, tag, opt_cfg=OPT, batch=COMM_B):
+    """One train step at B = ``batch``, S = `S` from seed 0's parameters
+    on a rank mesh, with nothing of the test's own in it: this rank's
+    `MeshComm` record of the step (`save_comm`)."""
+    shape = ShapeCfg("t", S, batch, "train")
+    st = steps.make_train_step(c, shape, mesh, opt_cfg, device="cpu")
+    params = shd.shard_tree(build_model(c, device="cpu").init(0),
+                            st.in_specs[0], mesh, "cpu")
+    tokens = shd.shard_tree(
+        make_dummy_batch(c, shape, torch.Generator().manual_seed(1)),
+        st.in_specs[2], mesh, "cpu")
+    opt = adamw.init(params, opt_cfg.state_bits)
+    comm = shd.rank_comm(mesh, "cpu")
+    comm.reset()
+    st.fn(params, opt, tokens)
+    save_comm(save, tag, comm)
+
+
 @contextlib.contextmanager
 def applies(save, mesh, tag, calls=2):
     """Record what the train step's first ``calls`` `adamw.apply` calls

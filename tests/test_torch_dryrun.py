@@ -2,13 +2,14 @@
 reader.
 
 A reduced cell (reduced gemma2-2b at a small train shape, the production
-pod mesh) and a ``--pbit pbit-chip-440`` plan, ``--force``, into a temp
-directory: ``status`` ``ok``; the argument bytes a device equal the sum
-of the reference's ``NamedSharding.shard_shape`` bytes under the
-reference's specs; ``long_500k`` on a full-attention arch is ``skip``; a
-cached cell is not rerun; `roofline_row` reads the record.  Nothing here
-builds a full-width model: the full-width cells are traced on the card's
-host by ``chip_smoke.py``."""
+pod mesh, traced as its rank 0) and a ``--pbit pbit-chip-440`` plan,
+``--force``, into a temp directory: ``status`` ``ok``; the argument bytes
+a device equal the sum of the reference's ``NamedSharding.shard_shape``
+bytes under the reference's specs; the rank's FLOPs, collectives and
+temporaries are measured; ``long_500k`` on a full-attention arch is
+``skip``; a cached cell is not rerun; `roofline_row` reads the record,
+its collective term too.  Nothing here builds a full-width model: the
+full-width cells are traced on the card's host by ``chip_smoke.py``."""
 import importlib.util
 import json
 import math
@@ -92,18 +93,27 @@ def test_reduced_cell_is_ok_with_exact_argument_bytes(tmp_path, reduced_cells):
     # a train step's outputs are its updated state and three scalars
     assert rec["memory"]["output_bytes"] == \
         rec["memory"]["argument_bytes"] - 2 * 32 * 64 * 4 // 16 + 3 * 4
-    assert rec["memory"]["temp_bytes"] is None
-    assert rec["collectives"] is None and rec["collectives_why"]
+    # rank 0's temporaries, collectives and FLOPs, traced: the reduced
+    # model's 4 heads and d_ff of 256 on a 16-way model axis repeat work
+    # on every rank, so rank 0 does more than a 256th of the whole
+    assert rec["traced_rank"] == 0
+    assert rec["memory"]["temp_bytes"] > 0 and rec["memory"]["temp_rule"]
+    coll = rec["collectives"]
+    assert coll["per_op_bytes"] and coll["total_bytes"] == sum(
+        coll["per_op_bytes"].values())
+    assert sum(coll["calls"].values()) > 0
     assert rec["flops_global"] > 0
-    assert rec["dot_flops"] == rec["flops_global"] / 256
+    assert rec["dot_flops"] > rec["flops_global"] / 256
+    assert rec["replication"] == rec["dot_flops"] * 256 / rec["flops_global"]
+    assert rec["cost"]["flops"] == rec["dot_flops"]
     assert rec["params"] == get_reduced_config("gemma2-2b").param_count()
 
     row = _roofline().roofline_row(rec)
-    assert row["t_collective_s"] is None
-    assert row["bottleneck"] in ("compute", "memory")
+    assert row["t_collective_s"] == coll["total_bytes"] / mesh_mod.NVLINK_BW
     assert row["t_compute_s"] == rec["dot_flops"] / mesh_mod.PEAK_FLOPS_BF16
     assert row["step_time_lb_s"] == max(row["t_compute_s"],
-                                        row["t_memory_s"])
+                                        row["t_memory_s"],
+                                        row["t_collective_s"])
 
 
 @pytest.mark.parametrize("multi_pod", [False, True],

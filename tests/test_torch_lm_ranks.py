@@ -43,6 +43,7 @@ gloo ranks.
 * The gathers of both transports (`core.ranks`: the language model's
   `MeshComm`, the p-bit engine's `RankComm`) copy every bit.
 """
+import math
 import sys
 from pathlib import Path
 
@@ -52,7 +53,7 @@ import torch
 
 from repro_torch.configs.base import ShapeCfg
 from repro_torch.core.distributed import make_mesh
-from repro_torch.launch import steps
+from repro_torch.launch import dryrun, steps
 from repro_torch.models import sharding as shd
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import ElasticState
@@ -95,6 +96,8 @@ for name, shape in (("1x2", (1, 2)), ("2x1", (2, 1))):
     cases.generate(save, m, c, params, tag=name + "/gen")
     cases.loss_and_grads(save, m, c, params, tag=name + "/hw", hw=cases.HW)
     cases.eight_bit(save, m, c, params, tag=name + "/q8")
+    cases.comm_step(save, m, c, tag=name + "/comm32")
+cases.comm_step(save, mesh((1, 2)), c, tag="1x2/comm8", opt_cfg=cases.OPT8)
 cases.train(save, mesh((2, 1)), c, params, tag="micro", steps_=1,
             microbatches=2)
 sc = cases.seq_shard_cfg()
@@ -119,6 +122,7 @@ cases.train(save, m, c, params, tag="2x2/train")
 cases.loss_and_grads(save, m, c, params, tag="2x2/grads")
 cases.generate(save, m, c, params, tag="2x2/gen")
 cases.eight_bit(save, m, c, params, tag="2x2/q8nc", opt=cases.OPT8_NOCLIP)
+cases.comm_step(save, m, c, tag="2x2/comm32")
 """
 
 
@@ -251,6 +255,44 @@ def test_one_by_one_rank_mesh_equals_no_mesh_bit_for_bit(world1):
     assert none.keys() - {"gen/comm"} == ranks.keys() - {"gen/comm"}
     for k, v in none.items():
         np.testing.assert_array_equal(ranks[k][0], v[0], err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def dry_runs(started):
+    """`launch.dryrun.rank_trace` of every rank of the ranks' B = 32 step
+    (``<mesh>/comm32``) and of 1 x 2's first 8-bit step (``1x2/q8``),
+    traced in this process while the ranks run: {(tag, rank): record}."""
+    c = cases.cfg()
+    runs = [(f"{n}/comm32", dm, 32) for n, dm in MESHES.items()]
+    runs.append(("1x2/comm8", MESHES["1x2"], 8))
+    shape = ShapeCfg("t", cases.S, cases.COMM_B, "train")
+    return {(tag, r): dryrun.rank_trace(c, shape, {"data": d, "model": m},
+                                        r, opt_bits=bits)
+            for tag, (d, m), bits in runs for r in range(d * m)}
+
+
+@pytest.mark.parametrize("tag", [f"{n}/comm32" for n in MESHES]
+                         + ["1x2/comm8"])
+def test_dry_run_collectives_equal_the_ranks(tag, dry_runs, world2, world4):
+    """The dry run's trace of a rank (`launch.dryrun.rank_trace`: the
+    same step as that rank of the rank mesh, on meta tensors under a
+    process group that moves nothing) makes the collectives the gloo
+    rank made, call for call and byte for byte by kind: the B = 32, S =
+    64 train step on 1 x 2, 2 x 1 and 2 x 2, and with 8-bit moments on
+    1 x 2 (their exchanges)."""
+    name = tag.split("/")[0]
+    ranks = _ranks_of(name, world2, world4)
+    assert len(ranks) == math.prod(MESHES[name])
+    for r, rank in enumerate(ranks):
+        got = dry_runs[tag, r]["collectives"]
+        for kind in got["calls"]:
+            assert got["calls"][kind] == int(
+                rank[f"{tag}/calls/{kind}"][0]), (r, kind)
+            assert got["bytes"][kind] == int(
+                rank[f"{tag}/bytes/{kind}"][0]), (r, kind)
+        assert sum(got["calls"].values()) > 0
+    if tag.endswith("comm8"):
+        assert got["calls"]["exchange"] > 0
 
 
 @pytest.mark.parametrize("name", list(MESHES))

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import ShapeCfg
 from repro_torch.core.distributed import make_mesh
-from repro_torch.launch import steps
+from repro_torch.launch import dryrun, steps
 from repro_torch.models import sharding as shd
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import ElasticState
@@ -83,6 +83,9 @@ cases.mamba_seq_chunks(save, mesh((1, 2)), tag="seq_chunks/1x2")
 _WORLD4 = _PRELUDE + """
 for arch in cases.ARCHS:
     cases.run(save, mesh((2, 2)), arch, "2x2", aux=True)
+with cases.chunks():
+    cases.base.comm_step(save, mesh((2, 2)), cases.cfg(cases.ARCHS[0]),
+                         tag="comm/2x2", batch=cases.base.B)
 """
 
 
@@ -189,6 +192,35 @@ def test_one_by_one_rank_mesh_equals_no_mesh_bit_for_bit(arch, world1):
                                                          "gen/cache"))}
     for k, v in none.items():
         np.testing.assert_array_equal(ranks[k][0], v[0], err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def dry_runs(started):
+    """`launch.dryrun.rank_trace` of each rank of granite-moe's train
+    step on 2 x 2 (B = 4, S = 64, the chunks the ranks run at), traced in
+    this process while the ranks run: [record by rank]."""
+    c = cases.cfg(GRANITE)
+    with cases.chunks():
+        return [dryrun.rank_trace(c, ShapeCfg("t", base.S, base.B, "train"),
+                                  {"data": 2, "model": 2}, r)
+                for r in range(4)]
+
+
+def test_dry_run_collectives_equal_the_ranks(dry_runs, world4):
+    """The dry run's trace of each rank of 2 x 2 (`launch.dryrun.
+    rank_trace`: meta tensors under a process group that moves nothing)
+    makes the collectives granite-moe's gloo rank made in the same train
+    step (``comm/2x2``), call for call and byte for byte by kind: the
+    experts' dispatch and combine over "model" among them."""
+    for r, rank in enumerate(world4):
+        got = dry_runs[r]["collectives"]
+        for kind in got["calls"]:
+            saved = "comm/2x2"
+            assert got["calls"][kind] == int(
+                rank[f"{saved}/calls/{kind}"][0]), (r, kind)
+            assert got["bytes"][kind] == int(
+                rank[f"{saved}/bytes/{kind}"][0]), (r, kind)
+        assert sum(got["calls"].values()) > 0
 
 
 @pytest.mark.parametrize("arch,name", CASES)
