@@ -88,7 +88,8 @@ the kernels' launch counts set to 0 just before it and read just after:
   gradients; ms and peak memory), int8 gradient compression of the
   whole gradient tree, `launch.train --mesh host --data-model 2 4`; the
   dry run of four gemma2-2b cells (train_4k, prefill_32k and decode_32k
-  on the pod mesh, train_4k on the multipod mesh), each traced as rank 0
+  on the pod mesh, train_4k on the multipod mesh) and granite-moe's
+  train_4k on the pod mesh (its KV heads whole), each traced as rank 0
   of the production rank mesh under a process group that moves nothing,
   on the host's CPU beside the card's work from the kernel checks on:
   rank 0's FLOPs and their replication, its collectives by kind, its
@@ -111,14 +112,15 @@ the kernels' launch counts set to 0 just before it and read just after:
   to it), 2 and 4 gloo ranks sharing the card (gemma2-2b, granite-moe,
   rwkv6-3b, jamba's period, kimi-k2's cut and qwen2-vl-72b cut to 2
   layers on 1 x 2 or 2 x 1; gemma2-2b, granite-moe and whisper-tiny on
-  2 x 2, whisper-tiny on 1 x 4): train steps or a loss and its
-  gradients, prefill and greedy decode, each held to one process's, each
-  rank's blocks to the specs'; the dry run of gemma2-2b's 1 x 2 train
-  steps (full depth, 2 layers with 8-bit moments, 2 layers under the
-  fsdp preset), traced on the host: each rank's collectives equal the
-  gloo rank's by kind, calls and bytes; the 1 x 1 step's traced argument
-  and temporary bytes beside the card's peak.  It launches none of the
-  six kernels.
+  2 x 2, whisper-tiny on 1 x 4), and 8 gloo ranks (gemma2-2b at 2 layers
+  on 1 x 8: a query head a rank, the KV heads whole): train steps or a
+  loss and its gradients, prefill and greedy decode, each held to one
+  process's, each rank's blocks to the specs'; the dry run of
+  gemma2-2b's 1 x 2 train steps (full depth, 2 layers with 8-bit
+  moments, 2 layers under the fsdp preset) and of its 1 x 8 step, traced
+  on the host: each rank's collectives equal the gloo rank's by kind,
+  calls and bytes; the 1 x 1 step's traced argument and temporary bytes
+  beside the card's peak.  It launches none of the six kernels.
 
 Every launch of every path is recorded with its operands and replayed
 through the plain version.  Any failed phase raises and the exit code is
@@ -4605,10 +4607,15 @@ def lm_families_phase(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # phase: many devices and the dry run (K1 and K5 through the lattice twin)
 # ---------------------------------------------------------------------------
-# the dry run's cells: gemma2-2b at full width, each traced as rank 0 of
-# the production rank mesh (`launch.dryrun.rank_trace`), CPU only
-MESH_DRYRUN_CELLS = (("train_4k", "pod"), ("prefill_32k", "pod"),
-                     ("decode_32k", "pod"), ("train_4k", "multipod"))
+# the dry run's cells at full width, each traced as rank 0 of the
+# production rank mesh (`launch.dryrun.rank_trace`), CPU only: gemma2-2b's
+# four, and granite-moe's train_4k on the pod mesh, whose 16-way model
+# axis splits its 16 query heads and leaves its 8 KV heads whole
+MESH_DRYRUN_CELLS = ((LM_ARCH, "train_4k", "pod"),
+                     (LM_ARCH, "prefill_32k", "pod"),
+                     (LM_ARCH, "decode_32k", "pod"),
+                     (LM_ARCH, "train_4k", "multipod"),
+                     ("granite-moe-1b-a400m", "train_4k", "pod"))
 # the cells start with the language-model phases and trace beside them
 # (prefill_32k's two traces take ~5 minutes on one core)
 MESH_DRYRUN_TIMEOUT_S = 900
@@ -4616,19 +4623,20 @@ MESH_REMAT_S = 4096           # REPRO_REMAT=dots against the default, B = 1
 
 
 def _start_dry_runs(out_dir: Path) -> dict:
-    """`python -m repro_torch.launch.dryrun` for gemma2-2b at each of
+    """`python -m repro_torch.launch.dryrun` for each of
     `MESH_DRYRUN_CELLS`, one process each on one thread, started together
     and with every GPU hidden: the dry run traces on fake and meta tensors
     and must not touch the card.  They run while the script drives the
-    card."""
+    card; keyed ``<arch>/<shape>/<mesh>``."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                PYTHONPATH=str(ROOT / "src"))
-    return {f"{shape}/{mesh}": (time.perf_counter(), subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         LM_ARCH, "--shape", shape, "--mesh", mesh, "--force", "--out",
-         str(out_dir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True))
-        for shape, mesh in MESH_DRYRUN_CELLS}
+    return {f"{arch}/{shape}/{mesh}": (
+        time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--force", "--out",
+             str(out_dir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+        for arch, shape, mesh in MESH_DRYRUN_CELLS}
 
 
 def _stop(procs: dict) -> None:
@@ -4657,8 +4665,8 @@ def _finish_dry_runs(procs: dict, out_dir: Path) -> dict:
             proc.communicate()
             out[cell] = {"status": "timeout", "ok": False}
             continue
-        shape, mesh = cell.split("/")
-        path = out_dir / f"{LM_ARCH}__{shape}__{mesh}.json"
+        arch, shape, mesh = cell.split("/")
+        path = out_dir / f"{arch}__{shape}__{mesh}.json"
         rec = json.loads(path.read_text()) if path.exists() else {}
         mem, coll = rec.get("memory", {}), rec.get("collectives") or {}
         out[cell] = {
@@ -5001,7 +5009,7 @@ def mesh_phase(seed: int, dry: tuple | None = None) -> tuple:
     1 reckoning of the argument bytes against the card), the prefill and
     serve steps under the production mesh against `launch.serve.generate`,
     remat's ``dots`` policy against the default at S = 4096, int8
-    gradient compression of the whole gradient tree; the dry run's four
+    gradient compression of the whole gradient tree; the dry run's
     cells (`MESH_DRYRUN_CELLS`), traced on the host's CPU while the card
     works (``dry``: (their processes, their directory) started earlier
     by `_start_dry_runs`, else started here); then the lattice twin
@@ -5474,7 +5482,11 @@ RWKV, WHISPER, VLM = "rwkv6-3b", "whisper-tiny", "qwen2-vl-72b"
 # bf16's noise carried through AdamW).  qwen2-vl-72b is cut to 2 layers
 # (8.49 GB) and checked by its loss and gradients at `LMR_GRADS_SHAPE`,
 # its 1024 patch rows in front of the text; whisper-tiny runs whole, its
-# 6 heads split 2 ways on 2 x 2 and whole on 1 x 4
+# 6 heads split 2 ways on 2 x 2 and whole on 1 x 4.  gemma2-2b on 1 x 8
+# (8 ranks sharing the card, `LMR_DEPTH` layers, one step, 2 decode
+# tokens) splits its 8 query heads and leaves its 4 KV heads whole: each
+# rank's query head attends KV head r // 2 of the whole K/V projection,
+# whose gradient is summed over "model"
 # gemma2-2b with 8-bit moments (blockwise int8, their blocks split over
 # data x model): three steps at full depth on NCCL 1 x 1, bit-equal to
 # one process's; one step at `LMR_DEPTH` layers on 1 x 2 and 2 x 1
@@ -5504,6 +5516,7 @@ LMR_WORLDS = (
                        (GRANITE, LMR_DEPTH, (2, 2), "step", 3),
                        (WHISPER, None, (2, 2), "step", 5),
                        (WHISPER, None, (1, 4), "steps", 5))),
+    ("gloo", 8, "2d", ((LM_ARCH, LMR_DEPTH, (1, 8), "step", 3),)),
 )
 # drawn a piece at a time (`_lmr_pieces`): too large for every rank
 # sharing the card to draw the whole tree
@@ -5537,7 +5550,8 @@ chip_smoke.lm_ranks_child(*sys.argv[1:])
 LMR_DRY_RUNS = (("2d", LM_ARCH, None, (1, 2), 32),
                 ("2d", LM_ARCH, LMR_DEPTH, (1, 2), 8),
                 ("fsdp", LM_ARCH, LMR_DEPTH, (1, 2), 32),
-                ("2d", LM_ARCH, None, (1, 1), 32))
+                ("2d", LM_ARCH, None, (1, 1), 32),
+                ("2d", LM_ARCH, LMR_DEPTH, (1, 8), 32))
 LMR_DRY_TIMEOUT_S = 300
 
 # the dry run's traces of `LMR_DRY_RUNS` of one preset: python -c <this>
@@ -6377,7 +6391,9 @@ def lm_ranks_phase(seed: int) -> dict:
     at `LMR_DEPTH` layers (one step; 2 and 1 decode tokens); then 4
     gloo ranks: gemma2-2b and granite-moe (one step and 2 tokens each)
     at `LMR_DEPTH` layers and whisper-tiny (one step, 4 tokens) on 2 x 2,
-    whisper-tiny on 1 x 4 (its heads whole; three steps).
+    whisper-tiny on 1 x 4 (its heads whole; three steps); then 8 gloo
+    ranks: gemma2-2b at `LMR_DEPTH` layers on 1 x 8 (a query head a
+    rank, the 4 KV heads whole; one step, 2 tokens).
     Each step's loss within
     `LMR_LOSS_TOL` of one process's and its gradient norm within
     `LMR_GRAD_RTOL`, 8-bit moments' codes and scales within

@@ -371,10 +371,11 @@ def make_prefill_step(cfg: ModelCfg, shape: ShapeCfg, mesh,
 def _cache_out(cache: dict, params: dict, cfg: ModelCfg, mesh) -> dict:
     """Prefill's per-rank cache blocks as DTensors of the whole cache: the
     batch split as the batch's, K/V (lead, B, P, KV, hd) with the KV heads
-    split as the projections', Mamba's conv (lead, B, K-1, d_in) and ssm
-    (lead, B, d_in, N) with the channels split as its weights', RWKV's
-    wkv (lead, B, H, hd, hd) and shifts (lead, B, D) whole but for the
-    batch."""
+    split as the projections' (whole, the same on every model rank, where
+    the model axis splits the query heads only), Mamba's conv (lead, B,
+    K-1, d_in) and ssm (lead, B, d_in, N) with the channels split as its
+    weights', RWKV's wkv (lead, B, H, hd, hd) and shifts (lead, B, D)
+    whole but for the batch."""
     comm = shd.current_comm()
     heads = shd.split_axes(_first_leaf(params, "wk"), -2)
     chans = shd.split_axes(_first_leaf(params, "conv_w"), -2)

@@ -20,11 +20,20 @@ against the whole cached encoder K/V, writing nothing.  The reference's
 scan baseline (``_attend_chunked``) is not ported.
 
 On a rank mesh (`models.sharding`) the heads are tensor-parallel: the
-Q/K/V projections are column-parallel over "heads" / "kv_heads" (a
-rank's query heads use only its own KV heads, so both must split alike),
-the output projection row-parallel (its partial sums summed at a
+Q/K/V projections are column-parallel over "heads" / "kv_heads", the
+output projection row-parallel (its partial sums summed at a
 `constrain`); cross-attention's queries and its encoder K/V
-(`cross_kv`) are column-parallel alike.  With
+(`cross_kv`) are column-parallel alike.  Where the rules split the query
+heads over "model" but leave the KV heads whole (a KV head count the axis
+does not divide: 8 KV heads on a 16-way axis), every model rank projects
+every KV head from its whole input, as the reference's partitioner does,
+and its query heads [lo, lo + Hl) attend KV heads h // G (`kv_for_rank`:
+a slice where the block is aligned to the groups, else one KV head a
+query head).  Each rank's gradient of the whole K/V weights then covers
+only the heads its queries used, and is summed over the query heads'
+axes (`_kv_local`); the K/V path's part of the input's gradient stays
+partial on each rank and is summed once with the queries' (`psum_grad`
+on the input).  With
 ``REPRO_SEQ_SHARD_ATTN=1`` and a head count the "model" axis does not
 divide, the flash path splits the queries' sequence over it instead
 (`flash.flash_attention`'s ``seq_shard``).  Decode
@@ -89,28 +98,70 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def heads_axes(params) -> tuple:
-    """The mesh axes this rank's query and KV heads are split over (the
-    same for both: a rank's queries attend only its own KV heads)."""
+    """The mesh axes this rank's query heads are split over.  The KV heads
+    are split over the same axes, or whole on every rank (`kv_whole`);
+    any other layout raises."""
     ax = shd.split_axes(params["wq"], -2)
-    if "wk" in params and shd.split_axes(params["wk"], -2) != ax:
-        raise NotImplementedError(
-            f"query heads split over {ax} but KV heads over "
-            f"{shd.split_axes(params['wk'], -2)}: a rank's queries must "
-            f"find their KV heads on the same rank (the head counts "
-            f"divide the model axis alike)")
+    if "wk" in params:
+        kv = shd.split_axes(params["wk"], -2)
+        if kv not in ((), ax):
+            raise NotImplementedError(
+                f"query heads split over {ax} but KV heads over {kv}: a "
+                f"rank's queries find their KV heads on their own rank or "
+                f"in the whole KV projection")
     return ax
 
 
+def kv_whole(params) -> bool:
+    """Whether this rank's query heads are a block of theirs while its K/V
+    projections hold every KV head (the model axis does not divide the
+    KV heads)."""
+    return bool(heads_axes(params)) and not shd.split_axes(params["wk"], -2)
+
+
+def kv_for_rank(params, t: torch.Tensor, dim: int = 2) -> torch.Tensor:
+    """The KV heads this rank's query heads attend, from ``t`` holding
+    every KV head along ``dim``: query head h attends KV head h // G, G =
+    H / KV.  The rank's query heads are [lo, lo + Hl) (`shd.offset` of
+    ``wq``).  Where that block lies in one group (Hl divides G) or is
+    whole groups (G divides Hl and lo), a slice of KV heads, and the
+    grouped products keep their groups; else one KV head a query head
+    (G = 1 for the rank).  ``t`` as it is off a rank mesh."""
+    if not heads_axes(params):
+        return t
+    H, KV = params["wq"].shape[-2], t.shape[dim]
+    if KV != params["wk"].shape[-2]:
+        raise ValueError(f"{KV} KV heads along dim {dim}, not every one of "
+                         f"{params['wk'].shape[-2]}")
+    G = H // KV
+    Hl = shd.local_block(params["wq"]).shape[-2]
+    lo = shd.offset(params["wq"], -2)
+    if G % Hl == 0 or (Hl % G == 0 and lo % G == 0):
+        return t.narrow(dim, lo // G, max(Hl // G, 1))
+    idx = torch.arange(lo, lo + Hl, device=t.device) // G
+    return t.index_select(dim, idx)
+
+
+def _kv_local(params, name: str) -> torch.Tensor:
+    """The block of K/V weight or bias ``name`` this rank computes with
+    (`shd.local`).  Held whole while the query heads split, each rank
+    uses only the heads its queries attend: its gradient is summed over
+    the query heads' axes."""
+    w = shd.local(params[name])
+    return shd.psum_grad(w, heads_axes(params)) if kv_whole(params) else w
+
+
 def _project_qkv(params, cfg: ModelCfg, x, positions):
-    """positions: (B, S), or (3, B, S) for M-RoPE."""
+    """positions: (B, S), or (3, B, S) for M-RoPE.  K and V hold every KV
+    head where `kv_whole`."""
     x = shd.psum_grad(x, heads_axes(params))
     q = _proj(x, shd.local(params["wq"]))
-    k = _proj(x, shd.local(params["wk"]))
-    v = _proj(x, shd.local(params["wv"]))
+    k = _proj(x, _kv_local(params, "wk"))
+    v = _proj(x, _kv_local(params, "wv"))
     if cfg.qkv_bias:
         q = q + shd.local(params["bq"])
-        k = k + shd.local(params["bk"])
-        v = v + shd.local(params["bv"])
+        k = k + _kv_local(params, "bk")
+        v = v + _kv_local(params, "bv")
     if cfg.rope_kind == "rope":
         pos2 = positions if positions.ndim == 2 else positions[0]
         q = apply_rope(q, pos2, cfg.rope_theta)
@@ -188,16 +239,18 @@ def attention(
         causal = False
     else:
         q, k, v = _project_qkv(params, cfg, x, positions)
+    ka, va = ((kv_for_rank(params, k), kv_for_rank(params, v))
+              if kv_whole(params) else (k, v))
     held = None
     if max(S, k.shape[1]) <= DIRECT_MAX_SEQ:
         q_pos = torch.arange(S, device=x.device)
         k_pos = torch.arange(k.shape[1], device=x.device)
-        o = _attend_direct(q, k, v, cfg, scale, q_pos, k_pos, causal,
+        o = _attend_direct(q, ka, va, cfg, scale, q_pos, k_pos, causal,
                            window)
     else:
         seq_shard = _want_seq_shard(cfg)
         o = flash_mod.flash_attention(
-            q, k, v, num_kv_heads=k.shape[2], scale=scale,
+            q, ka, va, num_kv_heads=ka.shape[2], scale=scale,
             softcap=cfg.attn_softcap, causal=causal, window=window,
             seq_shard=seq_shard)
         if seq_shard:
@@ -211,13 +264,14 @@ def attention(
 
 def cross_kv(params: dict, cfg: ModelCfg, enc_out: torch.Tensor):
     """The encoder's K/V for cross-attention (cached once a request); on
-    a rank mesh the rank's KV heads."""
+    a rank mesh the KV heads as the projection holds them: the rank's
+    block, or every head where `kv_whole`."""
     enc_out = shd.psum_grad(enc_out, heads_axes(params))
-    k = _proj(enc_out, shd.local(params["wk"]))
-    v = _proj(enc_out, shd.local(params["wv"]))
+    k = _proj(enc_out, _kv_local(params, "wk"))
+    v = _proj(enc_out, _kv_local(params, "wv"))
     if cfg.qkv_bias:
-        k = k + shd.local(params["bk"])
-        v = v + shd.local(params["bv"])
+        k = k + _kv_local(params, "bk")
+        v = v + _kv_local(params, "bv")
     return k, v
 
 
@@ -232,19 +286,22 @@ def _cache_for_rank(params, cache_k, cache_v, k_new, v_new, pos):
     rank's, as the cache holds them) on the rank whose block of the
     cache's positions holds ``pos``, and return the keys and values this
     rank's query heads attend — every position (the cache's blocks
-    gathered), the rank's KV heads."""
+    gathered), the rank's KV heads (`kv_for_rank` where the cache holds
+    every KV head)."""
     comm = shd.current_comm()
     ax_h = heads_axes(params)
+    ax_kv = shd.split_axes(params["wk"], -2)
     ax_seq = shd.split_axes(cache_k, 1)
     ax_ch = shd.split_axes(cache_k, 2)
-    if ax_ch not in ((), ax_h):
-        raise NotImplementedError(f"a cache with KV heads split over {ax_ch}"
-                                  f" for heads split over {ax_h}")
+    if ax_ch not in ((), ax_kv):
+        raise NotImplementedError(
+            f"a cache with KV heads split over {ax_ch} for KV projections "
+            f"split over {ax_kv} (query heads over {ax_h})")
     kl, vl = cache_k.to_local(), cache_v.to_local()
     if k_new is not None:
-        if ax_h and not ax_ch:
-            k_new = comm.all_gather(k_new, 2, ax_h)
-            v_new = comm.all_gather(v_new, 2, ax_h)
+        if ax_kv and not ax_ch:
+            k_new = comm.all_gather(k_new, 2, ax_kv)
+            v_new = comm.all_gather(v_new, 2, ax_kv)
         lo = shd.offset(cache_k, 1)
         if lo <= pos < lo + kl.shape[1]:
             kl[:, pos - lo] = k_new[:, 0].to(kl.dtype)
@@ -252,8 +309,8 @@ def _cache_for_rank(params, cache_k, cache_v, k_new, v_new, pos):
     if ax_seq:
         kl = comm.all_gather(kl, 1, ax_seq)
         vl = comm.all_gather(vl, 1, ax_seq)
-    if ax_h and not ax_ch:
-        kl, vl = comm.block(kl, 2, ax_h), comm.block(vl, 2, ax_h)
+    if not ax_ch:
+        kl, vl = kv_for_rank(params, kl), kv_for_rank(params, vl)
     return kl, vl
 
 

@@ -180,7 +180,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """Static triangular q-chunk schedule over `_MeaChunk`.  With
     ``seq_shard`` on a rank mesh the result is this rank's block of the
-    sequence ("qseq")."""
+    sequence ("qseq").  On a rank mesh whose model axis splits the query
+    heads only, ``k`` and ``v`` are the KV heads the rank's query heads
+    attend (`attention.kv_for_rank`) and ``num_kv_heads`` their count:
+    the groups are the rank's, and `_MeaChunk`'s dk and dv are partial
+    sums over the rank's query heads."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     KV = num_kv_heads

@@ -152,10 +152,10 @@ def fill_cross(params: dict, cfg: ModelCfg, enc_embeds: torch.Tensor,
     KV heads, moved by `constrain`.  Returns the cache."""
     enc = encode(params, cfg, enc_embeds)
     for p, cx in zip(params["decoder"], cache["cross"]):
-        # the heads as the projection holds them (whole where the model
-        # axis does not divide them)
+        # the KV heads as the projection holds them (whole where the
+        # model axis does not divide them)
         held = ("batch", "seq",
-                "kv_heads" if attn_mod.heads_axes(p["xattn"]) else None,
+                "kv_heads" if shd.split_axes(p["xattn"]["wk"], -2) else None,
                 None)
         for name, t in zip(("k", "v"), attn_mod.cross_kv(p["xattn"], cfg,
                                                          enc)):

@@ -242,18 +242,69 @@ def _one_process_logits(c, params, prompts):
 
 
 @contextlib.contextmanager
-def seq_shard_flash():
-    """The flash path at the reduced sizes, with sequence-parallel
-    attention on: the module constants patched, restored after."""
-    saved = (attention.DIRECT_MAX_SEQ, attention.SEQ_SHARD_ATTN,
-             flash.Q_CHUNK, flash.KV_CHUNK)
-    attention.DIRECT_MAX_SEQ, attention.SEQ_SHARD_ATTN = 16, True
-    flash.Q_CHUNK, flash.KV_CHUNK = 16, 16
+def flash_path():
+    """The flash path at the reduced sizes (the module constants patched,
+    restored after): 4 query chunks and 4 KV chunks of 16 positions."""
+    saved = (attention.DIRECT_MAX_SEQ, flash.Q_CHUNK, flash.KV_CHUNK)
+    attention.DIRECT_MAX_SEQ, flash.Q_CHUNK, flash.KV_CHUNK = 16, 16, 16
     try:
         yield
     finally:
-        (attention.DIRECT_MAX_SEQ, attention.SEQ_SHARD_ATTN,
-         flash.Q_CHUNK, flash.KV_CHUNK) = saved
+        attention.DIRECT_MAX_SEQ, flash.Q_CHUNK, flash.KV_CHUNK = saved
+
+
+@contextlib.contextmanager
+def seq_shard_flash():
+    """`flash_path` with sequence-parallel attention on, restored after."""
+    saved = attention.SEQ_SHARD_ATTN
+    attention.SEQ_SHARD_ATTN = True
+    try:
+        with flash_path():
+            yield
+    finally:
+        attention.SEQ_SHARD_ATTN = saved
+
+
+def prefill_blocks(save, mesh, c, params, *, tag):
+    """`launch.steps.make_prefill_step` on the prompts: the last logits,
+    whole, and the cache as this rank holds it (its own blocks, not
+    gathered; with ``mesh=None`` the whole cache)."""
+    st = steps.make_prefill_step(c, ShapeCfg("p", PROMPT, B, "prefill"),
+                                 mesh, device="cpu")
+    batch = {"tokens": prompts_of(c)}
+    if shd.is_rank_mesh(mesh):
+        logits, cache = st.fn(
+            shd.shard_tree(params, st.in_specs[0], mesh, "cpu"),
+            shd.shard_tree(batch, st.in_specs[1], mesh, "cpu"))
+        with shd.use_mesh(mesh, "cpu"):
+            logits = shd.full_tree(logits)
+        cache = shd.local_tree(cache)
+    else:
+        logits, cache = st.fn(params, batch)
+    save(f"{tag}/logits", logits)
+    _save_tree(save, f"{tag}/cache", cache)
+
+
+def kv_lookup(save, mesh, c, *, tag):
+    """The KV heads each attention layer's query heads attend on this
+    rank (`attention.kv_for_rank` of the KV heads' indices), by layer."""
+    st = steps.make_train_step(c, ShapeCfg("t", S, B, "train"), mesh, OPT,
+                               device="cpu")
+    params = shd.shard_tree(build_model(c, device="cpu").init(0),
+                            st.in_specs[0], mesh, "cpu")
+    heads = torch.arange(c.num_kv_heads).view(1, 1, -1, 1)
+    with shd.use_mesh(mesh, "cpu"):
+        for key, p in params["blocks"].items():
+            save(f"{tag}/{key}", attention.kv_for_rank(p["attn"], heads)
+                 .flatten())
+
+
+def unaligned_cfg():
+    """6 query heads on 3 KV heads (groups of 2): on a 2-way "model" axis
+    a rank's 3 query heads straddle a group, so each attends its own KV
+    head (the lookup by index)."""
+    return dataclasses.replace(cfg(), num_heads=6, num_kv_heads=3,
+                               d_model=96, head_dim=16)
 
 
 def seq_shard_cfg():

@@ -41,7 +41,16 @@ VLM_PATCHES, VLM_GRID_W, VLM_PROMPT_PATCHES = 24, 6, 8
 WKV_CHUNK = 16
 
 
+# Whisper with 4 query heads on 2 KV heads: on 1 x 4 its self- and
+# cross-attention split the query heads and keep the KV heads whole (the
+# encoder's K/V cached whole, a rank's query head attending KV head r // 2)
+WHISPER_GQA = "whisper-tiny-gqa"
+
+
 def cfg(arch):
+    if arch == WHISPER_GQA:
+        return reduced(get_config(WHISPER), vocab_size=WHISPER_VOCAB,
+                       num_heads=4, num_kv_heads=2, head_dim=16)
     if arch == WHISPER:
         return reduced(get_config(arch), vocab_size=WHISPER_VOCAB,
                        num_heads=WHISPER_HEADS, num_kv_heads=WHISPER_HEADS,

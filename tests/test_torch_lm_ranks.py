@@ -5,8 +5,11 @@ gloo ranks.
   started together with the reference's steps) runs the cases
   of `_torch_lm_ranks_cases.py` on rank meshes
   (`core.distributed.make_rank_mesh`): reduced gemma2-2b in float32, the
-  reference's parameters, on 1 x 2 (tensor parallel), 2 x 1 (FSDP) and
-  2 x 2.  This process runs the same cases with ``mesh=None``.  The loss,
+  reference's parameters, on 1 x 2 (tensor parallel), 2 x 1 (FSDP),
+  2 x 2 and 1 x 4 (its 4 query heads split, its 2 KV heads whole: a
+  rank's query head attends KV head r // 2 of the whole K/V projection,
+  whose gradient is summed over "model").  This process runs the same
+  cases with ``mesh=None``.  The loss,
   the gradients, the float32 moments, the prefill and decode logits agree
   to 1e-5 (the ranks add partial sums in another order: the row-parallel
   products, the batch mean, the gradient norm); the parameters after
@@ -15,6 +18,12 @@ gloo ranks.
   is within a few ``eps`` of 0 its ~1e-7 relative difference moves the
   update by up to ~0.06 of the learning rate; measured 1.9e-5 at lr
   3e-4).  The greedy tokens are equal.
+* On 1 x 4 every rank's prefill cache block is one process's whole
+  cache (the KV heads whole on every model rank), and each rank's query
+  head attends KV head r // 2 (`attention.kv_for_rank`), on the direct
+  and the flash path.  6 query heads
+  on 3 KV heads on 1 x 2 (a rank's heads straddle a group: one KV head a
+  query head) give one process's loss and gradients.
 * A 1 x 1 rank mesh (world 1) equals ``mesh=None`` bit for bit.
 * Every rank holds only its block of each parameter, moment and batch
   leaf: the shapes `NamedSharding.shard_shape` gives.
@@ -63,7 +72,7 @@ from _torch_port import (finish_forced_reference, finish_ranks, flat_tree,
                          lm_state, start_forced_reference, start_ranks)
 
 TESTS = str(Path(__file__).resolve().parent)
-MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2)}
+MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2), "1x4": (1, 4)}
 TOL = 1e-5
 PARAM_ATOL = 0.2 * cases.OPT.lr
 
@@ -106,6 +115,10 @@ with cases.seq_shard_flash():
                          tag="seq_shard")
 cases.eight_bit(save, mesh((1, 2)), c, params, tag="1x2/q8nc",
                 opt=cases.OPT8_NOCLIP)
+uc = cases.unaligned_cfg()
+cases.loss_and_grads(save, mesh((1, 2)), uc, cases.params_of(dict(), uc),
+                     tag="unaligned")
+cases.kv_lookup(save, mesh((1, 2)), uc, tag="unaligned/kv")
 cases.refusals(save, make_rank_mesh)
 cases.transport(save, mesh((1, 2)))
 cases.checkpoints(save, mesh((1, 2)), c, params, {ckpt_in!r}, {ckpt_out!r})
@@ -123,6 +136,15 @@ cases.loss_and_grads(save, m, c, params, tag="2x2/grads")
 cases.generate(save, m, c, params, tag="2x2/gen")
 cases.eight_bit(save, m, c, params, tag="2x2/q8nc", opt=cases.OPT8_NOCLIP)
 cases.comm_step(save, m, c, tag="2x2/comm32")
+m = mesh((1, 4))
+cases.train(save, m, c, params, tag="1x4/train")
+cases.loss_and_grads(save, m, c, params, tag="1x4/grads")
+cases.generate(save, m, c, params, tag="1x4/gen")
+cases.prefill_blocks(save, m, c, params, tag="1x4/prefill")
+cases.kv_lookup(save, m, c, tag="1x4/kv")
+with cases.flash_path():
+    cases.loss_and_grads(save, m, c, params, tag="1x4/flash")
+cases.comm_step(save, m, c, tag="1x4/comm32")
 """
 
 
@@ -210,6 +232,14 @@ def one_process(state, started):
         with cases.seq_shard_flash():
             out.update(_collect(cases.loss_and_grads, None, sc,
                                 cases.params_of({}, sc), tag="seq_shard"))
+        uc = cases.unaligned_cfg()
+        out.update(_collect(cases.loss_and_grads, None, uc,
+                            cases.params_of({}, uc), tag="unaligned"))
+        out.update(_collect(cases.prefill_blocks, None, c, params,
+                            tag="prefill"))
+        with cases.flash_path():
+            out.update(_collect(cases.loss_and_grads, None, c, params,
+                                tag="flash"))
         out.update(_collect(cases.eight_bit, None, c, params, tag="q8"))
     finally:
         torch.set_num_threads(threads)
@@ -234,7 +264,7 @@ def world4(started):
 
 
 def _ranks_of(name, world2, world4):
-    return world4 if name == "2x2" else world2[0]
+    return world4 if name in ("2x2", "1x4") else world2[0]
 
 
 def _close(got, want, rtol=TOL, atol=TOL, what=""):
@@ -278,8 +308,9 @@ def test_dry_run_collectives_equal_the_ranks(tag, dry_runs, world2, world4):
     same step as that rank of the rank mesh, on meta tensors under a
     process group that moves nothing) makes the collectives the gloo
     rank made, call for call and byte for byte by kind: the B = 32, S =
-    64 train step on 1 x 2, 2 x 1 and 2 x 2, and with 8-bit moments on
-    1 x 2 (their exchanges)."""
+    64 train step on 1 x 2, 2 x 1, 2 x 2 and 1 x 4 (the K/V weights'
+    gradients summed over "model"), and with 8-bit moments on 1 x 2
+    (their exchanges)."""
     name = tag.split("/")[0]
     ranks = _ranks_of(name, world2, world4)
     assert len(ranks) == math.prod(MESHES[name])
@@ -483,6 +514,64 @@ def test_train_entry_point_on_ranks_resumes_in_one_process(tmp_path):
     assert ranked == [f"loss={r['loss']:.4f}" for r in one]
     rows = train.main(["--reduced", "--steps", "3"] + argv[3:])
     assert [r["step"] for r in rows] == [3]
+
+
+def test_prefill_cache_blocks_are_one_process_cache(world4, one_process):
+    """On 1 x 4 the rules leave the 2 KV heads whole: every rank's block of
+    the prefill cache is the whole cache, one process's to 1e-5, and the
+    last logits are one process's."""
+    one = one_process
+    keys = [k for k in one if k.startswith("prefill/cache[")]
+    assert keys and any(k.endswith("['k']") for k in keys)
+    for rank in world4:
+        _close(rank["1x4/prefill/logits"][0], one["prefill/logits"][0])
+        for k in keys:
+            got, want = rank[f"1x4/{k}"][0], one[k][0]
+            assert got.shape == want.shape, k
+            _close(got, want, what=k)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("1x4/kv", [[0], [0], [1], [1]]),
+    ("unaligned/kv", [[0, 0, 1], [1, 2, 2]])])
+def test_query_heads_attend_their_group_kv_head(name, want, world2, world4):
+    """`attention.kv_for_rank`: rank r's query heads [lo, lo + Hl) attend
+    KV heads h // G of the whole projection — a slice on 1 x 4 (4 / 2
+    heads: one query head a rank), one KV head a query head where a
+    rank's heads straddle a group (6 / 3 heads on 1 x 2)."""
+    ranks = world4 if name.startswith("1x4") else world2[0]
+    assert len(ranks) == len(want)
+    for r, rank in enumerate(ranks):
+        layers = [k for k in rank if k.startswith(name + "/")]
+        assert layers
+        for k in layers:
+            assert rank[k][0].tolist() == want[r], (r, k)
+
+
+def test_flash_path_on_a_query_split_mesh_matches_one_process(world4,
+                                                             one_process):
+    """The flash path (`flash.flash_attention` and `_MeaChunk`'s backward)
+    on 1 x 4 with the rank's KV head of the whole projection: the loss
+    and every gradient."""
+    one = one_process
+    keys = [k for k in one if k.startswith("flash/grads")]
+    assert any(k.endswith("['wk']") for k in keys)
+    for rank in world4:
+        _close(rank["1x4/flash/loss"][0], one["flash/loss"][0])
+        for k in keys:
+            _close(rank[f"1x4/{k}"][0], one[k][0], what=k)
+
+
+def test_unaligned_query_blocks_match_one_process(world2, one_process):
+    """6 query heads on 3 KV heads on 1 x 2: the loss and every gradient,
+    the whole K/V weights' summed over the ranks' query heads."""
+    one = one_process
+    for rank in world2[0]:
+        _close(rank["unaligned/loss"][0], one["unaligned/loss"][0])
+        keys = [k for k in one if k.startswith("unaligned/grads")]
+        assert any(k.endswith("['wk']") for k in keys)
+        for k in keys:
+            _close(rank[k][0], one[k][0], what=k)
 
 
 def test_seq_shard_attention_matches_one_process(world2, one_process):

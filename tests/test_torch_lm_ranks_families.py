@@ -10,9 +10,13 @@ held on the CPU by gloo ranks.
   qkv biases, M-RoPE, a 24-row patch prefix with three distinct position
   rows and text after it); on 1 x 2 (tensor parallel: RWKV's heads,
   Whisper's heads and d_ff, qwen2-vl's heads and d_ff), 2 x 1 (FSDP) and
-  2 x 2, and on 1 x 4 Whisper (its heads whole, d_ff split) and RWKV
+  2 x 2, and on 1 x 4 Whisper (its heads whole, d_ff split), RWKV
   (its 128 channels in blocks of 32, half a head: the WKV runs on every
-  head of the gathered channels).  This process runs the same cases with
+  head of the gathered channels) and qwen2-vl (its 4 query heads split,
+  its 2 KV heads and their biases whole on every rank: a rank's query
+  head attends KV head r // 2), and a Whisper with 4 query / 2 KV heads
+  on 1 x 4 (its self- and cross-attention's KV heads whole, the
+  encoder's K/V cached whole).  This process runs the same cases with
   ``mesh=None``.  The loss and every gradient of the train step's first
   step, the float32 moments after two steps, the prefill logits and
   caches (RWKV's wkv state gathered whole over the heads), every decode
@@ -58,7 +62,8 @@ ARCHS = cases.ARCHS
 RWKV, WHISPER, VLM = ARCHS
 MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2), "1x4": (1, 4)}
 CASES = ([(a, n) for a in ARCHS for n in ("1x2", "2x1", "2x2")]
-         + [(WHISPER, "1x4"), (RWKV, "1x4")])
+         + [(WHISPER, "1x4"), (RWKV, "1x4"), (VLM, "1x4"),
+            (cases.WHISPER_GQA, "1x4")])
 TOL = 1e-5
 # parameters after AdamW: 1e-5 + lr/5 (ROADMAP Queue 3 item 28's rule)
 PARAM_ATOL = TOL + 0.2 * base.OPT.lr
@@ -97,7 +102,7 @@ for arch in cases.ARCHS:
 _WORLD4 = _PRELUDE + """
 for arch in cases.ARCHS:
     cases.run(save, mesh((2, 2)), arch, "2x2")
-for arch in (cases.WHISPER, cases.RWKV):
+for arch in (cases.WHISPER, cases.RWKV, cases.VLM, cases.WHISPER_GQA):
     cases.run(save, mesh((1, 4)), arch, "1x4")
 cases.eight_bit(save, mesh((2, 2)), cases.WHISPER, "2x2")
 cases.constrain_move(save, mesh((2, 2)))
@@ -151,7 +156,7 @@ def one_process(started):
     torch.set_num_threads(1)
     try:
         out = {}
-        for arch in ARCHS:
+        for arch in ARCHS + (cases.WHISPER_GQA,):
             out.update(_collect(cases.run, None, arch, "one"))
         out.update(_collect(cases.eight_bit, None, WHISPER, "one"))
     finally:
@@ -286,7 +291,7 @@ def test_prefill_and_decode_match_one_process(arch, name, world2, world4,
     for rank in _ranks_of(name, world2, world4):
         _close(rank[f"{arch}/{name}/prefill/logits"][0],
                one[f"{arch}/one/prefill/logits"][0])
-        if arch != WHISPER:
+        if cases.cfg(arch).enc_dec is None:
             _tree_close(rank, one, arch, name, "prefill/cache",
                         scaled=True)
         for i in range(base.GEN):

@@ -9,7 +9,9 @@ processes, held on the CPU by gloo ranks.
   jamba's one period (7 Mamba layers, 1 attention, 4 MoE) and kimi-k2's
   dense prefix with one MoE layer and its shared expert; on 1 x 2 (the
   experts and the Mamba channels split, expert and tensor parallel),
-  2 x 1 (FSDP) and 2 x 2.  This process runs the same cases with
+  2 x 1 (FSDP) and 2 x 2, and granite-moe on 1 x 4 (its 4 query heads
+  split, its 2 KV heads whole on every rank, as granite's 16 / 8 on a
+  16-way axis).  This process runs the same cases with
   ``mesh=None``.  The batch's 64 positions take two MoE token chunks and
   four Mamba scan chunks.  The loss and every gradient of the train
   step's first step (the router's too), the float32 moments after two
@@ -48,7 +50,7 @@ from _torch_port import (finish_forced_reference, finish_ranks, flat_tree,
                          start_forced_reference, start_ranks)
 
 TESTS = str(Path(__file__).resolve().parent)
-MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2)}
+MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2), "1x4": (1, 4)}
 ARCHS = cases.ARCHS
 GRANITE = ARCHS[0]
 REF_ARCHS = (GRANITE, "jamba-v0.1-52b")     # held to the reference's step
@@ -83,6 +85,7 @@ cases.mamba_seq_chunks(save, mesh((1, 2)), tag="seq_chunks/1x2")
 _WORLD4 = _PRELUDE + """
 for arch in cases.ARCHS:
     cases.run(save, mesh((2, 2)), arch, "2x2", aux=True)
+cases.run(save, mesh((1, 4)), cases.ARCHS[0], "1x4", aux=True)
 with cases.chunks():
     cases.base.comm_step(save, mesh((2, 2)), cases.cfg(cases.ARCHS[0]),
                          tag="comm/2x2", batch=cases.base.B)
@@ -161,7 +164,7 @@ def world4(started):
 
 
 def _ranks_of(name, world2, world4):
-    return world4 if name == "2x2" else world2[0]
+    return world4 if name in ("2x2", "1x4") else world2[0]
 
 
 def _close(got, want, rtol=TOL, atol=TOL, what=""):
@@ -178,7 +181,8 @@ def _tree_close(rank, one, arch, name, prefix, atol=TOL):
     return keys
 
 
-CASES = [(a, n) for a in ARCHS for n in MESHES]
+CASES = [(a, n) for a in ARCHS for n in ("1x2", "2x1", "2x2")] + [
+    (GRANITE, "1x4")]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
