@@ -89,11 +89,14 @@ the kernels' launch counts set to 0 just before it and read just after:
   whole gradient tree, `launch.train --mesh host --data-model 2 4`; the
   dry run of four gemma2-2b cells (train_4k, prefill_32k and decode_32k
   on the pod mesh, train_4k on the multipod mesh) and granite-moe's
-  train_4k on the pod mesh (its KV heads whole), each traced as rank 0
-  of the production rank mesh under a process group that moves nothing,
-  on the host's CPU beside the card's work from the kernel checks on:
-  rank 0's FLOPs and their replication, its collectives by kind, its
-  temporaries; `examples_torch/pbit_lattice_pod.py` at
+  train_4k on the pod mesh (its KV heads whole), and pbit-pod-2m's
+  1,000-sweep anneal on the pod mesh, each traced as rank 0 of the
+  production rank mesh under a process group that moves nothing, on the
+  host's CPU beside the card's work from the kernel checks on: rank 0's
+  FLOPs and their replication, its collectives by kind (the lattice's
+  edge swaps and gathers against its plan's halo and band widths), its
+  temporaries, nothing allocated off ``meta``;
+  `examples_torch/pbit_lattice_pod.py` at
   full size under three sync policies on 4 logical bands (barrier equal
   to one band), through K1 and K5;
 * ranks: the sharded engine across processes, each world a group of
@@ -103,6 +106,8 @@ the kernels' launch counts set to 0 just before it and read just after:
   a call — K5 per card with ``edge_halos="block"``, the rank's edge halos
   from the process group between windows — every rank equal to the
   one-process engine bit for bit, every K5 launch replayed in its rank;
+  each rank's collectives in a lattice anneal of one band a rank equal
+  to the dry run's trace of that rank, call for call and byte for byte;
   two NCCL ranks on the one card tried and their refusal recorded;
 * lm_ranks: the language models' steps across processes (`launch.steps`
   on a rank mesh: FSDP over data x tensor, expert, channel and head
@@ -4608,14 +4613,16 @@ def lm_families_phase(seed: int) -> dict:
 # phase: many devices and the dry run (K1 and K5 through the lattice twin)
 # ---------------------------------------------------------------------------
 # the dry run's cells at full width, each traced as rank 0 of the
-# production rank mesh (`launch.dryrun.rank_trace`), CPU only: gemma2-2b's
-# four, and granite-moe's train_4k on the pod mesh, whose 16-way model
-# axis splits its 16 query heads and leaves its 8 KV heads whole
+# production rank mesh (`launch.dryrun.rank_trace`, `pbit_trace`), CPU
+# only: gemma2-2b's four, granite-moe's train_4k on the pod mesh, whose
+# 16-way model axis splits its 16 query heads and leaves its 8 KV heads
+# whole, and the paper's lattice (shape "anneal": ``--pbit``)
 MESH_DRYRUN_CELLS = ((LM_ARCH, "train_4k", "pod"),
                      (LM_ARCH, "prefill_32k", "pod"),
                      (LM_ARCH, "decode_32k", "pod"),
                      (LM_ARCH, "train_4k", "multipod"),
-                     ("granite-moe-1b-a400m", "train_4k", "pod"))
+                     ("granite-moe-1b-a400m", "train_4k", "pod"),
+                     ("pbit-pod-2m", "anneal", "pod"))
 # the cells start with the language-model phases and trace beside them
 # (prefill_32k's two traces take ~5 minutes on one core)
 MESH_DRYRUN_TIMEOUT_S = 900
@@ -4632,10 +4639,12 @@ def _start_dry_runs(out_dir: Path) -> dict:
                PYTHONPATH=str(ROOT / "src"))
     return {f"{arch}/{shape}/{mesh}": (
         time.perf_counter(), subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", mesh, "--force", "--out",
-             str(out_dir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             *(["--pbit", arch] if shape == "anneal"
+               else ["--arch", arch, "--shape", shape]),
+             "--mesh", mesh, "--force", "--out", str(out_dir)], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
         for arch, shape, mesh in MESH_DRYRUN_CELLS}
 
 
@@ -4653,8 +4662,9 @@ def _finish_dry_runs(procs: dict, out_dir: Path) -> dict:
     the step and to trace it (whole, and as rank 0), argument bytes a
     device, the unsharded step's FLOPs, rank 0's FLOPs, their
     replication, its collectives by the reference's op names and by
-    kind, its temporaries; a process that outlives
-    `MESH_DRYRUN_TIMEOUT_S` is killed and its cell fails."""
+    kind, its temporaries (a lattice's also `_pbit_gate`'s checks); a
+    process that outlives `MESH_DRYRUN_TIMEOUT_S` is killed and its cell
+    fails."""
     out = {}
     for cell, (t0, proc) in procs.items():
         try:
@@ -4689,7 +4699,38 @@ def _finish_dry_runs(procs: dict, out_dir: Path) -> dict:
                    and bool(coll.get("per_op_bytes"))
                    and isinstance(mem.get("temp_bytes"), int)),
             "stderr_tail": err[-400:] if proc.returncode else ""}
+        if shape == "anneal":
+            out[cell]["lattice"] = gate = _pbit_gate(rec)
+            out[cell]["ok"] = out[cell]["ok"] and all(gate["checks"].values())
     return out
+
+
+def _pbit_gate(rec: dict) -> dict:
+    """A lattice cell's rank 0 against its own plan (``Sync()``: two
+    exchanges a sweep; float32 spins): the top band sends one padded
+    boundary row of ``halo`` nodes down at each exchange, and each record
+    gathers the rank's band of spins and its chains' partial energies;
+    the trace allocated on ``meta`` alone (the process sees no card)."""
+    coll = rec.get("collectives") or {}
+    calls, sent = coll.get("calls", {}), coll.get("contributed_bytes", {})
+    sweeps, every = rec.get("n_sweeps", 0), rec.get("record_every", 1)
+    chains = rec.get("chains", 0)
+    want = {"exchange_calls": 2 * sweeps,
+            "exchange_bytes": 2 * sweeps * chains * rec.get("halo", 0) * 4,
+            "all_gather_calls": 2 * sweeps // every,
+            "all_gather_bytes": sweeps // every * chains * 4
+            * (rec.get("n_loc", 0) + 1)}
+    got = {"exchange_calls": calls.get("exchange"),
+           "exchange_bytes": sent.get("exchange"),
+           "all_gather_calls": calls.get("all_gather"),
+           "all_gather_bytes": sent.get("all_gather")}
+    devices = rec.get("memory", {}).get("devices")
+    return {"want": want, "got": got, "devices": devices,
+            "flops_global": rec.get("flops_global"),
+            "replication": rec.get("replication"),
+            "checks": {"status_ok": rec.get("status") == "ok",
+                       "plan_figures": got == want,
+                       "meta_only": devices == ["meta"]}}
 
 
 def _free() -> float:
@@ -5082,6 +5123,11 @@ RANKS_SWEEPS = 100      # sweeps a call (25 launches of 4 for the fused ones)
 RANKS_WORLDS = (("nccl", 1), ("gloo", 2), ("gloo", 4))
 RANKS_TIMEOUT_S = 300   # a rank's whole run, and its wait for a peer
 RANKS_TIMED = 2         # timed calls a policy, after a warm one
+# a lattice anneal of one band a rank in every world: each rank's
+# collectives in it against the dry run's trace of that rank
+# (`launch.dryrun.pbit_trace`); 20 sweeps, an energy every 10
+RANKS_ANNEAL = dict(cell_rows=RANKS_CELLS, cell_cols=RANKS_CELLS, chains=4)
+RANKS_ANNEAL_SWEEPS, RANKS_ANNEAL_EVERY = 20, 10
 
 # one rank of the ranks phase: python -c <this> backend rank world store out
 _RANK_RUN = """
@@ -5172,9 +5218,10 @@ def ranks_child(backend: str, rank: str, world: str, store: str,
             return {n: ses.sample(chip, st.m, st.noise_state)
                     for n, ses in sessions.items()}
 
-        sent0 = {n: e.comm.bytes_sent for n, e in engines.items()}
+        sent0 = {n: e.comm.nbytes["exchange"] for n, e in engines.items()}
         outs, counts, calls = drive(path)
-        sent = {n: e.comm.bytes_sent - sent0[n] for n, e in engines.items()}
+        sent = {n: e.comm.nbytes["exchange"] - sent0[n]
+                for n, e in engines.items()}
         comm_s0 = {n: e.comm.seconds for n, e in engines.items()}
         summary, worst = replay_all(calls)
         k5 = calls["sweep_sparse_exchange"]
@@ -5190,6 +5237,7 @@ def ranks_child(backend: str, rank: str, world: str, store: str,
                          for n, o in outs.items()},
                  **{f"{n}/ns": o[1].cpu().numpy() for n, o in outs.items()})
         print(json.dumps({
+            "anneal_collectives": _ranks_anneal(world, seed),
             "rank": rank, "world": world, "backend": backend,
             "transport": {n: e.transport for n, e in engines.items()},
             "route": {n: e.route for n, e in engines.items()},
@@ -5203,6 +5251,50 @@ def ranks_child(backend: str, rank: str, world: str, store: str,
     finally:
         import torch.distributed as tdist
         tdist.destroy_process_group()
+
+
+def _ranks_anneal(world: int, seed: int) -> dict:
+    """This rank's collectives in `make_lattice_anneal` on a rank mesh of
+    ``world`` bands (`RANKS_ANNEAL`): calls, contributed bytes and the
+    reference's reading of them by kind."""
+    from repro_torch.core import distributed as dist_mod
+
+    spec = dist_mod.LatticeSpec(**RANKS_ANNEAL)
+    run = dist_mod.make_lattice_anneal(
+        spec, dist_mod.make_rank_mesh((world,), ("data",)),
+        row_axes=("data",), n_sweeps=RANKS_ANNEAL_SWEEPS,
+        record_every=RANKS_ANNEAL_EVERY, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 402)
+    lat = dist_mod.make_sk_lattice(spec, gen, device=DEVICE)
+    run(lat, gen, torch.linspace(0.1, 2.0, RANKS_ANNEAL_SWEEPS,
+                                 device=DEVICE))
+    rec = run.session._engine.comm.record()
+    return {k: rec[k] for k in ("calls", "bytes", "reference")}
+
+
+def _ranks_anneal_traces(worlds: dict) -> dict:
+    """Each rank's `_ranks_anneal` record against `launch.dryrun.
+    pbit_trace` of the same rank, lattice and mesh, traced here on meta
+    under a fake group: {world: [equal, a rank]}, and the traces."""
+    from repro_torch.core.distributed import LatticeSpec
+    from repro_torch.launch import dryrun
+
+    equal, traced = {}, {}
+    for tag, w in worlds.items():
+        n = len(w["ranks"])
+        traced[tag] = [dryrun.pbit_trace(
+            LatticeSpec(**RANKS_ANNEAL), {"data": n}, ("data",), r,
+            RANKS_ANNEAL_SWEEPS, RANKS_ANNEAL_EVERY)["collectives"]
+            for r in range(n)]
+        equal[tag] = [
+            r["anneal_collectives"] == {k: t[k] for k in
+                                        ("calls", "bytes", "reference")}
+            for r, t in zip(w["ranks"], traced[tag])]
+    return {"equal": equal,
+            "calls": {tag: [t["calls"] for t in ts]
+                      for tag, ts in traced.items()},
+            "bytes": {tag: [t["bytes"] for t in ts]
+                      for tag, ts in traced.items()}}
 
 
 def _start_ranks(code: str, world: int, argv, env=None) -> list:
@@ -5322,6 +5414,7 @@ def ranks_phase(seed: int) -> dict:
                            "ranks": recs}
     same = lambda a, b: bool(torch.equal(a[0], b[0])  # noqa: E731
                              and torch.equal(a[1], b[1]))
+    traces = _ranks_anneal_traces(worlds)
     checks = {
         "barrier_equals_unsharded": same(want["barrier"], unsharded),
         "halo1_equals_unsharded": same(want["halo1"], unsharded),
@@ -5330,7 +5423,9 @@ def ranks_phase(seed: int) -> dict:
                                                            "async")},
         "ranks_equal_one_process": {
             tag: all(all(r["equal_one_process"].values())
-                     for r in w["ranks"]) for tag, w in worlds.items()}}
+                     for r in w["ranks"]) for tag, w in worlds.items()},
+        "anneal_collectives_equal_trace": {
+            tag: all(eq) for tag, eq in traces["equal"].items()}}
     launches = {k: 0 for k in KERNELS}
     worst = 0.0
     summary = {}
@@ -5389,6 +5484,10 @@ def ranks_phase(seed: int) -> dict:
            "bands": SHARD_BANDS, "S": RANKS_SWEEPS,
            "policies": {n: str(p[0]) for n, p in _ranks_policies().items()},
            "one_process_ms_per_call": one_ms, "worlds": summary,
+           "anneal_traced": {"lattice": RANKS_ANNEAL,
+                             "sweeps": RANKS_ANNEAL_SWEEPS,
+                             "calls": traces["calls"],
+                             "bytes": traces["bytes"]},
            "nccl_two_ranks_one_card": nccl_shared, "checks": checks,
            "launches": launches, "max_abs_diff": worst,
            "seconds": time.perf_counter() - t_phase}
@@ -5396,7 +5495,8 @@ def ranks_phase(seed: int) -> dict:
     flat = [checks["barrier_equals_unsharded"],
             checks["halo1_equals_unsharded"],
             *checks["relaxed_differ_from_barrier"].values(),
-            *checks["ranks_equal_one_process"].values()]
+            *checks["ranks_equal_one_process"].values(),
+            *checks["anneal_collectives_equal_trace"].values()]
     if not all(flat) or failed or worst != 0.0:
         raise AssertionError(f"a ranks check failed: {checks} {failed} "
                              f"(worst replay difference {worst})")

@@ -430,10 +430,11 @@ def k5_runs(sync, bands: int, n_row: int, chains: int,
 # ---------------------------------------------------------------------------
 # The sharded engine
 # ---------------------------------------------------------------------------
-def _recip(x) -> torch.Tensor:
-    """float32 ``1 / x`` (the reference's compiled division by a constant
-    is a multiply by this reciprocal; see `core.pbit._recip`)."""
-    return torch.tensor(np.float32(1.0) / np.float32(x))
+def _recip(x, device) -> torch.Tensor:
+    """float32 ``1 / x`` on ``device`` (the reference's compiled division
+    by a constant is a multiply by this reciprocal; see
+    `core.pbit._recip`)."""
+    return torch.tensor(np.float32(1.0) / np.float32(x), device=device)
 
 
 class ShardedEngine:
@@ -810,7 +811,7 @@ class ShardedEngine:
         send_up, send_dn, nbr = d["send_up"], d["send_dn"], d["nbr"]
         R = self.R_loc
         H = self.plan.halo
-        inv_b = _recip(self.chains).to(dev)
+        inv_b = _recip(self.chains, dev)
         col0 = self._col0
         row0 = self.chain0
         comm = self.comm
@@ -941,7 +942,7 @@ class ShardedEngine:
 
             def add_kernel_moments(accs, s_k, c_k, B):
                 if self.n_chain == 1:
-                    inv = _recip(B).to(dev)
+                    inv = _recip(B, dev)
                     s_k, c_k = s_k * inv, c_k * inv
                 return [accs[0] + s_k, accs[1] + c_k]
 
@@ -1191,7 +1192,7 @@ class ShardedEngine:
             betas, measured, **self._clamp_parts(cm, cv))
         scale = (np.float32(denom) if self.n_chain == 1
                  else np.float32(denom) * np.float32(self.chains))
-        inv = _recip(scale).to(dev)
+        inv = _recip(scale, dev)
         # per band: gathered across the row ranks; a chains partition's raw
         # sums added across its chain ranks (the reference's psum)
         s = self._gather(s_acc, chain_dim=None).reshape(-1)[self._inv_ids]
@@ -1308,31 +1309,41 @@ def make_sk_lattice(spec: LatticeSpec, gen: torch.Generator,
     )
 
 
+def lattice_tables(graph: ChimeraGraph, device) -> dict:
+    """The lattice graph's node and edge tables on ``device``, as
+    `lattice_to_chip` reads them: made once an anneal, so a run moves
+    nothing from the host."""
+    nbr_idx, _ = graph.neighbor_table()
+    slot_ij, slot_ji = graph.edge_slots(nbr_idx)
+
+    def long(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+    return {"r": long(graph.node_r), "c": long(graph.node_c),
+            "side": long(graph.node_side), "k": long(graph.node_k),
+            "e0": long(graph.edges[:, 0]), "e1": long(graph.edges[:, 1]),
+            "slot_ij": long(slot_ij), "slot_ji": long(slot_ji),
+            "nbr_idx": torch.as_tensor(np.asarray(nbr_idx, np.int32),
+                                       device=device)}
+
+
 def lattice_to_chip(spec: LatticeSpec, lat: LatticeChip,
                     graph: ChimeraGraph | None = None,
-                    tables=None) -> EffectiveChip:
+                    tables: dict | None = None) -> EffectiveChip:
     """SoA lattice arrays -> the shared `EffectiveChip` slot layout, on the
-    lattice's device.
+    lattice's device and in its dtype.  ``tables``: `lattice_tables` of
+    the graph on that device (made here when None).
 
     Directional: ``nbr_w[d, i] = W[i, nbr_idx[d, i]]`` (current INTO node
     i).  O(D·N) gathers and selects, no arithmetic: bit-equal to the
     reference's conversion of the same arrays.
     """
-    g = graph if graph is not None else make_chimera(
-        spec.cell_rows, spec.cell_cols, spec.k)
-    if tables is None:
-        nbr_idx, _ = g.neighbor_table()
-        slot_ij, slot_ji = g.edge_slots(nbr_idx)
-    else:
-        nbr_idx, slot_ij, slot_ji = tables
     dev = lat.W_vh.device
     dtype = lat.W_vh.dtype
-
-    def long(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
-
-    r_, c_, s_, k_ = (long(a) for a in (g.node_r, g.node_c, g.node_side,
-                                        g.node_k))
+    t = tables if tables is not None else lattice_tables(
+        graph if graph is not None else make_chimera(
+            spec.cell_rows, spec.cell_cols, spec.k), dev)
+    r_, c_, s_, k_ = t["r"], t["c"], t["side"], t["k"]
     vert_node = s_ == 0
     h = torch.where(vert_node, lat.h_v[r_, c_, k_], lat.h_h[r_, c_, k_])
     gain = torch.where(vert_node, lat.gain_v[r_, c_, k_],
@@ -1340,7 +1351,7 @@ def lattice_to_chip(spec: LatticeSpec, lat: LatticeChip,
     off = torch.where(vert_node, lat.off_v[r_, c_, k_],
                       lat.off_h[r_, c_, k_])
 
-    e0, e1 = long(g.edges[:, 0]), long(g.edges[:, 1])
+    e0, e1 = t["e0"], t["e1"]
     r0, c0, k0 = r_[e0], c_[e0], k_[e0]
     k1 = k_[e1]
     incell = (r_[e1] == r0) & (c_[e1] == c0)
@@ -1351,17 +1362,15 @@ def lattice_to_chip(spec: LatticeSpec, lat: LatticeChip,
     w_in1 = torch.where(
         incell, lat.W_hv[r0, c0, k1, k0],
         torch.where(vert, lat.Wv_dn[r0, c0, k0], lat.Wh_rt[r0, c0, k0]))
-    D = nbr_idx.shape[0]
-    nbr_w = torch.zeros((D, g.n_nodes), dtype=dtype, device=dev)
-    nbr_w[long(slot_ij), e0] = w_in0
-    nbr_w[long(slot_ji), e1] = w_in1
-    ones = torch.ones((g.n_nodes,), dtype=dtype, device=dev)
+    D, n = t["nbr_idx"].shape
+    nbr_w = torch.zeros((D, n), dtype=dtype, device=dev)
+    nbr_w[t["slot_ij"], e0] = w_in0
+    nbr_w[t["slot_ji"], e1] = w_in1
+    ones = torch.ones((n,), dtype=dtype, device=dev)
     return EffectiveChip(
         W=None, h=h.to(dtype), tanh_gain=gain.to(dtype),
         tanh_offset=off.to(dtype), rand_gain=ones,
-        comp_offset=0.0 * ones,
-        nbr_idx=torch.as_tensor(np.asarray(nbr_idx, np.int32), device=dev),
-        nbr_w=nbr_w)
+        comp_offset=0.0 * ones, nbr_idx=t["nbr_idx"], nbr_w=nbr_w)
 
 
 def sparse_energy(chip: EffectiveChip, m: torch.Tensor,
@@ -1374,11 +1383,15 @@ def sparse_energy(chip: EffectiveChip, m: torch.Tensor,
     its own bands' nodes for its own chains, and the partial energies are
     added across the row ranks in rank order, so every rank returns the
     global (B,) energies — equal to the one-process sum up to float32
-    association (ROADMAP Queue 3 item 10)."""
+    association (ROADMAP Queue 3 item 10).
+
+    A chip of another dtype than the spins (a bfloat16 lattice) is
+    promoted to theirs, as the reference's ``m @ chip.h`` promotes."""
     idx = chip.nbr_idx.to(torch.int64)
+    h = chip.h.to(m.dtype)
     if engine is None or engine.comm is None:
         I = sparse_neuron_input(m, idx, chip.nbr_w, 0.0)
-        return -0.5 * torch.sum(m * I, dim=1) - m @ chip.h
+        return -0.5 * torch.sum(m * I, dim=1) - m @ h
     starts = engine.plan.node_starts
     lo = int(starts[engine._bands.start])
     hi = int(starts[engine._bands.stop])
@@ -1386,7 +1399,7 @@ def sparse_energy(chip: EffectiveChip, m: torch.Tensor,
     I = sparse_neuron_input(mc, idx[:, lo:hi], chip.nbr_w[:, lo:hi], 0.0)
     own = mc[:, lo:hi]
     parts = engine.comm.all_gather(
-        -0.5 * torch.sum(own * I, dim=1) - own @ chip.h[lo:hi])
+        -0.5 * torch.sum(own * I, dim=1) - own @ h[lo:hi])
     out = m.new_zeros((m.shape[0],))
     for k, (_, _, c0, c1) in enumerate(engine._blocks):
         cols = slice(c0 * engine.b_loc, c1 * engine.b_loc)
@@ -1414,7 +1427,10 @@ def make_lattice_anneal(
 
     Returns run(lattice_chip, gen, betas) -> (final_m (chains, N),
     energies (n_sweeps // record_every,)); ``gen`` is a `torch.Generator`
-    on ``device`` that draws the initial spins and the noise seed.
+    on ``device`` that draws the initial spins and the noise seed (on
+    ``meta``, where nothing is drawn, a CPU one).  ``run.session`` is the
+    `api.Session` it samples with: under a rank mesh its engine's
+    ``comm`` (`core.ranks.RankComm`) counts the rank's collectives.
     """
     from repro_torch import api
     from repro_torch.core import pbit
@@ -1425,14 +1441,17 @@ def make_lattice_anneal(
                          f"record_every={record_every}")
     del col_axes
     g = make_chimera(spec.cell_rows, spec.cell_cols, spec.k)
-    nbr_idx, _ = g.neighbor_table()
-    tables = (nbr_idx, *g.edge_slots(nbr_idx))
+    tables = lattice_tables(g, device)
     ideal = HardwareConfig.ideal()
-    mm_gen = torch.Generator(device=torch.device(device)).manual_seed(0)
+    # a meta tensor draws nothing, and torch makes no meta generator
+    dev = torch.device(device)
+    mm_gen = torch.Generator(
+        device="cpu" if dev.type == "meta" else dev).manual_seed(0)
     sp = api.SamplerSpec(
         graph=g, hw=ideal,
-        mismatch=sample_mismatch_sparse(mm_gen, g.n_nodes, nbr_idx.shape[0],
-                                        ideal, device=device),
+        mismatch=sample_mismatch_sparse(mm_gen, g.n_nodes,
+                                        tables["nbr_idx"].shape[0], ideal,
+                                        device=device),
         noise="counter", backend="sparse", chains=spec.chains,
         beta=spec.beta, mesh=mesh, device=device,
         partition=(api.Partition(rows=row_axes) if mesh is not None
@@ -1452,6 +1471,7 @@ def make_lattice_anneal(
             energies.append(sparse_energy(chip, m, session._engine).mean())
         return m, torch.stack(energies)
 
+    run.session = session
     return run
 
 

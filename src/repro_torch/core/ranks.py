@@ -180,11 +180,26 @@ def _as_integers(t: torch.Tensor) -> torch.Tensor:
 
 class _Transport:
     """What `RankComm` and `MeshComm` share: the buffers a collective
-    moves through, the gather, and ``seconds``, the host time inside the
-    collectives, staging included (under NCCL the enqueue only: its work
-    is asynchronous).  NCCL carries CUDA tensors and gloo CPU ones; gloo
-    with CUDA tensors stages them through page-locked host buffers, only
-    because the caller chose gloo (``transport`` "gloo (host-staged)")."""
+    moves through, the gather, and the counters.  NCCL carries CUDA
+    tensors and gloo CPU ones; gloo with CUDA tensors stages them through
+    page-locked host buffers, only because the caller chose gloo
+    (``transport`` "gloo (host-staged)"); any other backend (the dry
+    run's fake one on ``meta`` tensors) moves the caller's tensors where
+    they are.
+
+    ``counts`` / ``nbytes`` count each kind's calls and the bytes this
+    rank contributed; ``ring`` / ``result`` count them as the reference's
+    roofline reads its compiled module (`REFERENCE_NAMES`, `ring_bytes`);
+    ``seconds`` is the host time inside the collectives, staging included
+    (under NCCL the enqueue only: its work is asynchronous).  A call is
+    counted as the kind the caller asked for, whatever the transport ran
+    (under gloo a gather is an all-reduce, `_gather_rows`)."""
+
+    KINDS = ("all_reduce", "all_gather", "reduce_scatter", "exchange")
+    # the reference's name of each kind's HLO op (benchmarks/roofline.py)
+    REFERENCE_NAMES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+                       "reduce_scatter": "reduce-scatter",
+                       "exchange": "collective-permute"}
 
     def __init__(self, backend: str, device):
         self.backend = backend
@@ -192,7 +207,54 @@ class _Transport:
         self.staged = backend == "gloo" and self.device.type == "cuda"
         self.transport = ("gloo (host-staged)" if self.staged
                           else backend)
+        self.reset()
+
+    def reset(self) -> None:
+        self.counts = {k: 0 for k in self.KINDS}
+        self.nbytes = {k: 0 for k in self.KINDS}
+        self.ring = {k: 0.0 for k in self.KINDS}
+        self.result = {k: 0 for k in self.KINDS}
         self.seconds = 0.0
+
+    def _count(self, kind: str, t0: float, x: torch.Tensor, g: int = 1
+               ) -> None:
+        """One call of ``kind`` on ``x`` (what this rank contributed) over
+        a group of ``g`` ranks."""
+        nb = x.numel() * x.element_size()
+        self.counts[kind] += 1
+        self.nbytes[kind] += nb
+        self.ring[kind] += ring_bytes(kind, nb, g)
+        self.result[kind] += {"all_gather": nb * g,
+                              "reduce_scatter": nb // g}.get(kind, nb)
+        self.seconds += time.perf_counter() - t0
+
+    def _count_exchange(self, t0: float, sent: int, received: int) -> None:
+        """One point-to-point exchange: this rank sent ``sent`` bytes to
+        other ranks (what the reference's roofline charges a
+        collective-permute) and received ``received``."""
+        self.counts["exchange"] += 1
+        self.nbytes["exchange"] += sent
+        self.ring["exchange"] += sent
+        self.result["exchange"] += received
+        self.seconds += time.perf_counter() - t0
+
+    def record(self) -> dict:
+        """The counters as plain numbers: calls and bytes by kind, host
+        seconds, the transport, and the reference's reading of the same
+        calls (``reference``: ``total_bytes``, ``raw_result_bytes`` and
+        ``per_op_bytes`` by its op names, as
+        ``benchmarks/roofline.py::collective_bytes_from_hlo`` gives them;
+        a kind with no call is left out)."""
+        named = {self.REFERENCE_NAMES[k]: k for k in self.KINDS
+                 if self.counts[k]}
+        return {"transport": self.transport, "calls": dict(self.counts),
+                "bytes": dict(self.nbytes), "seconds": self.seconds,
+                "reference": {
+                    "total_bytes": sum(self.ring[k] for k in named.values()),
+                    "raw_result_bytes": sum(self.result[k]
+                                            for k in named.values()),
+                    "per_op_bytes": {n: self.ring[k]
+                                     for n, k in named.items()}}}
 
     def _buffer(self, shape, dtype, zero: bool = False) -> torch.Tensor:
         """A buffer for a collective: page-locked on the host when staging
@@ -253,7 +315,6 @@ class RankComm(_Transport):
 
         self.up = peer(lambda b: b[1] == r0)
         self.dn = peer(lambda b: b[0] == r1)
-        self.bytes_sent = 0     # boundary bytes this rank sent, a counter
 
     def swap_edges(self, first: torch.Tensor, last: torch.Tensor):
         """``first`` (B, H), the first band's first-row boundary, to the
@@ -261,10 +322,10 @@ class RankComm(_Transport):
         one ``batch_isend_irecv``.  Returns (from_up, from_dn): the rank
         above's last row (this rank's first ``halo_up``) and the rank
         below's first row (its last ``halo_dn``); zeros past the lattice's
-        edge."""
+        edge.  Counted as one ``exchange`` of the bytes sent."""
         t0 = time.perf_counter()
         from_up, from_dn = torch.zeros_like(first), torch.zeros_like(last)
-        ops, recv = [], []
+        ops, recv, sent = [], [], 0
         for peer, send, into in ((self.up, first, from_up),
                                  (self.dn, last, from_dn)):
             if peer is None:
@@ -274,13 +335,13 @@ class RankComm(_Transport):
             ops += [dist.P2POp(dist.isend, out, peer, self.group),
                     dist.P2POp(dist.irecv, buf, peer, self.group)]
             recv.append((buf, into))
-            self.bytes_sent += out.numel() * out.element_size()
+            sent += out.numel() * out.element_size()
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
             for buf, into in recv:
                 into.copy_(buf)
-        self.seconds += time.perf_counter() - t0
+        self._count_exchange(t0, sent, sent)
         return from_up, from_dn
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -290,7 +351,7 @@ class RankComm(_Transport):
         src = x.contiguous().reshape(1, -1)
         out = self._gather_rows(src, self.world, self.rank, self.group)
         out = out.view(self.world, *x.shape).to(x.device)
-        self.seconds += time.perf_counter() - t0
+        self._count("all_gather", t0, src, self.world)
         return out
 
 
@@ -314,19 +375,9 @@ class MeshComm(_Transport):
     ``dm`` is the ``DeviceMesh`` over the mesh's ranks (its per-axis
     process groups carry the collectives); ``coord`` is this rank's
     position on each axis.  Collectives go through the c10d calls on each
-    axis's group; an axis of size 1 moves nothing.  ``counts`` /
-    ``nbytes`` count each kind's calls and the bytes this rank
-    contributed; ``ring`` / ``result`` count them as the reference's
-    roofline reads its compiled module (`REFERENCE_NAMES`, `ring_bytes`).
-    Under gloo the gather and the reduce-scatter run as all-reduces
-    (`_Transport._gather_rows`, `reduce_scatter`); they are counted as the
-    kind the caller asked for, whatever the transport ran."""
-
-    KINDS = ("all_reduce", "all_gather", "reduce_scatter", "exchange")
-    # the reference's name of each kind's HLO op (benchmarks/roofline.py)
-    REFERENCE_NAMES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
-                       "reduce_scatter": "reduce-scatter",
-                       "exchange": "collective-permute"}
+    axis's group; an axis of size 1 moves nothing.  The counters are
+    `_Transport`'s.  Under gloo the gather and the reduce-scatter run as
+    all-reduces (`_Transport._gather_rows`, `reduce_scatter`)."""
 
     def __init__(self, mesh, device):
         from torch.distributed.device_mesh import DeviceMesh
@@ -354,14 +405,6 @@ class MeshComm(_Transport):
         self.groups = {a: self.dm.get_group(a) for a in self.axis_names
                        if self.sizes[a] > 1}
         self.plans: dict = {}       # `exchange`'s, by the two layouts
-        self.reset()
-
-    def reset(self) -> None:
-        self.counts = {k: 0 for k in self.KINDS}
-        self.nbytes = {k: 0 for k in self.KINDS}
-        self.ring = {k: 0.0 for k in self.KINDS}
-        self.result = {k: 0 for k in self.KINDS}
-        self.seconds = 0.0
 
     def moving(self, axes) -> tuple:
         """The axes of ``axes`` that have more than one rank."""
@@ -384,18 +427,6 @@ class MeshComm(_Transport):
             length //= self.sizes[a]
             start += self.coord[a] * length
         return start
-
-    def _count(self, kind: str, t0: float, x: torch.Tensor, g: int = 1
-               ) -> None:
-        """One call of ``kind`` on ``x`` (what this rank contributed) over
-        an axis group of ``g`` ranks."""
-        nb = x.numel() * x.element_size()
-        self.counts[kind] += 1
-        self.nbytes[kind] += nb
-        self.ring[kind] += ring_bytes(kind, nb, g)
-        self.result[kind] += {"all_gather": nb * g,
-                              "reduce_scatter": nb // g}.get(kind, nb)
-        self.seconds += time.perf_counter() - t0
 
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
                    ) -> torch.Tensor:
@@ -490,31 +521,9 @@ class MeshComm(_Transport):
                     n = view.numel()
                     view.copy_(buf[at:at + n].view(view.shape))
                     at += n
-        self.counts["exchange"] += 1
-        self.nbytes["exchange"] += sent
-        self.ring["exchange"] += sent
-        self.result["exchange"] += sum(
-            buf.numel() * buf.element_size() for buf, _ in landing)
-        self.seconds += time.perf_counter() - t0
+        self._count_exchange(t0, sent, sum(
+            buf.numel() * buf.element_size() for buf, _ in landing))
         return dst
-
-    def record(self) -> dict:
-        """The counters as plain numbers: calls and bytes by kind, host
-        seconds, the transport, and the reference's reading of the same
-        calls (``reference``: ``total_bytes``, ``raw_result_bytes`` and
-        ``per_op_bytes`` by its op names, as
-        ``benchmarks/roofline.py::collective_bytes_from_hlo`` gives them;
-        a kind with no call is left out)."""
-        named = {self.REFERENCE_NAMES[k]: k for k in self.KINDS
-                 if self.counts[k]}
-        return {"transport": self.transport, "calls": dict(self.counts),
-                "bytes": dict(self.nbytes), "seconds": self.seconds,
-                "reference": {
-                    "total_bytes": sum(self.ring[k] for k in named.values()),
-                    "raw_result_bytes": sum(self.result[k]
-                                            for k in named.values()),
-                    "per_op_bytes": {n: self.ring[k]
-                                     for n, k in named.items()}}}
 
 
 def ring_bytes(kind: str, nbytes: int, g: int) -> float:

@@ -37,10 +37,22 @@ the rank meshes run (`launch.steps`), with its collectives
 
 ``generated_code_bytes`` stays null (`CODE_WHY`).
 
-``--pbit`` traces nothing: it records the sharded lattice's plan — spins,
-bands, the padded band width and halo, the halo bytes a sweep, per-band
-bytes, and the backend and K5 body `auto` resolves to on that mesh —
-with `launch.mesh.halo_vs_hbm_seconds`' napkin figure.
+``--pbit`` records the sharded lattice's plan — spins, bands, the padded
+band width and halo, the halo bytes a sweep, per-band bytes, and the
+backend and K5 body `auto` resolves to on that mesh — with
+`launch.mesh.halo_vs_hbm_seconds`' napkin figure, then traces the
+reference's call, the 1,000-sweep `make_lattice_anneal` (an energy every
+100), as rank 0 of the production rank mesh (`pbit_trace`): the lattice
+of `make_sk_lattice`'s shapes and ``--pbit-dtype`` on ``meta``, inside
+the same kind of fake group (`fake_group`).  It records what the
+reference's ``run_pbit`` reads from its compiled module, in its keys:
+``memory`` (the whole lattice, the betas and the key's 8 bytes on every
+rank, as the reference passes them; outputs; `TEMP_RULE`'s temporaries),
+``dot_flops`` (``aten.mv`` counted), ``collectives`` (the rank's
+`core.ranks.RankComm` calls: edge swaps as ``exchange``, the reference's
+``collective-permute``, and gathers), and beside them ``flops_global``
+(the same anneal with no mesh), ``replication`` and ``fits_hbm``.  A
+trace that allocates off ``meta`` fails its cell.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2-9b --shape train_4k --mesh pod
@@ -50,6 +62,8 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import time
@@ -63,7 +77,8 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs.base import LM_SHAPES, shape_applicable
 from repro_torch.configs.registry import ARCH_IDS, PBIT_CONFIGS, get_config
 from repro_torch.core import ranks
-from repro_torch.core.distributed import make_rank_mesh
+from repro_torch.core.distributed import (LatticeSpec, make_lattice_anneal,
+                                          make_rank_mesh, make_sk_lattice)
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.steps import make_step
 from repro_torch.models.model import ShapeDtype
@@ -79,6 +94,12 @@ TEMP_RULE = ("the traced rank's peak of live tensor bytes on the meta device "
              " the rank's arguments tracked from the start) less the rank's "
              "argument bytes; outputs alive at the peak count as temporaries")
 CODE_WHY = "no compiler: the port runs eagerly and generates no code"
+# the reference's run_pbit: 1,000 sweeps, an energy every 100
+PBIT_SWEEPS = 1000
+PBIT_RECORD_EVERY = 100
+# the reference's anneal takes a (2,) uint32 key where the port takes a
+# torch.Generator: the key's bytes stand in for it among the arguments
+KEY_BYTES = 8
 
 
 def _nbytes(shape, dtype) -> int:
@@ -132,19 +153,13 @@ def _locals(tree) -> list:
             if isinstance(x, torch.Tensor)]
 
 
-def rank_trace(cfg, shape, axes: dict, rank: int = 0, opt_bits: int = 32,
-               microbatches: int = 1) -> dict:
-    """One step of ``cfg`` at ``shape``, run as ``rank`` of a rank mesh of
-    ``axes`` ({name: size}, in order) on ``meta`` tensors, under a
-    process group of `FAKE_BACKEND` made for the call and destroyed
-    after it (the mesh's `MeshComm` is dropped with it, so a trace of
-    another rank starts clean).  Refuses while a process group is
-    initialized.  Returns the rank's FLOPs, its `MeshComm` record, its
-    argument bytes (checked against the specs' shard shapes), its peak
-    of live bytes (`TEMP_RULE`), its outputs' bytes and the seconds the
-    build and the trace took."""
-    from torch.distributed._tools.mem_tracker import MemTracker
-
+@contextlib.contextmanager
+def fake_group(world: int, rank: int):
+    """A process group of `FAKE_BACKEND` (``world`` ranks, this process
+    ``rank``) for the body of the ``with``: made on entry, destroyed on
+    the way out with every rank mesh's `MeshComm` (`ranks._COMMS`), so a
+    trace of another rank starts clean.  Refuses while a process group is
+    initialized: the dry run never takes over a real one."""
     # registers the "fake" backend
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -153,11 +168,28 @@ def rank_trace(cfg, shape, axes: dict, rank: int = 0, opt_bits: int = 32,
             "a process group is already initialized: the dry run traces "
             "under a process group of its own that moves nothing, and "
             "never takes over a real one; run it in a process with none")
-    dist.init_process_group(FAKE_BACKEND, rank=rank,
-                            world_size=math.prod(axes.values()),
+    dist.init_process_group(FAKE_BACKEND, rank=rank, world_size=world,
                             store=FakeStore())
-    mesh = None
     try:
+        yield
+    finally:
+        for mesh in list(ranks._COMMS.keys()):
+            if ranks.is_rank_mesh(mesh):
+                ranks._COMMS.pop(mesh, None)
+        dist.destroy_process_group()
+
+
+def rank_trace(cfg, shape, axes: dict, rank: int = 0, opt_bits: int = 32,
+               microbatches: int = 1) -> dict:
+    """One step of ``cfg`` at ``shape``, run as ``rank`` of a rank mesh of
+    ``axes`` ({name: size}, in order) on ``meta`` tensors, inside a
+    `fake_group`.  Returns the rank's FLOPs, its `MeshComm` record, its
+    argument bytes (checked against the specs' shard shapes), its peak
+    of live bytes (`TEMP_RULE`), its outputs' bytes and the seconds the
+    build and the trace took."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    with fake_group(math.prod(axes.values()), rank):
         t0 = time.time()
         mesh = make_rank_mesh(tuple(axes.values()), tuple(axes))
         step = make_step(cfg, shape, mesh, opt_bits=opt_bits,
@@ -191,10 +223,6 @@ def rank_trace(cfg, shape, axes: dict, rank: int = 0, opt_bits: int = 32,
                 "output_bytes": _local_bytes(out),
                 "build_s": t_build,
                 "trace_s": time.time() - t0 - t_build}
-    finally:
-        if mesh is not None:
-            ranks._COMMS.pop(mesh, None)
-        dist.destroy_process_group()
 
 
 def _collectives(record: dict) -> dict:
@@ -313,11 +341,91 @@ def _auto_route(graph, mesh, row_axes, chains: int, plan, sync) -> dict:
     return {"backend": resolve_backend(spec), "k5_body": body}
 
 
+def _mv_flops(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """A matrix-vector product's FLOPs, 2 · rows · cols
+    (``FlopCounterMode`` has no formula for ``aten.mv``: the lattice
+    energy's ``m @ h``)."""
+    return 2 * a_shape[0] * a_shape[1]
+
+
+def _flop_counter() -> FlopCounterMode:
+    return FlopCounterMode(display=False,
+                           custom_mapping={torch.ops.aten.mv: _mv_flops})
+
+
+def pbit_trace(spec, axes: dict, row_axes, rank: int = 0,
+               n_sweeps: int = PBIT_SWEEPS,
+               record_every: int = PBIT_RECORD_EVERY,
+               dtype=torch.float32) -> dict:
+    """The lattice anneal of ``spec`` (`make_lattice_anneal`, the call the
+    reference's ``run_pbit`` compiles) run as ``rank`` of a rank mesh of
+    ``axes`` ({name: size}, in order), its bands over ``row_axes``, on
+    ``meta`` tensors inside a `fake_group`: the lattice has
+    `make_sk_lattice`'s shapes and ``dtype``, and nothing is drawn or
+    allocated.  Returns the rank's FLOPs (``aten.mv`` counted,
+    `_mv_flops`), the one-process anneal's (``flops_global``: the same
+    call with no mesh, on ``meta`` too), the rank's `RankComm` record,
+    its argument bytes (the whole lattice and the betas, as every rank
+    takes them, plus `KEY_BYTES`), its peak of live bytes less the
+    arguments' (`TEMP_RULE`), its outputs' bytes, and the seconds the
+    build and the trace took.  A trace that allocates on any device but
+    ``meta`` raises."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    def anneal(mesh):
+        return make_lattice_anneal(spec, mesh, row_axes=tuple(row_axes),
+                                   n_sweeps=n_sweeps,
+                                   record_every=record_every, device="meta")
+
+    gen = torch.Generator()       # meta draws nothing: a CPU generator
+    with fake_group(math.prod(axes.values()), rank):
+        t0 = time.time()
+        run = anneal(make_rank_mesh(tuple(axes.values()), tuple(axes)))
+        lat = make_sk_lattice(spec, gen, dtype=dtype, device="meta")
+        betas = torch.empty((n_sweeps,), dtype=torch.float32,
+                            device="meta")
+        args = [getattr(lat, f.name) for f in dataclasses.fields(lat)]
+        args.append(betas)
+        held = _local_bytes(args)
+        comm = run.session._engine.comm
+        comm.reset()
+        tracker = MemTracker()
+        tracker.track_external(*args)
+        t_build = time.time() - t0
+        with tracker, _flop_counter() as fc:
+            out = run(lat, gen, betas)
+        t_trace = time.time() - t0 - t_build
+        record = comm.record()
+    peak = tracker.get_tracker_snapshot("peak")
+    off_meta = {str(d): v["Total"] for d, v in peak.items()
+                if d.type != "meta" and v["Total"]}
+    if off_meta:
+        raise AssertionError(
+            f"rank {rank}'s trace allocated {off_meta} bytes off the meta "
+            f"device")
+    t1 = time.time()
+    with _flop_counter() as fc_global:
+        anneal(None)(lat, gen, betas)
+    on_meta = peak[torch.device("meta")]["Total"]
+    return {"flops": float(fc.get_total_flops()),
+            "flops_global": float(fc_global.get_total_flops()),
+            "collectives": record,
+            "argument_bytes": held + KEY_BYTES,
+            "peak_bytes": on_meta,
+            "temp_bytes": on_meta - held,
+            "output_bytes": _local_bytes(out),
+            "devices": sorted(str(d) for d, v in peak.items()
+                              if v["Total"]),
+            "build_s": t_build, "trace_s": t_trace,
+            "global_trace_s": time.time() - t1}
+
+
 def run_pbit(name: str, multi_pod: bool, out_dir: Path,
              force: bool = False, chains: int = 1,
              dtype: str = "float32") -> dict:
     """Dry-run the paper's own architecture: the plan of a distributed
-    Chimera lattice."""
+    Chimera lattice, then its anneal traced as rank 0 of the production
+    rank mesh (`pbit_trace`)."""
     from repro_torch.core.chimera import make_chimera
     from repro_torch.core.distributed import (halo_bytes_per_sweep,
                                               plan_row_partition)
@@ -342,7 +450,8 @@ def run_pbit(name: str, multi_pod: bool, out_dir: Path,
                              masked_cells=tuple(spec_d["masked"]))
         n_bands = mesh_mod.n_chips(mesh)
         plan = plan_row_partition(graph, n_bands)
-        itemsize = torch.empty((), dtype=getattr(torch, dtype)).itemsize
+        lattice_dtype = getattr(torch, dtype)
+        itemsize = lattice_dtype.itemsize
         halo = int(halo_bytes_per_sweep(plan, chains))
         # a band's sweep streams its slot weights and its spins once
         band_bytes = (6 * plan.n_loc * itemsize
@@ -350,8 +459,8 @@ def run_pbit(name: str, multi_pod: bool, out_dir: Path,
         routes = {k: _auto_route(graph, mesh, row_axes, chains, plan, s)
                   for k, s in _policies().items()}
         sync = _policies()["barrier"]
+        # kept where the trace fails
         rec.update(
-            status="ok",
             plan_s=round(time.time() - t0, 2),
             n_spins=graph.n_nodes,
             n_edges=graph.n_edges,
@@ -368,13 +477,45 @@ def run_pbit(name: str, multi_pod: bool, out_dir: Path,
                 halo // max(n_bands - 1, 1), band_bytes,
                 exchanges=sync.exchanges_per_sweep()),
         )
+        spec = LatticeSpec(spec_d["cell_rows"], spec_d["cell_cols"],
+                           chains=chains)
+        one = pbit_trace(spec, dict(mesh.shape), row_axes, 0, PBIT_SWEEPS,
+                         PBIT_RECORD_EVERY, lattice_dtype)
+        mem = {"argument_bytes": one["argument_bytes"],
+               "output_bytes": one["output_bytes"],
+               "temp_bytes": one["temp_bytes"],
+               "generated_code_bytes": None,
+               "temp_rule": TEMP_RULE,
+               "why_null": CODE_WHY,
+               "devices": one["devices"]}
+        rec.update(
+            status="ok",
+            traced_rank=0,
+            n_sweeps=PBIT_SWEEPS,
+            record_every=PBIT_RECORD_EVERY,
+            build_s=round(one["build_s"], 2),
+            trace_s=round(one["trace_s"], 2),
+            global_trace_s=round(one["global_trace_s"], 2),
+            memory=mem,
+            dot_flops=one["flops"],
+            cost={"flops": one["flops"]},
+            flops_global=one["flops_global"],
+            replication=one["flops"] * n_bands / one["flops_global"],
+            collectives=_collectives(one["collectives"]),
+            fits_hbm=(mem["argument_bytes"] + mem["temp_bytes"]
+                      <= mesh_mod.HBM_BYTES),
+        )
         print(f"[ok]     {name} ({graph.n_nodes/1e6:.1f}M spins) x "
               f"{mesh_tag}: {n_bands} bands of {plan.n_loc}, halo "
-              f"{halo} B/sweep")
+              f"{halo} B/sweep; rank 0 traced in {one['trace_s']:.1f}s: "
+              f"args {mem['argument_bytes']} B, temp "
+              f"{mem['temp_bytes']} B, coll "
+              f"{rec['collectives']['total_bytes']:.0f} B, "
+              f"flops {one['flops']:.0f}", flush=True)
     except Exception as e:
         rec.update(status="fail", error=repr(e),
                    trace=traceback.format_exc()[-4000:])
-        print(f"[FAIL]   {name} x {mesh_tag}: {e!r}")
+        print(f"[FAIL]   {name} x {mesh_tag}: {e!r}", flush=True)
     out_path.write_text(json.dumps(rec, indent=1))
     return rec
 

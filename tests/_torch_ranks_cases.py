@@ -7,6 +7,7 @@ records what may differ between the two (the route, the transport).
 
 No jax here: the ranks import this module.
 """
+import json
 import math
 
 import numpy as np
@@ -24,6 +25,8 @@ from repro_torch.core.hardware import HardwareConfig
 
 B = 8
 BETAS = torch.linspace(0.3, 1.5, 8)
+ANNEAL = LatticeSpec(4, 2, chains=4)   # the two-rank lattice anneal,
+ANNEAL_SWEEPS, ANNEAL_EVERY = 20, 10   # its sweeps and a record every 10
 RELAXED = {   # name: Sync fields
     "k4": dict(halo_every=4, sweeps_per_launch=4),
     "inf_async": dict(halo_every=math.inf, mode="async", sweeps_per_launch=4),
@@ -167,15 +170,28 @@ def two_rank_cases(mesh_of, save, info, inputs):
         save(f"faults/{pol}/sample", *ses.sample(chip, m, ns, BETAS)[:2])
         save(f"faults/{pol}/stats", *ses.stats(chip, m, ns, 8, 2))
 
-    # the lattice anneal on two ranks (spins exact, energies to rounding)
-    spec = LatticeSpec(4, 2, chains=4)
+    # the lattice anneal on two ranks (spins exact, energies to rounding),
+    # and a rank's collectives in it (`comm_counts`)
+    spec = ANNEAL
     lat = make_sk_lattice(spec, torch.Generator().manual_seed(5),
                           HardwareConfig.ideal(), device="cpu")
-    m, e = make_lattice_anneal(spec, mesh_of((2,), ("data",)), n_sweeps=20,
-                               record_every=10, device="cpu")(
-        lat, torch.Generator().manual_seed(6), torch.linspace(0.1, 2.0, 20))
+    run = make_lattice_anneal(spec, mesh_of((2,), ("data",)),
+                              n_sweeps=ANNEAL_SWEEPS,
+                              record_every=ANNEAL_EVERY, device="cpu")
+    m, e = run(lat, torch.Generator().manual_seed(6),
+               torch.linspace(0.1, 2.0, 20))
     save("anneal/m", m)
     save("approx/anneal/energies", e)
+    if run.session._engine.comm is not None:
+        info("anneal/comm", json.dumps(comm_counts(
+            run.session._engine.comm.record())))
+
+
+def comm_counts(record: dict) -> dict:
+    """A `RankComm` / `MeshComm` record without what a transport may
+    change (its name, its seconds): calls and bytes by kind and the
+    reference's reading of them."""
+    return {k: record[k] for k in ("calls", "bytes", "reference")}
 
 
 def four_rank_cases(mesh_of, save, info):

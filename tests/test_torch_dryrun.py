@@ -162,13 +162,16 @@ def test_skip_and_cache(tmp_path, reduced_cells, monkeypatch, capsys):
 
 def test_pbit_plan(tmp_path, monkeypatch):
     """The 440-spin chip's 7 cell rows on a 1 x 7 mesh: the plan, the
-    halo bytes, the routes and the napkin figure.  On the pod mesh its 7
-    rows cannot make 256 bands, and the record says so."""
+    halo bytes, the routes and the napkin figure, and the anneal traced
+    as rank 0 of a 1 x 7 rank mesh (20 sweeps here).  On the pod mesh its
+    7 rows cannot make 256 bands, and the record says so."""
     rec = dryrun.run_pbit("pbit-chip-440", False, tmp_path, force=True)
     assert rec["status"] == "fail" and "256 bands" in rec["error"]
     monkeypatch.setattr(mesh_mod, "make_production_mesh",
                         lambda multi_pod=False: make_mesh(
                             (1, 7), ("data", "model")))
+    monkeypatch.setattr(dryrun, "PBIT_SWEEPS", 20)
+    monkeypatch.setattr(dryrun, "PBIT_RECORD_EVERY", 10)
     dryrun.main(["--pbit", "pbit-chip-440", "--chains", "4", "--force",
                  "--out", str(tmp_path)])
     rec = json.loads((tmp_path / "pbit-chip-440__anneal__pod.json")
@@ -182,3 +185,20 @@ def test_pbit_plan(tmp_path, monkeypatch):
     assert rec["napkin"] == mesh_mod.halo_vs_hbm_seconds(
         rec["halo_bytes_per_sweep"] // 6, rec["band_bytes_per_sweep"],
         exchanges=2.0)
+    # the traced fields, in the reference's keys and the rank's own
+    assert rec["traced_rank"] == 0 and rec["n_sweeps"] == 20
+    assert rec["chains"] == 4 and rec["dtype"] == "float32"
+    assert rec["n_devices"] == 7
+    mem = rec["memory"]
+    assert mem["argument_bytes"] > 0 and mem["output_bytes"] > 0
+    assert mem["temp_bytes"] > 0 and mem["devices"] == ["meta"]
+    assert mem["generated_code_bytes"] is None and mem["why_null"]
+    assert rec["dot_flops"] == rec["cost"]["flops"] > 0
+    assert rec["replication"] == \
+        rec["dot_flops"] * 7 / rec["flops_global"]
+    coll = rec["collectives"]
+    assert set(coll["per_op_bytes"]) == {"all-gather", "collective-permute"}
+    assert coll["calls"]["exchange"] == 2 * 20
+    assert coll["contributed_bytes"]["all_gather"] > 0
+    assert rec["fits_hbm"] is True
+    assert rec["build_s"] >= 0 and rec["trace_s"] > 0

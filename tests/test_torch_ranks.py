@@ -11,7 +11,9 @@ gloo ranks.
   windows with the rank's edge halos supplied (``edge_halos="block"``).
   The lattice anneal's energies are summed across the ranks
   (`sparse_energy` with the engine): equal to one process's to 1e-6
-  relative, float32 association (ROADMAP Queue 3 item 10).
+  relative, float32 association (ROADMAP Queue 3 item 10).  Each rank's
+  `RankComm` record of that anneal equals the dry run's trace of the same
+  rank (`launch.dryrun.pbit_trace`, on meta under a fake group).
 * The rows case with counter noise equals the reference's own 2-device
   engine (`run_forced_reference`), as
   `test_torch_shard_session.py::test_barrier_policy_equals_unsharded_reference`
@@ -23,6 +25,7 @@ gloo ranks.
   mesh, ranks that split an axis the partition does not shard, NCCL with
   fewer cards than ranks.
 """
+import json
 import math
 import sys
 from pathlib import Path
@@ -42,6 +45,7 @@ from repro_torch.core.hardware import HardwareConfig
 from repro_torch.kernels.ref import halo_exchange_segments
 from repro_torch.kernels.shard_sweep import halo_exchange
 from repro_torch.kernels.sweep_fused import sweep_sparse_exchange
+from repro_torch.launch import dryrun
 
 import _torch_ranks_cases as cases
 from _torch_port import run_forced_reference, run_ranks
@@ -266,6 +270,24 @@ def test_lattice_anneal_on_two_ranks_equals_one_rank(two_ranks):
                                    e.numpy(), rtol=1e-6)
     np.testing.assert_allclose(one["approx/anneal/energies"][0], e.numpy(),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_lattice_anneal_collectives_equal_the_dry_runs_trace(two_ranks,
+                                                            rank):
+    """Each gloo rank's `RankComm` record of the anneal above equals
+    `launch.dryrun.pbit_trace` of the same rank, lattice and mesh (on
+    meta, under a fake group) call for call and byte for byte by kind:
+    its edge swaps as ``exchange`` and its gathers as ``all_gather``,
+    though gloo moves a gather as an all-reduce."""
+    ranks, _, _ = two_ranks
+    got = json.loads(_notes(ranks[rank])["anneal/comm"])
+    traced = dryrun.pbit_trace(cases.ANNEAL, {"data": 2}, ("data",), rank,
+                               cases.ANNEAL_SWEEPS, cases.ANNEAL_EVERY)
+    assert got == cases.comm_counts(traced["collectives"])
+    assert got["calls"]["exchange"] == 2 * cases.ANNEAL_SWEEPS
+    assert got["calls"]["all_gather"] == \
+        2 * cases.ANNEAL_SWEEPS // cases.ANNEAL_EVERY
 
 
 def test_refusals_inside_a_group(two_ranks, four_ranks):
